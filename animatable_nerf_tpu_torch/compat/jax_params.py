@@ -1,0 +1,58 @@
+"""The JAX package's AniNeRF parameters as the port's state dict.
+
+The JAX param tree (nested dict of numpy arrays, as flax checkpoints
+hold it) maps onto the reference's PyTorch names, the ones
+animatable_nerf_tpu/compat/torch_export.py:90-109 writes: `bw_latent`,
+`bw_linears.{i}`, `bw_fc`, `tpose_human.pts_linears.{i}`,
+`tpose_human.{alpha,feature,latent,view,rgb}_fc` and
+`tpose_human.nf_latent`. Dense kernels (in, out) become nn.Linear
+weights (out, in). Load the result with `load_state_dict(strict=True)`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_HEADS = ("alpha_fc", "feature_fc", "latent_fc", "view_fc", "rgb_fc")
+
+
+def _linear(p: dict, name: str, out: dict):
+    out[f"{name}.weight"] = np.ascontiguousarray(np.asarray(p["kernel"]).T)
+    out[f"{name}.bias"] = np.asarray(p["bias"])
+
+
+def bw_field_state_dict(p: dict, prefix: str = "") -> dict:
+    """A JAX BlendWeightField's params ({latent, mlp}) -> numpy arrays
+    under `bw_latent`, `bw_linears.{i}`, `bw_fc`."""
+    out = {f"{prefix}bw_latent.weight": np.asarray(p["latent"]["embedding"])}
+    mlp = p["mlp"]
+    for i in range(8):
+        _linear(mlp[f"lin{i}"], f"{prefix}bw_linears.{i}", out)
+    _linear(mlp["out"], f"{prefix}bw_fc", out)
+    return out
+
+
+def tpose_nerf_state_dict(p: dict, prefix: str = "") -> dict:
+    """A JAX TPoseNeRF's params -> numpy arrays under `pts_linears.{i}`,
+    the five heads and `nf_latent`."""
+    out = {}
+    for i in range(8):
+        _linear(p[f"lin{i}"], f"{prefix}pts_linears.{i}", out)
+    for head in _HEADS:
+        _linear(p[head], f"{prefix}{head}", out)
+    out[f"{prefix}nf_latent.weight"] = np.asarray(p["nf_latent"]["embedding"])
+    return out
+
+
+def to_tensors(arrays: dict) -> dict:
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in arrays.items()}
+
+
+def aninerf_state_dict(params: dict) -> dict:
+    """JAX AniNeRF params ({"params": {...}} or the inner dict) ->
+    {reference name: torch.Tensor}."""
+    p = params["params"] if "params" in params else params
+    out = bw_field_state_dict(p["bw_field"])
+    out.update(tpose_nerf_state_dict(p["tpose_human"], "tpose_human."))
+    return to_tensors(out)

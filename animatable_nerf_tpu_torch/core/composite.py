@@ -1,0 +1,57 @@
+"""Volume-rendering compositing.
+
+JAX counterpart: animatable_nerf_tpu/core/composite.py (reference
+lib/networks/renderer/nerf_net_utils.py:6-36). `composite_compacted`
+computes what the JAX function of that name computes (composite.py:
+71-131) from a survivor-compacted sample stream. The JAX code runs a
+segmented Hillis-Steele scan because TPU scatters serialize; here the
+survivors scatter back into the dense (R, S) layout and `raw2outputs`
+composites it. The two differ by the (1 + 1e-10) transmittance factors
+of skipped samples, which the JAX docstring bounds at ~6e-9 for S=64.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def raw2outputs(raw, z_vals, white_bkgd: bool = False):
+    """Classic NeRF alpha compositing.
+
+    raw (..., S, 4): activated rgb + alpha; z_vals (..., S).
+    Returns rgb_map (..., 3), disp_map, acc_map, weights (..., S),
+    depth_map.
+    """
+    rgb = raw[..., :-1]
+    alpha = raw[..., -1]
+    ones = torch.ones_like(alpha[..., :1])
+    trans = torch.cumprod(
+        torch.cat([ones, 1.0 - alpha + 1e-10], dim=-1), dim=-1
+    )[..., :-1]
+    weights = alpha * trans
+    rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)
+    depth_map = torch.sum(weights * z_vals, dim=-1)
+    acc_map = torch.sum(weights, dim=-1)
+    disp_map = 1.0 / torch.clamp(depth_map / acc_map, min=1e-10)
+    if white_bkgd:
+        rgb_map = rgb_map + (1.0 - acc_map[..., None])
+    return rgb_map, disp_map, acc_map, weights, depth_map
+
+
+def scatter_raw(sidx, rgb, alpha, n_rays: int, n_samples: int):
+    """Survivor rows (sidx ascending flat sample indices) -> dense
+    (R, S, 4) raw with zeros elsewhere."""
+    raw = torch.zeros(n_rays * n_samples, 4, dtype=rgb.dtype,
+                      device=rgb.device)
+    raw[sidx] = torch.cat([rgb, alpha[:, None]], dim=-1)
+    return raw.reshape(n_rays, n_samples, 4)
+
+
+def composite_compacted(sidx, rgb, alpha, z_vals, n_rays: int,
+                        n_samples: int):
+    """Maps of a compacted sample stream: sidx (K,) flat sample indices,
+    rgb (K, 3), alpha (K,), z_vals (R, S) -> (rgb_map, acc_map,
+    depth_map)."""
+    raw = scatter_raw(sidx, rgb, alpha, n_rays, n_samples)
+    rgb_map, _, acc_map, _, depth_map = raw2outputs(raw, z_vals)
+    return rgb_map, acc_map, depth_map

@@ -1,0 +1,58 @@
+"""Trilinear lookup in a channels-last voxel volume with PyTorch
+`grid_sample` semantics (align_corners=True, padding_mode='border').
+
+JAX counterpart: animatable_nerf_tpu/core/grid.py:218-270
+(`pts_sample_blend_weights_packed`, `pts_sample_blend_weights`;
+reference lib/utils/blend_utils.py:119-149). Volume axis 0 (D) is
+indexed by x, axis 1 (H) by y and axis 2 (W) by z — the reference's
+xyz->zyx flip before grid_sample. The JAX package gathers from a
+corner-packed copy of the volume because TPU gathers cost per row;
+here the 8 corners are gathered directly from the (D, H, W, C) volume,
+with the same cell choice, corner weights and summation order as the
+packed formula, so the values agree.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# corner order of the JAX packed layout: dx-major, then dy, dz
+_CORNERS = [(dx, dy, dz) for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
+
+
+def grid_trilerp(vol: torch.Tensor, pts01: torch.Tensor) -> torch.Tensor:
+    """Sample `vol` (D, H, W, C) at normalized points (..., 3) in [0, 1]
+    (border-clamped outside). Returns (..., C) in vol's float type
+    promoted with pts01's."""
+    D, H, W, C = vol.shape
+    batch_shape = pts01.shape[:-1]
+    p = pts01.reshape(-1, 3)
+    sizes = torch.tensor([D, H, W], dtype=p.dtype, device=p.device)
+    idx = torch.minimum(torch.clamp(p * (sizes - 1.0), min=0.0), sizes - 1.0)
+    last_cell = torch.tensor([D - 2, H - 2, W - 2], device=p.device)
+    i0 = torch.minimum(torch.floor(idx).long(), last_cell)
+    frac = idx - i0.to(idx.dtype)
+    lin = (i0[:, 0] * H + i0[:, 1]) * W + i0[:, 2]
+    flat = vol.reshape(-1, C)
+
+    fx, fy, fz = frac[:, 0:1], frac[:, 1:2], frac[:, 2:3]
+    gx, gy, gz = 1 - fx, 1 - fy, 1 - fz
+    weights = (
+        gx * gy * gz, gx * gy * fz, gx * fy * gz, gx * fy * fz,
+        fx * gy * gz, fx * gy * fz, fx * fy * gz, fx * fy * fz,
+    )
+    out = None
+    for w, (dx, dy, dz) in zip(weights, _CORNERS):
+        g = flat[lin + ((dx * H + dy) * W + dz)].to(p.dtype)
+        out = w * g if out is None else out + w * g
+    return out.reshape(*batch_shape, C)
+
+
+def pts_sample_blend_weights(pts, vol, bounds):
+    """Interpolate per-point channels from a voxel volume.
+
+    pts (..., 3) SMPL coordinates; vol (D, H, W, C) (24 blend weights +
+    1 distance channel in `lbs/bweights/<i>.npy`); bounds (2, 3).
+    """
+    mn, mx = bounds[0], bounds[1]
+    return grid_trilerp(vol, (pts - mn) / (mx - mn))

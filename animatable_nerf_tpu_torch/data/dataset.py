@@ -1,0 +1,243 @@
+"""The eval dataset of the grid blend-weight models (AniNeRF).
+
+JAX counterpart: animatable_nerf_tpu/data/dataset.py:52-321
+(`_BaseDataset`, `TPoseDataset`; reference lib/datasets/tpose_dataset.py).
+Differences forced by the machines the port runs on, which lack OpenCV:
+  * images come from the root's `decoded.npz` (data/decode_cache.py),
+    decoded as cv2.imread decodes them;
+  * cv2.undistort and cv2.resize (JAX dataset.py:136-152) are identities
+    for zero distortion and ratio 1, which is all this port accepts; any
+    other camera raises;
+  * cv2.Rodrigues is core/skeleton.py `rodrigues_np`.
+Per-frame volumes are edge-padded to the dataset-wide max shape, as in
+JAX, so every frame samples identically.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from ..core.skeleton import big_pose_A, rigid_transforms_host, rodrigues_np
+from .decode_cache import DecodedImages
+from .utils import (
+    crop_mask_edge,
+    erode_mask_edge,
+    get_bounds,
+    pad_volume_to,
+    sample_rays_image,
+)
+
+
+class TPoseDataset:
+    """Eval items of the grid blend-weight dataset (tpose_dataset.py)."""
+
+    def __init__(self, cfg, split: str):
+        if split == "train":
+            raise NotImplementedError("only the eval split is ported yet")
+        self.cfg = cfg
+        self.split = split
+        dcfg = cfg.test_dataset
+        self.data_root = dcfg["data_root"]
+        self.human = dcfg["human"]
+        annots = np.load(dcfg["ann_file"], allow_pickle=True).item()
+        self.cams = annots["cams"]
+        self.images = DecodedImages(self.data_root)
+
+        num_cams = len(self.cams["K"])
+        if len(cfg.test_view) == 0:
+            view = [i for i in range(num_cams) if i not in cfg.training_view]
+            view = view or [0]
+        else:
+            view = list(cfg.test_view)
+
+        i = cfg.begin_ith_frame
+        i_intv = cfg.frame_interval
+        ni = cfg.num_train_frame
+        if cfg.test_novel_pose or cfg.aninerf_animation:
+            i = cfg.begin_ith_frame + cfg.num_train_frame * i_intv
+            ni = cfg.num_eval_frame
+        frames = annots["ims"][i : i + ni * i_intv][::i_intv]
+        self.ims = np.array(
+            [np.array(f["ims"])[view] for f in frames]
+        ).ravel()
+        self.cam_inds = np.array(
+            [np.arange(len(f["ims"]))[view] for f in frames]
+        ).ravel()
+        self.num_cams = len(view)
+
+        self.lbs_root = os.path.join(self.data_root, "lbs")
+        self.joints = np.load(os.path.join(self.lbs_root, "joints.npy")).astype(
+            np.float32
+        )
+        self.parents = np.load(os.path.join(self.lbs_root, "parents.npy"))
+        self.big_A = big_pose_A(self.joints, self.parents).astype(np.float32)
+
+        tpose = np.load(os.path.join(self.lbs_root, "tvertices.npy")).astype(
+            np.float32
+        )
+        self.tbounds = get_bounds(tpose, cfg.box_padding)
+        self.tbw = np.load(os.path.join(self.lbs_root, "tbw.npy")).astype(
+            np.float32
+        )
+        frame_ids = sorted(
+            {self.frame_index_of(im)[1] for im in self.ims}
+        )
+        shapes = [
+            np.load(os.path.join(self.lbs_root, f"bweights/{fid}.npy"),
+                    mmap_mode="r").shape[:3]
+            for fid in frame_ids
+        ]
+        self.max_pbw_shape = tuple(np.max(np.array(shapes), axis=0))
+        self._frame_cache = {}
+
+    def __len__(self):
+        return len(self.ims)
+
+    # ---------------------------------------------------------- images
+    def _imread_rgb(self, path):
+        img = self.images.imread(path)
+        if img.ndim == 3:
+            img = img[..., :3][..., ::-1]
+        return np.ascontiguousarray(img)
+
+    def get_mask(self, index):
+        """tpose_dataset.py:92-123 (path fallbacks + edge erosion)."""
+        im = self.ims[index]
+        candidates = [
+            os.path.join(self.data_root, "mask_cihp", im)[:-4] + ".png",
+            os.path.join(self.data_root, im.replace("images", "mask"))[:-4] + ".png",
+            os.path.join(self.data_root, im.replace("images", "mask"))[:-4] + ".jpg",
+            os.path.join(self.data_root, "mask", im)[:-4] + ".png",
+        ]
+        msk_path = next((p for p in candidates if p in self.images), candidates[0])
+        msk = self._imread_rgb(msk_path)
+        if msk.ndim == 3:
+            msk = msk[..., 0]
+        if "deepcap" in self.data_root:
+            msk = (msk > 125).astype(np.uint8)
+        else:
+            msk = (msk != 0).astype(np.uint8)
+        orig_msk = msk.copy()
+        if not self.cfg.eval and self.cfg.erode_edge:
+            msk = erode_mask_edge(msk, border=5)
+        return msk, orig_msk
+
+    def load_image(self, index):
+        img_path = os.path.join(self.data_root, self.ims[index])
+        img = self._imread_rgb(img_path).astype(np.float32) / 255.0
+        msk, orig_msk = self.get_mask(index)
+        if msk.shape != img.shape[:2]:
+            raise NotImplementedError(
+                "masks of another size than their image need cv2.resize"
+            )
+        cam_ind = self.cam_inds[index]
+        K = np.array(self.cams["K"][cam_ind])
+        D = np.array(self.cams["D"][cam_ind])
+        if np.any(D != 0):
+            raise NotImplementedError(
+                "cameras with lens distortion need cv2.undistort"
+            )
+        if self.cfg.ratio != 1.0:
+            raise NotImplementedError("image ratio != 1 needs cv2.resize")
+        R = np.array(self.cams["R"][cam_ind])
+        T = np.array(self.cams["T"][cam_ind]) / 1000.0
+        if self.cfg.mask_bkgd:
+            img[msk == 0] = 0
+        return img, msk, orig_msk, K.copy(), R, T, cam_ind, img_path
+
+    def frame_index_of(self, img_path):
+        if self.human in ["CoreView_313", "CoreView_315"]:
+            i = int(os.path.basename(img_path).split("_")[4])
+            return i - 1, i
+        i = int(os.path.basename(img_path)[:-4])
+        return i, i
+
+    def latent_indices(self, index):
+        """tpose_dataset.py:264-276."""
+        latent_index = index // self.num_cams
+        bw_latent_index = index // self.num_cams
+        if self.cfg.test_novel_pose:
+            if "h36m" in self.data_root:
+                latent_index = 0
+            else:
+                latent_index = self.cfg.num_train_frame - 1
+        return latent_index, bw_latent_index
+
+    # ------------------------------------------------------ per frame
+    def prepare_input(self, i):
+        """tpose_dataset.py:125-161."""
+        wxyz = np.load(
+            os.path.join(self.data_root, self.cfg.vertices, f"{i}.npy")
+        ).astype(np.float32)
+        params = np.load(
+            os.path.join(self.data_root, self.cfg.params, f"{i}.npy"),
+            allow_pickle=True,
+        ).item()
+        Rh = params["Rh"].astype(np.float32).reshape(3)
+        Th = params["Th"].astype(np.float32).reshape(1, 3)
+        R = rodrigues_np(Rh).astype(np.float32)
+        pxyz = np.dot(wxyz - Th, R).astype(np.float32)
+        poses = params["poses"].reshape(-1, 3).astype(np.float32)
+        A = rigid_transforms_host(poses, self.joints, self.parents).astype(
+            np.float32
+        )
+        pbw = np.asarray(
+            np.load(os.path.join(self.lbs_root, f"bweights/{i}.npy")),
+            dtype=np.float32,
+        )
+        return wxyz, pxyz, A, pbw, Rh, Th, R
+
+    def _frame_inputs(self, i):
+        """Per-frame pose data + padded bw grid, cached (all views of a
+        frame share them)."""
+        hit = self._frame_cache.get(i)
+        if hit is None:
+            wpts, ppts, A, pbw, Rh, Th, Rw = self.prepare_input(i)
+            pbounds = get_bounds(ppts, self.cfg.box_padding)
+            wbounds = get_bounds(wpts, self.cfg.box_padding)
+            pbw, pbounds = pad_volume_to(pbw, pbounds, self.max_pbw_shape)
+            hit = (wpts, A, pbw, pbounds, wbounds, Rh, Th, Rw)
+            if len(self._frame_cache) >= 8:
+                self._frame_cache.pop(next(iter(self._frame_cache)))
+            self._frame_cache[i] = hit
+        return hit
+
+    def __getitem__(self, index):
+        img, msk, orig_msk, K, R, T, cam_ind, img_path = self.load_image(index)
+        frame_index, i = self.frame_index_of(img_path)
+        wpts, A, pbw, pbounds, wbounds, Rh, Th, Rw = self._frame_inputs(i)
+        rgb, ray_o, ray_d, near, far, coord, mask_at_box = sample_rays_image(
+            img, msk, K, R, T, wbounds, self.split,
+            mask_bkgd=self.cfg.mask_bkgd,
+        )
+        if self.cfg.erode_edge:
+            orig_msk = crop_mask_edge(orig_msk)
+        occupancy = orig_msk[coord[:, 0], coord[:, 1]]
+        latent_index, bw_latent_index = self.latent_indices(index)
+        return {
+            "rgb": rgb,
+            "occupancy": occupancy,
+            "ray_o": ray_o,
+            "ray_d": ray_d,
+            "near": near,
+            "far": far,
+            "mask_at_box": mask_at_box,
+            "A": A,
+            "big_A": self.big_A,
+            "pbw": pbw,
+            "tbw": self.tbw,
+            "pbounds": pbounds,
+            "wbounds": wbounds,
+            "tbounds": self.tbounds,
+            "R": Rw,
+            "Th": Th,
+            "H": img.shape[0],
+            "W": img.shape[1],
+            "coord": coord,
+            "latent_index": latent_index,
+            "bw_latent_index": bw_latent_index,
+            "frame_index": frame_index,
+            "cam_ind": cam_ind,
+        }

@@ -1,0 +1,204 @@
+"""Engine: config -> dataset/model/renderer/evaluator, and the port's
+run types.
+
+JAX counterpart: animatable_nerf_tpu/engine.py (`_bucket_pad` :139,
+`interleave_rays` :164, `Engine.render_item` :547-603, `run_evaluate`
+:749-830). The eval rays are padded and tiled exactly as in JAX, since
+the point filter's argmin forcing acts per tile. The JAX capacity
+ladder (engine.py:204-236, 465-545) sizes static survivor buffers for
+the TPU; the port compacts exactly, which is what the ladder converges
+to, and has no ladder.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from .compat.flax_msgpack import read_checkpoint
+from .compat.jax_params import aninerf_state_dict
+from .data.dataset import TPoseDataset
+from .data.loader import eval_indices
+from .device import select_device
+from .evaluators.image import ImageEvaluator
+from .models.aninerf import AniNeRF
+from .render.renderer import RenderSettings, pad_rays, render_image
+
+_ANINERF_MODULES = ("aninerf", "lib.networks.bw_deform.tpose_nerf_network")
+_DATASET_MODULES = ("lib.datasets.tpose_dataset", "tpose")
+_RAY_KEYS = ("ray_o", "ray_d", "near", "far")
+_FRAME_KEYS = ("A", "pbw", "pbounds", "tbounds", "R", "Th")
+
+
+def make_model(cfg) -> AniNeRF:
+    """The config's model; this slice ports the AniNeRF eval path only."""
+    if cfg.network_module not in _ANINERF_MODULES:
+        raise NotImplementedError(
+            f"network_module {cfg.network_module!r} is not ported yet"
+        )
+    if cfg.aninerf_animation or cfg.test_novel_pose:
+        raise NotImplementedError("AniNeRF stage 2 (novel pose) is not ported yet")
+    for key in ("slab_filter", "seg_filter"):
+        if int(cfg.get(key, 0)):
+            raise NotImplementedError(f"the {key} eval pre-filter is not ported yet")
+    if str(cfg.get("compute_dtype", "float32")) != "float32":
+        raise NotImplementedError("only float32 compute is ported")
+    return AniNeRF(
+        num_train_frames=cfg.num_train_frame, norm_th=cfg.norm_th,
+        xyz_res=cfg.xyz_res, view_res=cfg.view_res,
+    )
+
+
+def make_dataset(cfg, split: str = "test") -> TPoseDataset:
+    name = cfg.test_dataset_module
+    if name not in _DATASET_MODULES:
+        raise NotImplementedError(f"dataset module {name!r} is not ported yet")
+    return TPoseDataset(cfg, split)
+
+
+def render_settings(cfg) -> RenderSettings:
+    if cfg.get("use_importance", False):
+        raise NotImplementedError("hierarchical importance sampling is not ported yet")
+    return RenderSettings(
+        n_samples=int(cfg.N_samples), white_bkgd=bool(cfg.white_bkgd),
+        eval_tile=int(cfg.get("eval_tile", 8192)),
+    )
+
+
+def checkpoint_path(cfg) -> str:
+    """The checkpoint JAX `Engine.load_params` picks: `test.epoch` >= 0
+    pins `<epoch>.flax`; else `best.flax` (unless `test.use_best
+    False`), else `latest.flax`, else the highest snapshot."""
+    model_dir = cfg.trained_model_dir
+    test = cfg.get("test", {})
+    epoch = int(test.get("epoch", -1))
+    candidates = []
+    if epoch >= 0:
+        candidates.append(f"{epoch}.flax")
+    else:
+        if bool(test.get("use_best", True)):
+            candidates.append("best.flax")
+        candidates.append("latest.flax")
+        if os.path.isdir(model_dir):
+            snaps = [int(p[:-5]) for p in os.listdir(model_dir)
+                     if p.endswith(".flax") and p[:-5].isdigit()]
+            if snaps:
+                candidates.append(f"{max(snaps)}.flax")
+    for name in candidates:
+        path = os.path.join(model_dir, name)
+        if os.path.exists(path):
+            return path
+    raise FileNotFoundError(
+        f"no checkpoint in {model_dir}"
+        + (f" for test.epoch {epoch}" if epoch >= 0 else "")
+    )
+
+
+def _bucket_pad(n: int, tile: int) -> int:
+    """Ray count padded to tile * (next power of two tile count)."""
+    tiles = max(1, int(np.ceil(n / tile)))
+    return tile * (1 << (tiles - 1).bit_length())
+
+
+def interleave_permutation(n: int, tile: int):
+    """(perm, inverse) so that tile k holds rays k, k+T, k+2T, ... of
+    the padded list (T tiles), or (None, None) for a single tile."""
+    n_tiles = n // tile
+    if n_tiles <= 1:
+        return None, None
+    perm = np.arange(n).reshape(tile, n_tiles).T.ravel()
+    return perm, np.argsort(perm)
+
+
+class Engine:
+    """One experiment on one device: model, weights, frame cache."""
+
+    def __init__(self, cfg, device=None):
+        self.cfg = cfg
+        self.device = select_device(device)
+        self.model = make_model(cfg).to(self.device).eval()
+        self.settings = render_settings(cfg)
+        self._frame_cache = {}
+        # candidate/survivor/tile counts of the last render_item
+        self.stats = {}
+
+    def load_params(self, params=None):
+        """Load JAX-package params (a flax param tree); by default from
+        the checkpoint the config selects."""
+        if params is None:
+            params = read_checkpoint(checkpoint_path(self.cfg))["params"]
+        self.model.load_state_dict(aninerf_state_dict(params), strict=True)
+
+    def _device_frame(self, item):
+        """The item's per-frame tensors on the device, cached for the
+        frame (eval walks all views of a frame in a row)."""
+        key = (int(item["frame_index"]), int(np.asarray(item["latent_index"])))
+        if self._frame_cache.get("key") != key:
+            frame = {
+                k: torch.as_tensor(np.asarray(item[k], np.float32),
+                                   device=self.device)
+                for k in _FRAME_KEYS
+            }
+            frame["latent_index"] = key[1]
+            self._frame_cache = {"key": key, "frame": frame}
+        return self._frame_cache["frame"]
+
+    def render_item(self, item):
+        """Render an eval item's rays; returns ({rgb_map, acc_map,
+        depth_map} numpy arrays over the item's rays, n_valid)."""
+        frame = self._device_frame(item)
+        tile = self.settings.eval_tile
+        rays = {k: np.asarray(item[k]) for k in _RAY_KEYS}
+        n = len(rays["ray_o"])
+        rays, n_valid = pad_rays(rays, _bucket_pad(n, tile))
+        perm, inv = interleave_permutation(len(rays["ray_o"]), tile)
+        if perm is not None:
+            rays = {k: v[perm] for k, v in rays.items()}
+        rays_t = {
+            k: torch.as_tensor(np.ascontiguousarray(v), device=self.device)
+            for k, v in rays.items()
+        }
+        out = render_image(self.model, rays_t, frame, self.settings)
+        self.stats = {k: int(out.pop(k)) for k in ("n_candidates", "n_survivors")}
+        self.stats["tiles"] = len(rays["ray_o"]) // tile
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        if inv is not None:
+            out = {k: v[inv] for k, v in out.items()}
+        return {k: v[:n_valid] for k, v in out.items()}, n_valid
+
+
+def run_evaluate(cfg, device=None, max_items: int = -1):
+    """PSNR/SSIM evaluation of the test split (JAX engine.py:749-830).
+    Returns the mean metrics plus `items`, one record per scored item."""
+    cfg.eval = True
+    eng = Engine(cfg, device)
+    eng.load_params()
+    ds = make_dataset(cfg, "test")
+    evaluator = ImageEvaluator(cfg.result_dir)
+    items = []
+    t_start = time.time()
+    for n, idx in enumerate(eval_indices(cfg, ds)):
+        if 0 <= max_items <= n:
+            break
+        item = ds[idx]
+        t0 = time.time()
+        out, _ = eng.render_item(item)
+        seconds = time.time() - t0
+        m = evaluator.evaluate(
+            out["rgb_map"], np.asarray(item["rgb"]),
+            np.asarray(item["mask_at_box"]), int(item["H"]), int(item["W"]),
+        )
+        items.append({
+            "frame_index": int(item["frame_index"]),
+            "view_index": int(item["cam_ind"]),
+            "rays": len(item["ray_o"]),
+            "seconds": seconds,
+            **eng.stats,
+            **(m or {}),
+        })
+    wall = time.time() - t_start
+    print(f"eval: {len(items)} items in {wall:.2f}s on {eng.device}")
+    return {**evaluator.summarize(), "items": items}

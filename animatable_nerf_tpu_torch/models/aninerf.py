@@ -1,0 +1,122 @@
+"""AniNeRF: neural blend-weight field + canonical NeRF, eval path.
+
+JAX counterpart: animatable_nerf_tpu/models/aninerf.py (`AniNeRF`,
+eval branch: `_compact_inputs` :231, `_conservative_dist_rows` :266,
+`_eval_compacted` :595, `_eval_finish` :625; reference
+tpose_nerf_network.py:139-215).
+
+The point filter keeps the JAX semantics exactly:
+  * pass 1 interpolates only the distance channel, from corners rounded
+    to bf16, against a threshold widened by a certified bound on that
+    rounding, and forces the argmin of those values on: a superset of
+    the exact survivors;
+  * pass 2 re-applies the exact f32 filter (norm_th) on the 25-channel
+    interpolation of the pass-1 candidates and forces the argmin over
+    those candidates.
+Forcing happens once per call, i.e. once per eval tile. The JAX package
+compacts into fixed capacities and escalates a capacity ladder until
+nothing overflows; PyTorch has dynamic shapes, so both passes compact
+exactly with torch.nonzero, and the MLPs run on the exact survivors only
+(the JAX code runs them on every candidate and zeroes alpha after; the
+composited maps are the same).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.composite import composite_compacted
+from ..core.grid import pts_sample_blend_weights
+from ..core.lbs import pose_points_to_tpose_points, world_points_to_pose_points
+from ..core.sampling import z_vals_to_dists
+from ..fields.fields import BlendWeightField, TPoseNeRF
+from .common import (
+    inside_bounds,
+    keep_mask_with_argmin,
+    raw_alpha_from_sigma,
+    volume_lipschitz_bound,
+)
+
+
+class AniNeRF(BlendWeightField):
+    """Grid-based blend-weight AniNeRF.
+
+    The module is the blend-weight field itself plus `tpose_human`, as
+    the reference network holds `bw_latent`/`bw_linears`/`bw_fc` at its
+    top level; so its state dict has the reference's names.
+
+    num_train_frames: rows of the appearance latent table; the bw latent
+    table has num_train_frames + 1 rows (row 0 canonical, row i+1 frame
+    i — tpose_nerf_network.py:17,96,173).
+    """
+
+    def __init__(self, num_train_frames: int, norm_th: float = 0.05,
+                 xyz_res: int = 10, view_res: int = 4):
+        super().__init__(num_latents=num_train_frames + 1, xyz_res=xyz_res)
+        self.tpose_human = TPoseNeRF(num_train_frames, xyz_res, view_res)
+        self.norm_th = float(norm_th)
+
+    def _conservative_dist_rows(self, frame):
+        """bf16-rounded distance volume (D, H, W, 1) and the widened
+        pass-1 threshold: norm_th + (norm_th + lip * |cell|) * 2^-8
+        bounds the bf16 rounding of every corner near the shell for a
+        lip-Lipschitz field (JAX aninerf.py:266-284)."""
+        dist_vol = frame["pbw"][..., 24:25]
+        bounds = frame["pbounds"]
+        lip = volume_lipschitz_bound(dist_vol[..., 0], bounds)
+        sizes = torch.tensor(dist_vol.shape[:3], dtype=torch.float32,
+                             device=dist_vol.device)
+        cell = (bounds[1] - bounds[0]) / (sizes - 1.0)
+        corner_bound = self.norm_th + lip * torch.linalg.norm(cell)
+        th = self.norm_th + corner_bound * (2.0 ** -8)
+        return dist_vol.to(torch.bfloat16), th
+
+    def _compact_inputs(self, pose_pts, frame):
+        """Pass 1: indices (ascending) of the conservative candidates."""
+        dist_bf16, th = self._conservative_dist_rows(frame)
+        pnorm = pts_sample_blend_weights(pose_pts, dist_bf16,
+                                         frame["pbounds"])[..., 0]
+        keep = keep_mask_with_argmin(pnorm, th)
+        return torch.nonzero(keep).squeeze(1)
+
+    def _eval_finish(self, cand, pose_pts, viewdir, dists, frame,
+                     n_samples: int):
+        """Pass 2 on the candidates: exact filter, then the blend-weight
+        warp and the canonical NeRF on the survivors. Returns (sidx
+        flat sample indices, rgb (K, 3), alpha (K,))."""
+        c_pose = pose_pts[cand]
+        c_init = pts_sample_blend_weights(c_pose, frame["pbw"], frame["pbounds"])
+        exact = keep_mask_with_argmin(c_init[:, 24], self.norm_th)
+        sidx = cand[exact]
+        s_pose = c_pose[exact]
+        latent_index = int(frame["latent_index"])
+        pbw = self.blend_weights(s_pose, c_init[exact, :24], latent_index + 1)
+        tpose = pose_points_to_tpose_points(s_pose, pbw, frame["A"])
+        sigma, rgb_logits = self.tpose_human(
+            tpose, viewdir[sidx // n_samples], latent_index
+        )
+        sigma = torch.where(inside_bounds(tpose, frame["tbounds"]), sigma, 0.0)
+        alpha = raw_alpha_from_sigma(sigma, dists[sidx])
+        return sidx, torch.sigmoid(rgb_logits), alpha
+
+    @torch.no_grad()
+    def forward(self, wpts, viewdir, z_vals, frame):
+        """Eval render of one tile: wpts (R, S, 3), viewdir (R, 3),
+        z_vals (R, S) -> rgb_map (R, 3), acc_map (R,), depth_map (R,)
+        plus the tile's candidate and survivor counts."""
+        n_rays, n_samples = z_vals.shape
+        pose_pts = world_points_to_pose_points(
+            wpts.reshape(-1, 3), frame["R"], frame["Th"]
+        )
+        cand = self._compact_inputs(pose_pts, frame)
+        sidx, rgb, alpha = self._eval_finish(
+            cand, pose_pts, viewdir, z_vals_to_dists(z_vals).reshape(-1),
+            frame, n_samples,
+        )
+        rgb_map, acc_map, depth_map = composite_compacted(
+            sidx, rgb, alpha, z_vals, n_rays, n_samples
+        )
+        return {
+            "rgb_map": rgb_map, "acc_map": acc_map, "depth_map": depth_map,
+            "n_candidates": cand.numel(), "n_survivors": sidx.numel(),
+        }

@@ -1,0 +1,83 @@
+"""Volume rendering of eval rays in fixed-size tiles.
+
+JAX counterpart: animatable_nerf_tpu/render/renderer.py (`pad_rays`
+:63-88, `render_rays` eval branch :159-320, `render_image` :329-384).
+The JAX `apply_model` row chunking (`dense_chunk_rows`) guards a TPU
+compiler fault and has no counterpart here.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core.sampling import stratified_z_vals, z_vals_to_pts
+
+_IMAGE_OUTPUTS = ("rgb_map", "acc_map", "depth_map")
+_COUNTS = ("n_candidates", "n_survivors")
+
+
+class RenderSettings(NamedTuple):
+    n_samples: int = 64
+    white_bkgd: bool = False
+    eval_tile: int = 8192
+
+
+def pad_rays(rays: dict, multiple: int):
+    """Pad every per-ray numpy array to the next multiple; returns
+    (rays, n_valid). Pad rays are parked far from the scene
+    (ray_o = 1e4) so their samples do not pass the point filter, and a
+    boolean 'mask' entry marks the real rays."""
+    n = rays["ray_o"].shape[0]
+    padded_n = int(np.ceil(n / multiple) * multiple)
+    pad = padded_n - n
+    out = {}
+    for k, v in rays.items():
+        if pad:
+            widths = [(0, pad)] + [(0, 0)] * (v.ndim - 1)
+            cval = 1e4 if k == "ray_o" else 0
+            v = np.pad(np.asarray(v), widths, constant_values=cval)
+        out[k] = v
+    mask = np.zeros(padded_n, dtype=bool)
+    mask[:n] = rays.get("mask", np.ones(n, dtype=bool))
+    out["mask"] = mask
+    return out, n
+
+
+def render_rays(model, rays: dict, frame: dict, settings: RenderSettings):
+    """Render one tile of eval rays: ray_o/ray_d (R, 3), near/far (R,),
+    optional mask (R,). Returns rgb_map/acc_map/depth_map and the
+    model's candidate/survivor counts."""
+    z_vals = stratified_z_vals(rays["near"], rays["far"], settings.n_samples)
+    wpts = z_vals_to_pts(rays["ray_o"], rays["ray_d"], z_vals)
+    ret = model(wpts, rays["ray_d"], z_vals, frame)
+    rgb_map, acc_map, depth_map = (ret[k] for k in _IMAGE_OUTPUTS)
+    if settings.white_bkgd:
+        rgb_map = rgb_map + (1.0 - acc_map[..., None])
+    if "mask" in rays:
+        m = rays["mask"]
+        rgb_map = torch.where(m[:, None], rgb_map, 0.0)
+        acc_map = torch.where(m, acc_map, 0.0)
+        depth_map = torch.where(m, depth_map, 0.0)
+    return {"rgb_map": rgb_map, "acc_map": acc_map, "depth_map": depth_map,
+            **{k: ret[k] for k in _COUNTS}}
+
+
+def render_image(model, rays: dict, frame: dict, settings: RenderSettings):
+    """Whole-image render over tiles of `settings.eval_tile` rays; `rays`
+    must be padded to a multiple of the tile (see pad_rays). The point
+    filter's argmin forcing acts once per tile, as in JAX."""
+    tile = settings.eval_tile
+    n = rays["ray_o"].shape[0]
+    if n % tile:
+        raise ValueError("pad rays to a multiple of eval_tile first")
+    outs = []
+    for s in range(0, n, tile):
+        chunk = {k: v[s:s + tile] for k, v in rays.items()}
+        outs.append(render_rays(model, chunk, frame, settings))
+    result = {k: torch.cat([o[k] for o in outs]) for k in _IMAGE_OUTPUTS}
+    for k in _COUNTS:
+        result[k] = sum(o[k] for o in outs)
+    return result
