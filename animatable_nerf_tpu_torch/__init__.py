@@ -7,6 +7,7 @@ The package imports torch, numpy, scipy, einops and the standard
 library only; it never imports jax, flax or the JAX package.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`
-(device.py). The fused skip-MLP (ops/skip_mlp.py) is a hand-written
-CUDA kernel built from csrc/ at first use.
+(device.py). The fused skip-MLP (ops/skip_mlp.py), the KNN blend and
+the nearest-vertex distance (ops/knn.py) are hand-written CUDA kernels
+built from csrc/ at first use.
 """

@@ -1,12 +1,21 @@
-"""The JAX package's AniNeRF parameters as the port's state dict.
+"""The JAX package's AniNeRF and SDF-PDF parameters as the port's state
+dicts.
 
 The JAX param tree (nested dict of numpy arrays, as flax checkpoints
 hold it) maps onto the reference's PyTorch names, the ones
-animatable_nerf_tpu/compat/torch_export.py:90-109 writes: `bw_latent`,
-`bw_linears.{i}`, `bw_fc`, `tpose_human.pts_linears.{i}`,
-`tpose_human.{alpha,feature,latent,view,rgb}_fc` and
-`tpose_human.nf_latent`. Dense kernels (in, out) become nn.Linear
-weights (out, in). Load the result with `load_state_dict(strict=True)`.
+animatable_nerf_tpu/compat/torch_export.py writes:
+  * AniNeRF (:90-109): `bw_latent`, `bw_linears.{i}`, `bw_fc`,
+    `tpose_human.pts_linears.{i}`,
+    `tpose_human.{alpha,feature,latent,view,rgb}_fc` and
+    `tpose_human.nf_latent`;
+  * SDF-PDF (:166 `export_sdf_pdf`): `resd_linears.{i}`, `resd_fc`,
+    `tpose_human.sdf_network.lin{l}`, `tpose_human.beta_network.beta`,
+    `tpose_human.color_network.color_latent` and
+    `tpose_human.color_network.lin{l}`.
+Dense kernels (in, out) become nn.Linear weights (out, in); a
+weight-normalized {v (in, out), g (out,), b} becomes `weight_v` (out,
+in), `weight_g` (out, 1), `bias`. Load the result with
+`load_state_dict(strict=True)`.
 """
 
 from __future__ import annotations
@@ -45,6 +54,20 @@ def tpose_nerf_state_dict(p: dict, prefix: str = "") -> dict:
     return out
 
 
+def _wn(p: dict, name: str, out: dict):
+    out[f"{name}.weight_v"] = np.ascontiguousarray(np.asarray(p["v"]).T)
+    out[f"{name}.weight_g"] = np.asarray(p["g"]).reshape(-1, 1)
+    out[f"{name}.bias"] = np.asarray(p["b"])
+
+
+def _as_list(layers):
+    """A flax list param, or the {"0": ..., "1": ...} dict a msgpack
+    checkpoint stores it as."""
+    if isinstance(layers, dict):
+        return [layers[str(i)] for i in range(len(layers))]
+    return list(layers)
+
+
 def to_tensors(arrays: dict) -> dict:
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in arrays.items()}
 
@@ -55,4 +78,26 @@ def aninerf_state_dict(params: dict) -> dict:
     p = params["params"] if "params" in params else params
     out = bw_field_state_dict(p["bw_field"])
     out.update(tpose_nerf_state_dict(p["tpose_human"], "tpose_human."))
+    return to_tensors(out)
+
+
+def sdf_pdf_state_dict(params: dict) -> dict:
+    """JAX SDFPDF params ({"params": {...}} or the inner dict) ->
+    {reference name: torch.Tensor}."""
+    p = params["params"] if "params" in params else params
+    out = {}
+    mlp = p["resd_field"]["mlp"]
+    for i in range(8):
+        _linear(mlp[f"lin{i}"], f"resd_linears.{i}", out)
+    _linear(mlp["out"], "resd_fc", out)
+    th = "tpose_human."
+    for l, wn in enumerate(_as_list(p["sdf_network"]["layers"])):
+        _wn(wn, f"{th}sdf_network.lin{l}", out)
+    out[f"{th}beta_network.beta"] = np.asarray(
+        p["beta_network"]["beta"]).reshape(())
+    color = p["color_network"]
+    out[f"{th}color_network.color_latent.weight"] = np.asarray(
+        color["color_latent"]["embedding"])
+    for l in range(5):
+        _wn(color[f"lin{l}"]["wn"], f"{th}color_network.lin{l}", out)
     return to_tensors(out)

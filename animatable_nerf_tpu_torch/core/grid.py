@@ -56,3 +56,53 @@ def pts_sample_blend_weights(pts, vol, bounds):
     """
     mn, mx = bounds[0], bounds[1]
     return grid_trilerp(vol, (pts - mn) / (mx - mn))
+
+
+def pack_corner_volume(vol: torch.Tensor) -> torch.Tensor:
+    """(D, H, W, C) -> (D-1, H-1, W-1, 8*C): each cell holds the channels
+    of its 8 corners, in the order (0,0,0),(0,0,1),(0,1,0),(0,1,1),
+    (1,0,0),(1,0,1),(1,1,0),(1,1,1) (JAX core/grid.py:65). The port keeps
+    the layout for the per-frame distance grid, whose reader
+    (`grid_corner_distance_bound`) wants all 8 corners of a cell."""
+    D, H, W, _ = vol.shape
+    return torch.cat(
+        [vol[dx:D - 1 + dx, dy:H - 1 + dy, dz:W - 1 + dz]
+         for dx, dy, dz in _CORNERS],
+        dim=-1,
+    )
+
+
+def grid_corner_distance_bound(packed, pts01, cell):
+    """Certified lower bound of a 1-Lipschitz distance field from its
+    corner-packed grid (JAX core/grid.py:126): the max over the cell's 8
+    corners of d(corner) * (1 - 2^-7) - |x - corner|. The factor absorbs
+    the bf16 rounding of the corners. Points whose pts01 clamps into the
+    grid need the caller to subtract the clamp excess.
+
+    packed (res-1,)^3 x 8; pts01 (..., 3) normalized to the res^3 grid;
+    cell (3,) cell edge lengths -> (...,) f32."""
+    Dm, Hm, Wm, _ = packed.shape
+    p = pts01.reshape(-1, 3)
+    sizes = torch.tensor([Dm + 1, Hm + 1, Wm + 1], dtype=p.dtype,
+                         device=p.device)
+    idx = torch.minimum(torch.clamp(p * (sizes - 1.0), min=0.0), sizes - 1.0)
+    last_cell = torch.tensor([Dm - 1, Hm - 1, Wm - 1], device=p.device)
+    i0 = torch.minimum(torch.floor(idx).long(), last_cell)
+    frac = idx - i0.to(idx.dtype)
+    lin = (i0[:, 0] * Hm + i0[:, 1]) * Wm + i0[:, 2]
+    g = packed.reshape(-1, 8)[lin].to(torch.float32)
+
+    fx, fy, fz = frac[:, 0] * cell[0], frac[:, 1] * cell[1], frac[:, 2] * cell[2]
+    gx, gy, gz = cell[0] - fx, cell[1] - fy, cell[2] - fz
+    x2, y2, z2 = fx * fx, fy * fy, fz * fz
+    X2, Y2, Z2 = gx * gx, gy * gy, gz * gz
+    scale = 1.0 - 2.0 ** -7
+    lb = None
+    # corner order of pack_corner_volume: dx-major, then dy, dz
+    for k, (ax, ay, az) in enumerate(
+        [(x2, y2, z2), (x2, y2, Z2), (x2, Y2, z2), (x2, Y2, Z2),
+         (X2, y2, z2), (X2, y2, Z2), (X2, Y2, z2), (X2, Y2, Z2)]
+    ):
+        b = g[:, k] * scale - torch.sqrt(ax + ay + az)
+        lb = b if lb is None else torch.maximum(lb, b)
+    return lb.reshape(pts01.shape[:-1])

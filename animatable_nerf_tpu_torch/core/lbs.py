@@ -19,6 +19,11 @@ def world_points_to_pose_points(wpts, Rh, Th):
     return (wpts - Th) @ Rh
 
 
+def world_dirs_to_pose_dirs(wdirs, Rh):
+    """wdirs @ Rh (JAX lbs.py:31)."""
+    return wdirs @ Rh
+
+
 def _blend_transforms(bw, A):
     """sum_k bw[..., k] * A[k]: (N, 24) x (24, 4, 4) -> (N, 4, 4)."""
     M = bw @ A.reshape(*A.shape[:-3], A.shape[-3], 16)
@@ -64,3 +69,39 @@ def pose_points_to_tpose_points(ppts, bw, A):
     pts = ppts - M[..., :3, 3]
     R_inv = inverse_3x3(M[..., :3, :3], det_eps=1e-6)
     return _matvec3(R_inv, pts)
+
+
+def pose_dirs_to_tpose_dirs(ddirs, bw, A):
+    """Backward LBS warp of directions (JAX lbs.py:108)."""
+    M = _blend_transforms(bw, A)
+    return _matvec3(inverse_3x3(M[..., :3, :3], det_eps=1e-6), ddirs)
+
+
+def tpose_points_to_pose_points(pts, bw, A):
+    """Forward LBS warp, canonical -> posed (JAX lbs.py:115)."""
+    M = _blend_transforms(bw, A)
+    return _matvec3(M[..., :3, :3], pts) + M[..., :3, 3]
+
+
+def tpose_dirs_to_pose_dirs(ddirs, bw, A):
+    """Forward LBS warp of directions (JAX lbs.py:121)."""
+    M = _blend_transforms(bw, A)
+    return _matvec3(M[..., :3, :3], ddirs)
+
+
+def backward_warp_points_dirs(ppts, pdirs, bw, A, big_A):
+    """Posed -> T-pose -> big-pose warp of points and (optional) dirs
+    with the blended transforms and the 3x3 inverse formed once (JAX
+    lbs.py:127; the same operations as pose_points_to_tpose_points then
+    tpose_points_to_pose_points with big_A). Returns (init_bigpose,
+    bigpose_dirs or None)."""
+    M1 = _blend_transforms(bw, A)
+    R1_inv = inverse_3x3(M1[..., :3, :3], det_eps=1e-6)
+    M2 = _blend_transforms(bw, big_A)
+    R2 = M2[..., :3, :3]
+    tpose = _matvec3(R1_inv, ppts - M1[..., :3, 3])
+    init_bigpose = _matvec3(R2, tpose) + M2[..., :3, 3]
+    dirs = None
+    if pdirs is not None:
+        dirs = _matvec3(R2, _matvec3(R1_inv, pdirs))
+    return init_bigpose, dirs

@@ -1,0 +1,24 @@
+"""SDF -> opacity (VolSDF Laplace CDF).
+
+JAX counterpart: animatable_nerf_tpu/core/sdf.py:22 `volsdf_sigma` and
+:35 `sigma_to_alpha` (reference anisdf_pdf_network.py:271-286, 330-331).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def volsdf_sigma(sdf, beta):
+    """Laplace-CDF density with scale beta; with x = -sdf:
+    x <= 0: 0.5/beta * exp(x/beta), x > 0: 1/beta * (1 - 0.5 exp(-x/beta))."""
+    x = -sdf
+    val0 = 0.5 / beta * torch.exp(torch.clamp(x, max=0.0) / beta)
+    val1 = 1.0 / beta * (1.0 - 0.5 * torch.exp(-torch.clamp(x, min=0.0) / beta))
+    return torch.where(x <= 0, val0, val1)
+
+
+def sigma_to_alpha(sigma, step: float = 0.005):
+    """alpha = 1 - exp(-relu(sigma) * step); the reference hard-codes the
+    0.005 step whatever the sample spacing."""
+    return 1.0 - torch.exp(-torch.clamp(sigma, min=0.0) * step)

@@ -1,7 +1,9 @@
-"""The eval dataset of the grid blend-weight models (AniNeRF).
+"""The eval datasets of the grid blend-weight models (AniNeRF) and of the
+KNN/displacement models (SDF-PDF).
 
-JAX counterpart: animatable_nerf_tpu/data/dataset.py:52-321
-(`_BaseDataset`, `TPoseDataset`; reference lib/datasets/tpose_dataset.py).
+JAX counterpart: animatable_nerf_tpu/data/dataset.py:52-456
+(`_BaseDataset`, `TPoseDataset`, `TPosePDFDataset` :324; reference
+lib/datasets/tpose_dataset.py, tpose_pdf_dataset.py).
 Differences forced by the machines the port runs on, which lack OpenCV:
   * images come from the root's `decoded.npz` (data/decode_cache.py),
     decoded as cv2.imread decodes them;
@@ -30,8 +32,9 @@ from .utils import (
 )
 
 
-class TPoseDataset:
-    """Eval items of the grid blend-weight dataset (tpose_dataset.py)."""
+class _EvalDataset:
+    """Cameras, images and views of the test split (JAX dataset.py:52
+    `_BaseDataset`)."""
 
     def __init__(self, cfg, split: str):
         if split == "train":
@@ -73,24 +76,6 @@ class TPoseDataset:
         )
         self.parents = np.load(os.path.join(self.lbs_root, "parents.npy"))
         self.big_A = big_pose_A(self.joints, self.parents).astype(np.float32)
-
-        tpose = np.load(os.path.join(self.lbs_root, "tvertices.npy")).astype(
-            np.float32
-        )
-        self.tbounds = get_bounds(tpose, cfg.box_padding)
-        self.tbw = np.load(os.path.join(self.lbs_root, "tbw.npy")).astype(
-            np.float32
-        )
-        frame_ids = sorted(
-            {self.frame_index_of(im)[1] for im in self.ims}
-        )
-        shapes = [
-            np.load(os.path.join(self.lbs_root, f"bweights/{fid}.npy"),
-                    mmap_mode="r").shape[:3]
-            for fid in frame_ids
-        ]
-        self.max_pbw_shape = tuple(np.max(np.array(shapes), axis=0))
-        self._frame_cache = {}
 
     def __len__(self):
         return len(self.ims)
@@ -165,9 +150,43 @@ class TPoseDataset:
                 latent_index = self.cfg.num_train_frame - 1
         return latent_index, bw_latent_index
 
-    # ------------------------------------------------------ per frame
-    def prepare_input(self, i):
-        """tpose_dataset.py:125-161."""
+    def frame_file_index(self, index):
+        """The index of the item's frame files (vertices/params)."""
+        return self.frame_index_of(self.ims[index])[1]
+
+    def _image_rays(self, index, wbounds):
+        """The fields every eval item carries: its pixels, the rays of
+        its camera that hit the frame's world bounds, its indices."""
+        img, msk, orig_msk, K, R, T, cam_ind, img_path = self.load_image(index)
+        frame_index, _ = self.frame_index_of(img_path)
+        rgb, ray_o, ray_d, near, far, coord, mask_at_box = sample_rays_image(
+            img, msk, K, R, T, wbounds, self.split,
+            mask_bkgd=self.cfg.mask_bkgd,
+        )
+        if self.cfg.erode_edge:
+            orig_msk = crop_mask_edge(orig_msk)
+        latent_index, bw_latent_index = self.latent_indices(index)
+        return {
+            "rgb": rgb,
+            "occupancy": orig_msk[coord[:, 0], coord[:, 1]],
+            "ray_o": ray_o,
+            "ray_d": ray_d,
+            "near": near,
+            "far": far,
+            "mask_at_box": mask_at_box,
+            "H": img.shape[0],
+            "W": img.shape[1],
+            "coord": coord,
+            "latent_index": latent_index,
+            "bw_latent_index": bw_latent_index,
+            "frame_index": frame_index,
+            "cam_ind": cam_ind,
+        }
+
+    def _pose_inputs(self, i):
+        """Frame i's world and posed vertices, bone transforms A, SMPL
+        poses (24, 3), Rh (3,), Th (1, 3) and R, float32
+        (tpose_dataset.py:125-161)."""
         wxyz = np.load(
             os.path.join(self.data_root, self.cfg.vertices, f"{i}.npy")
         ).astype(np.float32)
@@ -183,6 +202,36 @@ class TPoseDataset:
         A = rigid_transforms_host(poses, self.joints, self.parents).astype(
             np.float32
         )
+        return wxyz, pxyz, A, poses, Rh, Th, R
+
+
+class TPoseDataset(_EvalDataset):
+    """Eval items of the grid blend-weight dataset (tpose_dataset.py)."""
+
+    def __init__(self, cfg, split: str):
+        super().__init__(cfg, split)
+        tpose = np.load(os.path.join(self.lbs_root, "tvertices.npy")).astype(
+            np.float32
+        )
+        self.tbounds = get_bounds(tpose, cfg.box_padding)
+        self.tbw = np.load(os.path.join(self.lbs_root, "tbw.npy")).astype(
+            np.float32
+        )
+        frame_ids = sorted(
+            {self.frame_index_of(im)[1] for im in self.ims}
+        )
+        shapes = [
+            np.load(os.path.join(self.lbs_root, f"bweights/{fid}.npy"),
+                    mmap_mode="r").shape[:3]
+            for fid in frame_ids
+        ]
+        self.max_pbw_shape = tuple(np.max(np.array(shapes), axis=0))
+        self._frame_cache = {}
+
+    # ------------------------------------------------------ per frame
+    def prepare_input(self, i):
+        """tpose_dataset.py:125-161."""
+        wxyz, pxyz, A, _, Rh, Th, R = self._pose_inputs(i)
         pbw = np.asarray(
             np.load(os.path.join(self.lbs_root, f"bweights/{i}.npy")),
             dtype=np.float32,
@@ -205,25 +254,10 @@ class TPoseDataset:
         return hit
 
     def __getitem__(self, index):
-        img, msk, orig_msk, K, R, T, cam_ind, img_path = self.load_image(index)
-        frame_index, i = self.frame_index_of(img_path)
-        wpts, A, pbw, pbounds, wbounds, Rh, Th, Rw = self._frame_inputs(i)
-        rgb, ray_o, ray_d, near, far, coord, mask_at_box = sample_rays_image(
-            img, msk, K, R, T, wbounds, self.split,
-            mask_bkgd=self.cfg.mask_bkgd,
-        )
-        if self.cfg.erode_edge:
-            orig_msk = crop_mask_edge(orig_msk)
-        occupancy = orig_msk[coord[:, 0], coord[:, 1]]
-        latent_index, bw_latent_index = self.latent_indices(index)
-        return {
-            "rgb": rgb,
-            "occupancy": occupancy,
-            "ray_o": ray_o,
-            "ray_d": ray_d,
-            "near": near,
-            "far": far,
-            "mask_at_box": mask_at_box,
+        wpts, A, pbw, pbounds, wbounds, Rh, Th, Rw = self._frame_inputs(
+            self.frame_file_index(index))
+        item = self._image_rays(index, wbounds)
+        item.update({
             "A": A,
             "big_A": self.big_A,
             "pbw": pbw,
@@ -233,11 +267,44 @@ class TPoseDataset:
             "tbounds": self.tbounds,
             "R": Rw,
             "Th": Th,
-            "H": img.shape[0],
-            "W": img.shape[1],
-            "coord": coord,
-            "latent_index": latent_index,
-            "bw_latent_index": bw_latent_index,
-            "frame_index": frame_index,
-            "cam_ind": cam_ind,
-        }
+        })
+        return item
+
+
+class TPosePDFDataset(_EvalDataset):
+    """Eval items of the KNN/displacement dataset (JAX dataset.py:324;
+    tpose_pdf_dataset.py): raw SMPL blend weights, the frame's posed
+    vertices and the canonical bounds from the big-pose vertices
+    (`use_bigpose`) or the T-pose ones. Novel-pose latent lookup is not
+    ported."""
+
+    def __init__(self, cfg, split: str):
+        super().__init__(cfg, split)
+        self.weights = np.load(
+            os.path.join(self.lbs_root, "weights.npy")).astype(np.float32)
+        vert_name = ("bigpose_vertices.npy" if cfg.get("use_bigpose", False)
+                     else "tvertices.npy")
+        self.tpose = np.load(
+            os.path.join(self.lbs_root, vert_name)).astype(np.float32)
+        self.tbounds = get_bounds(self.tpose, cfg.box_padding)
+
+    def __getitem__(self, index):
+        # JAX dataset.py:357 prepare_input
+        wpts, ppts, A, poses, Rh, Th, Rw = self._pose_inputs(
+            self.frame_file_index(index))
+        wbounds = get_bounds(wpts, self.cfg.box_padding)
+        item = self._image_rays(index, wbounds)
+        item.update({
+            "A": A,
+            "big_A": self.big_A,
+            "poses": poses.reshape(-1),
+            "weights": self.weights,
+            "tvertices": self.tpose,
+            "pvertices": ppts,
+            "pbounds": get_bounds(ppts, self.cfg.box_padding),
+            "wbounds": wbounds,
+            "tbounds": self.tbounds,
+            "R": Rw,
+            "Th": Th,
+        })
+        return item

@@ -2,12 +2,13 @@
 run types.
 
 JAX counterpart: animatable_nerf_tpu/engine.py (`_bucket_pad` :139,
-`interleave_rays` :164, `Engine.render_item` :547-603, `run_evaluate`
-:749-830). The eval rays are padded and tiled exactly as in JAX, since
-the point filter's argmin forcing acts per tile. The JAX capacity
-ladder (engine.py:204-236, 465-545) sizes static survivor buffers for
-the TPU; the port compacts exactly, which is what the ladder converges
-to, and has no ladder.
+`interleave_rays` :164, the per-frame distance grid :259-270 and
+:315-318, `Engine.render_item` :547-603, `run_evaluate` :749-830). The
+eval rays are padded and tiled exactly as in JAX, since the point
+filter's argmin forcing acts per tile. The JAX capacity ladder
+(engine.py:204-236, 465-545) sizes static survivor buffers for the TPU;
+the port compacts exactly, which is what the ladder converges to, and
+has no ladder.
 """
 
 from __future__ import annotations
@@ -19,44 +20,67 @@ import numpy as np
 import torch
 
 from .compat.flax_msgpack import read_checkpoint
-from .compat.jax_params import aninerf_state_dict
-from .data.dataset import TPoseDataset
+from .compat.jax_params import aninerf_state_dict, sdf_pdf_state_dict
+from .data.dataset import TPoseDataset, TPosePDFDataset
 from .data.loader import eval_indices
 from .device import select_device
 from .evaluators.image import ImageEvaluator
 from .models.aninerf import AniNeRF
+from .models.pdf import SDFPDF
+from .ops.knn import build_pdist_payload
 from .render.renderer import RenderSettings, pad_rays, render_image
 
+# network_module names (the JAX registry's, models/registry.py:14-33)
 _ANINERF_MODULES = ("aninerf", "lib.networks.bw_deform.tpose_nerf_network")
-_DATASET_MODULES = ("lib.datasets.tpose_dataset", "tpose")
+_SDF_PDF_MODULES = ("sdf_pdf", "lib.networks.bw_deform.anisdf_pdf_network")
+_LATER_PDF_MODULES = (
+    "nerf_pdf", "neus_pdf",
+    "lib.networks.bw_deform.aligned_aninerf_pdf_network",
+    "lib.networks.bw_deform.anisdf_neus_pdf_network",
+)
+_DATASETS = {
+    "lib.datasets.tpose_dataset": TPoseDataset,
+    "tpose": TPoseDataset,
+    "lib.datasets.tpose_pdf_dataset": TPosePDFDataset,
+    "tpose_pdf": TPosePDFDataset,
+}
+_STATE_DICTS = {AniNeRF: aninerf_state_dict, SDFPDF: sdf_pdf_state_dict}
 _RAY_KEYS = ("ray_o", "ray_d", "near", "far")
-_FRAME_KEYS = ("A", "pbw", "pbounds", "tbounds", "R", "Th")
 
 
-def make_model(cfg) -> AniNeRF:
-    """The config's model; this slice ports the AniNeRF eval path only."""
-    if cfg.network_module not in _ANINERF_MODULES:
+def make_model(cfg):
+    """The config's model: the AniNeRF and SDF-PDF eval paths are
+    ported. SDF-PDF's `stage2_ratio` sizes a JAX survivor capacity and
+    has no counterpart in the port's exact compaction."""
+    name = cfg.network_module
+    if name in _LATER_PDF_MODULES:
         raise NotImplementedError(
-            f"network_module {cfg.network_module!r} is not ported yet"
+            f"network_module {name!r}: the NeRF-PDF and NeuS-PDF families "
+            "are not ported yet (only SDF-PDF is)"
         )
+    if name not in _ANINERF_MODULES + _SDF_PDF_MODULES:
+        raise NotImplementedError(f"network_module {name!r} is not ported yet")
     if cfg.aninerf_animation or cfg.test_novel_pose:
-        raise NotImplementedError("AniNeRF stage 2 (novel pose) is not ported yet")
-    for key in ("slab_filter", "seg_filter"):
+        raise NotImplementedError("novel-pose evaluation is not ported yet")
+    for key in ("slab_filter", "seg_filter", "knn_blocked"):
         if int(cfg.get(key, 0)):
-            raise NotImplementedError(f"the {key} eval pre-filter is not ported yet")
+            raise NotImplementedError(f"the {key} eval option is not ported yet")
     if str(cfg.get("compute_dtype", "float32")) != "float32":
         raise NotImplementedError("only float32 compute is ported")
+    if name in _SDF_PDF_MODULES:
+        return SDFPDF(num_latents=cfg.num_latent_code,
+                      tpose_viewdir=cfg.tpose_viewdir, xyz_res=cfg.xyz_res)
     return AniNeRF(
         num_train_frames=cfg.num_train_frame, norm_th=cfg.norm_th,
         xyz_res=cfg.xyz_res, view_res=cfg.view_res,
     )
 
 
-def make_dataset(cfg, split: str = "test") -> TPoseDataset:
+def make_dataset(cfg, split: str = "test"):
     name = cfg.test_dataset_module
-    if name not in _DATASET_MODULES:
+    if name not in _DATASETS:
         raise NotImplementedError(f"dataset module {name!r} is not ported yet")
-    return TPoseDataset(cfg, split)
+    return _DATASETS[name](cfg, split)
 
 
 def render_settings(cfg) -> RenderSettings:
@@ -120,7 +144,19 @@ class Engine:
         self.cfg = cfg
         self.device = select_device(device)
         self.model = make_model(cfg).to(self.device).eval()
+        # eval only: autograd reaches no parameter (the SDF normals take
+        # the gradient of the input points alone)
+        self.model.requires_grad_(False)
         self.settings = render_settings(cfg)
+        # the per-frame nearest-vertex distance grid of the KNN models'
+        # pass 1 (JAX engine.py:259-270)
+        self.pdist_res = 0
+        if self.model.knn_pass1:
+            self.pdist_res = int(cfg.get("knn_grid_res", 96))
+            if self.pdist_res <= 1:
+                raise NotImplementedError(
+                    "pass 1 without the distance grid (knn_grid_res <= 1) "
+                    "is not ported yet")
         self._frame_cache = {}
         # candidate/survivor/tile counts of the last render_item
         self.stats = {}
@@ -130,21 +166,33 @@ class Engine:
         the checkpoint the config selects."""
         if params is None:
             params = read_checkpoint(checkpoint_path(self.cfg))["params"]
-        self.model.load_state_dict(aninerf_state_dict(params), strict=True)
+        state = _STATE_DICTS[type(self.model)](params)
+        self.model.load_state_dict(state, strict=True)
 
     def _device_frame(self, item):
         """The item's per-frame tensors on the device, cached for the
-        frame (eval walks all views of a frame in a row)."""
+        frame (eval walks all views of a frame in a row). For the KNN
+        models it also holds the frame's distance grid, built once by
+        kernel K3 (JAX engine.py:315-318)."""
         key = (int(item["frame_index"]), int(np.asarray(item["latent_index"])))
         if self._frame_cache.get("key") != key:
             frame = {
                 k: torch.as_tensor(np.asarray(item[k], np.float32),
                                    device=self.device)
-                for k in _FRAME_KEYS
+                for k in self.model.frame_keys
             }
             frame["latent_index"] = key[1]
+            if self.pdist_res:
+                packed, _, bounds = build_pdist_payload(
+                    frame["pvertices"], res=self.pdist_res)
+                frame.update(pdist_packed=packed, pdist_bounds=bounds)
             self._frame_cache = {"key": key, "frame": frame}
         return self._frame_cache["frame"]
+
+    def clear_frame_cache(self):
+        """Drop the cached frame, so the next render_item uploads its
+        frame anew (and rebuilds its distance grid)."""
+        self._frame_cache = {}
 
     def render_item(self, item):
         """Render an eval item's rays; returns ({rgb_map, acc_map,

@@ -1,20 +1,24 @@
-"""The field modules of the AniNeRF family.
+"""The field modules of the AniNeRF and SDF-PDF families.
 
 JAX counterpart: animatable_nerf_tpu/fields/fields.py. Parameter names
-follow the reference's PyTorch modules (tpose_nerf_network.py), as
-animatable_nerf_tpu/compat/torch_export.py:90-109 writes them, so
-compat/jax_params.py state dicts and reference checkpoints strict-load.
-Both 8x256 trunks run through kernel K1 (ops/skip_mlp.py); the heads
-are plain nn.Linear, as the JAX package leaves them to XLA.
+follow the reference's PyTorch modules (tpose_nerf_network.py,
+anisdf_pdf_network.py), as animatable_nerf_tpu/compat/torch_export.py
+writes them, so compat/jax_params.py state dicts and reference
+checkpoints strict-load. The 8x256 trunks (blend-weight field, NeRF
+trunk, displacement field) run through kernel K1 (ops/skip_mlp.py); the
+heads and the weight-normalized SDF/color networks are plain PyTorch,
+as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
 
 from ..core.encoding import encoding_dim, positional_encoding
-from .mlp import run_skip_mlp, skip_linears
+from .mlp import WNLinear, run_skip_mlp, skip_linears
 
 _SKIPS = (4,)
 
@@ -90,3 +94,106 @@ class TPoseNeRF(nn.Module):
         vdir = positional_encoding(viewdir, self.view_res)
         h2 = torch.relu(self.view_fc(torch.cat([feat, vdir], dim=-1)))
         return sigma, self.rgb_fc(h2)
+
+
+class ResidualField(nn.Module):
+    """Pose-dependent displacement field (JAX fields.py:53; reference
+    anisdf_pdf_network.py:23-32, 49-73): [PE(xyz) (63), pose (72)] = 135
+    -> 8x256 skip-4 MLP -> 3, scaled by 0.05 * tanh. The parameters
+    carry the reference's names `resd_linears.{i}`, `resd_fc`."""
+
+    def __init__(self, xyz_res: int = 10, pose_dim: int = 72):
+        super().__init__()
+        self.xyz_res = xyz_res
+        din = encoding_dim(xyz_res, 3) + pose_dim
+        self.resd_linears = skip_linears(din, 256, 8, _SKIPS)
+        self.resd_fc = nn.Linear(256, 3)
+
+    def residual(self, pts, pose_vec):
+        """pts (N, 3); pose_vec (72,) -> resd (N, 3)."""
+        pe = positional_encoding(pts, self.xyz_res)
+        feat = torch.cat(
+            [pe, pose_vec.expand(pe.shape[0], pose_vec.shape[-1])], dim=-1
+        )
+        out = run_skip_mlp(feat, [*self.resd_linears, self.resd_fc], _SKIPS)
+        return 0.05 * torch.tanh(out)
+
+
+def _softplus(x):
+    """jax.nn.softplus: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))."""
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+class GeometricFieldNetwork(nn.Module):
+    """Weight-normalized 9-layer SDF network (JAX fields.py:154;
+    reference anisdf_pdf_network.py:348-453): PE(xyz) with multires 6
+    (39 channels) -> lin0..lin8, softplus(100 x)/100 after all but the
+    last; before lin4 x = [x, inputs] / sqrt(2), so lin3 outputs
+    256 - 39 = 217. Output (N, 257): channel 0 the sdf, 1: the feature.
+    """
+
+    def __init__(self, multires: int = 6, d_hidden: int = 256,
+                 n_layers: int = 8, d_out: int = 257, skip_in=(4,)):
+        super().__init__()
+        self.multires = multires
+        self.skip_in = tuple(skip_in)
+        d_pe = encoding_dim(multires, 3)
+        dims = [d_pe] + [d_hidden] * n_layers + [d_out]
+        for l in range(len(dims) - 1):
+            out_dim = dims[l + 1] - d_pe if (l + 1) in self.skip_in else dims[l + 1]
+            setattr(self, f"lin{l}", WNLinear(dims[l], out_dim))
+        self.n_linear = len(dims) - 1
+
+    def forward(self, pts):
+        inputs = positional_encoding(pts, self.multires)
+        x = inputs
+        for l in range(self.n_linear):
+            if l in self.skip_in:
+                x = torch.cat([x, inputs], dim=-1) / math.sqrt(2)
+            x = getattr(self, f"lin{l}")(x)
+            if l < self.n_linear - 1:
+                x = _softplus(100.0 * x) / 100.0
+        return x
+
+
+class ColorNetwork(nn.Module):
+    """IDR-style rendering network with normals and view directions (JAX
+    fields.py:210; reference anisdf_pdf_network.py:468-549):
+    [points (3), PE(viewdir) (27), normals (3), feature (256)] ->
+    lin0..lin2 (256, relu) -> concat the 128-d frame latent -> lin3
+    (relu) -> lin4 -> sigmoid. All layers weight-normalized."""
+
+    def __init__(self, num_latents: int, view_res: int = 4,
+                 d_feature: int = 256):
+        super().__init__()
+        self.view_res = view_res
+        din = 3 + encoding_dim(view_res, 3) + 3 + d_feature
+        self.color_latent = nn.Embedding(num_latents, 128)
+        self.lin0 = WNLinear(din, 256)
+        self.lin1 = WNLinear(256, 256)
+        self.lin2 = WNLinear(256, 256)
+        self.lin3 = WNLinear(256 + 128, 256)
+        self.lin4 = WNLinear(256, 3)
+
+    def forward(self, points, normals, viewdirs, features, latent_index: int):
+        x = torch.cat([points, positional_encoding(viewdirs, self.view_res),
+                       normals, features], dim=-1)
+        h = torch.relu(self.lin0(x))
+        h = torch.relu(self.lin1(h))
+        h = torch.relu(self.lin2(h))
+        latent = self.color_latent.weight[int(latent_index)]
+        h = torch.relu(self.lin3(
+            torch.cat([h, latent.expand(h.shape[0], 128)], dim=-1)))
+        return torch.sigmoid(self.lin4(h))
+
+
+class BetaNetwork(nn.Module):
+    """The learnable VolSDF beta, clipped to [1e-9, 1e6] (JAX
+    fields.py:255; reference anisdf_pdf_network.py:456-465)."""
+
+    def __init__(self, init_val: float = 0.1):
+        super().__init__()
+        self.beta = nn.Parameter(torch.tensor(init_val))
+
+    def forward(self):
+        return torch.clamp(self.beta, 1e-9, 1e6)

@@ -7,10 +7,15 @@ activation of that layer (reference tpose_nerf_network.py:66-71). The
 JAX package selects its Pallas kernel with a `fused` switch; here the
 stack always goes through ops/skip_mlp.py, which launches the CUDA
 kernel on the card and runs its plain version on the CPU.
+
+Also the weight-normalized dense layer of the SDF-PDF heads (JAX
+fields/mlp.py:108 `wn_apply`, :127 `WNDense`).
 """
 
 from __future__ import annotations
 
+import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.skip_mlp import skip_mlp
@@ -38,3 +43,31 @@ def run_skip_mlp(x, linears, skips, act_last: bool = False):
         x.contiguous(), kernel_layers(linears), skips=tuple(skips),
         act="relu", act_last=act_last,
     )
+
+
+def wn_weight(weight_v, weight_g):
+    """The weight-normalized weight exactly as JAX `wn_apply` forms it:
+    v * (g / (||v|| + 1e-12)), the norm per output unit. v (out, in),
+    g (out, 1), as torch's weight_norm names them; torch's own
+    weight_norm has no 1e-12."""
+    norm = torch.linalg.norm(weight_v, dim=1, keepdim=True)
+    return weight_v * (weight_g / (norm + 1e-12))
+
+
+class WNLinear(nn.Module):
+    """y = x @ wn_weight(v, g).T + b (JAX fields/mlp.py:127 `WNDense`),
+    with the reference's parameter names `weight_v`, `weight_g`, `bias`
+    (anisdf_pdf_network.py:410-411)."""
+
+    def __init__(self, din: int, dout: int):
+        super().__init__()
+        self.weight_v = nn.Parameter(torch.empty(dout, din))
+        self.weight_g = nn.Parameter(torch.empty(dout, 1))
+        self.bias = nn.Parameter(torch.zeros(dout))
+        nn.init.normal_(self.weight_v, std=din ** -0.5)
+        with torch.no_grad():
+            self.weight_g.copy_(torch.linalg.norm(self.weight_v, dim=1,
+                                                  keepdim=True))
+
+    def forward(self, x):
+        return F.linear(x, wn_weight(self.weight_v, self.weight_g), self.bias)

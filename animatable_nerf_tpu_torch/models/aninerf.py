@@ -50,6 +50,10 @@ class AniNeRF(BlendWeightField):
     i — tpose_nerf_network.py:17,96,173).
     """
 
+    # the per-frame tensors the engine moves to the device
+    frame_keys = ("A", "pbw", "pbounds", "tbounds", "R", "Th")
+    knn_pass1 = False
+
     def __init__(self, num_train_frames: int, norm_th: float = 0.05,
                  xyz_res: int = 10, view_res: int = 4):
         super().__init__(num_latents=num_train_frames + 1, xyz_res=xyz_res)

@@ -1,12 +1,15 @@
 """Shared helpers of the model layer.
 
 JAX counterpart: animatable_nerf_tpu/models/common.py (the subset the
-AniNeRF eval path uses).
+AniNeRF and SDF-PDF eval paths use).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..core.grid import grid_corner_distance_bound
+from ..core.knn import sample_blend_closest_points
 
 
 def keep_mask_with_argmin(norm_vals, threshold):
@@ -24,10 +27,51 @@ def keep_mask_with_argmin(norm_vals, threshold):
     return mask
 
 
-def inside_bounds(pts, bounds):
-    """Strict all-axes AABB membership: (N, 3), (2, 3) -> (N,) bool
-    (reference tpose_nerf_network.py:186-188)."""
-    return torch.all((pts > bounds[0]) & (pts < bounds[1]), dim=-1)
+def inside_bounds(pts, bounds, pad: float = 0.0):
+    """Strict all-axes AABB membership of the box grown by `pad`:
+    (N, 3), (2, 3) -> (N,) bool (JAX common.py:166; reference
+    tpose_nerf_network.py:186-188)."""
+    lo = bounds[0] - pad
+    hi = bounds[1] + pad
+    return torch.all((pts > lo) & (pts < hi), dim=-1)
+
+
+def grid_pdist_keep(pose_pts, frame, threshold: float):
+    """Conservative pass-1 keep mask from the per-frame packed
+    nearest-vertex distance grid (JAX common.py:74; the grid is
+    ops/knn.py `build_pdist_payload`, attached by the engine).
+
+    The bound is the 8-corner Lipschitz maximum of
+    `grid_corner_distance_bound` minus the border-clamp excess of points
+    outside the grid; points farther than `threshold` outside the grid
+    bounds are dropped. The result is a superset of {min-dist <
+    threshold}, hence of the exact IDW-weighted filter set, with the
+    argmin of the bound forced on and 1e-5 of slack."""
+    bounds = frame["pdist_bounds"]
+    mn, mx = bounds[0], bounds[1]
+    res_cells = torch.tensor(frame["pdist_packed"].shape[:3],
+                             dtype=torch.float32, device=pose_pts.device)
+    cell = (mx - mn) / res_cells
+    lb = grid_corner_distance_bound(frame["pdist_packed"],
+                                    (pose_pts - mn) / (mx - mn), cell)
+    excess = torch.linalg.norm(
+        torch.clamp(torch.maximum(mn - pose_pts, pose_pts - mx), min=0.0),
+        dim=-1,
+    )
+    lb = lb - excess
+    inside = inside_bounds(pose_pts, bounds, pad=threshold)
+    return keep_mask_with_argmin(
+        torch.where(inside, lb, torch.full_like(lb, float("inf"))),
+        threshold + 1e-5,
+    )
+
+
+def knn_blend_for_frame(pose_pts, frame):
+    """Pass-2 KNN over all of the frame's posed vertices (JAX
+    common.py:144, its flat path; the block-culled kernel K5 is not
+    ported): (N, 3) -> (pbw (N, 24), wdist (N, 1))."""
+    return sample_blend_closest_points(pose_pts, frame["pvertices"],
+                                       frame["weights"])
 
 
 def raw_alpha_from_sigma(sigma, dists):

@@ -8,28 +8,18 @@ fallback from one to the other. The kernel is forward-only, as in JAX;
 a gradient comes with the training slice.
 
 The library is built with nvcc into `build/` at the checkout root at
-first use (plain C interface, bound with ctypes).
+first use (ops/build.py; plain C interface, bound with ctypes).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "skip_mlp.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-_LIB = BUILD_DIR / "libskip_mlp.so"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+from .build import build_library
 
 _ACT_CODES = {"relu": 0, "softplus": 1, "none": 2}
 _ACT_FNS = {"relu": torch.relu, "softplus": F.softplus, "none": lambda h: h}
@@ -55,37 +45,9 @@ def skip_mlp_plain(x, layers, skips=(), act: str = "relu",
     return h
 
 
-def nvcc_path() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(home, "bin", "nvcc")
-
-
-def build_library() -> Path:
-    """Compile csrc/skip_mlp.cu into build/libskip_mlp.so unless an
-    up-to-date build is there. The compiler's output (with ptxas's
-    register and shared-memory report) goes to build/skip_mlp.build.log.
-    """
-    if _LIB.exists() and _LIB.stat().st_mtime >= _SRC.stat().st_mtime:
-        return _LIB
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _LIB.with_name(f"{_LIB.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    (BUILD_DIR / "skip_mlp.build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed to build {_SRC.name}:\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, _LIB)
-    return _LIB
-
-
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = ctypes.CDLL(str(build_library()))
+    lib = ctypes.CDLL(str(build_library("skip_mlp")))
     lib.skip_mlp_forward.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),

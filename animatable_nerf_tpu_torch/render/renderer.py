@@ -1,4 +1,6 @@
-"""Volume rendering of eval rays in fixed-size tiles.
+"""Volume rendering of eval rays in fixed-size tiles, for every ported
+model (AniNeRF, SDF-PDF): each takes one tile's samples and composites
+its own maps.
 
 JAX counterpart: animatable_nerf_tpu/render/renderer.py (`pad_rays`
 :63-88, `render_rays` eval branch :159-320, `render_image` :329-384).
