@@ -72,15 +72,10 @@ def pack_corner_volume(vol: torch.Tensor) -> torch.Tensor:
     )
 
 
-def grid_corner_distance_bound(packed, pts01, cell):
-    """Certified lower bound of a 1-Lipschitz distance field from its
-    corner-packed grid (JAX core/grid.py:126): the max over the cell's 8
-    corners of d(corner) * (1 - 2^-7) - |x - corner|. The factor absorbs
-    the bf16 rounding of the corners. Points whose pts01 clamps into the
-    grid need the caller to subtract the clamp excess.
-
-    packed (res-1,)^3 x 8; pts01 (..., 3) normalized to the res^3 grid;
-    cell (3,) cell edge lengths -> (...,) f32."""
+def _corner_distances(packed, pts01, cell):
+    """The cell's 8 corner values (n, 8) f32 and the distances |x - c_i|
+    (8 tensors (n,)) in pack_corner_volume's corner order, for points
+    pts01 (..., 3) normalized to the res^3 grid (border-clamped)."""
     Dm, Hm, Wm, _ = packed.shape
     p = pts01.reshape(-1, 3)
     sizes = torch.tensor([Dm + 1, Hm + 1, Wm + 1], dtype=p.dtype,
@@ -96,13 +91,38 @@ def grid_corner_distance_bound(packed, pts01, cell):
     gx, gy, gz = cell[0] - fx, cell[1] - fy, cell[2] - fz
     x2, y2, z2 = fx * fx, fy * fy, fz * fz
     X2, Y2, Z2 = gx * gx, gy * gy, gz * gz
-    scale = 1.0 - 2.0 ** -7
-    lb = None
     # corner order of pack_corner_volume: dx-major, then dy, dz
-    for k, (ax, ay, az) in enumerate(
-        [(x2, y2, z2), (x2, y2, Z2), (x2, Y2, z2), (x2, Y2, Z2),
-         (X2, y2, z2), (X2, y2, Z2), (X2, Y2, z2), (X2, Y2, Z2)]
-    ):
-        b = g[:, k] * scale - torch.sqrt(ax + ay + az)
-        lb = b if lb is None else torch.maximum(lb, b)
+    return g, [torch.sqrt(ax + ay + az) for ax, ay, az in
+               [(x2, y2, z2), (x2, y2, Z2), (x2, Y2, z2), (x2, Y2, Z2),
+                (X2, y2, z2), (X2, y2, Z2), (X2, Y2, z2), (X2, Y2, Z2)]]
+
+
+def grid_corner_distance_bound(packed, pts01, cell):
+    """Certified lower bound of a 1-Lipschitz distance field from its
+    corner-packed grid (JAX core/grid.py:126): the max over the cell's 8
+    corners of d(corner) * (1 - 2^-7) - |x - corner|. The factor absorbs
+    the bf16 rounding of the corners. Points whose pts01 clamps into the
+    grid need the caller to subtract the clamp excess.
+
+    packed (res-1,)^3 x 8; pts01 (..., 3) normalized to the res^3 grid;
+    cell (3,) cell edge lengths -> (...,) f32."""
+    g, r = _corner_distances(packed, pts01, cell)
+    scale = 1.0 - 2.0 ** -7
+    lb = g[:, 0] * scale - r[0]
+    for k in range(1, 8):
+        lb = torch.maximum(lb, g[:, k] * scale - r[k])
     return lb.reshape(pts01.shape[:-1])
+
+
+def grid_corner_distance_upper(packed, pts01, cell):
+    """Certified upper bound of a 1-Lipschitz field from its corner-packed
+    grid (JAX core/grid.py:178), the dual of `grid_corner_distance_bound`:
+    the min over the cell's 8 corners of d(corner) * (1 + 2^-7) +
+    |x - corner|. Points whose pts01 clamps into the grid need the caller
+    to add the clamp excess."""
+    g, r = _corner_distances(packed, pts01, cell)
+    scale = 1.0 + 2.0 ** -7
+    ub = g[:, 0] * scale + r[0]
+    for k in range(1, 8):
+        ub = torch.minimum(ub, g[:, k] * scale + r[k])
+    return ub.reshape(pts01.shape[:-1])

@@ -2,8 +2,8 @@
 run types.
 
 JAX counterpart: animatable_nerf_tpu/engine.py (`_bucket_pad` :139,
-`interleave_rays` :164, the per-frame distance grid :259-270 and
-:315-318, `Engine.render_item` :547-603, `run_evaluate` :749-830). The
+`interleave_rays` :164, the per-frame grids and vertex blocks :259-287
+and :315-326, `Engine.render_item` :547-603, `run_evaluate` :749-830). The
 eval rays are padded and tiled exactly as in JAX, since the point
 filter's argmin forcing acts per tile. The JAX capacity ladder
 (engine.py:204-236, 465-545) sizes static survivor buffers for the TPU;
@@ -27,7 +27,7 @@ from .device import select_device
 from .evaluators.image import ImageEvaluator
 from .models.aninerf import AniNeRF
 from .models.pdf import SDFPDF
-from .ops.knn import build_pdist_payload
+from .ops.knn import build_d5_payload, build_knn_blocks, build_pdist_payload
 from .render.renderer import RenderSettings, pad_rays, render_image
 
 # network_module names (the JAX registry's, models/registry.py:14-33)
@@ -62,7 +62,7 @@ def make_model(cfg):
         raise NotImplementedError(f"network_module {name!r} is not ported yet")
     if cfg.aninerf_animation or cfg.test_novel_pose:
         raise NotImplementedError("novel-pose evaluation is not ported yet")
-    for key in ("slab_filter", "seg_filter", "knn_blocked"):
+    for key in ("slab_filter", "seg_filter"):
         if int(cfg.get(key, 0)):
             raise NotImplementedError(f"the {key} eval option is not ported yet")
     if str(cfg.get("compute_dtype", "float32")) != "float32":
@@ -149,14 +149,17 @@ class Engine:
         self.model.requires_grad_(False)
         self.settings = render_settings(cfg)
         # the per-frame nearest-vertex distance grid of the KNN models'
-        # pass 1 (JAX engine.py:259-270)
+        # pass 1 (JAX engine.py:259-270), and with `knn_blocked` the d5
+        # grid and vertex blocks of pass 2's culled K5 (:281-287)
         self.pdist_res = 0
+        self.knn_blocked = False
         if self.model.knn_pass1:
             self.pdist_res = int(cfg.get("knn_grid_res", 96))
             if self.pdist_res <= 1:
                 raise NotImplementedError(
                     "pass 1 without the distance grid (knn_grid_res <= 1) "
                     "is not ported yet")
+            self.knn_blocked = bool(cfg.get("knn_blocked", False))
         self._frame_cache = {}
         # candidate/survivor/tile counts of the last render_item
         self.stats = {}
@@ -173,7 +176,8 @@ class Engine:
         """The item's per-frame tensors on the device, cached for the
         frame (eval walks all views of a frame in a row). For the KNN
         models it also holds the frame's distance grid, built once by
-        kernel K3 (JAX engine.py:315-318)."""
+        kernel K3, and with `knn_blocked` the d5 grid (K4) and the
+        Morton-sorted vertex blocks (JAX engine.py:315-326)."""
         key = (int(item["frame_index"]), int(np.asarray(item["latent_index"])))
         if self._frame_cache.get("key") != key:
             frame = {
@@ -186,12 +190,19 @@ class Engine:
                 packed, _, bounds = build_pdist_payload(
                     frame["pvertices"], res=self.pdist_res)
                 frame.update(pdist_packed=packed, pdist_bounds=bounds)
+            if self.knn_blocked:
+                d5_packed, _ = build_d5_payload(frame["pvertices"],
+                                                res=self.pdist_res)
+                verts, values, bboxes = build_knn_blocks(frame["pvertices"],
+                                                         frame["weights"])
+                frame.update(d5_packed=d5_packed, knn_verts=verts,
+                             knn_values=values, knn_bboxes=bboxes)
             self._frame_cache = {"key": key, "frame": frame}
         return self._frame_cache["frame"]
 
     def clear_frame_cache(self):
         """Drop the cached frame, so the next render_item uploads its
-        frame anew (and rebuilds its distance grid)."""
+        frame anew (and rebuilds its grids)."""
         self._frame_cache = {}
 
     def render_item(self, item):

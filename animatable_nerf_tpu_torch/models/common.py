@@ -8,8 +8,9 @@ from __future__ import annotations
 
 import torch
 
-from ..core.grid import grid_corner_distance_bound
+from ..core.grid import grid_corner_distance_bound, grid_corner_distance_upper
 from ..core.knn import sample_blend_closest_points
+from ..ops.knn import knn_blend_blocked
 
 
 def keep_mask_with_argmin(norm_vals, threshold):
@@ -47,29 +48,57 @@ def grid_pdist_keep(pose_pts, frame, threshold: float):
     bounds are dropped. The result is a superset of {min-dist <
     threshold}, hence of the exact IDW-weighted filter set, with the
     argmin of the bound forced on and 1e-5 of slack."""
-    bounds = frame["pdist_bounds"]
-    mn, mx = bounds[0], bounds[1]
-    res_cells = torch.tensor(frame["pdist_packed"].shape[:3],
-                             dtype=torch.float32, device=pose_pts.device)
-    cell = (mx - mn) / res_cells
-    lb = grid_corner_distance_bound(frame["pdist_packed"],
-                                    (pose_pts - mn) / (mx - mn), cell)
-    excess = torch.linalg.norm(
-        torch.clamp(torch.maximum(mn - pose_pts, pose_pts - mx), min=0.0),
-        dim=-1,
-    )
-    lb = lb - excess
-    inside = inside_bounds(pose_pts, bounds, pad=threshold)
+    lb, excess = _frame_grid_read(grid_corner_distance_bound, pose_pts, frame,
+                                  "pdist_packed")
+    inside = inside_bounds(pose_pts, frame["pdist_bounds"], pad=threshold)
     return keep_mask_with_argmin(
-        torch.where(inside, lb, torch.full_like(lb, float("inf"))),
+        torch.where(inside, lb - excess, torch.full_like(lb, float("inf"))),
         threshold + 1e-5,
     )
 
 
+def _frame_grid_read(reader, pose_pts, frame, key):
+    """reader(packed, pts01, cell) over the frame's corner-packed grid
+    `key` on the box frame["pdist_bounds"], and each point's distance
+    outside that box (the border clamp's excess)."""
+    mn, mx = frame["pdist_bounds"][0], frame["pdist_bounds"][1]
+    res_cells = torch.tensor(frame[key].shape[:3], dtype=torch.float32,
+                             device=pose_pts.device)
+    bound = reader(frame[key], (pose_pts - mn) / (mx - mn), (mx - mn) / res_cells)
+    excess = torch.linalg.norm(
+        torch.clamp(torch.maximum(mn - pose_pts, pose_pts - mx), min=0.0),
+        dim=-1,
+    )
+    return bound, excess
+
+
+def grid_d5_upper(pose_pts, frame):
+    """Certified upper bound (N,) of each point's 5th-nearest-vertex
+    distance from the frame's d5 grid (JAX common.py:123; the grid is
+    ops/knn.py `build_d5_payload`, on the box of the distance grid): the
+    8-corner Lipschitz minimum of `grid_corner_distance_upper` plus the
+    border-clamp excess and 1e-5 of slack. It drives K5's cull."""
+    ub, excess = _frame_grid_read(grid_corner_distance_upper, pose_pts, frame,
+                                  "d5_packed")
+    return ub + excess + 1e-5
+
+
 def knn_blend_for_frame(pose_pts, frame):
-    """Pass-2 KNN over all of the frame's posed vertices (JAX
-    common.py:144, its flat path; the block-culled kernel K5 is not
-    ported): (N, 3) -> (pbw (N, 24), wdist (N, 1))."""
+    """Pass-2 KNN over the frame's posed vertices (JAX common.py:144):
+    (N, 3) -> (pbw (N, 24), wdist (N, 1)).
+
+    When the engine attached the blocked tensors (`knn_blocked`:
+    d5_packed, knn_verts, knn_values, knn_bboxes), the block-culled K5
+    under the grid_d5_upper radius; otherwise the flat K2. On the CPU
+    each takes its plain version. Unlike JAX, which takes the blocked
+    path only on a TPU (common.py:155) and the flat one elsewhere, the
+    port takes it on every device. The two agree except on exact-distance
+    ties, which K5 breaks in Morton order."""
+    if "knn_verts" in frame:
+        return knn_blend_blocked(
+            pose_pts.contiguous(), grid_d5_upper(pose_pts, frame),
+            frame["knn_verts"], frame["knn_values"], frame["knn_bboxes"],
+        )
     return sample_blend_closest_points(pose_pts, frame["pvertices"],
                                        frame["weights"])
 

@@ -11,10 +11,11 @@ The point filter keeps the JAX semantics:
   * pass 1 reads the per-frame nearest-vertex distance grid (built by
     kernel K3, `grid_pdist_keep`): a certified superset of the
     survivors, with the argmin of the bound forced on;
-  * pass 2 runs kernel K2 on the candidates: IDW blend weights over all
-    posed vertices and the weighted distance, whose exact filter
-    (< NORM_TH) is re-applied with its argmin over the candidates forced
-    on.
+  * pass 2 runs kernel K2 on the candidates (or, with `knn_blocked`,
+    K5 over the vertex blocks within each candidate tile's certified
+    5-NN radius): IDW blend weights over the posed vertices and the
+    weighted distance, whose exact filter (< NORM_TH) is re-applied with
+    its argmin over the candidates forced on.
 Forcing happens once per call, i.e. once per eval tile. The JAX package
 compacts into fixed capacities twice (pass 1, then the stage-2
 re-compaction to the exact survivors, `stage2_ratio`) and parks dead

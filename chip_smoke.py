@@ -11,9 +11,11 @@ Phases, one JSON line each:
   2. kernel K1 (ops/skip_mlp.py, csrc/skip_mlp.cu) against its plain
      PyTorch version on the card, at the three production wirings and
      the row count of one eval tile's survivors, with times and bounds;
-  3. kernels K2 and K3 (ops/knn.py, csrc/knn.cu) against their plain
+  3. kernels K2-K6 (ops/knn.py, csrc/knn.cu) against their plain
      versions: K2 at 131,072 queries over 6890 vertices with duplicate
-     vertices, K3 at the 96^3 distance-grid build of one capsule frame;
+     vertices; K3 and K4 at the 96^3 grid builds of one capsule frame;
+     K5 and K6 at 131,072 queries around that frame's vertices, with the
+     frame's d5 grid (K5) and cell lists (K6), both also held against K2;
   4. the port's `run_evaluate` on configs/synthetic.yaml (AniNeRF) with
      the tracked checkpoint (4 views), each view held to the JAX
      package's PSNR within PSNR_TOL_DB, with K1's launches counted;
@@ -23,6 +25,11 @@ Phases, one JSON line each:
   6. the same for SDF-PDF (configs/synthetic_sdf_pdf.yaml, the capsule
      subject): `run_evaluate` held to the JAX PSNR with K1, K2 and K3
      each launched, then one 1000x1002 frame timed and profiled;
+  7. the same with `knn_blocked True` (the d5 grid by K4, pass 2 by K5):
+     `run_evaluate` held to the same JAX PSNR with K2 launched 0 times,
+     and one 1000x1002 frame held to phase 6's frame: K5 against K2 on
+     the frame's pass-2 points differs only on rows with an exact
+     distance tie, and the maps within 1e-6 on every other ray;
 then the kernel table line, the card line and {"ok": true, ...} last.
 Kernel launch counts are set to 0 just before each path and read just
 after it. Any failed phase raises and exits non-zero. Imports nothing of
@@ -57,12 +64,21 @@ PSNR_TOL_DB = 0.1
 # outputs agree to ~1e-6 relative; 1e-4 of the output scale leaves room.
 K1_REL_TOL = 1e-4
 K1_ROWS = 131072  # survivors of one 8192-ray tile at a 25% keep
-# K2 and K3 round every operation as their plain versions do (no FMA,
-# the same order), so they agree to the bit
+# K2-K6 round every operation as their plain versions do (no FMA, the
+# same order), so they agree to the bit
 KNN_TOL = 0.0
 K2_ROWS = 131072  # queries, as many as K1_ROWS
 K2_DUPS = 64  # vertices that are exact copies of others
 GRID_RES = 96  # the engine's knn_grid_res
+CELL_RES = (12, 12, 12)  # K6's cell grid
+CELL_CAPS = (2048, 2304, 3072, 4096)  # K6 takes the least without overflow
+# slots for the cells that can hold a point within 0.1 of a vertex: the
+# flat capsule has 841 such cells at 12^3, more than the default 512
+CELL_SLOTS = 1024
+NORM_TH = 0.1  # the SDF-PDF filter on K2's weighted distance
+# the blocked full frame against the flat one: K5 picks K2's neighbours,
+# but breaks exact distance ties in Morton order, not by vertex index
+FRAME_TOL = 1e-6
 # operations per (query, vertex) pair: 3 subtractions, 3 multiplications,
 # 2 additions and a compare or min
 OPS_PER_PAIR = 9
@@ -108,7 +124,8 @@ def cuda_ms(fn, warmup=2, iters=10):
 
 
 # the port's own kernels, by the names the profiler gives them
-OWN_KERNELS = ("skip_mlp_kernel", "knn_blend_kernel", "min_dist_kernel")
+OWN_KERNELS = ("skip_mlp_kernel", "knn_blend_kernel", "min_dist_kernel",
+               "kth_dist_kernel", "knn_blocked_kernel", "knn_celled_kernel")
 
 
 def device_breakdown(fn, top=8):
@@ -150,6 +167,33 @@ def device_breakdown(fn, top=8):
             "kernels": [{"name": k[:80], "ms": v, "share": v / busy_ms}
                         for k, v in ranked],
             "own_kernels_ms": own}
+
+
+def wrapper_split(fn, kernel, iters=10):
+    """`iters` calls of a wrapper under the profiler, per call: its device
+    time, the part in `kernel`, and its largest kernels (the sorts and
+    gathers around the kernel)."""
+    fn()
+    prof = device_breakdown(lambda: [fn() for _ in range(iters)], top=4)
+    if prof["kernels"] is None:
+        return prof
+    return {"calls": iters, "device_ms": prof["device_ms"] / iters,
+            "kernel_ms": prof["own_kernels_ms"][kernel] / iters,
+            "top": [dict(k, ms=k["ms"] / iters) for k in prof["kernels"]]}
+
+
+def kernel_alone(times, split):
+    """The times of a wrapper that sorts, tiles and gathers around its
+    kernel (K5, K6): the kernel's own device time from the profiler as
+    kernel_ms, and the whole call's event time as call_ms. Where the
+    profiler saw no device time, kernel_ms is the whole call's, and
+    kernel_ms_from says so."""
+    own = split.get("kernel_ms")
+    rest = {k: v for k, v in times.items() if not k.startswith("kernel_ms")}
+    return {**rest, "kernel_ms": times["kernel_ms"] if own is None else own,
+            "kernel_ms_from": "events of the whole call" if own is None
+            else "profiler", "call_ms": times["kernel_ms"],
+            "call_ms_runs": times["kernel_ms_runs"], "profile": split}
 
 
 def bound(ops, nbytes):
@@ -268,13 +312,34 @@ def cdist_min(src, ref, chunk=16384):
                       for s in range(0, src.shape[0], chunk)])
 
 
-def phase_knn(knn, pvertices):
-    """K2 and K3 against their plain versions on the card, with times,
+def cdist_kth(src, ref, k=5, chunk=16384):
+    """The library chain K4 is timed against: torch.cdist and the k-th
+    value of torch.topk, chunked over the queries."""
+    import torch
+
+    return torch.cat([torch.topk(torch.cdist(src[s:s + chunk], ref), k, dim=1,
+                                 largest=False).values[:, k - 1]
+                      for s in range(0, src.shape[0], chunk)])
+
+
+def differing_rows(a_vals, a_wd, b_vals, b_wd):
+    """Rows that differ in any bit (a row with other neighbours has
+    another blend)."""
+    return ((a_vals != b_vals).any(1) | (a_wd != b_wd).any(1))
+
+
+def max_err(a_vals, a_wd, b_vals, b_wd):
+    return max((a_vals - b_vals).abs().max().item(),
+               (a_wd - b_wd).abs().max().item())
+
+
+def phase_knn(knn, common, pvertices, weights):
+    """K2-K6 against their plain versions on the card, with times,
     bounds and the library chains' times."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    m, c = pvertices.shape[0], 24
+    m, c = pvertices.shape[0], weights.shape[1]
     # K2: a seeded cloud of SMPL's size with K2_DUPS exact duplicates,
     # queries around its vertices, the first ones exactly on duplicated
     # vertices, so the lowest-index tie-break decides them
@@ -289,10 +354,8 @@ def phase_knn(knn, pvertices):
     got_v, got_d = knn.knn_blend(src, ref, values)
     torch.cuda.synchronize()
     ref_v, ref_d = knn.knn_blend_plain(src, ref, values)
-    err2 = max((got_v - ref_v).abs().max().item(), (got_d - ref_d).abs().max().item())
-    # a row whose neighbours differ has another blend, so rows that
-    # differ in any bit bound the rows with other neighbours
-    rows_differ = int(((got_v != ref_v).any(1) | (got_d != ref_d).any(1)).sum())
+    err2 = max_err(got_v, got_d, ref_v, ref_d)
+    rows_differ = int(differing_rows(got_v, got_d, ref_v, ref_d).sum())
     times2 = timed_pair(lambda: knn.knn_blend(src, ref, values),
                         lambda: knn.knn_blend_plain(src, ref, values),
                         lambda: cdist_knn(src, ref, values))
@@ -321,22 +384,137 @@ def phase_knn(knn, pvertices):
           **times3, "bound_ms": b3, "bound_by": by3,
           "library": "torch.cdist(...).amin(1), chunks of 16384 queries"}
     check(err3 <= KNN_TOL, f"K3 differs from its plain version: {err3}")
+
+    # K4: the 96^3 d5-grid build of the same frame
+    got = knn.kth_distance(nodes, pvertices)
+    torch.cuda.synchronize()
+    err4 = (got - knn.kth_distance_plain(nodes, pvertices)).abs().max().item()
+    times4 = timed_pair(lambda: knn.kth_distance(nodes, pvertices),
+                        lambda: knn.kth_distance_plain(nodes, pvertices),
+                        lambda: cdist_kth(nodes, pvertices))
+    b4, by4 = bound(OPS_PER_PAIR * n3 * m, 4 * (n3 * 3 + m * 3 + n3))
+    k4 = {"name": "kth_distance", "queries": n3, "vertices": m, "k": 5,
+          "max_abs_err": err4, **times4, "bound_ms": b4, "bound_by": by4,
+          "library": "torch.cdist + torch.topk (k-th value), chunks of 16384 "
+          "queries"}
+    check(err4 <= KNN_TOL, f"K4 differs from its plain version: {err4}")
+
+    # K5 and K6 on queries around the frame's posed vertices, against
+    # their plain versions and against K2 on the same queries
+    pick = torch.randint(0, m, (K2_ROWS,), device="cuda", generator=gen)
+    src = pvertices[pick] + 0.03 * torch.randn(K2_ROWS, 3, device="cuda",
+                                               generator=gen)
+    flat_v, flat_d = knn.knn_blend(src, pvertices, weights)
+    d5_packed, bounds = knn.build_d5_payload(pvertices, res=GRID_RES)
+    d5ub = common.grid_d5_upper(src, {"d5_packed": d5_packed,
+                                      "pdist_bounds": bounds})
+    blocks = knn.build_knn_blocks(pvertices, weights)
+    _, _, meta, bb = knn.blocked_tiles(src, d5ub, blocks[2])
+    keep = knn.blocked_cull(meta, bb)
+    tile, block = knn.BLOCKED_TILE, blocks[0].shape[0] // blocks[2].shape[0]
+    kept = int(keep.sum())
+    got_v, got_d = knn.knn_blend_blocked(src, d5ub, *blocks)
+    torch.cuda.synchronize()
+    ref_v, ref_d = knn.knn_blend_blocked_plain(src, d5ub, *blocks)
+    err5 = max_err(got_v, got_d, ref_v, ref_d)
+    differ5 = int(differing_rows(got_v, got_d, ref_v, ref_d).sum())
+    differ5_k2 = int(differing_rows(got_v, got_d, flat_v, flat_d).sum())
+    times5 = timed_pair(lambda: knn.knn_blend_blocked(src, d5ub, *blocks),
+                        lambda: knn.knn_blend_blocked_plain(src, d5ub, *blocks),
+                        lambda: cdist_knn(src, pvertices, weights))
+    blend_ops = K2_ROWS * 5 * (2 * c + 4)
+    io_bytes = 4 * (K2_ROWS * 4 + m * (3 + c) + K2_ROWS * (c + 1))
+    b5, by5 = bound(OPS_PER_PAIR * kept * tile * block + blend_ops, io_bytes)
+    b_flat, _ = bound(OPS_PER_PAIR * K2_ROWS * m + blend_ops, io_bytes)
+    k5 = {"name": "knn_blend_blocked", "queries": K2_ROWS, "vertices": m,
+          "channels": c, "tiles": keep.shape[0], "blocks": keep.shape[1],
+          "pairs_kept": kept, "cull_keep_share": kept / keep.numel(),
+          "max_abs_err": err5, "rows_differing": differ5,
+          "rows_differing_from_k2": differ5_k2,
+          **kernel_alone(times5, wrapper_split(
+              lambda: knn.knn_blend_blocked(src, d5ub, *blocks),
+              "knn_blocked_kernel")),
+          "bound_ms": b5,
+          "bound_by": by5, "bound_ms_flat": b_flat,
+          "library": "torch.cdist + torch.topk + gather, chunks of 16384 "
+          "queries"}
+    check(err5 <= KNN_TOL and differ5 == 0,
+          f"K5 differs from its plain version: {err5}, {differ5} rows")
+    check(differ5_k2 == 0, f"K5 differs from K2 on {differ5_k2} rows")
+
+    for cap in CELL_CAPS:
+        payload, overflow = knn.build_cell_knn(pvertices, weights, res=CELL_RES,
+                                               cap=cap, slot_cap=CELL_SLOTS)
+        if not bool(overflow):
+            break
+    check(not bool(overflow), f"K6: the cell lists overflow every cap {CELL_CAPS}")
+    lists = [payload[key] for key in
+             ("cknn_verts", "cknn_vals", "cknn_lut", "cknn_bounds")]
+    got_v, got_d = knn.knn_blend_celled(src, *lists)
+    torch.cuda.synchronize()
+    ref_v, ref_d = knn.knn_blend_celled_plain(src, *lists)
+    err6 = max_err(got_v, got_d, ref_v, ref_d)
+    differ6 = int(differing_rows(got_v, got_d, ref_v, ref_d).sum())
+    passing = flat_d[:, 0] < NORM_TH
+    differ6_k2 = int((differing_rows(got_v, got_d, flat_v, flat_d) & passing).sum())
+    below_k2 = int((got_d[~passing, 0] < flat_d[~passing, 0]).sum())
+    times6 = timed_pair(lambda: knn.knn_blend_celled(src, *lists),
+                        lambda: knn.knn_blend_celled_plain(src, *lists),
+                        lambda: cdist_knn(src, pvertices, weights))
+    # the work this run's data needs: each query against the real entries
+    # of its own list (pads sit at 1e6), at least k of them; the bytes are
+    # the queries, the outputs, the coordinates of the used slots' real
+    # entries, and k value rows per query or the used slots' real value
+    # rows, whichever is fewer
+    slot = knn.cell_slots(src, lists[2], lists[3])
+    list_len = (lists[0] != 1e6).any(1).sum(1)
+    used = slot.unique()
+    slots_used, entries_used = used.numel(), int(list_len[used].sum())
+    pairs6 = int(torch.clamp(list_len[slot], min=5).sum())
+    b6, by6 = bound(OPS_PER_PAIR * pairs6 + blend_ops,
+                    4 * (K2_ROWS * (4 + c) + 3 * entries_used
+                         + min(5 * K2_ROWS, entries_used) * c))
+    k6 = {"name": "knn_blend_celled", "queries": K2_ROWS, "vertices": m,
+          "cell_res": list(CELL_RES), "cap": cap,
+          "slots": lists[0].shape[0] - 1, "slots_used": slots_used,
+          "list_entries_used": entries_used, "pairs_needed": pairs6,
+          "pairs_swept": K2_ROWS * cap,
+          "rows_passing_filter": int(passing.sum()),
+          "max_abs_err": err6, "rows_differing": differ6,
+          "passing_rows_differing_from_k2": differ6_k2,
+          "other_rows_wdist_below_k2": below_k2,
+          **kernel_alone(times6, wrapper_split(
+              lambda: knn.knn_blend_celled(src, *lists), "knn_celled_kernel")),
+          "bound_ms": b6,
+          "bound_by": by6, "bound_ms_flat": b_flat,
+          "library": "torch.cdist + torch.topk + gather, chunks of 16384 "
+          "queries"}
+    check(err6 <= KNN_TOL and differ6 == 0,
+          f"K6 differs from its plain version: {err6}, {differ6} rows")
+    check(differ6_k2 == 0 and below_k2 == 0,
+          f"K6 against K2: {differ6_k2} passing rows differ, {below_k2} other "
+          "rows have a smaller wdist")
     emit({"phase": "knn_vs_plain", "tolerance": (
         "max abs err == 0 and no differing row: the kernels round every "
-        "operation as the plain versions do"), "kernels": [k2, k3]})
-    return k2, k3
+        "operation as the plain versions do; K5 equal to K2 on every row, "
+        "K6 on every row with K2's wdist < 0.1 and no smaller wdist "
+        "elsewhere"), "kernels": [k2, k3, k4, k5, k6]})
+    return k2, k3, k4, k5, k6
+
+
+KNN_WRAPPERS = ("knn_blend", "min_dist", "kth_distance", "knn_blend_blocked",
+                "knn_blend_celled")
 
 
 def launch_counts(k1, knn):
     return {"skip_mlp": k1.skip_mlp.launches,
-            "knn_blend": knn.knn_blend.launches,
-            "min_dist": knn.min_dist.launches}
+            **{name: getattr(knn, name).launches for name in KNN_WRAPPERS}}
 
 
 def reset_counts(k1, knn):
     k1.skip_mlp.launches = 0
-    knn.knn_blend.launches = 0
-    knn.min_dist.launches = 0
+    for name in KNN_WRAPPERS:
+        getattr(knn, name).launches = 0
 
 
 def phase_evaluate(name, cfg, jax_psnr, k1, knn):
@@ -382,7 +560,8 @@ def full_frame_item(ds, item):
 
 def phase_full_frame(name, eng, item, k1, knn):
     """One full-size frame, timed after a warm-up render, then profiled;
-    returns the kernels' launches in the timed render. Both the timed
+    returns the kernels' launches in the timed render and its maps. Both
+    the timed
     and the profiled render start without the frame's cached tensors,
     so they include the frame's upload and (SDF-PDF) its K3 grid."""
     import torch
@@ -406,7 +585,56 @@ def phase_full_frame(name, eng, item, k1, knn):
     eng.clear_frame_cache()
     emit({"phase": f"{name}_profile",
           **device_breakdown(lambda: eng.render_item(item))})
-    return launches
+    return launches, out
+
+
+def phase_blocked_vs_flat(eng, item, flat, knn, common):
+    """Render `item` once more with the blocked engine, recording pass
+    2's points and radii, and hold it to the flat frame `flat`: K5 and
+    K2 on those points may differ only on rows whose 6 nearest squared
+    distances hold an exact tie (K5 breaks it in Morton order, K2 by
+    vertex index), and the maps may differ by more than FRAME_TOL only
+    on as many rays as there are such rows (one sample each)."""
+    import torch
+
+    real, recorded = common.knn_blend_blocked, []
+
+    def recording(src, d5ub, *rest, **kwargs):
+        recorded.append((src, d5ub))
+        return real(src, d5ub, *rest, **kwargs)
+
+    common.knn_blend_blocked = recording
+    try:
+        out, _ = eng.render_item(item)
+    finally:
+        common.knn_blend_blocked = real
+    frame = eng._device_frame(item)
+    src = torch.cat([p for p, _ in recorded])
+    d5ub = torch.cat([r for _, r in recorded])
+    pverts = frame["pvertices"]
+    v5, w5 = knn.knn_blend_blocked(src, d5ub, frame["knn_verts"],
+                                   frame["knn_values"], frame["knn_bboxes"])
+    v2, w2 = knn.knn_blend(src, pverts, frame["weights"])
+    rows = differing_rows(v5, w5, v2, w2).nonzero().squeeze(1)
+    # the kernels' squared distances, (dx*dx + dy*dy) + dz*dz
+    q = src[rows]
+    d = [q[:, a:a + 1] - pverts[None, :, a] for a in range(3)]
+    top = torch.topk(d[0] * d[0] + d[1] * d[1] + d[2] * d[2], 6, dim=1,
+                     largest=False).values
+    tie_rows = int((top[:, 1:] == top[:, :-1]).any(1).sum())
+    ray_diff = ((np.abs(out["rgb_map"] - flat["rgb_map"]).max(-1) > FRAME_TOL)
+                | (np.abs(out["acc_map"] - flat["acc_map"]) > FRAME_TOL))
+    result = {"phase": "full_frame_blocked_vs_flat", "pass2_rows": src.shape[0],
+              "rows_differing_from_k2": rows.numel(), "tie_rows": tie_rows,
+              "rays_over_tol": int(ray_diff.sum()),
+              "max_abs_diff": {key: float(np.abs(out[key] - flat[key]).max())
+                               for key in ("rgb_map", "acc_map")},
+              "d5ub_below_exact": int((d5ub < knn.kth_distance(src, pverts)).sum()),
+              "tol": FRAME_TOL, "tie_distances": top[:4].tolist()}
+    emit(result)
+    check(tie_rows == rows.numel() and result["rays_over_tol"] <= rows.numel()
+          and result["d5ub_below_exact"] == 0,
+          f"the blocked full frame differs from the flat one: {result}")
 
 
 def main():
@@ -420,6 +648,7 @@ def main():
     from animatable_nerf_tpu_torch.config import load_config
     from animatable_nerf_tpu_torch.device import select_device
     from animatable_nerf_tpu_torch.engine import Engine, make_dataset
+    from animatable_nerf_tpu_torch.models import common
     from animatable_nerf_tpu_torch.ops import build, knn
     from animatable_nerf_tpu_torch.ops import skip_mlp as k1
 
@@ -442,13 +671,16 @@ def main():
     # ---- phase 2: K1 vs plain
     k1_rows = phase_k1(k1.skip_mlp, k1.skip_mlp_plain)
 
-    # ---- phase 3: K2 and K3 vs plain, on one capsule frame's vertices
+    # ---- phase 3: K2-K6 vs plain, on one capsule frame's vertices
     cfg_sdf = load_config("configs/synthetic_sdf_pdf.yaml", [], run_type="evaluate")
     cfg_sdf.eval = True
     ds_sdf = make_dataset(cfg_sdf, "test")
     item_sdf = ds_sdf[0]
     pverts = torch.as_tensor(item_sdf["pvertices"], device="cuda")
-    k2_row, k3_row = phase_knn(knn, pverts)
+    weights = torch.as_tensor(np.asarray(item_sdf["weights"], np.float32),
+                              device="cuda")
+    k2_row, k3_row, k4_row, k5_row, k6_row = phase_knn(knn, common, pverts,
+                                                       weights)
 
     # ---- phase 4: AniNeRF evaluate (the first slice's path)
     cfg = load_config("configs/synthetic.yaml", [], run_type="evaluate")
@@ -464,33 +696,63 @@ def main():
     eng.render_item(item)  # warm-up
     emit({"phase": "eval_frame_profile", "rays": len(item["ray_o"]),
           **device_breakdown(lambda: eng.render_item(item))})
-    frame_launches = phase_full_frame("full_frame", eng, full_frame_item(ds, item),
-                                      k1, knn)
+    frame_launches, _ = phase_full_frame("full_frame", eng,
+                                         full_frame_item(ds, item), k1, knn)
 
     # ---- phase 6: SDF-PDF evaluate (this slice's path) and full frame
     sdf_launches = phase_evaluate("evaluate_sdf_pdf", cfg_sdf, JAX_PSNR_SDF, k1, knn)
-    for kernel, n in sdf_launches.items():
-        check(n > 0, f"evaluate_sdf_pdf did not launch {kernel}")
+    for kernel in ("skip_mlp", "knn_blend", "min_dist"):
+        check(sdf_launches[kernel] > 0, f"evaluate_sdf_pdf did not launch {kernel}")
     eng_sdf = Engine(cfg_sdf, "cuda")
     eng_sdf.load_params()
-    sdf_frame_launches = phase_full_frame(
-        "full_frame_sdf_pdf", eng_sdf, full_frame_item(ds_sdf, item_sdf), k1, knn)
+    full_item_sdf = full_frame_item(ds_sdf, item_sdf)
+    sdf_frame_launches, sdf_frame = phase_full_frame(
+        "full_frame_sdf_pdf", eng_sdf, full_item_sdf, k1, knn)
+    del eng_sdf
+
+    # ---- phase 7: the same with knn_blocked (K4 d5 grid, K5 pass 2); the
+    # JAX package's CPU run takes its flat path, so its PSNR is phase 6's
+    cfg_blk = load_config("configs/synthetic_sdf_pdf.yaml", ["knn_blocked", "True"],
+                          run_type="evaluate")
+    blk_launches = phase_evaluate("evaluate_sdf_pdf_blocked", cfg_blk,
+                                  JAX_PSNR_SDF, k1, knn)
+    n_frames = len(JAX_PSNR_SDF)
+    check(blk_launches["kth_distance"] == n_frames
+          and blk_launches["knn_blend_blocked"] >= n_frames
+          and blk_launches["knn_blend"] == 0
+          and blk_launches["skip_mlp"] > 0 and blk_launches["min_dist"] > 0,
+          f"evaluate_sdf_pdf_blocked launched {blk_launches}")
+    eng_blk = Engine(cfg_blk, "cuda")
+    eng_blk.load_params()
+    blk_frame_launches, _ = phase_full_frame(
+        "full_frame_sdf_pdf_blocked", eng_blk, full_item_sdf, k1, knn)
+    check(blk_frame_launches["knn_blend"] == 0
+          and blk_frame_launches["kth_distance"] == 1,
+          f"full_frame_sdf_pdf_blocked launched {blk_frame_launches}")
+    phase_blocked_vs_flat(eng_blk, full_item_sdf, sdf_frame, knn, common)
 
     # ---- kernel table
     def k1_sum(key):
         return sum(r[key] for r in k1_rows)
 
-    def knn_entry(row, name, source_line, kernel):
+    def knn_entry(row, source_line, eval_launches, frame_launches):
+        """Launches: on the SDF-PDF path that runs the kernel (flat for
+        K2, blocked for K4 and K5; K3 on both; K6 on none). ms is the
+        kernel's own time; call_ms, where present, the whole wrapper's."""
+        name = row["name"]
+        call = {key: row[key] for key in ("call_ms", "kernel_ms_from")
+                if key in row}
         return {
             "name": name, "route": "cuda",
             "source": "animatable_nerf_tpu_torch/csrc/knn.cu",
             "replaces": f"animatable_nerf_tpu/ops/knn_pallas.py:{source_line}",
-            "launches": sdf_launches[kernel],
-            "launches_full_frame": sdf_frame_launches[kernel],
+            "launches": eval_launches[name],
+            "launches_full_frame": frame_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "kernel_ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "library": row["library"],
+            **call,
         }
 
     emit({"kernels": [
@@ -517,8 +779,11 @@ def main():
                 r["bound_by"] == "operations" for r in k1_rows) else "bytes",
             "library_ms": k1_sum("library_ms"),
         },
-        knn_entry(k2_row, "knn_blend", 55, "knn_blend"),
-        knn_entry(k3_row, "min_dist", 129, "min_dist"),
+        knn_entry(k2_row, 55, sdf_launches, sdf_frame_launches),
+        knn_entry(k3_row, 129, sdf_launches, sdf_frame_launches),
+        knn_entry(k4_row, 240, blk_launches, blk_frame_launches),
+        knn_entry(k5_row, 460, blk_launches, blk_frame_launches),
+        knn_entry(k6_row, 760, blk_launches, blk_frame_launches),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Kernels K1 (csrc/skip_mlp.cu), K2 and K3 (csrc/knn.cu) on the card
+"""Kernels K1 (csrc/skip_mlp.cu) and K2-K6 (csrc/knn.cu) on the card
 against their plain PyTorch versions. Needs an NVIDIA GPU and nvcc, and
 skips elsewhere; it imports nothing of JAX, so it also runs on a machine
 without it:
@@ -6,15 +6,16 @@ without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: K1 rtol = atol = 1e-5, float32 against float32 summed in
-another order (tests/test_ops.py's tolerance for the same kernel). K2
-and K3 round every operation as their plain versions do (no FMA, the
-same order), so they must agree to the bit: atol = rtol = 0.
+another order (tests/test_ops.py's tolerance for the same kernel). K2-K6
+round every operation as their plain versions do (no FMA, the same
+order), so they must agree to the bit: atol = rtol = 0.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from animatable_nerf_tpu_torch.models.common import grid_d5_upper
 from animatable_nerf_tpu_torch.ops import knn
 from animatable_nerf_tpu_torch.ops import skip_mlp as k1
 
@@ -150,15 +151,25 @@ def test_cuda_inputs_never_reach_the_plain_versions(cuda_device, monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a CUDA tensor reached a plain version")
 
-    monkeypatch.setattr(knn, "knn_blend_plain", refuse)
-    monkeypatch.setattr(knn, "min_dist_plain", refuse)
+    for name in ("knn_blend_plain", "min_dist_plain", "kth_distance_plain",
+                 "knn_blend_blocked_plain", "knn_blend_celled_plain",
+                 "_select_blend"):
+        monkeypatch.setattr(knn, name, refuse)
     src, ref, vals = (torch.tensor(a, device=cuda_device)
                       for a in knn_case(300, 700, 24, 7))
     knn.knn_blend(src, ref, vals)
     knn.min_dist(src, ref)
+    knn.kth_distance(src, ref)
     packed, margin, bounds = knn.build_pdist_payload(ref, res=16)
+    d5_packed, _ = knn.build_d5_payload(ref, res=16)
+    frame = {"d5_packed": d5_packed, "pdist_bounds": bounds}
+    knn.knn_blend_blocked(src, grid_d5_upper(src, frame),
+                          *knn.build_knn_blocks(ref, vals))
+    payload, _ = knn.build_cell_knn(ref, vals, res=(8, 8, 8), cap=256)
+    knn.knn_blend_celled(src, *(payload[k] for k in CELL_KEYS))
     torch.cuda.synchronize()
     assert packed.shape == (15, 15, 15, 8) and packed.is_cuda
+    assert d5_packed.shape == (15, 15, 15, 8) and d5_packed.is_cuda
 
 
 @pytest.mark.cuda
@@ -175,3 +186,85 @@ def test_cuda_knn_rejects_bad_inputs(cuda_device):
         knn.knn_blend(src, ref, vals.cpu())
     with pytest.raises(ValueError):
         knn.min_dist(src, ref.cpu())
+    with pytest.raises(ValueError):
+        knn.kth_distance(src, ref[:4])  # M < k
+    with pytest.raises(ValueError):
+        knn.kth_distance(src, ref, k=9)  # past the kernel's templates
+    blocks = knn.build_knn_blocks(ref, vals)
+    d5ub = torch.ones(16, device=cuda_device)
+    with pytest.raises(ValueError):
+        knn.knn_blend_blocked(src, d5ub[:8], *blocks)
+    with pytest.raises(ValueError, match="whole blocks"):
+        knn.knn_blend_blocked(src, d5ub, *blocks[:2], blocks[2].repeat(3, 1))
+    with pytest.raises(ValueError, match="at most 1024"):
+        knn.knn_blend_blocked(src, d5ub, blocks[0].repeat(16, 1),
+                              blocks[1].repeat(16, 1), blocks[2])
+    payload, _ = knn.build_cell_knn(ref, vals, res=(8, 8, 8), cap=64)
+    lists = [payload[k] for k in CELL_KEYS]
+    with pytest.raises(ValueError):
+        knn.knn_blend_celled(src, *lists[:2], lists[2].long(), lists[3])
+    with pytest.raises(ValueError):
+        knn.knn_blend_celled(src.double(), *lists)
+
+
+# M: fewer vertices than a 128-vertex block and one past it (K5's last
+# block then holds 123 or 127 pads), one past a 1024-vertex tile, SMPL's
+CULL_M = [5, 129, 1025, 6890]
+CELL_KEYS = ("cknn_verts", "cknn_vals", "cknn_lut", "cknn_bounds")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", CULL_M)
+def test_cuda_kth_distance_matches_plain(cuda_device, m):
+    src, ref, _ = (torch.tensor(a, device=cuda_device)
+                   for a in knn_case(1001, m, 1, 9, dup=min(3, m - 1)))
+    before = knn.kth_distance.launches
+    got = knn.kth_distance(src, ref)
+    torch.cuda.synchronize()
+    assert knn.kth_distance.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  knn.kth_distance_plain(src, ref).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", CULL_M)
+def test_cuda_knn_blend_blocked_matches_plain(cuda_device, m):
+    src, ref, vals = (torch.tensor(a, device=cuda_device)
+                      for a in knn_case(1003, m, 24, 10))
+    blocks = knn.build_knn_blocks(ref, vals)
+    packed, bounds = knn.build_d5_payload(ref, res=16)
+    d5ub = grid_d5_upper(src, {"d5_packed": packed, "pdist_bounds": bounds})
+    before = knn.knn_blend_blocked.launches
+    got_v, got_d = knn.knn_blend_blocked(src, d5ub, *blocks)
+    torch.cuda.synchronize()
+    assert knn.knn_blend_blocked.launches == before + 1
+    ref_v, ref_d = knn.knn_blend_blocked_plain(src, d5ub, *blocks)
+    np.testing.assert_array_equal(got_v.cpu().numpy(), ref_v.cpu().numpy())
+    np.testing.assert_array_equal(got_d.cpu().numpy(), ref_d.cpu().numpy())
+    # the bound is certified and this cloud has no ties: K2's result
+    flat_v, flat_d = knn.knn_blend(src, ref, vals)
+    np.testing.assert_array_equal(got_v.cpu().numpy(), flat_v.cpu().numpy())
+    np.testing.assert_array_equal(got_d.cpu().numpy(), flat_d.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", CULL_M)
+def test_cuda_knn_blend_celled_matches_plain(cuda_device, m):
+    """A spherical shell of vertices: the cells inside it route to the
+    fallback slot, and the queries at its centre use it."""
+    src, ref, vals = knn_case(997, m, 24, 11)
+    ref = 0.5 * ref / np.linalg.norm(ref, axis=-1, keepdims=True)
+    src[:40] = np.random.RandomState(12).normal(0, 0.02, (40, 3))
+    src, ref, vals = (torch.tensor(a, device=cuda_device)
+                      for a in (src, ref, vals))
+    payload, _ = knn.build_cell_knn(ref, vals, res=(8, 8, 8), cap=1024)
+    lists = [payload[k] for k in CELL_KEYS]
+    n_slots = lists[0].shape[0]
+    assert int((knn.cell_slots(src, *lists[2:]) == n_slots - 1).sum()) >= 40
+    before = knn.knn_blend_celled.launches
+    got_v, got_d = knn.knn_blend_celled(src, *lists)
+    torch.cuda.synchronize()
+    assert knn.knn_blend_celled.launches == before + 1
+    ref_v, ref_d = knn.knn_blend_celled_plain(src, *lists)
+    np.testing.assert_array_equal(got_v.cpu().numpy(), ref_v.cpu().numpy())
+    np.testing.assert_array_equal(got_d.cpu().numpy(), ref_d.cpu().numpy())

@@ -132,7 +132,7 @@ def test_cli_evaluates_sdf_pdf_on_cpu(tmp_path, monkeypatch):
 @pytest.mark.parametrize("opts", [["network_module", "nerf_pdf"],
                                   ["network_module", "neus_pdf"],
                                   ["knn_grid_res", "0"],
-                                  ["knn_blocked", "True"]])
+                                  ["seg_filter", "True"]])
 def test_options_not_ported_yet_raise(opts):
     cfg = load_config(CFG, opts, run_type="evaluate")
     with pytest.raises(NotImplementedError, match="not ported yet"):
