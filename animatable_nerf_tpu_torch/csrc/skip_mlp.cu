@@ -1,4 +1,5 @@
-// Fused skip-MLP forward for NVIDIA Hopper (sm_90a), FP32.
+// Fused skip-MLP forward for NVIDIA Hopper (sm_90a), on the tensor
+// cores at float32 accuracy (3xTF32).
 //
 // Replaces the TPU kernel animatable_nerf_tpu/ops/mlp_pallas.py
 // `fused_skip_mlp` (body `_mlp_kernel`): a whole stack of dense layers
@@ -8,36 +9,41 @@
 // `skips` (the next layer then reads [x, h]).
 //
 // What bounds it here: arithmetic. The AniNeRF trunks are 8x256 layers
-// (about 0.55 M multiply-adds per point), so a tile of 64 points does
-// ~70 MFLOP against ~2.2 MB of weights that every tile shares from L2.
-// Device-memory traffic is only x in and the output out, so the kernel
-// is bound by FP32 FMA throughput, not by bytes.
+// (about 0.55 M multiply-adds per point). The products run on the
+// tensor cores in TF32 with three passes per product (lo*hi, hi*lo,
+// then hi*hi, each operand split as hi = rna_tf32(v), lo = rna_tf32(v -
+// hi), accumulated in float32), so the least time is 3 x FLOP over the
+// 495 TFLOP/s TF32 rate. Device-memory traffic is only x in and the
+// output out; the weights (about 2 MB per stack) come from L2 once per
+// block, so a block owns 128 rows, which halves that traffic against 64.
 //
-// What the design does about it (FP32 CUDA-core FMAs; tensor cores, TMA
-// and bf16 belong to later work):
-//   * one block of 256 threads owns 64 rows; the tile's input x and its
-//     activations h stay in shared memory across all layers, which is
-//     what the TPU kernel keeps in VMEM instead of HBM;
-//   * activations are stored k-major (feature-major, rows contiguous,
-//     stride 68 floats), so each thread reads its 8 rows of one feature
-//     as two float4 loads that the whole warp shares (broadcast);
-//   * weights stream from L2 into shared memory in chunks of 32 input
-//     rows through a two-stage cp.async pipeline: the next chunk is in
-//     flight while the current one is multiplied, so the FMA loop reads
-//     only shared memory and never waits on L2;
-//   * each thread accumulates an 8-row x 8-column register tile; its
-//     columns are two runs of 4 (4*lane and 128 + 4*lane), read as two
-//     float4 loads that tile a warp's 512 contiguous bytes;
-//   * the skip concat reads the x and h segments in place (the weight
-//     rows of the x segment come first) and copies nothing; layer outputs
-//     overwrite h between two barriers, so one h buffer suffices;
-//   * shared memory is (din + 256) * 68 * 4 + 2 * 32 * 256 * 4 bytes,
-//     183 KB for din = 191 (din <= 357 fits the 227 KB a block may
-//     have): dynamic shared memory, one block per SM;
-//   * no padding of din or N: ragged tiles read zeros and skip stores.
+// Design (one block of 384 threads per SM):
+//   * two consumer warpgroups of 64 rows each run wgmma.mma_async
+//     m64n64k8 TF32 with A (the activations) from registers, split on
+//     the fly, and B (the weights) from shared memory;
+//   * a producer warpgroup streams the weights: ops/skip_mlp.py
+//     `pack_layers` cuts each layer into chunks of 16 input features x
+//     all outputs, each contiguous and in K-major core-matrix order, so
+//     one thread brings a chunk in with one cp.async.bulk as soon as a
+//     stage of the 3-stage ring is free, and three warps split it in
+//     shared memory (hi in place, lo beside it). mbarriers hand the
+//     stages over (loaded, full, empty), so copies and splits overlap
+//     the consumers' products and each weight byte read from L2 feeds
+//     128 rows;
+//   * the activations h of the 128 rows stay in shared memory in float32
+//     (row stride 260 floats: the A-fragment loads hit 32 banks); each
+//     warp reads and writes only its own 16 rows, so layers need no
+//     block barrier. Layer 0 reads x, staged in h's place; the layer
+//     after a skip reads its x segment from global memory (x does not
+//     fit beside h and the ring);
+//   * the number of 64-wide output tiles is a template argument of the
+//     products: a wgmma under a runtime condition makes ptxas serialize
+//     them all. The epilogue is one short loop per activation: unrolled
+//     code for every case missed the instruction cache;
+//   * widths are padded to 16 in the packing, so the padding is exact;
+//     ragged rows load zeros and skip stores.
 //
-// Interface: a plain C function (bound with ctypes), weights as (in, out)
-// row-major float32 like the JAX wrapper's `layers`, launched on the
+// Interface: a plain C function (bound with ctypes), launched on the
 // caller's stream; it returns cudaGetLastError() of the launch.
 
 #include <cstdint>
@@ -47,228 +53,433 @@
 namespace {
 
 constexpr int kMaxLayers = 16;
-constexpr int kTileRows = 64;      // points per block
-constexpr int kRowsPerThread = 8;  // register tile rows
-constexpr int kLanes = 32;         // threads across output columns
-constexpr int kThreads = (kTileRows / kRowsPerThread) * kLanes;  // 256
-constexpr int kMaxWidth = 256;     // widest layer output
-constexpr int kColsPerThread = 8;  // two runs of 4 columns
-constexpr int kStride = kTileRows + 4;  // floats per feature row in smem
-constexpr int kChunk = 32;         // weight rows per pipeline stage
-constexpr int kStages = 2;
+constexpr int kMaxWidth = 256;   // widest layer input or output
+constexpr int kChunkK = 16;      // input features per packed weight chunk
+constexpr int kConsumers = 2;    // warpgroups of 64 rows
+constexpr int kTileRows = 64 * kConsumers;
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kStages = 3;
+constexpr int kHStride = kMaxWidth + 4;  // floats per row of h in smem
+constexpr int kChunkFloats = kMaxWidth * kChunkK;
+constexpr int kNTile = 64;  // wgmma N
+constexpr int kSplitters = 96;  // producer threads that split chunks
+// the ring's stages (hi and lo), h, and the ring's mbarriers: 231,496
+// bytes of the 232,448 a block may have
+constexpr int kSmemBytes =
+    (kStages * 2 * kChunkFloats + kTileRows * kHStride) * sizeof(float) +
+    3 * kStages * sizeof(uint64_t);
 
 struct MLPArgs {
-  const float* w[kMaxLayers];  // (in, out) row-major
-  const float* b[kMaxLayers];  // (out,)
-  int dout[kMaxLayers];
+  const float* w[kMaxLayers];  // packed, see pack_layers
+  const float* b[kMaxLayers];  // (np,) zero-padded
+  int dout[kMaxLayers];        // true output width
+  int np[kMaxLayers];          // padded output width
   int n_layers;
   int din;
+  int din_p;
   unsigned skips;  // bit l: re-concat x after layer l's activation
   int act;         // 0 relu, 1 softplus, 2 none
   int act_last;
 };
 
-__device__ __forceinline__ float activate(float v, int act) {
-  if (act == 0) return fmaxf(v, 0.f);
-  if (act == 1) return fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
-  return v;
+__device__ __forceinline__ float softplus(float v) {
+  return fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
+// The TF32 value the tensor cores read, rounded to nearest with ties
+// away from zero: the cvt.rna.tf32.f32 rule, by bit arithmetic (ptxas
+// emulates cvt.rna with the same add and mask plus an inf/NaN guard,
+// which finite values do not need).
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
+// v = hi + lo with hi, lo TF32
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_wait_newest_pending() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
 }
 
-// Copy weight rows [row0, row0 + kn) of w (rows of `dout` floats) into a
-// stage buffer with row stride kMaxWidth.
-__device__ __forceinline__ void load_chunk(float* dst, const float* w,
-                                           int row0, int kn, int dout,
-                                           bool vec4, int tid) {
-  const float* src = w + static_cast<size_t>(row0) * dout;
-  if (vec4) {
-    const int q = dout / 4;
-    for (int e = tid; e < kn * q; e += kThreads) {
-      const int r = e / q;
-      const int c = (e - r * q) * 4;
-      cp_async16(dst + r * kMaxWidth + c, src + r * dout + c);
-    }
-  } else {
-    for (int e = tid; e < kn * dout; e += kThreads) {
-      const int r = e / dout;
-      const int c = e - r * dout;
-      cp_async4(dst + r * kMaxWidth + c, src + r * dout + c);
-    }
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
   }
 }
 
-// acc[r][j] += sum_k a[k][row0 + r] * wk[k][col(j)], k < kn
-__device__ __forceinline__ void fma_chunk(
-    float (&acc)[kRowsPerThread][kColsPerThread], const float* a,
-    const float* wk, int kn, int row0, int lane) {
+__device__ __forceinline__ void bulk_load(float* dst, const float* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Shared-memory descriptor of a K-major, unswizzled B tile: core
+// matrices of 8 rows (N) x 16 bytes (4 K), 128 bytes each; the next one
+// along K at +128 bytes (leading offset), along N at +512 (stride).
+__device__ __forceinline__ uint64_t b_desc(const float* p) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (64 x 64, f32) += a (64 x 8, TF32, registers) x B (8 x 64, smem)
+__device__ __forceinline__ void wgmma_n64(float (&d)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+struct Ring {
+  float* stage;       // kStages x (hi, lo) x kChunkFloats
+  uint64_t* loaded;   // the bulk copy has landed
+  uint64_t* full;     // hi and lo are ready for the consumers
+  uint64_t* empty;    // the consumers are done with the stage
+};
+
+// Walks the chunks of every layer in the order the consumers use them.
+struct Cursor {
+  int l, c, k_width;  // layer, chunk, padded input width of the layer
+  __device__ bool next(const MLPArgs& a) {
+    if (++c * kChunkK >= k_width) {
+      k_width = a.np[l] + (((a.skips >> l) & 1u) ? a.din_p : 0);
+      ++l;
+      c = 0;
+    }
+    return l < a.n_layers;
+  }
+};
+
+// The producer warpgroup. Its last warp's first thread issues the bulk
+// copies, each as soon as the consumers free a stage; the other three
+// warps split each landed chunk into hi (in place) and lo and hand it
+// to the consumers, so neither job waits on the other.
+__device__ __forceinline__ void produce(const MLPArgs& args, const Ring& ring,
+                                        int ptid) {
+  Cursor cur{0, 0, args.din_p};
+  int stage = 0;
+  uint32_t phase = 0;
+  if (ptid >= kSplitters) {
+    if (ptid != kSplitters) return;
+    do {
+      mbar_wait(&ring.empty[stage], phase ^ 1u);
+      const int chunk_floats = args.np[cur.l] * kChunkK;
+      mbar_expect_tx(&ring.loaded[stage], chunk_floats * 4);
+      bulk_load(ring.stage + stage * 2 * kChunkFloats,
+                args.w[cur.l] + static_cast<size_t>(cur.c) * chunk_floats,
+                chunk_floats * 4, &ring.loaded[stage]);
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1u;
+      }
+    } while (cur.next(args));
+    return;
+  }
+  do {
+    const int chunk_floats = args.np[cur.l] * kChunkK;
+    float* hi = ring.stage + stage * 2 * kChunkFloats;
+    float* lo = hi + kChunkFloats;
+    mbar_wait(&ring.loaded[stage], phase);
 #pragma unroll 4
-  for (int k = 0; k < kn; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(a + k * kStride + row0);
-    const float4 a1 =
-        *reinterpret_cast<const float4*>(a + k * kStride + row0 + 4);
-    const float4 b0 =
-        *reinterpret_cast<const float4*>(wk + k * kMaxWidth + 4 * lane);
-    const float4 b1 = *reinterpret_cast<const float4*>(
-        wk + k * kMaxWidth + 128 + 4 * lane);
-    const float av[kRowsPerThread] = {a0.x, a0.y, a0.z, a0.w,
-                                      a1.x, a1.y, a1.z, a1.w};
-    const float bv[kColsPerThread] = {b0.x, b0.y, b0.z, b0.w,
-                                      b1.x, b1.y, b1.z, b1.w};
+    for (int e = 4 * ptid; e < chunk_floats; e += 4 * kSplitters) {
+      const float4 v = *reinterpret_cast<const float4*>(hi + e);
+      uint32_t h[4], o[4];
+      split_tf32(v.x, h[0], o[0]);
+      split_tf32(v.y, h[1], o[1]);
+      split_tf32(v.z, h[2], o[2]);
+      split_tf32(v.w, h[3], o[3]);
+      *reinterpret_cast<uint4*>(hi + e) = make_uint4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint4*>(lo + e) = make_uint4(o[0], o[1], o[2], o[3]);
+    }
+    // these generic-proxy writes are read by wgmma (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_arrive(&ring.full[stage]);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  } while (cur.next(args));
+}
+
+// One chunk's products for the first NT n-tiles of 64 outputs, in
+// 3xTF32 order (lo*hi, hi*lo, then hi*hi), then wait for them.
+template <int NT>
+__device__ __forceinline__ void chunk_products(
+    float (&acc)[kMaxWidth / kNTile][32], uint32_t (&ahi)[2][4],
+    uint32_t (&alo)[2][4], const float* hi) {
+  const float* lo = hi + kChunkFloats;
 #pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r)
+  for (int j = 0; j < NT; ++j) fence_operands(acc[j]);
+  wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j)
-        acc[r][j] = fmaf(av[r], bv[j], acc[r][j]);
+  for (int s = 0; s < 2; ++s) {
+    // B of n-tile j, step s: core matrices (8j.., 2s) of the chunk
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      wgmma_n64(acc[j], alo[s], b_desc(hi + 1024 * j + 64 * s));
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      wgmma_n64(acc[j], ahi[s], b_desc(lo + 1024 * j + 64 * s));
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      wgmma_n64(acc[j], ahi[s], b_desc(hi + 1024 * j + 64 * s));
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int j = 0; j < NT; ++j) fence_operands(acc[j]);
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    fence_operands(ahi[s]);
+    fence_operands(alo[s]);
   }
 }
 
-__device__ __forceinline__ int col_of(int lane, int j) {
-  return (j < 4 ? 0 : 128 - 4) + 4 * lane + j;
+// A consumer warpgroup: 64 rows, all layers.
+__device__ __forceinline__ void consume(const float* __restrict__ x,
+                                        float* __restrict__ out, int n,
+                                        const MLPArgs& args, const Ring& ring,
+                                        float* hs, long long tile0, int wg,
+                                        int ctid) {
+  const int warp = ctid / 32;
+  const int lane = ctid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int din = args.din;
+  const int din_p = args.din_p;
+  const int wrow = 64 * wg + 16 * warp;  // this warp's first row in the tile
+  float* hw = hs + wrow * kHStride;      // ... its rows of h
+  const long long grow = tile0 + wrow + g;  // global rows grow, grow + 8
+
+  // layer 0 reads x, staged where h goes (padded columns zero)
+  for (int e = lane; e < 16 * din_p; e += 32) {
+    const int r = e / din_p;
+    const int k = e - r * din_p;
+    const long long row = tile0 + wrow + r;
+    hw[r * kHStride + k] = (row < n && k < din) ? x[row * din + k] : 0.f;
+  }
+  __syncwarp();
+
+  int stage = 0;
+  uint32_t phase = 0;
+  int h_width = din_p;  // padded width of the segment read from hs
+  bool with_x = false;  // the layer reads x from global memory first
+  for (int l = 0; l < args.n_layers; ++l) {
+    const int np = args.np[l];
+    const int nt = (np + kNTile - 1) / kNTile;
+    float acc[kMaxWidth / kNTile][32];
+#pragma unroll
+    for (int j = 0; j < kMaxWidth / kNTile; ++j) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int c = kNTile * j + 8 * q + 2 * t;
+        const float b0 = c < np ? __ldg(args.b[l] + c) : 0.f;
+        const float b1 = c + 1 < np ? __ldg(args.b[l] + c + 1) : 0.f;
+        acc[j][4 * q + 0] = b0;
+        acc[j][4 * q + 1] = b1;
+        acc[j][4 * q + 2] = b0;
+        acc[j][4 * q + 3] = b1;
+      }
+    }
+
+    const int nx = with_x ? din_p / kChunkK : 0;
+    const int nc = nx + h_width / kChunkK;
+    for (int c = 0; c < nc; ++c) {
+      // this lane's A values, split: rows g, g + 8 of the warp, columns
+      // t, t + 4 of each of the chunk's two k8 steps
+      uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        float v[4];
+        if (c < nx) {
+          const int k = c * kChunkK + 8 * s + t;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const long long row = grow + 8 * (q & 1);
+            const int kq = k + 4 * (q >> 1);
+            v[q] = (row < n && kq < din) ? __ldg(x + row * din + kq) : 0.f;
+          }
+        } else {
+          const float* a = hw + g * kHStride + (c - nx) * kChunkK + 8 * s + t;
+          v[0] = a[0];
+          v[1] = a[8 * kHStride];
+          v[2] = a[4];
+          v[3] = a[8 * kHStride + 4];
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) split_tf32(v[q], ahi[s][q], alo[s][q]);
+      }
+
+      mbar_wait(&ring.full[stage], phase);
+      const float* hi = ring.stage + stage * 2 * kChunkFloats;
+      switch (nt) {
+        case 1: chunk_products<1>(acc, ahi, alo, hi); break;
+        case 2: chunk_products<2>(acc, ahi, alo, hi); break;
+        case 3: chunk_products<3>(acc, ahi, alo, hi); break;
+        default: chunk_products<4>(acc, ahi, alo, hi); break;
+      }
+      mbar_arrive(&ring.empty[stage]);
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1u;
+      }
+    }
+
+    __syncwarp();  // every lane of the warp has read its rows of hs
+    const bool last = l == args.n_layers - 1;
+    if (!last || args.act_last) {
+      // one short loop per activation: the epilogue runs once per layer,
+      // and unrolled code for every case would miss the instruction cache
+      if (args.act == 0) {
+#pragma unroll
+        for (int j = 0; j < kMaxWidth / kNTile; ++j)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) acc[j][e] = fmaxf(acc[j][e], 0.f);
+      } else if (args.act == 1) {
+#pragma unroll
+        for (int j = 0; j < kMaxWidth / kNTile; ++j)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) acc[j][e] = softplus(acc[j][e]);
+      }
+    }
+    if (last) {
+      const int dout = args.dout[l];
+#pragma unroll
+      for (int j = 0; j < kMaxWidth / kNTile; ++j) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int c = kNTile * j + 8 * q + 2 * t;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const long long row = grow + 8 * h;
+            if (row < n && c < dout) out[row * dout + c] = acc[j][4 * q + 2 * h];
+            if (row < n && c + 1 < dout)
+              out[row * dout + c + 1] = acc[j][4 * q + 2 * h + 1];
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kMaxWidth / kNTile; ++j) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int c = kNTile * j + 8 * q + 2 * t;
+          if (c < np) {
+            *reinterpret_cast<float2*>(hw + g * kHStride + c) =
+                make_float2(acc[j][4 * q], acc[j][4 * q + 1]);
+            *reinterpret_cast<float2*>(hw + (g + 8) * kHStride + c) =
+                make_float2(acc[j][4 * q + 2], acc[j][4 * q + 3]);
+          }
+        }
+      }
+    }
+    __syncwarp();  // ... and written them before the next layer reads
+    h_width = np;
+    with_x = (args.skips >> l) & 1u;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
     skip_mlp_kernel(const float* __restrict__ x, float* __restrict__ out,
                     int n, MLPArgs args) {
-  extern __shared__ __align__(16) float smem[];
-  const int din = args.din;
-  float* xs = smem;                       // din x kStride, k-major
-  float* hs = xs + din * kStride;         // kMaxWidth x kStride, k-major
-  float* ws = hs + kMaxWidth * kStride;   // kStages x kChunk x kMaxWidth
+  extern __shared__ __align__(128) float smem[];
+  Ring ring;
+  ring.stage = smem;
+  float* hs = smem + kStages * 2 * kChunkFloats;  // kTileRows x kHStride
+  uint64_t* bars = reinterpret_cast<uint64_t*>(hs + kTileRows * kHStride);
+  ring.loaded = bars;
+  ring.full = bars + kStages;
+  ring.empty = bars + 2 * kStages;
   const int tid = threadIdx.x;
-  const int lane = tid % kLanes;
-  const int row0 = (tid / kLanes) * kRowsPerThread;
-  const long long tile0 = static_cast<long long>(blockIdx.x) * kTileRows;
-
-  for (int i = tid; i < kTileRows * din; i += kThreads) {
-    const int r = i / din;
-    const int k = i - r * din;
-    const long long row = tile0 + r;
-    xs[k * kStride + r] = row < n ? x[row * din + k] : 0.f;
+  const int wg = tid / 128;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&ring.loaded[s], 1);
+      mbar_init(&ring.full[s], kSplitters);
+      mbar_init(&ring.empty[s], 128 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-
-  int h_width = 0;     // width of the h segment the current layer reads
-  bool with_x = true;  // the current layer reads the x segment first
-  for (int l = 0; l < args.n_layers; ++l) {
-    const int dout = args.dout[l];
-    const float* __restrict__ w = args.w[l];
-    const bool vec4 =
-        (dout % 4 == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
-    // chunks [0, nx) walk the x segment, [nx, nx + nh) the h segment
-    const int nx = with_x ? (din + kChunk - 1) / kChunk : 0;
-    const int nh = (h_width + kChunk - 1) / kChunk;
-    const int h_row0 = with_x ? din : 0;  // first weight row of h
-    auto chunk = [&](int c, const float*& a, int& wrow, int& kn) {
-      if (c < nx) {
-        const int k0 = c * kChunk;
-        a = xs + k0 * kStride;
-        wrow = k0;
-        kn = min(kChunk, din - k0);
-      } else {
-        const int k0 = (c - nx) * kChunk;
-        a = hs + k0 * kStride;
-        wrow = h_row0 + k0;
-        kn = min(kChunk, h_width - k0);
-      }
-    };
-
-    const float* a;
-    int wrow, kn;
-    chunk(0, a, wrow, kn);
-    load_chunk(ws, w, wrow, kn, dout, vec4, tid);
-    cp_async_commit();
-
-    float acc[kRowsPerThread][kColsPerThread];
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
-      const int c = col_of(lane, j);
-      const float bj = c < dout ? __ldg(args.b[l] + c) : 0.f;
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) acc[r][j] = bj;
-    }
-
-    for (int c = 0; c < nx + nh; ++c) {
-      if (c + 1 < nx + nh) {
-        const float* a_next;
-        int wrow_next, kn_next;
-        chunk(c + 1, a_next, wrow_next, kn_next);
-        load_chunk(ws + ((c + 1) % kStages) * kChunk * kMaxWidth, w,
-                   wrow_next, kn_next, dout, vec4, tid);
-      }
-      cp_async_commit();  // possibly empty: keeps the group count uniform
-      cp_async_wait_newest_pending();  // chunk c has landed
-      __syncthreads();  // ... for every thread, and xs/hs are written
-      chunk(c, a, wrow, kn);
-      fma_chunk(acc, a, ws + (c % kStages) * kChunk * kMaxWidth, kn, row0,
-                lane);
-      __syncthreads();  // stage c % kStages is free to be refilled
-    }
-
-    const bool last = l == args.n_layers - 1;
-    if (!last || args.act_last) {
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r)
-#pragma unroll
-        for (int j = 0; j < kColsPerThread; ++j)
-          acc[r][j] = activate(acc[r][j], args.act);
-    }
-    if (last) {
-      const bool out4 =
-          (dout % 4 == 0) && (reinterpret_cast<uintptr_t>(out) % 16 == 0);
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-        const long long row = tile0 + row0 + r;
-        if (row >= n) break;
-        float* dst = out + row * dout;
-#pragma unroll
-        for (int g = 0; g < 2; ++g) {
-          const int c0 = col_of(lane, 4 * g);
-          if (out4 && c0 < dout) {
-            *reinterpret_cast<float4*>(dst + c0) =
-                make_float4(acc[r][4 * g], acc[r][4 * g + 1],
-                            acc[r][4 * g + 2], acc[r][4 * g + 3]);
-          } else if (!out4) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              if (c0 + i < dout) dst[c0 + i] = acc[r][4 * g + i];
-          }
-        }
-      }
-    } else {
-      // every thread finished reading hs at the chunk loop's last barrier
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) {
-        const int c = col_of(lane, j);
-        if (c < dout) {
-          float* dst = hs + c * kStride + row0;
-          *reinterpret_cast<float4*>(dst) =
-              make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
-          *reinterpret_cast<float4*>(dst + 4) =
-              make_float4(acc[4][j], acc[5][j], acc[6][j], acc[7][j]);
-        }
-      }
-      h_width = dout;
-      with_x = (args.skips >> l) & 1u;
-      // the next layer's first barrier orders these writes before reads
-    }
+  __syncthreads();
+  const long long tile0 = static_cast<long long>(blockIdx.x) * kTileRows;
+  // registers: the launch gives 168 a thread (65,536 / 384); the producer
+  // hands most of its share to the consumers' accumulators (2 x 128 x
+  // 224 + 128 x 56 = 64,512)
+  if (wg == kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    produce(args, ring, tid - 128 * kConsumers);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+    consume(x, out, n, args, ring, hs, tile0, wg, tid % 128);
   }
 }
 
@@ -276,22 +487,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 extern "C" {
 
-// Shared memory one block needs for an input width `din`.
-int skip_mlp_smem_bytes(int din) {
-  return ((din + kMaxWidth) * kStride + kStages * kChunk * kMaxWidth) *
-         static_cast<int>(sizeof(float));
-}
-
 int skip_mlp_max_layers() { return kMaxLayers; }
 int skip_mlp_max_width() { return kMaxWidth; }
+int skip_mlp_chunk_k() { return kChunkK; }
 
-// out (n, dout_last) = MLP(x (n, din)); w[l] (in_l, dout[l]), b[l] (dout[l]).
-// Returns 0 or the CUDA error of the launch (cudaGetLastError).
+// out (n, dout[n_layers - 1]) = MLP(x (n, din)); w[l] packed by
+// pack_layers, b[l] its padded bias. Returns 0 or the CUDA error of the
+// launch (cudaGetLastError).
 int skip_mlp_forward(const float* x, float* out, int n, int din, int n_layers,
                      const void* const* w, const void* const* b,
                      const int* dout, unsigned skips, int act, int act_last,
                      void* stream) {
-  if (n_layers < 1 || n_layers > kMaxLayers || din < 1)
+  if (n_layers < 1 || n_layers > kMaxLayers || din < 1 || din > kMaxWidth)
     return static_cast<int>(cudaErrorInvalidValue);
   MLPArgs args;
   for (int l = 0; l < n_layers; ++l) {
@@ -300,19 +507,20 @@ int skip_mlp_forward(const float* x, float* out, int n, int din, int n_layers,
     args.w[l] = static_cast<const float*>(w[l]);
     args.b[l] = static_cast<const float*>(b[l]);
     args.dout[l] = dout[l];
+    args.np[l] = (dout[l] + kChunkK - 1) / kChunkK * kChunkK;
   }
   args.n_layers = n_layers;
   args.din = din;
+  args.din_p = (din + kChunkK - 1) / kChunkK * kChunkK;
   args.skips = skips;
   args.act = act;
   args.act_last = act_last;
-  const int smem = skip_mlp_smem_bytes(din);
   cudaError_t err = cudaFuncSetAttribute(
-      skip_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      skip_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n == 0) return 0;
   const int blocks = (n + kTileRows - 1) / kTileRows;
-  skip_mlp_kernel<<<blocks, kThreads, smem,
+  skip_mlp_kernel<<<blocks, kThreads, kSmemBytes,
                     static_cast<cudaStream_t>(stream)>>>(x, out, n, args);
   return static_cast<int>(cudaGetLastError());
 }

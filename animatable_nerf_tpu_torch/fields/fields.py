@@ -48,7 +48,8 @@ class BlendWeightField(nn.Module):
         feat = torch.cat(
             [pe, latent.expand(pe.shape[0], latent.shape[0])], dim=-1
         )
-        logits = run_skip_mlp(feat, [*self.bw_linears, self.bw_fc], _SKIPS)
+        logits = run_skip_mlp(self, feat, [*self.bw_linears, self.bw_fc],
+                              _SKIPS)
         return torch.softmax(torch.log(smpl_bw + 1e-9) + logits, dim=-1)
 
     def forward(self, pts, smpl_bw, latent_index: int):
@@ -80,7 +81,8 @@ class TPoseNeRF(nn.Module):
 
     def trunk(self, pts):
         pe = positional_encoding(pts, self.xyz_res)
-        return run_skip_mlp(pe, self.pts_linears, _SKIPS, act_last=True)
+        return run_skip_mlp(self, pe, self.pts_linears, _SKIPS,
+                            act_last=True)
 
     def forward(self, pts, viewdir, latent_index: int):
         """pts (N, 3), viewdir (N, 3) -> (sigma (N,), rgb_logits (N, 3))."""
@@ -115,7 +117,8 @@ class ResidualField(nn.Module):
         feat = torch.cat(
             [pe, pose_vec.expand(pe.shape[0], pose_vec.shape[-1])], dim=-1
         )
-        out = run_skip_mlp(feat, [*self.resd_linears, self.resd_fc], _SKIPS)
+        out = run_skip_mlp(self, feat, [*self.resd_linears, self.resd_fc],
+                           _SKIPS)
         return 0.05 * torch.tanh(out)
 
 

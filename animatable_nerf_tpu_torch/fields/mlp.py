@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.skip_mlp import skip_mlp
+from ..ops.skip_mlp import pack_layers, skip_mlp
 
 
 def skip_linears(din: int, width: int, depth: int, skips) -> nn.ModuleList:
@@ -33,16 +33,42 @@ def skip_linears(din: int, width: int, depth: int, skips) -> nn.ModuleList:
 
 
 def kernel_layers(linears) -> list:
-    """nn.Linear weights (out, in) -> K1's (W (in, out), b) pairs."""
-    return [(lin.weight.t().contiguous(), lin.bias) for lin in linears]
+    """nn.Linear weights (out, in) -> K1's (W (in, out), b) pairs, as
+    views (the plain version multiplies them as they are)."""
+    return [(lin.weight.t(), lin.bias) for lin in linears]
 
 
-def run_skip_mlp(x, linears, skips, act_last: bool = False):
-    """Apply a stack of nn.Linear layers as one K1 call (ReLU)."""
-    return skip_mlp(
-        x.contiguous(), kernel_layers(linears), skips=tuple(skips),
-        act="relu", act_last=act_last,
-    )
+def packed_layers(owner: nn.Module, linears, skips, din: int):
+    """K1's packed weights of `linears`, made once per weight version
+    and kept on `owner`, the module that holds them. The key is each
+    parameter itself (held, so its identity cannot be reused), its
+    `_version`, which every in-place update bumps (optimizer steps,
+    `load_state_dict`), and its device; never a data pointer, which a
+    freed tensor hands on to fresh weights."""
+    params = [p for lin in linears for p in (lin.weight, lin.bias)]
+    key = [(p, p._version, p.device) for p in params]
+    cached = owner.__dict__.get("_k1_packed")
+    if cached is not None and len(cached[0]) == len(key) and all(
+            a is p and va == vp and da == dp
+            for (a, va, da), (p, vp, dp) in zip(cached[0], key)):
+        return cached[1]
+    with torch.no_grad():
+        packed = pack_layers(kernel_layers(linears), skips, din)
+    owner.__dict__["_k1_packed"] = (key, packed)
+    return packed
+
+
+def run_skip_mlp(owner: nn.Module, x, linears, skips, act_last: bool = False):
+    """Apply a stack of nn.Linear layers held by `owner` as one K1 call
+    (ReLU). On the card the weights go in packed once per weight version
+    (`packed_layers`); the CPU runs the plain version on them as they
+    are."""
+    x = x.contiguous()
+    skips = tuple(skips)
+    packed = (packed_layers(owner, linears, skips, x.shape[-1])
+              if x.device.type == "cuda" else None)
+    return skip_mlp(x, kernel_layers(linears), skips=skips, act="relu",
+                    act_last=act_last, packed=packed)
 
 
 def wn_weight(weight_v, weight_g):

@@ -7,6 +7,14 @@ CUDA tensors and takes `skip_mlp_plain` for CPU tensors; there is no
 fallback from one to the other. The kernel is forward-only, as in JAX;
 a gradient comes with the training slice.
 
+The kernel multiplies on the tensor cores in 3xTF32 (each operand split
+into a TF32 `hi` and the TF32 rounding of its remainder `lo`; the
+products lo*hi, hi*lo and hi*hi accumulated in float32), which keeps
+float32 accuracy. It reads its weights in the layout `pack_layers`
+makes: padded, K-major and cut into chunks of PACK_K input features.
+Callers that own the weights pack them once per weight version
+(fields/mlp.py); a call with bare `layers` packs them on every call.
+
 The library is built with nvcc into `build/` at the checkout root at
 first use (ops/build.py; plain C interface, bound with ctypes).
 """
@@ -15,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +32,10 @@ from .build import build_library
 
 _ACT_CODES = {"relu": 0, "softplus": 1, "none": 2}
 _ACT_FNS = {"relu": torch.relu, "softplus": F.softplus, "none": lambda h: h}
+
+# Input features per weight chunk, and the step every width is padded
+# to (csrc/skip_mlp.cu kChunkK; the library reports it)
+PACK_K = 16
 
 
 def skip_mlp_plain(x, layers, skips=(), act: str = "relu",
@@ -45,6 +58,79 @@ def skip_mlp_plain(x, layers, skips=(), act: str = "relu",
     return h
 
 
+def _round_up(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
+class PackedMLP(NamedTuple):
+    """A stack's weights in the kernel's layout (see `pack_layers`)."""
+
+    weights: tuple  # per layer, (K_p * N_p,) float32
+    biases: tuple  # per layer, (N_p,) float32, zero-padded
+    douts: tuple  # per layer, the true output width
+    din: int
+    skips: tuple
+
+
+def pack_layers(layers, skips=(), din: int | None = None) -> PackedMLP:
+    """(W (in, out), b) pairs -> K1's weight layout.
+
+    Every width is zero-padded to a multiple of PACK_K: a layer's input
+    segments (x of width din, then h of the previous layer's width) each
+    start at a padded offset, as JAX's `_pad_layers` does at 128, so the
+    padding is exact. Each padded W^T (N_p, K_p) is stored chunk by
+    chunk of PACK_K input features, every chunk contiguous (one bulk
+    copy) and in the tensor cores' K-major core-matrix order: element
+    (n, k) of chunk k // 16 sits at ((n // 8) * 4 + (k % 16) // 4) * 32
+    + (n % 8) * 4 + k % 4."""
+    skips = tuple(skips)
+    n_layers = len(layers)
+    if n_layers < 1:
+        raise ValueError("skip_mlp: no layers")
+    din = layers[0][0].shape[0] if din is None else din
+    din_p = _round_up(din, PACK_K)
+    segs = [(din, din_p)]  # (true, padded) width of each input segment
+    weights, biases, douts = [], [], []
+    for i, (w, b) in enumerate(layers):
+        d_in = sum(t for t, _ in segs)
+        if (w.dim() != 2 or w.shape[0] != d_in or b.dim() != 1
+                or b.shape[0] != w.shape[1]):
+            raise ValueError(
+                f"skip_mlp: layer {i} has W {tuple(w.shape)}, b "
+                f"{tuple(b.shape)}; expected ({d_in}, out) and (out,)"
+            )
+        dout = w.shape[1]
+        n_p = _round_up(dout, PACK_K)
+        k_p = sum(p for _, p in segs)
+        wp = w.new_zeros(n_p, k_p, dtype=torch.float32)
+        row = row_p = 0
+        for t, p in segs:
+            wp[:dout, row_p:row_p + t] = w[row:row + t].t()
+            row, row_p = row + t, row_p + p
+        # (n/8, n%8, k/16, (k%16)/4, k%4) -> (k/16, n/8, (k%16)/4, n%8, k%4)
+        tiled = wp.view(n_p // 8, 8, k_p // PACK_K, PACK_K // 4, 4)
+        weights.append(tiled.permute(2, 0, 3, 1, 4).contiguous().view(-1))
+        bp = b.new_zeros(n_p, dtype=torch.float32)
+        bp[:dout] = b
+        biases.append(bp)
+        douts.append(dout)
+        segs = [(dout, n_p)]
+        if i in skips and i < n_layers - 1:
+            segs = [(din, din_p), (dout, n_p)]
+    return PackedMLP(tuple(weights), tuple(biases), tuple(douts), din,
+                     tuple(s for s in skips if 0 <= s < n_layers - 1))
+
+
+def unpack_layer(packed: PackedMLP, i: int):
+    """Layer i's padded W (K_p, N_p) and bias (N_p,) back from the
+    chunked layout (for tests and the 3xTF32 emulation)."""
+    bp = packed.biases[i]
+    n_p = bp.shape[0]
+    k_p = packed.weights[i].numel() // n_p
+    tiled = packed.weights[i].view(k_p // PACK_K, n_p // 8, PACK_K // 4, 8, 4)
+    return tiled.permute(1, 3, 0, 2, 4).reshape(n_p, k_p).t(), bp
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = ctypes.CDLL(str(build_library("skip_mlp")))
@@ -55,62 +141,63 @@ def _library():
         ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.skip_mlp_forward.restype = ctypes.c_int
-    for name in ("skip_mlp_max_layers", "skip_mlp_max_width"):
+    for name in ("skip_mlp_max_layers", "skip_mlp_max_width",
+                 "skip_mlp_chunk_k"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
+    if lib.skip_mlp_chunk_k() != PACK_K:
+        raise RuntimeError("skip_mlp: the library's chunk is not PACK_K")
     return lib
 
 
-def _check(x, layers, skips):
+def _check(x, packed: PackedMLP):
     if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError("skip_mlp: x must be a contiguous (N, din) float32 tensor")
+    if x.shape[1] != packed.din:
+        raise ValueError(f"skip_mlp: x has {x.shape[1]} features, the "
+                         f"weights take {packed.din}")
     lib = _library()
-    if not 1 <= len(layers) <= lib.skip_mlp_max_layers():
-        raise ValueError(f"skip_mlp: {len(layers)} layers is out of range")
-    din = x.shape[1]
-    d_in = din
-    for i, (w, b) in enumerate(layers):
-        for t in (w, b):
-            if (t.device != x.device or t.dtype != torch.float32
-                    or not t.is_contiguous()):
-                raise ValueError(
-                    "skip_mlp: weights must be contiguous float32 tensors "
-                    "on x's device"
-                )
-        if w.dim() != 2 or w.shape[0] != d_in or b.shape != (w.shape[1],):
+    if not 1 <= len(packed.weights) <= lib.skip_mlp_max_layers():
+        raise ValueError(f"skip_mlp: {len(packed.weights)} layers is out of range")
+    if max(packed.din, *packed.douts) > lib.skip_mlp_max_width():
+        raise ValueError("skip_mlp: a width is more than the kernel takes")
+    for t in (*packed.weights, *packed.biases):
+        if (t.device != x.device or t.dtype != torch.float32
+                or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(
-                f"skip_mlp: layer {i} has W {tuple(w.shape)}, b "
-                f"{tuple(b.shape)}; expected ({d_in}, out) and (out,)"
+                "skip_mlp: weights must be contiguous, 16-byte aligned "
+                "float32 tensors on x's device"
             )
-        if w.shape[1] > lib.skip_mlp_max_width():
-            raise ValueError(f"skip_mlp: layer {i} is wider than the kernel takes")
-        d_in = w.shape[1] + (din if (i in skips and i < len(layers) - 1) else 0)
 
 
-def skip_mlp(x, layers, skips=(), act: str = "relu", act_last: bool = False):
+def skip_mlp(x, layers, skips=(), act: str = "relu", act_last: bool = False,
+             packed: PackedMLP | None = None):
     """The K1 contract on `x`'s device: CPU tensors take the plain
     version, CUDA tensors launch the kernel (or raise). Arguments as in
-    `skip_mlp_plain`; weights are (in, out) like the JAX wrapper's."""
+    `skip_mlp_plain`; weights are (in, out) like the JAX wrapper's.
+    `packed`, where given, is `pack_layers(layers, skips)`, made once by
+    the weights' owner; otherwise the call packs them."""
     if x.device.type == "cpu":
         return skip_mlp_plain(x, layers, skips, act, act_last)
     if x.device.type != "cuda":
         raise ValueError(f"skip_mlp: unsupported device {x.device}")
-    skips = tuple(skips)
-    _check(x, layers, skips)
+    if packed is None:
+        packed = pack_layers(layers, skips, x.shape[-1])
+    _check(x, packed)
     lib = _library()
-    n, din = x.shape
-    out = torch.empty(n, layers[-1][0].shape[1], device=x.device,
+    n = x.shape[0]
+    n_layers = len(packed.weights)
+    out = torch.empty(n, packed.douts[-1], device=x.device,
                       dtype=torch.float32)
-    n_layers = len(layers)
-    w_ptrs = (ctypes.c_void_p * n_layers)(*[w.data_ptr() for w, _ in layers])
-    b_ptrs = (ctypes.c_void_p * n_layers)(*[b.data_ptr() for _, b in layers])
-    douts = (ctypes.c_int * n_layers)(*[w.shape[1] for w, _ in layers])
-    skip_mask = sum(1 << i for i in skips if 0 <= i < n_layers - 1)
+    w_ptrs = (ctypes.c_void_p * n_layers)(*[w.data_ptr() for w in packed.weights])
+    b_ptrs = (ctypes.c_void_p * n_layers)(*[b.data_ptr() for b in packed.biases])
+    douts = (ctypes.c_int * n_layers)(*packed.douts)
+    skip_mask = sum(1 << i for i in packed.skips)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.skip_mlp_forward(
-            x.data_ptr(), out.data_ptr(), n, din, n_layers, w_ptrs, b_ptrs,
-            douts, skip_mask, _ACT_CODES[act], int(act_last), stream,
+            x.data_ptr(), out.data_ptr(), n, packed.din, n_layers, w_ptrs,
+            b_ptrs, douts, skip_mask, _ACT_CODES[act], int(act_last), stream,
         )
     if rc != 0:
         raise RuntimeError(f"skip_mlp: kernel launch failed (CUDA error {rc})")

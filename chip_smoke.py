@@ -10,7 +10,8 @@ Phases, one JSON line each:
      (one nvcc per source, all at once);
   2. kernel K1 (ops/skip_mlp.py, csrc/skip_mlp.cu) against its plain
      PyTorch version on the card, at the three production wirings and
-     the row count of one eval tile's survivors, with times and bounds;
+     the row count of one eval tile's survivors, with times and bounds
+     (and the tensor-core instructions of its SASS);
   3. kernels K2-K6 (ops/knn.py, csrc/knn.cu) against their plain
      versions: K2 at 131,072 queries over 6890 vertices with duplicate
      vertices; K3 and K4 at the 96^3 grid builds of one capsule frame;
@@ -38,6 +39,8 @@ JAX.
 
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -59,9 +62,11 @@ JAX_PSNR = [7.655750694805134, 7.5696494082365495, 8.05470772363299,
 JAX_PSNR_SDF = [19.918607338172638, 22.15452214101879, 23.829273881602546,
                 25.011918868247466]
 PSNR_TOL_DB = 0.1
-# K1 against its plain version: both FP32 (TF32 off), summed in another
-# order over up to 447 terms per layer and 9 chained layers, so the
-# outputs agree to ~1e-6 relative; 1e-4 of the output scale leaves room.
+# K1 against its plain version: 3xTF32 on the tensor cores against FP32
+# (TF32 off), summed in another order over up to 447 terms per layer and
+# 9 chained layers; the split keeps float32 accuracy (its CPU emulation in
+# tests/test_torch_mlp.py is within 6e-7 of FP32 at these widths), so
+# 1e-4 of the output scale leaves room.
 K1_REL_TOL = 1e-4
 K1_ROWS = 131072  # survivors of one 8192-ray tile at a 25% keep
 # K2-K6 round every operation as their plain versions do (no FMA, the
@@ -83,8 +88,11 @@ FRAME_TOL = 1e-6
 # 2 additions and a compare or min
 OPS_PER_PAIR = 9
 # published H100 SXM peaks (at the 700 W limit): FP32 outside the tensor
-# cores, and HBM3 bandwidth
+# cores, TF32 on them (dense), and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+# K1 forms each float32 product from three TF32 ones (3xTF32)
+K1_TF32_PASSES = 3
 PEAK_BYTES_PER_S = 3.35e12
 FULL_H, FULL_W = 1002, 1000  # H36M S9's frame (configs/aninerf_s9p.yaml)
 
@@ -196,10 +204,10 @@ def kernel_alone(times, split):
             "call_ms_runs": times["kernel_ms_runs"], "profile": split}
 
 
-def bound(ops, nbytes):
-    """(bound_ms, bound_by): the larger of the operations over the FP32
-    peak and the bytes over the HBM rate."""
-    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+def bound(ops, nbytes, peak=PEAK_FP32_FLOPS):
+    """(bound_ms, bound_by): the larger of the operations over `peak`
+    (the FP32 one unless given) and the bytes over the HBM rate."""
+    t_ops = ops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -235,7 +243,21 @@ def k1_wirings():
     ]
 
 
-def phase_k1(skip_mlp, skip_mlp_plain):
+def sass_counts(lib_path):
+    """Tensor-core instructions in a built library's SASS (cuobjdump next
+    to nvcc): HGMMA for wgmma, HMMA for mma.sync; None without
+    cuobjdump."""
+    from animatable_nerf_tpu_torch.ops import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HGMMA", "HMMA")}
+
+
+def phase_k1(skip_mlp, skip_mlp_plain, pack_layers):
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -259,20 +281,23 @@ def phase_k1(skip_mlp, skip_mlp_plain):
                         h = torch.cat([x, h], dim=-1)
             return h
 
-        got = skip_mlp(x, layers, **kwargs)
+        got = skip_mlp(x, layers, **kwargs)  # packs the weights itself
         torch.cuda.synchronize()
         ref = skip_mlp_plain(x, layers, **kwargs)
         err = (got - ref).abs().max().item()
         scale = ref.abs().max().item()
         check(math.isfinite(err) and err <= K1_REL_TOL * max(scale, 1.0),
               f"K1 {name}: max abs err {err} vs output scale {scale}")
-        times = timed_pair(lambda: skip_mlp(x, layers, **kwargs),
+        # timed as the fields call it: the weights packed once beforehand
+        packed = pack_layers(layers, skips)
+        times = timed_pair(lambda: skip_mlp(x, layers, packed=packed, **kwargs),
                            lambda: skip_mlp_plain(x, layers, **kwargs),
                            library, plain_iters=10)
         flops = 2 * K1_ROWS * sum(i * o for i, o in dims)
         nbytes = 4 * (K1_ROWS * (din + dims[-1][1])
                       + sum(i * o + o for i, o in dims))
-        bound_ms, bound_by = bound(flops, nbytes)
+        bound_ms, bound_by = bound(K1_TF32_PASSES * flops, nbytes,
+                                   PEAK_TF32_FLOPS)
         rows.append({
             "wiring": name, "rows": K1_ROWS, "din": din,
             "dout": dims[-1][1], "layers": len(dims),
@@ -280,11 +305,17 @@ def phase_k1(skip_mlp, skip_mlp_plain):
             "tol_abs": K1_REL_TOL * max(scale, 1.0), **times,
             "flops": flops, "bytes": nbytes,
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_fp32_ms": bound(flops, nbytes)[0],
+            "share_of_bound": bound_ms / times["kernel_ms"],
+            # the float32 work counted once, not the three TF32 passes
             "kernel_tflops": flops / (times["kernel_ms"] * 1e-3) / 1e12,
         })
     emit({"phase": "k1_vs_plain", "tolerance": (
-        f"max abs err <= {K1_REL_TOL} x max(1, max |plain|): FP32 vs FP32 "
-        "(TF32 off), different summation order"), "wirings": rows})
+        f"max abs err <= {K1_REL_TOL} x max(1, max |plain|): 3xTF32 tensor "
+        "cores vs FP32 (TF32 off), different summation order"),
+          "bound": "max(3 x FLOP / 495 TFLOP/s (TF32), bytes / 3.35 TB/s); "
+          "bound_fp32_ms: FLOP / 67 TFLOP/s (FP32 CUDA cores)",
+          "wirings": rows})
     return rows
 
 
@@ -665,11 +696,13 @@ def main():
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s,
           "ptxas": {name: [l.strip() for l in build.build_log(name).splitlines()
-                           if "registers" in l or "spill" in l]
-                    for name in sources}})
+                           if "registers" in l or "spill" in l
+                           or "Performance Loss" in l]
+                    for name in sources},
+          "k1_sass": sass_counts(build.library_path("skip_mlp"))})
 
     # ---- phase 2: K1 vs plain
-    k1_rows = phase_k1(k1.skip_mlp, k1.skip_mlp_plain)
+    k1_rows = phase_k1(k1.skip_mlp, k1.skip_mlp_plain, k1.pack_layers)
 
     # ---- phase 3: K2-K6 vs plain, on one capsule frame's vertices
     cfg_sdf = load_config("configs/synthetic_sdf_pdf.yaml", [], run_type="evaluate")
@@ -774,9 +807,13 @@ def main():
             "ms": k1_sum("kernel_ms"),
             "kernel_ms": k1_sum("kernel_ms"),
             "plain_ms": k1_sum("plain_ms"),
+            # 3 x FLOP over the TF32 rate (the FP32-accurate tensor-core
+            # bound); the FP32 CUDA-core one beside it
             "bound_ms": k1_sum("bound_ms"),
             "bound_by": "operations" if all(
                 r["bound_by"] == "operations" for r in k1_rows) else "bytes",
+            "bound_fp32_ms": k1_sum("bound_fp32_ms"),
+            "share_of_bound": k1_sum("bound_ms") / k1_sum("kernel_ms"),
             "library_ms": k1_sum("library_ms"),
         },
         knn_entry(k2_row, 55, sdf_launches, sdf_frame_launches),

@@ -32,6 +32,7 @@ SMALL = {
 PRODUCTION = {
     "bw_field": (191, [256] * 8 + [24], (4,), "relu", False),
     "tpose_trunk": (63, [256] * 8, (4,), "relu", True),
+    "resd_field": (135, [256] * 8 + [3], (4,), "relu", False),
 }
 
 
@@ -67,7 +68,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [0, 1, 63, 64, 65, 1000])
+# rows: around the kernel's 128-row block and its 64-row warpgroups
+@pytest.mark.parametrize("rows", [0, 1, 63, 64, 65, 127, 128, 129, 1000, 4097])
 @pytest.mark.parametrize("name", sorted({**SMALL, **PRODUCTION}))
 def test_cuda_kernel_matches_plain(cuda_device, name, rows):
     spec = {**SMALL, **PRODUCTION}[name]
@@ -80,6 +82,32 @@ def test_cuda_kernel_matches_plain(cuda_device, name, rows):
     assert k1.skip_mlp.launches == before + (1 if rows else 0)
     plain = k1.skip_mlp_plain(xt, tl, skips, act, act_last)
     np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_field_packs_once_per_weight_version(cuda_device):
+    """A field packs its weights on its first call, reuses the pack
+    while the weights stay, and packs anew after an in-place update."""
+    from animatable_nerf_tpu_torch.fields.fields import ResidualField
+
+    torch.manual_seed(0)
+    field = ResidualField().to(cuda_device)
+    rng = np.random.RandomState(13)
+    pts = torch.tensor(rng.uniform(-1, 1, (300, 3)).astype(np.float32),
+                       device=cuda_device)
+    pose = torch.tensor(rng.normal(0, 0.3, 72).astype(np.float32),
+                        device=cuda_device)
+    with torch.no_grad():
+        first = field.residual(pts, pose)
+        pack = field._k1_packed[1]
+        field.residual(pts, pose)
+        assert field._k1_packed[1] is pack
+        field.resd_fc.weight.mul_(2.0)
+        moved = field.residual(pts, pose)
+        assert field._k1_packed[1] is not pack
+        plain = field.cpu().residual(pts.cpu(), pose.cpu())
+    assert not torch.equal(first, moved)
+    np.testing.assert_allclose(moved.cpu().numpy(), plain.numpy(), **TOL)
 
 
 @pytest.mark.cuda
