@@ -16,13 +16,17 @@ is no fallback from one to the other. All are forward-only: their
 outputs are data, no gradient crosses them (JAX models/pdf.py:157-159).
 
 The library is built with nvcc into `build/` at the checkout root at
-first use (ops/build.py; plain C interface, bound with ctypes).
+first use (ops/build.py; plain C interface, bound with ctypes). K2 and
+K5 read vertex layouts (`sweep_layout`, `blocked_layout`) that the
+wrappers build on a frame's first call and keep while the vertex
+tensor's identity and version stay (`per_version`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 
 import torch
 
@@ -35,7 +39,11 @@ _BIG = 3.0e38
 # padded vertices live here: never a neighbour
 _FAR_COORD = 1.0e6
 PLAIN_CHUNK = 4096  # query rows per (rows, M) distance matrix
-BLOCKED_TILE = 256  # K5's queries per tile: kThreads in csrc/knn.cu
+# K5's queries per tile, one CUDA block each (kBlockedTile in csrc/knn.cu)
+BLOCKED_TILE = 256
+# vertices per box inside a K5 block (blocked_layout; kRun in csrc/knn.cu):
+# a block is a whole number of runs
+RUN = 32
 CELLED_TILE = 64  # K6's queries per tile: kCellThreads in csrc/knn.cu
 
 
@@ -108,22 +116,89 @@ def kth_distance_plain(src, ref, k: int = 5, chunk: int = PLAIN_CHUNK):
     return torch.cat(outs) if outs else src.new_zeros(0)
 
 
+def per_version(build):
+    """Memoize build(t, *args) on the tensor t's identity, its `_version`
+    and args, one entry: a frame's vertex layout is built on the frame's
+    first call and reused by the rest, and built anew after an in-place
+    change. `.builds` counts the builds."""
+    slot = {}
+
+    @functools.wraps(build)
+    def cached(t, *args):
+        key = slot.get("key")
+        if key is None or key[0]() is not t or key[1:] != (t._version, args):
+            slot["value"] = build(t, *args)
+            slot["key"] = (weakref.ref(t), t._version, args)
+            cached.builds += 1
+        return slot["value"]
+
+    cached.builds = 0
+    return cached
+
+
+def _rows(points, index):
+    """(M, 4) float32 rows: points (M, 3) and index (M,) as int32 bits."""
+    rows = points.new_empty(points.shape[0], 4)
+    rows[:, :3] = points
+    rows.view(torch.int32)[:, 3] = index.to(torch.int32)
+    return rows
+
+
+def sweep_layout(ref):
+    """K2's vertex layout: ref (M, 3) sorted along the axis of its box's
+    largest extent, as (M, 4) float32 rows (x, y, z, the original index
+    as int32 bits), and that axis, a (1,) int32 tensor. Device ops only,
+    no host sync."""
+    axis = torch.argmax(ref.amax(dim=0) - ref.amin(dim=0)).reshape(1)
+    order = torch.argsort(ref.index_select(1, axis)[:, 0], stable=True)
+    return _rows(ref[order], order), axis.to(torch.int32)
+
+
+def _boxes(points, size: int):
+    """Boxes of consecutive runs of `size` rows of points (Mp, 3),
+    (Mp / size, 8) [lo3, hi3, the longest axis, 0]."""
+    runs = points.reshape(-1, size, 3)
+    lo, hi = runs.amin(dim=1), runs.amax(dim=1)
+    axis = torch.argmax(hi - lo, dim=1, keepdim=True).to(torch.float32)
+    return torch.cat([lo, hi, axis, torch.zeros_like(axis)], dim=1)
+
+
+def blocked_layout(verts_sorted, block: int):
+    """K5's vertex layout from `build_knn_blocks`' verts_sorted (Mp, 3):
+    the rows as (Mp, 4) float32 (x, y, z, the sorted position as int32
+    bits); each block's box, and each RUN rows' box, over all rows, pads
+    included, with its longest axis ([lo3, hi3, axis, 0], (Mp / block,
+    8) and (Mp / RUN, 8)). Device ops only."""
+    position = torch.arange(verts_sorted.shape[0], device=verts_sorted.device)
+    return (_rows(verts_sorted, position), _boxes(verts_sorted, block),
+            _boxes(verts_sorted, RUN))
+
+
+_sweep_layout = per_version(sweep_layout)
+_blocked_layout = per_version(blocked_layout)
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = ctypes.CDLL(str(build_library("knn")))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.knn_min_dist.argtypes = [ptr, ptr, i32, i32, ptr, ptr]
     lib.knn_kth_dist.argtypes = [ptr, ptr, i32, i32, i32, ptr, ptr]
-    lib.knn_blend.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, f32,
-                              ptr, ptr, ptr]
-    lib.knn_blocked.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                                i32, f32, ptr, ptr, ptr]
+    lib.knn_blend.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32,
+                              ptr, ptr, ptr, ptr]
+    lib.knn_blocked.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
+                                i32, i32, i32, f32, ptr, ptr, ptr, ptr]
     lib.knn_celled.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32,
                                ptr, ptr, ptr]
-    lib.knn_max_k.argtypes = []
+    for fn in (lib.knn_max_k, lib.knn_blocked_tile, lib.knn_blocked_run):
+        fn.argtypes = []
     for fn in (lib.knn_min_dist, lib.knn_kth_dist, lib.knn_blend,
-               lib.knn_blocked, lib.knn_celled, lib.knn_max_k):
+               lib.knn_blocked, lib.knn_celled, lib.knn_max_k,
+               lib.knn_blocked_tile, lib.knn_blocked_run):
         fn.restype = ctypes.c_int
+    if (lib.knn_blocked_tile(), lib.knn_blocked_run()) != (BLOCKED_TILE, RUN):
+        raise RuntimeError("csrc/knn.cu's K5 tile and run differ from "
+                           "BLOCKED_TILE and RUN")
     return lib
 
 
@@ -177,22 +252,46 @@ def knn_blend(src, ref, values, k: int = 5, eps: float = 1e-8):
     values, all float32 -> (vals (N, C), wdist (N, 1)): the IDW blend of
     the k nearest vertices' values and distances (JAX
     core/knn.py:37 `sample_blend_closest_points`)."""
+    _check_blend(src, ref, values, k)
+    if src.device.type == "cpu":
+        return knn_blend_plain(src, ref, values, k, eps)
+    vals, wdist = _knn_blend_cuda(src, ref, values, k, eps)
+    if src.shape[0]:
+        knn_blend.launches += 1
+    return vals, wdist
+
+
+def _check_blend(src, ref, values, k):
     _check_points("knn_blend", src, ref)
     _check_values("knn_blend", values, ref.shape[0], src.device)
     _check_k("knn_blend", k, ref.shape[0])
-    if src.device.type == "cpu":
-        return knn_blend_plain(src, ref, values, k, eps)
+
+
+def _knn_blend_cuda(src, ref, values, k, eps, counts=None):
+    """K2's launch on the sorted layout of ref (built once per version of
+    ref); `counts` selects the counting build."""
     lib = _device_library("knn_blend", k, src, ref, values)
     n, m, c = src.shape[0], ref.shape[0], values.shape[1]
     vals = torch.empty(n, c, device=src.device, dtype=torch.float32)
     wdist = torch.empty(n, 1, device=src.device, dtype=torch.float32)
     if n == 0:
         return vals, wdist
+    rows, axis = _sweep_layout(ref)
     _launch("knn_blend", src.device, lib.knn_blend, src.data_ptr(),
-            ref.data_ptr(), values.data_ptr(), n, m, c, k, eps,
-            vals.data_ptr(), wdist.data_ptr())
-    knn_blend.launches += 1
+            rows.data_ptr(), axis.data_ptr(), values.data_ptr(), n, m, c, k,
+            eps, vals.data_ptr(), wdist.data_ptr(),
+            None if counts is None else counts.data_ptr())
     return vals, wdist
+
+
+def knn_blend_counts(src, ref, values, eps: float = 1e-8):
+    """K2 at k = 5 in its counting build, for measurement (not counted as
+    a launch): a (2,) int64 tensor of the (query, vertex) pairs whose
+    reject test ran and of those that went on to the full distance."""
+    _check_blend(src, ref, values, 5)
+    counts = torch.zeros(2, dtype=torch.int64, device=src.device)
+    _knn_blend_cuda(src, ref, values, 5, eps, counts)
+    return counts
 
 
 def min_dist(src, ref):
@@ -362,7 +461,7 @@ def blocked_cull(meta, bb):
 
 def _check_blocked(src, d5ub, verts_sorted, values_sorted, bboxes, k):
     """K5's input checks; returns the vertices per block, verts_sorted's
-    rows over bboxes' rows."""
+    rows over bboxes' rows, a whole number of RUN."""
     _check_points("knn_blend_blocked", src, verts_sorted)
     _check_values("knn_blend_blocked", values_sorted, verts_sorted.shape[0],
                   src.device)
@@ -377,6 +476,9 @@ def _check_blocked(src, d5ub, verts_sorted, values_sorted, bboxes, k):
     if verts_sorted.shape[0] != block * bboxes.shape[0]:
         raise ValueError("knn_blend_blocked: the vertex rows must be whole "
                          "blocks, one per bboxes row")
+    if block % RUN:
+        raise ValueError(f"knn_blend_blocked: a block of {block} vertices is "
+                         f"not a whole number of runs of {RUN}")
     return block
 
 
@@ -428,25 +530,52 @@ def knn_blend_blocked(src, d5ub, verts_sorted, values_sorted, bboxes,
     if src.device.type == "cpu":
         return knn_blend_blocked_plain(src, d5ub, verts_sorted, values_sorted,
                                        bboxes, k, eps)
+    if src.shape[0] == 0:
+        _check_blocked(src, d5ub, verts_sorted, values_sorted, bboxes, k)
+        c = values_sorted.shape[1]
+        return src.new_empty(0, c), src.new_empty(0, 1)
+    out = _knn_blocked_cuda(src, d5ub, verts_sorted, values_sorted, bboxes,
+                            k, eps)
+    knn_blend_blocked.launches += 1
+    return out
+
+
+def _knn_blocked_cuda(src, d5ub, verts_sorted, values_sorted, bboxes, k, eps,
+                      counts=None):
+    """K5's launch on the float4 layout of verts_sorted (built once per
+    version); `counts` selects the counting build. N > 0."""
     block = _check_blocked(src, d5ub, verts_sorted, values_sorted, bboxes, k)
     lib = _device_library("knn_blend_blocked", k, src, verts_sorted,
                           values_sorted)
     if block > 1024:
         raise ValueError("knn_blend_blocked: the kernel takes blocks of at "
                          f"most 1024 vertices, not {block}")
-    n, c = src.shape[0], values_sorted.shape[1]
-    if n == 0:
-        return src.new_empty(0, c), src.new_empty(0, 1)
+    c = values_sorted.shape[1]
     order, src_p, meta, bb = blocked_tiles(src, d5ub, bboxes)
+    rows, boxes, subs = _blocked_layout(verts_sorted, block)
     vals = torch.empty(src_p.shape[0], c, device=src.device, dtype=torch.float32)
     wdist = torch.empty(src_p.shape[0], 1, device=src.device,
                         dtype=torch.float32)
     _launch("knn_blend_blocked", src.device, lib.knn_blocked,
-            src_p.data_ptr(), meta.data_ptr(), bb.data_ptr(),
-            verts_sorted.data_ptr(), values_sorted.data_ptr(), meta.shape[0],
-            bb.shape[0], block, c, k, eps, vals.data_ptr(), wdist.data_ptr())
-    knn_blend_blocked.launches += 1
+            src_p.data_ptr(), meta.data_ptr(), bb.data_ptr(), rows.data_ptr(),
+            boxes.data_ptr(), subs.data_ptr(), values_sorted.data_ptr(),
+            meta.shape[0], bb.shape[0], block, c, k, eps, vals.data_ptr(),
+            wdist.data_ptr(),
+            None if counts is None else counts.data_ptr())
     return _unsort(order, vals, wdist)
+
+
+def knn_blend_blocked_counts(src, d5ub, verts_sorted, values_sorted, bboxes,
+                             eps: float = 1e-8):
+    """K5 at k = 5 in its counting build, for measurement (not counted as
+    a launch): a (2,) int64 tensor of the (query, vertex) pairs whose
+    one-axis reject ran and of those that went on to the full distance
+    (the pairs of blocks the tile culled, or a warp skipped by its box
+    test, are in neither)."""
+    counts = torch.zeros(2, dtype=torch.int64, device=src.device)
+    _knn_blocked_cuda(src, d5ub, verts_sorted, values_sorted, bboxes, 5, eps,
+                      counts)
+    return counts
 
 
 def build_cell_knn(vertices, values, res=(12, 12, 12), cap: int = 2048,

@@ -14,9 +14,13 @@ Phases, one JSON line each:
      (and the tensor-core instructions of its SASS);
   3. kernels K2-K6 (ops/knn.py, csrc/knn.cu) against their plain
      versions: K2 at 131,072 queries over 6890 vertices with duplicate
-     vertices; K3 and K4 at the 96^3 grid builds of one capsule frame;
+     vertices (also timed at a full frame's 77,505 queries a launch and
+     with one channel, and its walk's pairs counted by its counting
+     build); K3 and K4 at the 96^3 grid builds of one capsule frame;
      K5 and K6 at 131,072 queries around that frame's vertices, with the
-     frame's d5 grid (K5) and cell lists (K6), both also held against K2;
+     frame's d5 grid (K5, its kept blocks per tile and its rejects
+     counted) and cell lists (K6), both also held against K2. K2's and
+     K5's bounds count the pairs the data needs (band_pairs);
   4. the port's `run_evaluate` on configs/synthetic.yaml (AniNeRF) with
      the tracked checkpoint (4 views), each view held to the JAX
      package's PSNR within PSNR_TOL_DB, with K1's launches counted;
@@ -30,7 +34,8 @@ Phases, one JSON line each:
      `run_evaluate` held to the same JAX PSNR with K2 launched 0 times,
      and one 1000x1002 frame held to phase 6's frame: K5 against K2 on
      the frame's pass-2 points differs only on rows with an exact
-     distance tie, and the maps within 1e-6 on every other ray;
+     distance tie, and the maps within 1e-6 on every other ray; K2 and
+     K5 timed on those points, per tile launch and per 131,072;
 then the kernel table line, the card line and {"ok": true, ...} last.
 Kernel launch counts are set to 0 just before each path and read just
 after it. Any failed phase raises and exits non-zero. Imports nothing of
@@ -73,6 +78,9 @@ K1_ROWS = 131072  # survivors of one 8192-ray tile at a 25% keep
 # same order), so they agree to the bit
 KNN_TOL = 0.0
 K2_ROWS = 131072  # queries, as many as K1_ROWS
+# K2's queries per launch on a full SDF-PDF frame: 4,960,334 pass-1
+# candidates over 64 tiles
+K2_FRAME_ROWS = 77505
 K2_DUPS = 64  # vertices that are exact copies of others
 GRID_RES = 96  # the engine's knn_grid_res
 CELL_RES = (12, 12, 12)  # K6's cell grid
@@ -364,6 +372,70 @@ def max_err(a_vals, a_wd, b_vals, b_wd):
                (a_wd - b_wd).abs().max().item())
 
 
+def kth_sq_dist(src, verts, k=5, chunk=16384):
+    """(N,) each query's k-th smallest squared distance, (dx*dx + dy*dy)
+    + dz*dz as the kernels form it (torch.topk: for the bounds only)."""
+    import torch
+
+    out = []
+    for s in range(0, src.shape[0], chunk):
+        q = src[s:s + chunk]
+        d = [q[:, a:a + 1] - verts[None, :, a] for a in range(3)]
+        out.append(torch.topk(d[0] * d[0] + d[1] * d[1] + d[2] * d[2], k,
+                              dim=1, largest=False).values[:, k - 1])
+    return torch.cat(out)
+
+
+def band_pairs(src, verts, axis, kth2, kept=None, chunk=16384):
+    """(N,) per query, the vertices an exact walk along `axis` has to
+    reach: those whose square on that axis, formed as the kernels form
+    it, is at most the query's k-th smallest squared distance kth2. Every
+    other vertex lies farther than the k-th on that axis alone, so an
+    exact reject leaves it untouched. kept(s, e), where given, is the
+    (e - s, M) bool mask of the pairs a cull leaves; only those count."""
+    import torch
+
+    out = []
+    for s in range(0, src.shape[0], chunk):
+        e = min(s + chunk, src.shape[0])
+        da = src[s:e, axis:axis + 1] - verts[None, :, axis]
+        near = da * da <= kth2[s:e, None]
+        if kept is not None:
+            near &= kept(s, e)
+        out.append(near.sum(1))
+    return torch.cat(out)
+
+
+def k5_band_pairs(knn, src, d5ub, blocks, axis, kth2):
+    """band_pairs' total for one K5 call: the queries tiled as the call
+    tiles them, each against the vertices of its tile's kept blocks."""
+    order, src_p, meta, bb = knn.blocked_tiles(src, d5ub, blocks[2])
+    keep = knn.blocked_cull(meta, bb)
+    tile, block = knn.BLOCKED_TILE, blocks[0].shape[0] // blocks[2].shape[0]
+
+    def kept(s, e):
+        rows = keep[s // tile:-(-e // tile)].repeat_interleave(tile, dim=0)
+        return rows[:e - s].repeat_interleave(block, dim=1)
+
+    n = src.shape[0]
+    return int(band_pairs(src_p[:n], blocks[0], axis, kth2[order], kept,
+                          chunk=64 * tile).sum())
+
+
+def knn_io_bytes(n, m, c, d5ub=False):
+    """Bytes a K2 (or, with d5ub, K5) call must move: the queries (and
+    their radii) and the outputs once, the vertices and their values
+    once."""
+    return 4 * (n * (3 + int(d5ub) + c + 1) + m * (3 + c))
+
+
+def blend_ops(n, c, k=5):
+    """The blend's operations: per neighbour a square root, an add and a
+    divide for its weight, an add and a multiply for the weighted
+    distance and per channel a multiply and an add."""
+    return n * k * (2 * c + 4)
+
+
 def phase_knn(knn, common, pvertices, weights):
     """K2-K6 against their plain versions on the card, with times,
     bounds and the library chains' times."""
@@ -390,13 +462,39 @@ def phase_knn(knn, common, pvertices, weights):
     times2 = timed_pair(lambda: knn.knn_blend(src, ref, values),
                         lambda: knn.knn_blend_plain(src, ref, values),
                         lambda: cdist_knn(src, ref, values))
+    # the bound of the work this run's data needs: the pairs of the band
+    # on the walk's axis, the blend and the bytes; PR 2's all-pairs bound
+    # beside it
     pairs2 = K2_ROWS * m
-    b2, by2 = bound(OPS_PER_PAIR * pairs2 + K2_ROWS * 5 * (2 * c + 4),
-                    4 * (K2_ROWS * 3 + m * (3 + c) + K2_ROWS * (c + 1)))
+    band2 = int(band_pairs(src, ref, int(knn.sweep_layout(ref)[1]),
+                           kth_sq_dist(src, ref)).sum())
+    b2, by2 = bound(OPS_PER_PAIR * band2 + blend_ops(K2_ROWS, c),
+                    knn_io_bytes(K2_ROWS, m, c))
+    b2_all, _ = bound(OPS_PER_PAIR * pairs2 + blend_ops(K2_ROWS, c),
+                      knn_io_bytes(K2_ROWS, m, c))
+    # the walk's work, counted by the kernel's counting build: the pairs
+    # it reached (each took the one-axis test) and those that went on to
+    # the full distance
+    tested2, full2 = knn.knn_blend_counts(src, ref, values).tolist()
+    # the same draw at a full frame's queries per launch, and the blend's
+    # share: the same queries with one channel instead of C
+    src_frame = src[:K2_FRAME_ROWS].contiguous()
+    one_channel = values[:, :1].contiguous()
     k2 = {"name": "knn_blend", "queries": K2_ROWS, "vertices": m, "channels": c,
           "duplicate_vertices": K2_DUPS, "max_abs_err": err2,
-          "rows_differing": rows_differ, **times2, "bound_ms": b2,
-          "bound_by": by2, "library": "torch.cdist + torch.topk + gather, "
+          "rows_differing": rows_differ, **times2,
+          "kernel_ms_frame_launch": cuda_ms(
+              lambda: knn.knn_blend(src_frame, ref, values)),
+          "frame_launch_queries": K2_FRAME_ROWS,
+          "kernel_ms_one_channel": cuda_ms(
+              lambda: knn.knn_blend(src, ref, one_channel)),
+          "pairs": pairs2, "pairs_tested": tested2, "pairs_full": full2,
+          "tested_share": tested2 / pairs2, "full_share": full2 / pairs2,
+          "reject_pass_share": full2 / max(tested2, 1),
+          "pairs_band": band2, "band_share": band2 / pairs2,
+          "bound_ms": b2, "bound_by": by2, "bound_allpairs_ms": b2_all,
+          "share_of_bound": b2 / times2["kernel_ms"],
+          "library": "torch.cdist + torch.topk + gather, "
           "chunks of 16384 queries"}
     check(err2 <= KNN_TOL and rows_differ == 0,
           f"K2 differs from its plain version: {err2}, {rows_differ} rows")
@@ -453,22 +551,42 @@ def phase_knn(knn, common, pvertices, weights):
     times5 = timed_pair(lambda: knn.knn_blend_blocked(src, d5ub, *blocks),
                         lambda: knn.knn_blend_blocked_plain(src, d5ub, *blocks),
                         lambda: cdist_knn(src, pvertices, weights))
-    blend_ops = K2_ROWS * 5 * (2 * c + 4)
-    io_bytes = 4 * (K2_ROWS * 4 + m * (3 + c) + K2_ROWS * (c + 1))
-    b5, by5 = bound(OPS_PER_PAIR * kept * tile * block + blend_ops, io_bytes)
-    b_flat, _ = bound(OPS_PER_PAIR * K2_ROWS * m + blend_ops, io_bytes)
+    blend5, io_bytes = blend_ops(K2_ROWS, c), knn_io_bytes(K2_ROWS, m, c, True)
+    # the band's pairs (on K2's walk axis) within the tiles' kept blocks;
+    # the bounds of all pairs of the kept blocks (PR 3's) and of all pairs
+    # beside it
+    band5 = k5_band_pairs(knn, src, d5ub, blocks,
+                          int(knn.sweep_layout(pvertices)[1]),
+                          kth_sq_dist(src, pvertices))
+    b5, by5 = bound(OPS_PER_PAIR * band5 + blend5, io_bytes)
+    b5_kept, _ = bound(OPS_PER_PAIR * kept * tile * block + blend5, io_bytes)
+    b_flat, _ = bound(OPS_PER_PAIR * K2_ROWS * m + blend5, io_bytes)
+    # the kernel's counting build: of the kept (tile, block) pairs' query
+    # pairs, those whose one-axis test ran (the rest a warp skipped by its
+    # box test) and those that went on to the full distance
+    tested5, full5 = knn.knn_blend_blocked_counts(src, d5ub, *blocks).tolist()
+    per_tile = keep.sum(1).float()
     k5 = {"name": "knn_blend_blocked", "queries": K2_ROWS, "vertices": m,
           "channels": c, "tiles": keep.shape[0], "blocks": keep.shape[1],
           "pairs_kept": kept, "cull_keep_share": kept / keep.numel(),
+          "kept_blocks_per_tile": {"mean": per_tile.mean().item(),
+                                   "min": per_tile.min().item(),
+                                   "max": per_tile.max().item()},
+          "pairs_swept": kept * tile * block, "pairs_tested": tested5,
+          "pairs_full": full5,
+          "tested_share_of_swept": tested5 / (kept * tile * block),
+          "full_share_of_swept": full5 / (kept * tile * block),
+          "reject_pass_share": full5 / max(tested5, 1),
           "max_abs_err": err5, "rows_differing": differ5,
           "rows_differing_from_k2": differ5_k2,
           **kernel_alone(times5, wrapper_split(
               lambda: knn.knn_blend_blocked(src, d5ub, *blocks),
               "knn_blocked_kernel")),
-          "bound_ms": b5,
-          "bound_by": by5, "bound_ms_flat": b_flat,
+          "pairs_band": band5, "bound_ms": b5, "bound_by": by5,
+          "bound_kept_blocks_ms": b5_kept, "bound_ms_flat": b_flat,
           "library": "torch.cdist + torch.topk + gather, chunks of 16384 "
           "queries"}
+    k5["share_of_bound"] = b5 / k5["kernel_ms"]
     check(err5 <= KNN_TOL and differ5 == 0,
           f"K5 differs from its plain version: {err5}, {differ5} rows")
     check(differ5_k2 == 0, f"K5 differs from K2 on {differ5_k2} rows")
@@ -502,7 +620,7 @@ def phase_knn(knn, common, pvertices, weights):
     used = slot.unique()
     slots_used, entries_used = used.numel(), int(list_len[used].sum())
     pairs6 = int(torch.clamp(list_len[slot], min=5).sum())
-    b6, by6 = bound(OPS_PER_PAIR * pairs6 + blend_ops,
+    b6, by6 = bound(OPS_PER_PAIR * pairs6 + blend5,
                     4 * (K2_ROWS * (4 + c) + 3 * entries_used
                          + min(5 * K2_ROWS, entries_used) * c))
     k6 = {"name": "knn_blend_celled", "queries": K2_ROWS, "vertices": m,
@@ -619,6 +737,45 @@ def phase_full_frame(name, eng, item, k1, knn):
     return launches, out
 
 
+def kernels_on_points(knn, src, d5ub, parts, pverts, weights, blocks):
+    """K2 and K5 on slices `parts` [(start, end)] of the points src (N,
+    3) with their radii d5ub: each kernel's device time per launch
+    (torch.profiler, mean over the parts) and the bound of the same work
+    (band_pairs, the blend and the bytes), mean over the parts."""
+    m, c = pverts.shape[0], weights.shape[1]
+    axis = int(knn.sweep_layout(pverts)[1])
+    kth2 = kth_sq_dist(src, pverts)
+    band2 = band_pairs(src, pverts, axis, kth2)
+
+    def k2():
+        for s, e in parts:
+            knn.knn_blend(src[s:e], pverts, weights)
+
+    def k5():
+        for s, e in parts:
+            knn.knn_blend_blocked(src[s:e], d5ub[s:e], *blocks)
+
+    out = {"launches": len(parts),
+           "queries_mean": sum(e - s for s, e in parts) / len(parts)}
+    for name, run, kernel in (("k2", k2, "knn_blend_kernel"),
+                              ("k5", k5, "knn_blocked_kernel")):
+        run()  # warm-up
+        prof = device_breakdown(run)
+        ms = (None if prof["kernels"] is None
+              else prof["own_kernels_ms"][kernel] / len(parts))
+        bounds = []
+        for s, e in parts:
+            n = e - s
+            pairs = (int(band2[s:e].sum()) if name == "k2" else k5_band_pairs(
+                knn, src[s:e], d5ub[s:e], blocks, axis, kth2[s:e]))
+            bounds.append(bound(OPS_PER_PAIR * pairs + blend_ops(n, c),
+                                knn_io_bytes(n, m, c, name == "k5"))[0])
+        b = sum(bounds) / len(bounds)
+        out[name] = {"kernel_ms": ms, "bound_ms": b,
+                     "share_of_bound": None if ms is None else b / ms}
+    return out
+
+
 def phase_blocked_vs_flat(eng, item, flat, knn, common):
     """Render `item` once more with the blocked engine, recording pass
     2's points and radii, and hold it to the flat frame `flat`: K5 and
@@ -646,6 +803,12 @@ def phase_blocked_vs_flat(eng, item, flat, knn, common):
     v5, w5 = knn.knn_blend_blocked(src, d5ub, frame["knn_verts"],
                                    frame["knn_values"], frame["knn_bboxes"])
     v2, w2 = knn.knn_blend(src, pverts, frame["weights"])
+    # the pairs each kernel's rejects leave on the frame's own points
+    n_pass2 = src.shape[0]
+    tested2, full2 = knn.knn_blend_counts(src, pverts, frame["weights"]).tolist()
+    tested5, full5 = knn.knn_blend_blocked_counts(
+        src, d5ub, frame["knn_verts"], frame["knn_values"],
+        frame["knn_bboxes"]).tolist()
     rows = differing_rows(v5, w5, v2, w2).nonzero().squeeze(1)
     # the kernels' squared distances, (dx*dx + dy*dy) + dz*dz
     q = src[rows]
@@ -661,11 +824,37 @@ def phase_blocked_vs_flat(eng, item, flat, knn, common):
               "max_abs_diff": {key: float(np.abs(out[key] - flat[key]).max())
                                for key in ("rgb_map", "acc_map")},
               "d5ub_below_exact": int((d5ub < knn.kth_distance(src, pverts)).sum()),
+              "k2_pairs_per_point": {"tested": tested2 / n_pass2,
+                                     "full": full2 / n_pass2},
+              # K2 on these points as the engine calls it, one launch per
+              # tile, and in one launch: the difference is the launches'
+              # tails
+              "k2_tile_launches_ms": cuda_ms(
+                  lambda: [knn.knn_blend(p, pverts, frame["weights"])
+                           for p, _ in recorded], iters=3),
+              "k2_one_launch_ms": cuda_ms(
+                  lambda: knn.knn_blend(src, pverts, frame["weights"]), iters=3),
+              "k5_pairs_per_point": {"tested": tested5 / n_pass2,
+                                     "full": full5 / n_pass2},
               "tol": FRAME_TOL, "tie_distances": top[:4].tolist()}
+    # K2 and K5 on these points: per launch as the engine makes them, one
+    # per tile, and at the kernel table's K2_ROWS queries a launch (the
+    # whole slices of K2_ROWS consecutive points)
+    ends = np.cumsum([p.shape[0] for p, _ in recorded]).tolist()
+    blocks = (frame["knn_verts"], frame["knn_values"], frame["knn_bboxes"])
+    result["frame_points"] = {
+        "tile_launches": kernels_on_points(
+            knn, src, d5ub, list(zip([0] + ends[:-1], ends)), pverts,
+            frame["weights"], blocks),
+        f"launches_of_{K2_ROWS}": kernels_on_points(
+            knn, src, d5ub, [(s, s + K2_ROWS) for s in
+                             range(0, n_pass2 - K2_ROWS + 1, K2_ROWS)],
+            pverts, frame["weights"], blocks)}
     emit(result)
     check(tie_rows == rows.numel() and result["rays_over_tol"] <= rows.numel()
           and result["d5ub_below_exact"] == 0,
           f"the blocked full frame differs from the flat one: {result}")
+    return result["frame_points"]
 
 
 def main():
@@ -762,19 +951,27 @@ def main():
     check(blk_frame_launches["knn_blend"] == 0
           and blk_frame_launches["kth_distance"] == 1,
           f"full_frame_sdf_pdf_blocked launched {blk_frame_launches}")
-    phase_blocked_vs_flat(eng_blk, full_item_sdf, sdf_frame, knn, common)
+    frame_points = phase_blocked_vs_flat(eng_blk, full_item_sdf, sdf_frame,
+                                         knn, common)
 
     # ---- kernel table
     def k1_sum(key):
         return sum(r[key] for r in k1_rows)
 
-    def knn_entry(row, source_line, eval_launches, frame_launches):
+    def knn_entry(row, source_line, eval_launches, frame_launches, on_frame=None):
         """Launches: on the SDF-PDF path that runs the kernel (flat for
         K2, blocked for K4 and K5; K3 on both; K6 on none). ms is the
-        kernel's own time; call_ms, where present, the whole wrapper's."""
+        kernel's own time; call_ms, where present, the whole wrapper's;
+        K2 and K5 also on the full frame's pass-2 points (`on_frame`)."""
         name = row["name"]
-        call = {key: row[key] for key in ("call_ms", "kernel_ms_from")
-                if key in row}
+        call = {key: row[key] for key in ("call_ms", "kernel_ms_from",
+                                          "bound_allpairs_ms",
+                                          "bound_kept_blocks_ms",
+                                          "share_of_bound") if key in row}
+        if on_frame is not None:
+            call["frame_points"] = {
+                "per_tile_launch": frame_points["tile_launches"][on_frame],
+                f"per_{K2_ROWS}": frame_points[f"launches_of_{K2_ROWS}"][on_frame]}
         return {
             "name": name, "route": "cuda",
             "source": "animatable_nerf_tpu_torch/csrc/knn.cu",
@@ -816,10 +1013,10 @@ def main():
             "share_of_bound": k1_sum("bound_ms") / k1_sum("kernel_ms"),
             "library_ms": k1_sum("library_ms"),
         },
-        knn_entry(k2_row, 55, sdf_launches, sdf_frame_launches),
+        knn_entry(k2_row, 55, sdf_launches, sdf_frame_launches, "k2"),
         knn_entry(k3_row, 129, sdf_launches, sdf_frame_launches),
         knn_entry(k4_row, 240, blk_launches, blk_frame_launches),
-        knn_entry(k5_row, 460, blk_launches, blk_frame_launches),
+        knn_entry(k5_row, 460, blk_launches, blk_frame_launches, "k5"),
         knn_entry(k6_row, 760, blk_launches, blk_frame_launches),
     ]})
     print(card, flush=True)

@@ -14,6 +14,7 @@ order), so they must agree to the bit: atol = rtol = 0.
 import numpy as np
 import pytest
 import torch
+from knn_cases import BLOCKED_CASES, KINDS, blocked_inputs, knn_inputs
 
 from animatable_nerf_tpu_torch.models.common import grid_d5_upper
 from animatable_nerf_tpu_torch.ops import knn
@@ -296,3 +297,81 @@ def test_cuda_knn_blend_celled_matches_plain(cuda_device, m):
     ref_v, ref_d = knn.knn_blend_celled_plain(src, *lists)
     np.testing.assert_array_equal(got_v.cpu().numpy(), ref_v.cpu().numpy())
     np.testing.assert_array_equal(got_d.cpu().numpy(), ref_d.cpu().numpy())
+
+
+def assert_bits_equal(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_knn_blend_adversarial(cuda_device, kind, k):
+    """tests/knn_cases.py's cases at SMPL's 6890 vertices (resident in
+    shared memory), 1001 queries: no multiple of a warp or of any block
+    size the launch picks."""
+    src, ref, vals = (torch.tensor(a, device=cuda_device)
+                      for a in knn_inputs(kind, 1001, 6890, 24, 21))
+    before = knn.knn_blend.launches
+    got = knn.knn_blend(src, ref, vals, k=k)
+    torch.cuda.synchronize()
+    assert knn.knn_blend.launches == before + 1
+    assert_bits_equal(got, knn.knn_blend_plain(src, ref, vals, k=k))
+
+
+@pytest.mark.cuda
+def test_cuda_knn_blend_beyond_shared_memory(cuda_device):
+    """20,000 vertices (320 KB as float4) do not fit a block's shared
+    memory: the kernel walks them in global memory."""
+    src, ref, vals = (torch.tensor(a, device=cuda_device)
+                      for a in knn_inputs("duplicates", 777, 20000, 5, 22))
+    got = knn.knn_blend(src, ref, vals)
+    torch.cuda.synchronize()
+    assert_bits_equal(got, knn.knn_blend_plain(src, ref, vals))
+
+
+@pytest.mark.cuda
+def test_cuda_knn_layouts_built_once_per_version(cuda_device):
+    """K2 and K5 build their vertex layouts on a frame's first call and
+    reuse them for the rest, as the engine's 64 calls of a frame do."""
+    src, ref, vals = (torch.tensor(a, device=cuda_device)
+                      for a in knn_inputs("cloud", 300, 700, 24, 23))
+    builds = knn._sweep_layout.builds
+    for _ in range(3):
+        knn.knn_blend(src, ref, vals)
+    assert knn._sweep_layout.builds == builds + 1
+    ref.add_(0.01)
+    moved = knn.knn_blend(src, ref, vals)
+    assert knn._sweep_layout.builds == builds + 2
+    assert_bits_equal(moved, knn.knn_blend_plain(src, ref, vals))
+    blocks = knn.build_knn_blocks(ref, vals)
+    d5ub = torch.full((300,), 10.0, device=cuda_device)
+    builds = knn._blocked_layout.builds
+    for _ in range(3):
+        knn.knn_blend_blocked(src, d5ub, *blocks)
+    assert knn._blocked_layout.builds == builds + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("kind,radius", BLOCKED_CASES)
+def test_cuda_knn_blend_blocked_adversarial(cuda_device, kind, radius, k):
+    """K5 on tests/knn_cases.py's cases: 1003 queries (4 tiles, the last
+    ragged), 2000 vertices (16 blocks, the last with 48 pads at 1e6);
+    kept lists empty (the NaN query's tile, and radius 0 away from the
+    cloud), of odd length and full (radius 10)."""
+    src, ref, vals, d5ub = (torch.tensor(a, device=cuda_device) for a in
+                            blocked_inputs(kind, radius, 1003, 2000, 24, k, 24))
+    blocks = knn.build_knn_blocks(ref, vals)
+    keep = knn.blocked_cull(*knn.blocked_tiles(src, d5ub, blocks[2])[2:])
+    lengths = keep.sum(1)
+    if radius == "zero":  # three tiles away, the ragged one at its pads
+        assert bool((lengths == 0).any()) and bool((lengths % 2 == 1).any())
+    elif radius == "huge":
+        assert bool(keep.all())
+    before = knn.knn_blend_blocked.launches
+    got = knn.knn_blend_blocked(src, d5ub, *blocks, k=k)
+    torch.cuda.synchronize()
+    assert knn.knn_blend_blocked.launches == before + 1
+    assert_bits_equal(got, knn.knn_blend_blocked_plain(src, d5ub, *blocks, k=k))
