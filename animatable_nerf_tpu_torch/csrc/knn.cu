@@ -39,8 +39,11 @@
 // index: there the test is > instead of >=). The same holds for a whole block
 // of vertices, with the query's gap to the block's box on each axis in
 // place of the difference: rounding is monotone, so no vertex of the box
-// is nearer on that axis. The rejects need no error margin and change no
-// neighbour and no bit.
+// is nearer on that axis. Rounded addition is monotone in each term too,
+// so the gaps' squares summed as d2 is summed, (gx*gx + gy*gy) + gz*gz,
+// are also <= d2 for every vertex of the box (K3 and K4 use this sum; a
+// box of queries in place of the query gives a bound for all of them).
+// The rejects need no error margin and change no neighbour and no bit.
 //
 // Why not the tensor cores: their form |q|^2 - 2 q.v + |v|^2 cancels and
 // flips neighbours (the JAX package rejected it, knn_pallas.py:590-597);
@@ -50,18 +53,35 @@
 // bound and would still leave the exact distance to the CUDA cores.
 //
 // Design:
-//   * K3, K4, K6: one thread per query; a block walks its vertices in
-//     tiles of up to kTile staged in shared memory as float4, so each pair
-//     costs one broadcast 16-byte shared load. K3 keeps a running min of
-//     d2 in a register; K4 and K6 keep the k best (d2, index) pairs sorted
-//     in registers (`topk_insert`). A vertex enters only if its d2 is
-//     strictly below the k-th best, and it is placed after every kept
-//     entry with an equal d2; vertices arrive in ascending index order, so
-//     this is the Pallas body's rule of k rounds of (min, lowest index,
-//     knock out). K6: one block of 64 threads per run of up to 64 queries
-//     of one cell (the wrapper sorts the queries by slot); the block
-//     stages its slot's (3, cap) list and sweeps all of it, pads included,
-//     indexing by list position (lists keep ascending global order);
+//   * K3, K4 (`grid_walk`): only values come out, so the order in which
+//     vertices arrive is free. The vertices in Morton order, in runs of
+//     kRun with a box each, built on the card once per vertex tensor
+//     version and shared by K3 and K4 (`grid_keys_kernel`, an argsort,
+//     `grid_runs_kernel`; ops/knn.py `grid_layout` is its plain
+//     version), read from global memory (L1).
+//     One warp per 32 consecutive queries (a line of grid nodes along z):
+//     the warp forms its live queries' box and ranks the runs by the
+//     squared gap from that box to each run's box, a lower bound for
+//     every lane; it then takes the runs nearest first, each chosen by a
+//     warp min over its lanes' smallest untaken keys (a lane owns runs
+//     lane, lane + 32, ...: its keys in shared memory, its smallest in a
+//     register). It skips a run that every lane's gap test rejects
+//     against its own k-th best, gives each vertex of a run it sweeps the
+//     one-axis reject on the run's longest axis before the full distance,
+//     and stops once the next key is >= the largest k-th best over its
+//     lanes: every later run is then rejected by every lane. A query
+//     visits the few runs near it, not all M vertices. K3 is K4 at k = 1;
+//     the k best values are kept sorted in registers (`topk_insert`);
+//   * K6: one thread per query, with the k best (d2, index) pairs sorted
+//     in registers (`topk_insert`): a vertex enters only if its d2 is
+//     strictly below the k-th best, placed after every kept entry with an
+//     equal d2; vertices arrive in ascending index order, so this is the
+//     Pallas body's rule of k rounds of (min, lowest index, knock out).
+//     One block of 64 threads per run of up to 64 queries of one cell
+//     (the wrapper sorts the queries by slot); the block stages its
+//     slot's (3, cap) list in tiles of up to kTile in shared memory as
+//     float4 and sweeps all of it, pads included, indexing by list
+//     position (lists keep ascending global order);
 //   * K2: the vertices sorted along their longest axis A, packed once per
 //     frame as float4 (x, y, z, original index) with A in a device int
 //     (ops/knn.py `sweep_layout`), all resident in shared memory (110 KB
@@ -97,7 +117,8 @@
 //     the lowest Morton position, as in the plain version;
 //   * the blend (`blend_write`) gathers each query's k value rows as
 //     float4 when C allows, in the Pallas body's order;
-//   * no padding of N or M in K2-K4: ragged tiles are bounded by counts.
+//   * no padding of N in K2-K4: ragged warps and blocks are bounded by
+//     counts; K3's and K4's vertices are padded to whole runs at +inf.
 //
 // Rounding: every operation is an explicitly rounded intrinsic
 // (__fsub_rn, __fmul_rn, __fadd_rn, __fsqrt_rn, __fdiv_rn), so nothing is
@@ -120,7 +141,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // queries per block
+constexpr int kThreads = 256;  // K2's queries per block without residency
+constexpr int kGridWarps = 8;  // K3's and K4's warps per block, 32 queries each
 constexpr int kCellThreads = 64;  // K6's queries per block: one cell's run
 constexpr int kTile = 1024;    // vertices per shared-memory tile (16 KB)
 constexpr int kMaxK = 8;
@@ -128,7 +150,9 @@ constexpr int kSweepThreads = 512;     // K2's most queries per block
 constexpr int kSweepMinThreads = 128;  // and its fewest
 constexpr int kWalkRows = 2;  // rows each way a step of K2's walk
 constexpr int kBlockedTile = 256;  // K5's queries per tile, one block each
-constexpr int kRun = 32;  // vertices per box inside a K5 block
+constexpr int kRun = 32;  // vertices per box: in a K5 block; K3's and K4's runs
+constexpr int kMortonBits = 8;  // per axis of K3's and K4's vertex order
+constexpr int kKeyThreads = 1024;  // the one block that computes its keys
 constexpr int kMaxCards = 64;  // device ordinals whose attributes are kept
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -165,31 +189,24 @@ __device__ __forceinline__ float sq_dist_from(float qx, float qy, float qz,
   return __fadd_rn(__fadd_rn(xx, yy), zz);
 }
 
-// Add a warp's per-thread counts into counts[0] and counts[1]; every lane
-// of the warp must call it.
+// Add a warp's per-thread counts into counts[0], counts[1], ...; every
+// lane of the warp must call it.
+template <typename... Counts>
 __device__ __forceinline__ void add_counts(unsigned long long* counts,
-                                           unsigned tested, unsigned full) {
-  tested = __reduce_add_sync(kFullMask, tested);
-  full = __reduce_add_sync(kFullMask, full);
-  if ((threadIdx.x & 31) == 0) {
-    atomicAdd(counts, static_cast<unsigned long long>(tested));
-    atomicAdd(counts + 1, static_cast<unsigned long long>(full));
+                                           Counts... per_lane) {
+  const unsigned value[] = {per_lane...};
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof...(Counts)); ++i) {
+    const unsigned sum = __reduce_add_sync(kFullMask, value[i]);
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(counts + i, static_cast<unsigned long long>(sum));
+    }
   }
 }
 
-// Stage `count` (<= kTile) vertices of a row-major (m, 3) array, from row
-// `base`, into `tile`. Every thread of the block must call it between two
-// barriers.
-__device__ __forceinline__ void stage_rows(const float* __restrict__ ref,
-                                           int base, int count,
-                                           float4* tile) {
-  for (int j = threadIdx.x; j < count; j += blockDim.x) {
-    const float* r = ref + 3 * static_cast<size_t>(base + j);
-    tile[j] = make_float4(r[0], r[1], r[2], 0.f);
-  }
-}
-
-// The same for a (3, cap) list: its x, y and z rows, from entry `base`.
+// Stage `count` (<= kTile) entries of a (3, cap) list, its x, y and z
+// rows from entry `base`, into `tile`. Every thread of the block must
+// call it between two barriers.
 __device__ __forceinline__ void stage_list(const float* __restrict__ xyz,
                                            int cap, int base, int count,
                                            float4* tile) {
@@ -197,14 +214,6 @@ __device__ __forceinline__ void stage_list(const float* __restrict__ xyz,
     const int e = base + j;
     tile[j] = make_float4(xyz[e], xyz[cap + e], xyz[2 * cap + e], 0.f);
   }
-}
-
-// Vertices [base, min(base + kTile, m)) into `tile`; returns the count.
-__device__ __forceinline__ int stage_tile(const float* __restrict__ ref,
-                                          int m, int base, float4* tile) {
-  const int count = min(kTile, m - base);
-  stage_rows(ref, base, count, tile);
-  return count;
 }
 
 __device__ __forceinline__ bool load_query(const float* __restrict__ src,
@@ -344,53 +353,6 @@ __device__ __forceinline__ bool is_nan3(float x, float y, float z) {
 // max(a, b) that is NaN when either is, as torch.maximum and jnp.maximum
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (isnan(a) || isnan(b)) ? NAN : fmaxf(a, b);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    min_dist_kernel(const float* __restrict__ src,
-                    const float* __restrict__ ref, int n, int m,
-                    float* __restrict__ out) {
-  __shared__ float4 tile[kTile];
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  float qx, qy, qz;
-  const bool live = load_query(src, q, n, &qx, &qy, &qz);
-  float best = INFINITY;
-  for (int base = 0; base < m; base += kTile) {
-    __syncthreads();
-    const int count = stage_tile(ref, m, base, tile);
-    __syncthreads();
-#pragma unroll 8
-    for (int j = 0; j < count; ++j) {
-      best = fminf(best, sq_dist(qx, qy, qz, tile[j]));
-    }
-  }
-  if (!live) return;
-  out[q] = is_nan3(qx, qy, qz) ? NAN : __fsqrt_rn(best);
-}
-
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-    kth_dist_kernel(const float* __restrict__ src,
-                    const float* __restrict__ ref, int n, int m,
-                    float* __restrict__ out) {
-  __shared__ float4 tile[kTile];
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  float qx, qy, qz;
-  const bool live = load_query(src, q, n, &qx, &qy, &qz);
-  float bd[K];
-  int bi[K];  // unread: the compiler drops it
-  topk_init(bd, bi);
-  for (int base = 0; base < m; base += kTile) {
-    __syncthreads();
-    const int count = stage_tile(ref, m, base, tile);
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < count; ++j) {
-      topk_insert(bd, bi, sq_dist(qx, qy, qz, tile[j]), base + j);
-    }
-  }
-  if (!live) return;
-  out[q] = is_nan3(qx, qy, qz) ? NAN : __fsqrt_rn(bd[K - 1]);
 }
 
 // One vertex p of K2's walk for one query: false, and no insert, if its
@@ -705,6 +667,299 @@ __global__ void __launch_bounds__(kBlockedTile)
               out_vals + static_cast<size_t>(q) * c, out_wd + q);
 }
 
+// The signed difference from q to the nearer face of [lo, hi] on one
+// axis, 0 inside: its square is <= the square of q - v, bit for bit, for
+// every v in [lo, hi].
+__device__ __forceinline__ float axis_gap(float q, float lo, float hi) {
+  return q < lo ? __fsub_rn(q, lo) : (q > hi ? __fsub_rn(q, hi) : 0.f);
+}
+
+// The same from the interval [qlo, qhi] of a warp's queries: a lower
+// bound, in magnitude, of axis_gap for every q in it.
+__device__ __forceinline__ float span_gap(float qlo, float qhi, float lo,
+                                          float hi) {
+  return qhi < lo ? __fsub_rn(qhi, lo) : (qlo > hi ? __fsub_rn(qlo, hi) : 0.f);
+}
+
+// Three gaps squared and summed as sq_dist sums d2: a lower bound, bit for
+// bit, of d2 to every vertex of the box (the exact reject above).
+__device__ __forceinline__ float gap_sq(float gx, float gy, float gz) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)),
+                   __fmul_rn(gz, gz));
+}
+
+template <bool kMin>
+__device__ __forceinline__ float warp_reduce(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float w = __shfl_xor_sync(kFullMask, v, o);
+    v = kMin ? fminf(v, w) : fmaxf(v, w);
+  }
+  return v;
+}
+
+// One run of kRun rows of K3's and K4's walk for one query: when `need`,
+// each row's A-square reject, then the full distance and the insert of
+// its value. Every lane of the warp reads the same row, from L1.
+template <int K, int A, bool kStats>
+__device__ __forceinline__ void grid_run(const float4* __restrict__ rows,
+                                         float qx, float qy, float qz,
+                                         bool need, float (&bd)[K],
+                                         int (&bi)[K], unsigned& full) {
+  const float qa = axis_of<A>(qx, qy, qz);
+#pragma unroll 4
+  for (int j = 0; j < kRun; ++j) {
+    const float4 p = __ldg(rows + j);
+    const float da = __fsub_rn(qa, axis_of<A>(p));
+    const float a2 = __fmul_rn(da, da);
+    if (need && a2 < bd[K - 1]) {
+      if (kStats) ++full;
+      topk_insert(bd, bi, sq_dist_from<A>(qx, qy, qz, p, a2), 0);
+    }
+  }
+}
+
+// K3 (K = 1) and K4: the k-th smallest d2 of each of the n queries src
+// (n, 3) over ops/knn.py `grid_layout`'s rows (n_runs * kRun, float4) and
+// run boxes (n_runs, 8 floats: lo3, hi3, longest axis, 0), its square root
+// to out (n,). One warp per 32 consecutive queries, kGridWarps warps a
+// block; dynamic shared memory: n_runs floats per warp. kStats counts the
+// (warp, run) pairs ranked and tested, those swept, and the (query,
+// vertex) pairs whose one-axis reject ran and that took the full
+// distance.
+template <int K, bool kStats>
+__device__ __forceinline__ void grid_walk(
+    const float* __restrict__ src, const float4* __restrict__ rows,
+    const float4* __restrict__ runs, int n, int n_runs,
+    float* __restrict__ out, unsigned long long* __restrict__ counts) {
+  extern __shared__ float run_keys[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* keys = run_keys + static_cast<size_t>(warp) * n_runs;
+  const int q = (blockIdx.x * kGridWarps + warp) * 32 + lane;
+  float qx, qy, qz;
+  const bool in_range = load_query(src, q, n, &qx, &qy, &qz);
+  const bool nan_query = is_nan3(qx, qy, qz);
+  const bool live = in_range && !nan_query;
+  // a lane with no walk (past n, or a NaN query) holds a negative bound,
+  // which every gap and every square is >=
+  float bd[K];
+  int bi[K];  // unread: the compiler drops it
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    bd[s] = live ? INFINITY : -1.f;
+    bi[s] = 0;
+  }
+  unsigned ranked = 0, swept = 0, tested = 0, full = 0;
+  if (__any_sync(kFullMask, live)) {  // the same for every lane
+    const float lx = warp_reduce<true>(live ? qx : INFINITY);
+    const float ly = warp_reduce<true>(live ? qy : INFINITY);
+    const float lz = warp_reduce<true>(live ? qz : INFINITY);
+    const float hx = warp_reduce<false>(live ? qx : -INFINITY);
+    const float hy = warp_reduce<false>(live ? qy : -INFINITY);
+    const float hz = warp_reduce<false>(live ? qz : -INFINITY);
+    // this lane's runs r = lane, lane + 32, ...: their keys (>= 0, so
+    // their bits order as they do) and the smallest untaken one, lowest
+    // run first among equals
+    float lmin = INFINITY;
+    int lrun = 0;
+    for (int r = lane; r < n_runs; r += 32) {
+      const float4 b0 = __ldg(runs + 2 * r), b1 = __ldg(runs + 2 * r + 1);
+      const float key = gap_sq(span_gap(lx, hx, b0.x, b0.w),
+                               span_gap(ly, hy, b0.y, b1.x),
+                               span_gap(lz, hz, b0.z, b1.y));
+      keys[r] = key;
+      if (key < lmin) {
+        lmin = key;
+        lrun = r;
+      }
+    }
+    unsigned top = __reduce_max_sync(
+        kFullMask, live ? __float_as_uint(bd[K - 1]) : 0u);
+    for (;;) {
+      const unsigned next = __reduce_min_sync(kFullMask, __float_as_uint(lmin));
+      if (next >= top) break;  // every run left is rejected by every lane
+      const int owner =
+          __ffs(__ballot_sync(kFullMask, __float_as_uint(lmin) == next)) - 1;
+      const int r = __shfl_sync(kFullMask, lrun, owner);
+      if (lane == owner) {  // its keys are its own: no other lane reads them
+        keys[r] = INFINITY;
+        lmin = INFINITY;
+        for (int e = lane; e < n_runs; e += 32) {
+          const float key = keys[e];
+          if (key < lmin) {
+            lmin = key;
+            lrun = e;
+          }
+        }
+      }
+      if (kStats) ++ranked;
+      const float4 b0 = __ldg(runs + 2 * r), b1 = __ldg(runs + 2 * r + 1);
+      const bool need = gap_sq(axis_gap(qx, b0.x, b0.w),
+                               axis_gap(qy, b0.y, b1.x),
+                               axis_gap(qz, b0.z, b1.y)) < bd[K - 1];
+      if (!__any_sync(kFullMask, need)) continue;  // the warp skips the run
+      if (kStats) {
+        ++swept;
+        tested += need ? kRun : 0;
+      }
+      const float4* run_rows = rows + static_cast<size_t>(r) * kRun;
+      switch (static_cast<int>(b1.z)) {
+        case 0:
+          grid_run<K, 0, kStats>(run_rows, qx, qy, qz, need, bd, bi, full);
+          break;
+        case 1:
+          grid_run<K, 1, kStats>(run_rows, qx, qy, qz, need, bd, bi, full);
+          break;
+        default:
+          grid_run<K, 2, kStats>(run_rows, qx, qy, qz, need, bd, bi, full);
+      }
+      top = __reduce_max_sync(kFullMask,
+                              live ? __float_as_uint(bd[K - 1]) : 0u);
+    }
+  }
+  if (kStats) {
+    add_counts(counts, lane == 0 ? ranked : 0u, lane == 0 ? swept : 0u,
+               tested, full);
+  }
+  if (!in_range) return;
+  out[q] = nan_query ? NAN : __fsqrt_rn(bd[K - 1]);
+}
+
+// ops/knn.py `morton_key`'s spread of a 10-bit coordinate to every third
+// bit.
+__device__ __forceinline__ unsigned spread_bits(unsigned x) {
+  x = (x | (x << 16)) & 0x030000FFu;
+  x = (x | (x << 8)) & 0x0300F00Fu;
+  x = (x | (x << 4)) & 0x030C30C3u;
+  return (x | (x << 2)) & 0x09249249u;
+}
+
+// K3's and K4's layout, first launch (one block of kKeyThreads): the box
+// of ref (m, 3), then each vertex's Morton key of kMortonBits an axis,
+// formed as ops/knn.py `_morton_order` forms it (torch's scalar / tensor
+// is a reciprocal times the scalar), so that its stable sort is the
+// same order.
+__global__ void __launch_bounds__(kKeyThreads)
+    grid_keys_kernel(const float* __restrict__ ref, int m,
+                     int* __restrict__ keys) {
+  __shared__ float part[6][kKeyThreads / 32];
+  __shared__ float box[6];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float b[6] = {INFINITY, INFINITY, INFINITY, -INFINITY, -INFINITY, -INFINITY};
+  for (int i = threadIdx.x; i < m; i += kKeyThreads) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float v = ref[3 * static_cast<size_t>(i) + a];
+      b[a] = fminf(b[a], v);
+      b[3 + a] = fmaxf(b[3 + a], v);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+    b[a] = a < 3 ? warp_reduce<true>(b[a]) : warp_reduce<false>(b[a]);
+    if (lane == 0) part[a][warp] = b[a];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int a = 0; a < 6; ++a) {
+      const float v = part[a][lane];
+      const float r = a < 3 ? warp_reduce<true>(v) : warp_reduce<false>(v);
+      if (lane == 0) box[a] = r;
+    }
+  }
+  __syncthreads();
+  constexpr float kTop = static_cast<float>((1 << kMortonBits) - 1);
+  float mn[3], scale[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    mn[a] = box[a];
+    scale[a] = __fmul_rn(__frcp_rn(fmaxf(__fsub_rn(box[3 + a], mn[a]), 1e-9f)),
+                         kTop);
+  }
+  for (int i = threadIdx.x; i < m; i += kKeyThreads) {
+    unsigned key = 0;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float t = __fmul_rn(
+          __fsub_rn(ref[3 * static_cast<size_t>(i) + a], mn[a]), scale[a]);
+      key |= spread_bits(static_cast<unsigned>(
+                 __float2int_rz(fminf(fmaxf(t, 0.f), kTop))))
+             << a;
+    }
+    keys[i] = static_cast<int>(key);
+  }
+}
+
+// The layout's second launch, after the stable argsort of the keys
+// (order (m,)): one warp per run of kRun rows, the rows ref[order] as
+// float4 (x, y, z, 0), pads at +inf past m, and the run's box over its
+// real rows with its longest axis, the first of equal extents (as
+// torch.argmax): runs (n_runs, 8) [lo3, hi3, axis, 0].
+__global__ void __launch_bounds__(256)
+    grid_runs_kernel(const float* __restrict__ ref,
+                     const long long* __restrict__ order, int m, int n_runs,
+                     float4* __restrict__ rows, float* __restrict__ runs) {
+  static_assert(kRun == 32, "a run is a warp's rows");
+  const int run = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (run >= n_runs) return;  // the same for every lane of the warp
+  const int i = run * kRun + (threadIdx.x & 31);
+  const bool real = i < m;
+  float p[3] = {INFINITY, INFINITY, INFINITY};
+  if (real) {
+    const float* r = ref + 3 * static_cast<size_t>(order[i]);
+    p[0] = r[0];
+    p[1] = r[1];
+    p[2] = r[2];
+  }
+  rows[i] = make_float4(p[0], p[1], p[2], 0.f);
+  float lo[3], hi[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    lo[a] = warp_reduce<true>(p[a]);
+    hi[a] = warp_reduce<false>(real ? p[a] : -INFINITY);
+  }
+  if ((threadIdx.x & 31) != 0) return;
+  int axis = 0;
+  float extent = __fsub_rn(hi[0], lo[0]);
+#pragma unroll
+  for (int a = 1; a < 3; ++a) {
+    const float e = __fsub_rn(hi[a], lo[a]);
+    if (e > extent) {
+      extent = e;
+      axis = a;
+    }
+  }
+  float* box = runs + 8 * static_cast<size_t>(run);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    box[a] = lo[a];
+    box[3 + a] = hi[a];
+  }
+  box[6] = static_cast<float>(axis);
+  box[7] = 0.f;
+}
+
+template <bool kStats>
+__global__ void __launch_bounds__(kGridWarps * 32)
+    min_dist_kernel(const float* __restrict__ src,
+                    const float4* __restrict__ rows,
+                    const float4* __restrict__ runs, int n, int n_runs,
+                    float* __restrict__ out,
+                    unsigned long long* __restrict__ counts) {
+  grid_walk<1, kStats>(src, rows, runs, n, n_runs, out, counts);
+}
+
+template <int K, bool kStats>
+__global__ void __launch_bounds__(kGridWarps * 32)
+    kth_dist_kernel(const float* __restrict__ src,
+                    const float4* __restrict__ rows,
+                    const float4* __restrict__ runs, int n, int n_runs,
+                    float* __restrict__ out,
+                    unsigned long long* __restrict__ counts) {
+  grid_walk<K, kStats>(src, rows, runs, n, n_runs, out, counts);
+}
+
 // One block per run of queries of one slot. tiles (n_tiles, 3): the slot,
 // the run's first row in src and its row count (<= kCellThreads; a tile
 // with no rows returns at once). cverts (S+1, 3, cap), cvals (S+1, cap, c).
@@ -795,32 +1050,82 @@ Card current_card() {
 
 constexpr size_t kDefaultSmem = 48 * 1024;  // dynamic shared memory without opt-in
 
+// K3's or K4's launch: kGridWarps warps a block, each with n_runs floats
+// of shared memory for its keys (opted in above 48 KB, past 1536 runs).
+template <typename Kernel>
+int launch_grid_walk(Kernel kernel, const float* src, const float* rows,
+                     const float* runs, int n, int n_runs, float* out,
+                     unsigned long long* counts, void* stream) {
+  if (n_runs < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return 0;
+  const size_t smem = sizeof(float) * kGridWarps * static_cast<size_t>(n_runs);
+  if (smem > kDefaultSmem) {
+    const Card card = current_card();
+    if (smem > static_cast<size_t>(card.smem_optin)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  }
+  const int per_block = 32 * kGridWarps;
+  kernel<<<(n + per_block - 1) / per_block, per_block, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      src, reinterpret_cast<const float4*>(rows),
+      reinterpret_cast<const float4*>(runs), n, n_runs, out, counts);
+  return last_error();
+}
+
 }  // namespace
 
 extern "C" {
 
 int knn_max_k() { return kMaxK; }
 
-// src (n, 3), ref (m, 3) -> out (n,): distance to the nearest vertex.
-int knn_min_dist(const float* src, const float* ref, int n, int m,
-                 float* out, void* stream) {
-  if (n <= 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  min_dist_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      src, ref, n, m, out);
+// ops/knn.py `grid_layout` of ref (m, 3) on the card: the Morton keys
+// (m,) int32 of ref, for the caller's stable argsort.
+int knn_grid_keys(const float* ref, int m, int* keys, void* stream) {
+  if (m <= 0) return 0;
+  grid_keys_kernel<<<1, kKeyThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      ref, m, keys);
   return last_error();
 }
 
-// src (n, 3), ref (m, 3) -> out (n,): distance to the k-th nearest vertex.
-int knn_kth_dist(const float* src, const float* ref, int n, int m, int k,
-                 float* out, void* stream) {
-  if (n <= 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch_k(k, [&](auto kc) {
-    kth_dist_kernel<decltype(kc)::value><<<blocks, kThreads, 0, s>>>(
-        src, ref, n, m, out);
-    return last_error();
+// Then, from that order (m,) int64: rows (n_runs * kRun, 4) and runs
+// (n_runs, 8), n_runs = ceil(m / kRun).
+int knn_grid_runs(const float* ref, const long long* order, int m,
+                  float* rows, float* runs, void* stream) {
+  if (m <= 0) return 0;
+  const int n_runs = (m + kRun - 1) / kRun;
+  grid_runs_kernel<<<(n_runs * 32 + 255) / 256, 256, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      ref, order, m, n_runs, reinterpret_cast<float4*>(rows), runs);
+  return last_error();
+}
+
+// src (n, 3) and the layout of ref (m, 3) from ops/knn.py `grid_layout`,
+// rows (n_runs * kRun, 4) and runs (n_runs, 8) -> out (n,): distance to
+// the nearest vertex. counts, if given, gains the walk's four counts
+// (`grid_walk`).
+int knn_min_dist(const float* src, const float* rows, const float* runs,
+                 int n, int n_runs, float* out, unsigned long long* counts,
+                 void* stream) {
+  if (counts != nullptr) {
+    return launch_grid_walk(min_dist_kernel<true>, src, rows, runs, n, n_runs,
+                            out, counts, stream);
+  }
+  return launch_grid_walk(min_dist_kernel<false>, src, rows, runs, n, n_runs,
+                          out, counts, stream);
+}
+
+// The same -> out (n,): distance to the k-th nearest vertex. counts, if
+// given (k = 5 only), gains the walk's four counts.
+int knn_kth_dist(const float* src, const float* rows, const float* runs,
+                 int n, int n_runs, int k, float* out,
+                 unsigned long long* counts, void* stream) {
+  return dispatch_counts(k, counts, [&](auto kc, auto stats) {
+    return launch_grid_walk(
+        kth_dist_kernel<decltype(kc)::value, decltype(stats)::value>, src,
+        rows, runs, n, n_runs, out, counts, stream);
   });
 }
 

@@ -16,10 +16,10 @@ is no fallback from one to the other. All are forward-only: their
 outputs are data, no gradient crosses them (JAX models/pdf.py:157-159).
 
 The library is built with nvcc into `build/` at the checkout root at
-first use (ops/build.py; plain C interface, bound with ctypes). K2 and
-K5 read vertex layouts (`sweep_layout`, `blocked_layout`) that the
-wrappers build on a frame's first call and keep while the vertex
-tensor's identity and version stay (`per_version`).
+first use (ops/build.py; plain C interface, bound with ctypes). K2, K5
+and K3/K4 read vertex layouts (`sweep_layout`, `blocked_layout`,
+`grid_layout`) that the wrappers build on a frame's first call and keep
+while the vertex tensor's identity and version stay (`per_version`).
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ PLAIN_CHUNK = 4096  # query rows per (rows, M) distance matrix
 # K5's queries per tile, one CUDA block each (kBlockedTile in csrc/knn.cu)
 BLOCKED_TILE = 256
 # vertices per box inside a K5 block (blocked_layout; kRun in csrc/knn.cu):
-# a block is a whole number of runs
+# a block is a whole number of runs; also K3's and K4's run (grid_layout)
 RUN = 32
 CELLED_TILE = 64  # K6's queries per tile: kCellThreads in csrc/knn.cu
 
@@ -174,16 +174,60 @@ def blocked_layout(verts_sorted, block: int):
             _boxes(verts_sorted, RUN))
 
 
+def grid_layout(ref):
+    """K3's and K4's vertex layout, shared by both: ref (M, 3) in Morton
+    order (`_morton_order`), padded to whole runs of RUN rows at +inf, as
+    (Mp, 4) float32 rows (x, y, z, 0); and each run's box over its real
+    rows, with its longest axis, (Mp / RUN, 8) [lo3, hi3, axis, 0]. A
+    pad's squared distance to any finite query is +inf, which never
+    enters a value; the last run holds a real row, so every box is
+    finite. The wrappers build the same on the card in three launches
+    (`_grid_layout_cuda`)."""
+    m = ref.shape[0]
+    mp = _round_up(m, RUN)
+    pts = ref.new_full((mp, 3), float("inf"))
+    pts[:m] = ref[_morton_order(ref)]
+    real = (torch.arange(mp, device=ref.device) < m)[:, None]
+    lo = pts.reshape(-1, RUN, 3).amin(dim=1)
+    hi = torch.where(real, pts, float("-inf")).reshape(-1, RUN, 3).amax(dim=1)
+    axis = torch.argmax(hi - lo, dim=1, keepdim=True).to(torch.float32)
+    rows = torch.cat([pts, pts.new_zeros(mp, 1)], dim=1)
+    return rows, torch.cat([lo, hi, axis, torch.zeros_like(axis)], dim=1)
+
+
+def _grid_layout_cuda(ref):
+    """`grid_layout` of a CUDA tensor, bit for bit, in three launches in
+    place of the ~70 small ops `grid_layout` issues (a frame builds it
+    once, and its cost counts in that frame's grid builds): the Morton
+    keys (csrc/knn.cu `grid_keys_kernel`), their stable argsort, and the
+    rows and run boxes (`grid_runs_kernel`). No host sync."""
+    lib = _library()
+    m = ref.shape[0]
+    mp = _round_up(m, RUN)
+    keys = torch.empty(m, dtype=torch.int32, device=ref.device)
+    _launch("grid_layout", ref.device, lib.knn_grid_keys, ref.data_ptr(), m,
+            keys.data_ptr())
+    order = torch.argsort(keys, stable=True)
+    rows = torch.empty(mp, 4, dtype=torch.float32, device=ref.device)
+    runs = torch.empty(mp // RUN, 8, dtype=torch.float32, device=ref.device)
+    _launch("grid_layout", ref.device, lib.knn_grid_runs, ref.data_ptr(),
+            order.data_ptr(), m, rows.data_ptr(), runs.data_ptr())
+    return rows, runs
+
+
 _sweep_layout = per_version(sweep_layout)
 _blocked_layout = per_version(blocked_layout)
+_grid_layout = per_version(_grid_layout_cuda)
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = ctypes.CDLL(str(build_library("knn")))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.knn_min_dist.argtypes = [ptr, ptr, i32, i32, ptr, ptr]
-    lib.knn_kth_dist.argtypes = [ptr, ptr, i32, i32, i32, ptr, ptr]
+    lib.knn_min_dist.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr, ptr]
+    lib.knn_kth_dist.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr]
+    lib.knn_grid_keys.argtypes = [ptr, i32, ptr, ptr]
+    lib.knn_grid_runs.argtypes = [ptr, ptr, i32, ptr, ptr, ptr]
     lib.knn_blend.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32,
                               ptr, ptr, ptr, ptr]
     lib.knn_blocked.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
@@ -192,9 +236,10 @@ def _library():
                                ptr, ptr, ptr]
     for fn in (lib.knn_max_k, lib.knn_blocked_tile, lib.knn_blocked_run):
         fn.argtypes = []
-    for fn in (lib.knn_min_dist, lib.knn_kth_dist, lib.knn_blend,
-               lib.knn_blocked, lib.knn_celled, lib.knn_max_k,
-               lib.knn_blocked_tile, lib.knn_blocked_run):
+    for fn in (lib.knn_min_dist, lib.knn_kth_dist, lib.knn_grid_keys,
+               lib.knn_grid_runs, lib.knn_blend, lib.knn_blocked,
+               lib.knn_celled, lib.knn_max_k, lib.knn_blocked_tile,
+               lib.knn_blocked_run):
         fn.restype = ctypes.c_int
     if (lib.knn_blocked_tile(), lib.knn_blocked_run()) != (BLOCKED_TILE, RUN):
         raise RuntimeError("csrc/knn.cu's K5 tile and run differ from "
@@ -302,14 +347,9 @@ def min_dist(src, ref):
     _check_k("min_dist", 1, ref.shape[0])
     if src.device.type == "cpu":
         return min_dist_plain(src, ref)
-    lib = _device_library("min_dist", 1, src, ref)
-    n, m = src.shape[0], ref.shape[0]
-    out = torch.empty(n, device=src.device, dtype=torch.float32)
-    if n == 0:
-        return out
-    _launch("min_dist", src.device, lib.knn_min_dist, src.data_ptr(),
-            ref.data_ptr(), n, m, out.data_ptr())
-    min_dist.launches += 1
+    out = _grid_dist_cuda("min_dist", src, ref, 1)
+    if src.shape[0]:
+        min_dist.launches += 1
     return out
 
 
@@ -322,15 +362,48 @@ def kth_distance(src, ref, k: int = 5):
     _check_k("kth_distance", k, ref.shape[0])
     if src.device.type == "cpu":
         return kth_distance_plain(src, ref, k)
-    lib = _device_library("kth_distance", k, src, ref)
-    n, m = src.shape[0], ref.shape[0]
+    out = _grid_dist_cuda("kth_distance", src, ref, k)
+    if src.shape[0]:
+        kth_distance.launches += 1
+    return out
+
+
+def _grid_dist_cuda(name, src, ref, k, counts=None):
+    """K3's (k = 1) or K4's launch on the run layout of ref (built once
+    per version of ref, shared by both); `counts` selects the counting
+    build."""
+    lib = _device_library(name, k, src, ref)
+    n = src.shape[0]
     out = torch.empty(n, device=src.device, dtype=torch.float32)
     if n == 0:
         return out
-    _launch("kth_distance", src.device, lib.knn_kth_dist, src.data_ptr(),
-            ref.data_ptr(), n, m, k, out.data_ptr())
-    kth_distance.launches += 1
+    rows, runs = _grid_layout(ref)
+    counts_ptr = None if counts is None else counts.data_ptr()
+    if k == 1:
+        _launch(name, src.device, lib.knn_min_dist, src.data_ptr(),
+                rows.data_ptr(), runs.data_ptr(), n, runs.shape[0],
+                out.data_ptr(), counts_ptr)
+    else:
+        _launch(name, src.device, lib.knn_kth_dist, src.data_ptr(),
+                rows.data_ptr(), runs.data_ptr(), n, runs.shape[0], k,
+                out.data_ptr(), counts_ptr)
     return out
+
+
+def grid_dist_counts(src, ref, k: int):
+    """K3 (k = 1) or K4 at k = 5 in its counting build, for measurement
+    (not counted as a launch): a (4,) int64 tensor of the (warp, run)
+    pairs the warps ranked and tested before they stopped, those they
+    swept, the (query, vertex) pairs whose one-axis reject ran and those
+    that went on to the full distance."""
+    if k not in (1, 5):
+        raise ValueError(f"grid_dist_counts: the counting builds take k = 1 "
+                         f"or 5, not {k}")
+    _check_points("grid_dist_counts", src, ref)
+    _check_k("grid_dist_counts", k, ref.shape[0])
+    counts = torch.zeros(4, dtype=torch.int64, device=src.device)
+    _grid_dist_cuda("grid_dist_counts", src, ref, k, counts)
+    return counts
 
 
 def _linspace(start, stop, num: int):

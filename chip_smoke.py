@@ -16,11 +16,16 @@ Phases, one JSON line each:
      versions: K2 at 131,072 queries over 6890 vertices with duplicate
      vertices (also timed at a full frame's 77,505 queries a launch and
      with one channel, and its walk's pairs counted by its counting
-     build); K3 and K4 at the 96^3 grid builds of one capsule frame;
-     K5 and K6 at 131,072 queries around that frame's vertices, with the
-     frame's d5 grid (K5, its kept blocks per tile and its rejects
-     counted) and cell lists (K6), both also held against K2. K2's and
-     K5's bounds count the pairs the data needs (band_pairs);
+     build); K3 and K4 at the 96^3 grid builds of one capsule frame,
+     timed alone, as calls, and as calls on a fresh vertex tensor (their
+     layout built in the call), with their walks counted by their
+     counting builds; K5 and K6 at 131,072 queries around that frame's
+     vertices, with the frame's d5 grid (K5, its kept blocks per tile
+     and its rejects counted) and cell lists (K6, and the whole
+     `build_cell_knn` call that holds one K3 and one K4), both also held
+     against K2. K2's and K5's bounds count the pairs the data needs
+     (band_pairs), K3's and K4's the vertices of the runs they must
+     sweep (run_pairs);
   4. the port's `run_evaluate` on configs/synthetic.yaml (AniNeRF) with
      the tracked checkpoint (4 views), each view held to the JAX
      package's PSNR within PSNR_TOL_DB, with K1's launches counted;
@@ -386,6 +391,36 @@ def kth_sq_dist(src, verts, k=5, chunk=16384):
     return torch.cat(out)
 
 
+def fresh_ms(fn, verts, warmup=2, iters=10):
+    """Mean device time of fn(v) by CUDA events, each call on its own copy
+    v of the vertex tensor verts, as each frame brings new vertices: the
+    layout a wrapper builds once per vertex tensor version is built in
+    every call."""
+    copies = iter([verts.clone() for _ in range(warmup + iters)])
+    return cuda_ms(lambda: fn(next(copies)), warmup, iters)
+
+
+def run_pairs(src, runs, m, kth2, run=32, chunk=16384):
+    """(N,) per query, the vertices that K3's and K4's walk has to reach
+    over `grid_layout`'s runs of `run` rows with boxes `runs` (R, 8): the
+    real rows (m in all) of the runs whose box gap to the query, squared
+    and summed as the kernels sum them, is at most the query's k-th
+    smallest squared distance kth2. The gap bounds d2 to every vertex of
+    the run, so an exact walk can skip every other run."""
+    import torch
+
+    real = torch.full((runs.shape[0],), run, device=src.device)
+    real[-1] = m - run * (runs.shape[0] - 1)
+    lo, hi = runs[None, :, 0:3], runs[None, :, 3:6]
+    out = []
+    for s in range(0, src.shape[0], chunk):
+        q = src[s:s + chunk, None]
+        g = torch.where(q < lo, q - lo, torch.where(q > hi, q - hi, 0.0))
+        g2 = (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]) + g[..., 2] * g[..., 2]
+        out.append(((g2 <= kth2[s:s + chunk, None]) * real).sum(1))
+    return torch.cat(out)
+
+
 def band_pairs(src, verts, axis, kth2, kept=None, chunk=16384):
     """(N,) per query, the vertices an exact walk along `axis` has to
     reach: those whose square on that axis, formed as the kernels form
@@ -499,34 +534,65 @@ def phase_knn(knn, common, pvertices, weights):
     check(err2 <= KNN_TOL and rows_differ == 0,
           f"K2 differs from its plain version: {err2}, {rows_differ} rows")
 
-    # K3: the 96^3 distance-grid build of one capsule frame
+    # K3 and K4 (k = 5): the 96^3 distance-grid and d5-grid builds of one
+    # capsule frame
     nodes, _, _ = knn.pdist_grid_nodes(pvertices, GRID_RES)
-    got = knn.min_dist(nodes, pvertices)
-    torch.cuda.synchronize()
-    err3 = (got - knn.min_dist_plain(nodes, pvertices)).abs().max().item()
-    times3 = timed_pair(lambda: knn.min_dist(nodes, pvertices),
-                        lambda: knn.min_dist_plain(nodes, pvertices),
-                        lambda: cdist_min(nodes, pvertices))
     n3 = nodes.shape[0]
-    b3, by3 = bound(OPS_PER_PAIR * n3 * m, 4 * (n3 * 3 + m * 3 + n3))
-    k3 = {"name": "min_dist", "queries": n3, "vertices": m, "max_abs_err": err3,
-          **times3, "bound_ms": b3, "bound_by": by3,
-          "library": "torch.cdist(...).amin(1), chunks of 16384 queries"}
-    check(err3 <= KNN_TOL, f"K3 differs from its plain version: {err3}")
-
-    # K4: the 96^3 d5-grid build of the same frame
-    got = knn.kth_distance(nodes, pvertices)
-    torch.cuda.synchronize()
-    err4 = (got - knn.kth_distance_plain(nodes, pvertices)).abs().max().item()
-    times4 = timed_pair(lambda: knn.kth_distance(nodes, pvertices),
-                        lambda: knn.kth_distance_plain(nodes, pvertices),
-                        lambda: cdist_kth(nodes, pvertices))
-    b4, by4 = bound(OPS_PER_PAIR * n3 * m, 4 * (n3 * 3 + m * 3 + n3))
-    k4 = {"name": "kth_distance", "queries": n3, "vertices": m, "k": 5,
-          "max_abs_err": err4, **times4, "bound_ms": b4, "bound_by": by4,
-          "library": "torch.cdist + torch.topk (k-th value), chunks of 16384 "
-          "queries"}
-    check(err4 <= KNN_TOL, f"K4 differs from its plain version: {err4}")
+    _, runs = knn.grid_layout(pvertices)
+    walk_axis = int(knn.sweep_layout(pvertices)[1])
+    io3 = 4 * (n3 * 3 + m * 3 + n3)
+    grid_rows = []
+    for name, k, kernel, plain, library in (
+            ("min_dist", 1, "min_dist_kernel", knn.min_dist_plain, cdist_min),
+            ("kth_distance", 5, "kth_dist_kernel", knn.kth_distance_plain,
+             cdist_kth)):
+        call = getattr(knn, name)
+        got = call(nodes, pvertices)
+        torch.cuda.synchronize()
+        want = plain(nodes, pvertices)
+        err = (got - want).abs().max().item()
+        differ = int((got != want).sum())
+        times = timed_pair(lambda: call(nodes, pvertices),
+                           lambda: plain(nodes, pvertices),
+                           lambda: library(nodes, pvertices))
+        # the walk's work, by the kernel's counting build
+        ranked, swept, tested, full = knn.grid_dist_counts(
+            nodes, pvertices, k).tolist()
+        # the bound of the work these inputs need: the vertices of the runs
+        # whose box lies within each query's k-th distance; beside it the
+        # band of K2's walk axis within it, and all pairs (the earlier bound)
+        kth2 = kth_sq_dist(nodes, pvertices, k)
+        needed = int(run_pairs(nodes, runs, m, kth2).sum())
+        band = int(band_pairs(nodes, pvertices, walk_axis, kth2).sum())
+        b, by = bound(OPS_PER_PAIR * needed, io3)
+        warps = -(-n3 // 32)
+        row = {"name": name, "queries": n3, "vertices": m, "k": k,
+               "max_abs_err": err, "values_differing": differ,
+               **kernel_alone(times, wrapper_split(
+                   lambda: call(nodes, pvertices), kernel)),
+               # the whole call on a new vertex tensor: its layout is built
+               # in the call, as once per frame in the engine
+               "call_fresh_ms": fresh_ms(lambda v: call(nodes, v), pvertices),
+               "runs": runs.shape[0], "warps": warps,
+               "runs_ranked": ranked, "runs_swept": swept,
+               "runs_ranked_per_warp": ranked / warps,
+               "runs_swept_per_warp": swept / warps,
+               "pairs_tested": tested, "pairs_full": full,
+               "pairs_tested_per_query": tested / n3,
+               "pairs_full_per_query": full / n3,
+               "pairs_needed": needed, "pairs_needed_per_query": needed / n3,
+               "pairs_band": band, "pairs": n3 * m,
+               "bound_ms": b, "bound_by": by,
+               "bound_band_ms": bound(OPS_PER_PAIR * band, io3)[0],
+               "bound_allpairs_ms": bound(OPS_PER_PAIR * n3 * m, io3)[0],
+               "library": {"min_dist": "torch.cdist(...).amin(1)",
+                           "kth_distance": "torch.cdist + torch.topk (k-th "
+                           "value)"}[name] + ", chunks of 16384 queries"}
+        row["share_of_bound"] = b / row["kernel_ms"]
+        check(err <= KNN_TOL and differ == 0,
+              f"{name} differs from its plain version: {err}, {differ} values")
+        grid_rows.append(row)
+    k3, k4 = grid_rows
 
     # K5 and K6 on queries around the frame's posed vertices, against
     # their plain versions and against K2 on the same queries
@@ -597,6 +663,11 @@ def phase_knn(knn, common, pvertices, weights):
         if not bool(overflow):
             break
     check(not bool(overflow), f"K6: the cell lists overflow every cap {CELL_CAPS}")
+    # the whole build, one K3 and one K4 on the cell centres, on a new
+    # vertex tensor each call, as once per frame
+    cell_ms = fresh_ms(lambda v: knn.build_cell_knn(
+        v, weights, res=CELL_RES, cap=cap, slot_cap=CELL_SLOTS), pvertices)
+    k3["build_cell_knn_ms"] = k4["build_cell_knn_ms"] = cell_ms
     lists = [payload[key] for key in
              ("cknn_verts", "cknn_vals", "cknn_lut", "cknn_bounds")]
     got_v, got_d = knn.knn_blend_celled(src, *lists)
@@ -964,10 +1035,11 @@ def main():
         kernel's own time; call_ms, where present, the whole wrapper's;
         K2 and K5 also on the full frame's pass-2 points (`on_frame`)."""
         name = row["name"]
-        call = {key: row[key] for key in ("call_ms", "kernel_ms_from",
-                                          "bound_allpairs_ms",
-                                          "bound_kept_blocks_ms",
-                                          "share_of_bound") if key in row}
+        call = {key: row[key] for key in (
+            "call_ms", "call_fresh_ms", "kernel_ms_from", "bound_allpairs_ms",
+            "bound_band_ms", "bound_kept_blocks_ms", "share_of_bound",
+            "runs_swept_per_warp", "pairs_tested", "pairs_full",
+            "pairs_needed", "build_cell_knn_ms") if key in row}
         if on_frame is not None:
             call["frame_points"] = {
                 "per_tile_launch": frame_points["tile_launches"][on_frame],

@@ -17,6 +17,9 @@ It measures, on the capsule's frame 0:
     131,072 queries drawn around the posed vertices (chip_smoke.py's
     draw), CUDA events around 10 calls, and K5's call split by
     torch.profiler;
+  * the K3 (`min_dist`) and K4 (`kth_distance`) 96^3 grid builds and
+    the whole `build_cell_knn` call (one K3 and one K4), each call on
+    its own copy of the vertices, as each frame brings new ones;
   * one 1000x1002 frame of the flat and of the `knn_blocked` path: the
     host-clock wall of three renders after a warm-up, each without the
     frame's cached tensors, then one profiled render (device time, idle
@@ -87,6 +90,14 @@ def main(argv):
                                                              weights)),
               "k5_call_ms": cs.cuda_ms(k5_call),
               "k5_split": cs.wrapper_split(k5_call, "knn_blocked_kernel")}
+    nodes, _, _ = knn.pdist_grid_nodes(pverts, cs.GRID_RES)
+    result["k3_grid_call_ms"] = cs.fresh_ms(lambda v: knn.min_dist(nodes, v),
+                                            pverts)
+    result["k4_grid_call_ms"] = cs.fresh_ms(
+        lambda v: knn.kth_distance(nodes, v), pverts)
+    result["build_cell_knn_ms"] = cs.fresh_ms(lambda v: knn.build_cell_knn(
+        v, weights, res=cs.CELL_RES, cap=cs.CELL_CAPS[-1],
+        slot_cap=cs.CELL_SLOTS), pverts)
     frame_item = cs.full_frame_item(ds, item)
     for name, opts in (("flat", []), ("blocked", ["knn_blocked", "True"])):
         cfg_path = load_config("configs/synthetic_sdf_pdf.yaml", opts,

@@ -351,6 +351,17 @@ def test_cuda_knn_layouts_built_once_per_version(cuda_device):
     for _ in range(3):
         knn.knn_blend_blocked(src, d5ub, *blocks)
     assert knn._blocked_layout.builds == builds + 1
+    # K3 and K4 share one layout: a frame's K4 and K3 build it once
+    builds = knn._grid_layout.builds
+    knn.kth_distance(src, ref)
+    knn.min_dist(src, ref)
+    knn.min_dist(src, ref)
+    assert knn._grid_layout.builds == builds + 1
+    ref.mul_(1.5)
+    moved = knn.min_dist(src, ref)
+    assert knn._grid_layout.builds == builds + 2
+    np.testing.assert_array_equal(moved.cpu().numpy(),
+                                  knn.min_dist_plain(src, ref).cpu().numpy())
 
 
 @pytest.mark.cuda
@@ -375,3 +386,90 @@ def test_cuda_knn_blend_blocked_adversarial(cuda_device, kind, radius, k):
     torch.cuda.synchronize()
     assert knn.knn_blend_blocked.launches == before + 1
     assert_bits_equal(got, knn.knn_blend_blocked_plain(src, d5ub, *blocks, k=k))
+
+
+def grid_plain(src, ref, k):
+    return (knn.min_dist_plain(src, ref) if k == 1
+            else knn.kth_distance_plain(src, ref, k))
+
+
+def grid_call(src, ref, k):
+    """K3 for k = 1, else K4; checks that it launched once."""
+    wrapper = knn.min_dist if k == 1 else knn.kth_distance
+    before = wrapper.launches
+    out = knn.min_dist(src, ref) if k == 1 else knn.kth_distance(src, ref, k)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_grid_dist_adversarial(cuda_device, kind, k):
+    """K3 and K4 on tests/knn_cases.py's cases: 1001 queries (no whole
+    number of warps or blocks), 6890 vertices (216 runs, the last with 22
+    pads at +inf)."""
+    src, ref, _ = (torch.tensor(a, device=cuda_device)
+                   for a in knn_inputs(kind, 1001, 6890, 1, 25))
+    np.testing.assert_array_equal(grid_call(src, ref, k).cpu().numpy(),
+                                  grid_plain(src, ref, k).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5])
+def test_cuda_grid_dist_on_a_capsule_frame(cuda_device, k):
+    """The engine's 96^3 grid builds over capsule frame 0's posed
+    vertices, and the counting build's counts of the same walk."""
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.engine import make_dataset
+
+    cfg = load_config("configs/synthetic_sdf_pdf.yaml", [], run_type="evaluate")
+    cfg.eval = True
+    pverts = torch.as_tensor(make_dataset(cfg, "test")[0]["pvertices"],
+                             device=cuda_device)
+    nodes, _, _ = knn.pdist_grid_nodes(pverts, 96)
+    got = grid_call(nodes, pverts, k)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  grid_plain(nodes, pverts, k).cpu().numpy())
+    ranked, swept, tested, full = knn.grid_dist_counts(nodes, pverts, k).tolist()
+    assert 0 < swept <= ranked <= (nodes.shape[0] // 32) * 216
+    assert 0 < full <= tested < 0.2 * nodes.shape[0] * pverts.shape[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("m", [20000, 60000])
+def test_cuda_grid_dist_beyond_smpl(cuda_device, m, k):
+    """More vertices than SMPL's: 625 runs, and 1875, whose keys (60 KB a
+    block) need the opt-in to more than 48 KB of shared memory."""
+    src, ref, _ = (torch.tensor(a, device=cuda_device)
+                   for a in knn_inputs("duplicates", 777, m, 1, 26))
+    np.testing.assert_array_equal(grid_call(src, ref, k).cpu().numpy(),
+                                  grid_plain(src, ref, k).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,m", [("cloud", 6890), ("duplicates", 6890),
+                                    ("plane", 1001), ("cloud", 5),
+                                    ("cloud", 60000)])
+def test_cuda_grid_layout_matches_torch_ops(cuda_device, kind, m):
+    """The layout the wrappers build on the card in three launches is
+    `grid_layout`'s, bit for bit: the same Morton order, pads and boxes."""
+    _, ref, _ = (torch.tensor(a, device=cuda_device)
+                 for a in knn_inputs(kind, 1, m, 1, 28))
+    for got, want in zip(knn._grid_layout_cuda(ref), knn.grid_layout(ref)):
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_grid_dist_counts_take_k_1_or_5(cuda_device):
+    src, ref, _ = (torch.tensor(a, device=cuda_device)
+                   for a in knn_inputs("cloud", 100, 700, 1, 27))
+    before = (knn.min_dist.launches, knn.kth_distance.launches)
+    for k in (1, 5):
+        ranked, swept, tested, full = knn.grid_dist_counts(src, ref, k).tolist()
+        assert 0 < swept <= ranked and 0 < full <= tested <= 100 * 704
+    assert (knn.min_dist.launches, knn.kth_distance.launches) == before
+    with pytest.raises(ValueError, match="k = 1 or 5"):
+        knn.grid_dist_counts(src, ref, 3)
