@@ -1,4 +1,4 @@
-"""A pure-Python reader of flax msgpack checkpoints.
+"""A pure-Python reader and writer of flax msgpack checkpoints.
 
 Neither `msgpack` nor `flax` is installed on every machine the port runs
 on, so this decodes what `flax.serialization.msgpack_serialize` writes:
@@ -7,6 +7,12 @@ maps, arrays, str/bin, ints, floats, nil/bool, and flax's ext types
 3: numpy scalar), plus flax's chunked-array leaves. The result equals
 `flax.serialization.msgpack_restore` of the same bytes: nested dicts of
 numpy arrays.
+
+`msgpack_serialize` writes the bytes flax's `msgpack_serialize` writes
+for a tree of dicts, lists, Python scalars and numpy arrays: every map
+in sorted key order (flax copies the tree with jax.tree_util, which
+sorts dict keys), each number in msgpack's smallest form, arrays as ext
+type 1 and numpy scalars as ext type 3.
 """
 
 from __future__ import annotations
@@ -150,3 +156,132 @@ def msgpack_restore(data: bytes):
 def read_checkpoint(path: str):
     with open(path, "rb") as f:
         return msgpack_restore(f.read())
+
+
+# flax.serialization.MAX_CHUNK_SIZE: larger array leaves are chunked
+_MAX_LEAF_BYTES = 2 ** 30
+
+
+def _pack_len(out: bytearray, n: int, fix: int | None, fix_max: int,
+              codes: tuple):
+    """A length header: the fix form when n fits, else 8/16/32-bit (or
+    16/32-bit where codes has two entries)."""
+    if fix is not None and n <= fix_max:
+        out.append(fix | n)
+        return
+    fmts = (">B", ">H", ">I")[-len(codes):]
+    limits = (0xFF, 0xFFFF, 0xFFFFFFFF)[-len(codes):]
+    for code, fmt, limit in zip(codes, fmts, limits):
+        if n <= limit:
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError("msgpack object too large")
+
+
+def _pack_int(out: bytearray, v: int):
+    if 0 <= v <= 0x7F:
+        out.append(v)
+    elif -32 <= v < 0:
+        out += struct.pack(">b", v)
+    elif v > 0:
+        for code, fmt, limit in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF),
+                                 (0xCE, ">I", 0xFFFFFFFF),
+                                 (0xCF, ">Q", 0xFFFFFFFFFFFFFFFF)):
+            if v <= limit:
+                out.append(code)
+                out += struct.pack(fmt, v)
+                return
+        raise ValueError("int too large for msgpack")
+    else:
+        for code, fmt, limit in ((0xD0, ">b", -0x80), (0xD1, ">h", -0x8000),
+                                 (0xD2, ">i", -0x80000000),
+                                 (0xD3, ">q", -0x8000000000000000)):
+            if v >= limit:
+                out.append(code)
+                out += struct.pack(fmt, v)
+                return
+        raise ValueError("int too small for msgpack")
+
+
+def _pack_ext(out: bytearray, code: int, data: bytes):
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(data) in fixext:
+        out.append(fixext[len(data)])
+    else:
+        _pack_len(out, len(data), None, 0, (0xC7, 0xC8, 0xC9))
+    out += struct.pack(">b", code)
+    out += data
+
+
+def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("object and structured dtypes cannot be written")
+    return packb((list(arr.shape), arr.dtype.name, arr.tobytes("C")))
+
+
+def _pack(out: bytearray, v):
+    if v is None:
+        out.append(0xC0)
+    elif v is True or v is False:
+        out.append(0xC3 if v else 0xC2)
+    elif type(v) is int:
+        _pack_int(out, v)
+    elif type(v) is float:
+        out.append(0xCB)
+        out += struct.pack(">d", v)
+    elif type(v) is str:
+        b = v.encode("utf-8")
+        _pack_len(out, len(b), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        out += b
+    elif type(v) is bytes:
+        _pack_len(out, len(v), None, 0, (0xC4, 0xC5, 0xC6))
+        out += v
+    elif type(v) in (list, tuple):
+        _pack_len(out, len(v), 0x90, 15, (0xDC, 0xDD))
+        for x in v:
+            _pack(out, x)
+    elif type(v) is dict:
+        _pack_len(out, len(v), 0x80, 15, (0xDE, 0xDF))
+        for k, x in v.items():
+            _pack(out, k)
+            _pack(out, x)
+    elif isinstance(v, np.ndarray):
+        _pack_ext(out, _EXT_NDARRAY, _ndarray_to_bytes(v))
+    elif isinstance(v, np.generic):
+        _pack_ext(out, _EXT_NPSCALAR, _ndarray_to_bytes(np.asarray(v)))
+    else:
+        raise TypeError(f"cannot write {type(v).__name__} as flax msgpack")
+
+
+def packb(obj) -> bytes:
+    """One object as msgpack (bin type for bytes, as msgpack >= 1.0)."""
+    out = bytearray()
+    _pack(out, obj)
+    return bytes(out)
+
+
+def _canonical(tree):
+    """The tree as flax writes it: dict keys sorted at every level, and
+    array leaves over 2**30 bytes cut into flax's chunked form."""
+    if isinstance(tree, dict):
+        return {k: _canonical(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, np.ndarray) and tree.nbytes > _MAX_LEAF_BYTES:
+        step = max(1, _MAX_LEAF_BYTES // tree.dtype.itemsize)
+        flat = tree.reshape(-1)
+        chunks = [flat[i:i + step] for i in range(0, flat.size, step)]
+        return {"__msgpack_chunked_array__": True,
+                "chunks": {str(i): c for i, c in enumerate(chunks)},
+                "shape": {str(i): d for i, d in enumerate(tree.shape)}}
+    return tree
+
+
+def msgpack_serialize(tree) -> bytes:
+    """Nested dicts of numpy arrays and Python scalars -> the bytes of
+    `flax.serialization.msgpack_serialize` of the same tree."""
+    return packb(_canonical(tree))
+
+
+def write_checkpoint(path: str, tree):
+    with open(path, "wb") as f:
+        f.write(msgpack_serialize(tree))

@@ -16,6 +16,10 @@ Dense kernels (in, out) become nn.Linear weights (out, in); a
 weight-normalized {v (in, out), g (out,), b} becomes `weight_v` (out,
 in), `weight_g` (out, 1), `bias`. Load the result with
 `load_state_dict(strict=True)`.
+
+`aninerf_param_tree` is the inverse for AniNeRF: a port state dict (or
+any dict of tensors under its names, such as Adam's moments) to the JAX
+param tree, which JAX's `load_checkpoint` restores.
 """
 
 from __future__ import annotations
@@ -101,3 +105,34 @@ def sdf_pdf_state_dict(params: dict) -> dict:
     for l in range(5):
         _wn(color[f"lin{l}"]["wn"], f"{th}color_network.lin{l}", out)
     return to_tensors(out)
+
+
+def _kernel(named: dict, name: str) -> dict:
+    return {"bias": _numpy(named[f"{name}.bias"]),
+            "kernel": np.ascontiguousarray(_numpy(named[f"{name}.weight"]).T)}
+
+
+def _numpy(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu().numpy()
+    return np.asarray(t, np.float32)
+
+
+def aninerf_param_tree(named: dict) -> dict:
+    """{reference name: tensor} of AniNeRF -> the JAX param tree
+    {"params": {"bw_field": ..., "tpose_human": ...}} of numpy float32
+    arrays (the inverse of `aninerf_state_dict`). Every name must be
+    used: a stray one raises."""
+    bw = {"latent": {"embedding": _numpy(named["bw_latent.weight"])},
+          "mlp": {f"lin{i}": _kernel(named, f"bw_linears.{i}")
+                  for i in range(8)}}
+    bw["mlp"]["out"] = _kernel(named, "bw_fc")
+    th = {f"lin{i}": _kernel(named, f"tpose_human.pts_linears.{i}")
+          for i in range(8)}
+    for head in _HEADS:
+        th[head] = _kernel(named, f"tpose_human.{head}")
+    th["nf_latent"] = {"embedding": _numpy(named["tpose_human.nf_latent.weight"])}
+    tree = {"params": {"bw_field": bw, "tpose_human": th}}
+    if len(aninerf_state_dict(tree)) != len(named):
+        raise KeyError("aninerf_param_tree: names that AniNeRF does not have")
+    return tree

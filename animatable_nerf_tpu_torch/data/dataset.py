@@ -1,5 +1,5 @@
-"""The eval datasets of the grid blend-weight models (AniNeRF) and of the
-KNN/displacement models (SDF-PDF).
+"""The datasets of the grid blend-weight models (AniNeRF; train and test
+splits) and of the KNN/displacement models (SDF-PDF; test split).
 
 JAX counterpart: animatable_nerf_tpu/data/dataset.py:52-456
 (`_BaseDataset`, `TPoseDataset`, `TPosePDFDataset` :324; reference
@@ -32,16 +32,16 @@ from .utils import (
 )
 
 
-class _EvalDataset:
-    """Cameras, images and views of the test split (JAX dataset.py:52
-    `_BaseDataset`)."""
+class _BaseDataset:
+    """Cameras, images and views of a split (JAX dataset.py:52-105
+    `_BaseDataset`): the training views on the train split, the test
+    views otherwise. The train split draws its rays from `self._rng`
+    (the trainer seeds it under `fix_random`, as JAX does)."""
 
     def __init__(self, cfg, split: str):
-        if split == "train":
-            raise NotImplementedError("only the eval split is ported yet")
         self.cfg = cfg
         self.split = split
-        dcfg = cfg.test_dataset
+        dcfg = cfg.train_dataset if split == "train" else cfg.test_dataset
         self.data_root = dcfg["data_root"]
         self.human = dcfg["human"]
         annots = np.load(dcfg["ann_file"], allow_pickle=True).item()
@@ -49,7 +49,9 @@ class _EvalDataset:
         self.images = DecodedImages(self.data_root)
 
         num_cams = len(self.cams["K"])
-        if len(cfg.test_view) == 0:
+        if split == "train":
+            view = list(cfg.training_view)
+        elif len(cfg.test_view) == 0:
             view = [i for i in range(num_cams) if i not in cfg.training_view]
             view = view or [0]
         else:
@@ -76,6 +78,7 @@ class _EvalDataset:
         )
         self.parents = np.load(os.path.join(self.lbs_root, "parents.npy"))
         self.big_A = big_pose_A(self.joints, self.parents).astype(np.float32)
+        self._rng = np.random.RandomState()
 
     def __len__(self):
         return len(self.ims)
@@ -155,13 +158,17 @@ class _EvalDataset:
         return self.frame_index_of(self.ims[index])[1]
 
     def _image_rays(self, index, wbounds):
-        """The fields every eval item carries: its pixels, the rays of
-        its camera that hit the frame's world bounds, its indices."""
+        """The fields every item carries: its pixels, its rays (on the
+        test split all of its camera's rays that hit the frame's world
+        bounds, on the train split N_rand drawn by
+        `sample_rays_image`), its indices."""
         img, msk, orig_msk, K, R, T, cam_ind, img_path = self.load_image(index)
         frame_index, _ = self.frame_index_of(img_path)
         rgb, ray_o, ray_d, near, far, coord, mask_at_box = sample_rays_image(
             img, msk, K, R, T, wbounds, self.split,
-            mask_bkgd=self.cfg.mask_bkgd,
+            mask_bkgd=self.cfg.mask_bkgd, nrays=self.cfg.N_rand,
+            body_sample_ratio=self.cfg.body_sample_ratio,
+            face_sample_ratio=self.cfg.face_sample_ratio, rng=self._rng,
         )
         if self.cfg.erode_edge:
             orig_msk = crop_mask_edge(orig_msk)
@@ -205,8 +212,9 @@ class _EvalDataset:
         return wxyz, pxyz, A, poses, Rh, Th, R
 
 
-class TPoseDataset(_EvalDataset):
-    """Eval items of the grid blend-weight dataset (tpose_dataset.py)."""
+class TPoseDataset(_BaseDataset):
+    """Items of the grid blend-weight dataset (tpose_dataset.py; JAX
+    dataset.py:283-325 `__getitem__`)."""
 
     def __init__(self, cfg, split: str):
         super().__init__(cfg, split)
@@ -271,14 +279,17 @@ class TPoseDataset(_EvalDataset):
         return item
 
 
-class TPosePDFDataset(_EvalDataset):
+class TPosePDFDataset(_BaseDataset):
     """Eval items of the KNN/displacement dataset (JAX dataset.py:324;
     tpose_pdf_dataset.py): raw SMPL blend weights, the frame's posed
     vertices and the canonical bounds from the big-pose vertices
     (`use_bigpose`) or the T-pose ones. Novel-pose latent lookup is not
-    ported."""
+    ported, nor is its train split."""
 
     def __init__(self, cfg, split: str):
+        if split == "train":
+            raise NotImplementedError(
+                "the SDF-PDF train split is not ported yet")
         super().__init__(cfg, split)
         self.weights = np.load(
             os.path.join(self.lbs_root, "weights.npy")).astype(np.float32)

@@ -3,7 +3,8 @@ run types.
 
 JAX counterpart: animatable_nerf_tpu/engine.py (`_bucket_pad` :139,
 `interleave_rays` :164, the per-frame grids and vertex blocks :259-287
-and :315-326, `Engine.render_item` :547-603, `run_evaluate` :749-830). The
+and :315-326, `Engine.render_item` :547-603, `run_evaluate` :749-830,
+`run_train` :1158-1352, its AniNeRF branch). The
 eval rays are padded and tiled exactly as in JAX, since the point
 filter's argmin forcing acts per tile. The JAX capacity ladder
 (engine.py:204-236, 465-545) sizes static survivor buffers for the TPU;
@@ -14,6 +15,7 @@ has no ladder.
 from __future__ import annotations
 
 import os
+import shutil
 import time
 
 import numpy as np
@@ -22,13 +24,16 @@ import torch
 from .compat.flax_msgpack import read_checkpoint
 from .compat.jax_params import aninerf_state_dict, sdf_pdf_state_dict
 from .data.dataset import TPoseDataset, TPosePDFDataset
-from .data.loader import eval_indices
+from .data.loader import Loader, eval_indices
 from .device import select_device
 from .evaluators.image import ImageEvaluator
 from .models.aninerf import AniNeRF
 from .models.pdf import SDFPDF
 from .ops.knn import build_d5_payload, build_knn_blocks, build_pdist_payload
 from .render.renderer import RenderSettings, pad_rays, render_image
+from .train.checkpoints import load_checkpoint, save_checkpoint
+from .train.recorder import Recorder
+from .train.trainer import Trainer
 
 # network_module names (the JAX registry's, models/registry.py:14-33)
 _ANINERF_MODULES = ("aninerf", "lib.networks.bw_deform.tpose_nerf_network")
@@ -72,12 +77,13 @@ def make_model(cfg):
                       tpose_viewdir=cfg.tpose_viewdir, xyz_res=cfg.xyz_res)
     return AniNeRF(
         num_train_frames=cfg.num_train_frame, norm_th=cfg.norm_th,
-        xyz_res=cfg.xyz_res, view_res=cfg.view_res,
+        xyz_res=cfg.xyz_res, view_res=cfg.view_res, train_th=cfg.train_th,
     )
 
 
 def make_dataset(cfg, split: str = "test"):
-    name = cfg.test_dataset_module
+    name = (cfg.train_dataset_module if split == "train"
+            else cfg.test_dataset_module)
     if name not in _DATASETS:
         raise NotImplementedError(f"dataset module {name!r} is not ported yet")
     return _DATASETS[name](cfg, split)
@@ -261,3 +267,66 @@ def run_evaluate(cfg, device=None, max_items: int = -1):
     wall = time.time() - t_start
     print(f"eval: {len(items)} items in {wall:.2f}s on {eng.device}")
     return {**evaluator.summarize(), "items": items}
+
+
+def run_train(cfg, device=None):
+    """Train AniNeRF (JAX engine.py:1158-1352, the AniNeRF branch on one
+    device): the train split in epochs of `ep_iter` steps, one frame a
+    step; `latest.flax` every `save_latest_ep` epochs and after the last,
+    `<epoch>.flax` every `save_ep`; with `resume` (the default) it goes
+    on from the checkpoint in `trained_model_dir`, otherwise it wipes
+    that directory. `fix_random` seeds the ray draw (RandomState(0), as
+    JAX) and the z jitter. Returns (trainer, recorder)."""
+    dev = select_device(device)
+    # the initial weights do not depend on the caller's random state
+    # (JAX initializes from PRNGKey(42))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(42)
+        model = make_model(cfg)
+    if not isinstance(model, AniNeRF):
+        raise NotImplementedError(
+            f"training of {cfg.network_module!r} is not ported yet "
+            "(AniNeRF is)")
+    model.to(dev).train()
+    trainer = Trainer(cfg, model, dev)
+    n_epochs = int(cfg.train.epoch)
+    ds = make_dataset(cfg, "train")
+    loader = Loader(ds, shuffle=True,
+                    max_iter=cfg.ep_iter if cfg.ep_iter > 0 else -1)
+    max_iter = n_epochs * max(len(loader), 1)
+    if cfg.fix_random:
+        ds._rng = np.random.RandomState(0)
+        trainer.generator.manual_seed(0)
+    else:
+        trainer.generator.manual_seed(int(time.time()) & 0x7FFFFFFF)
+
+    begin_epoch = 0
+    recorder = Recorder(cfg.record_dir, resume=cfg.resume)
+    if cfg.resume:
+        out = load_checkpoint(cfg.trained_model_dir, model, trainer.optimizer)
+        if out is not None:
+            epoch0, trainer.step, trainer.updates, rec = out
+            begin_epoch = epoch0 + 1
+            recorder.load_state_dict(rec)
+    elif os.path.isdir(cfg.trained_model_dir):
+        shutil.rmtree(cfg.trained_model_dir, ignore_errors=True)
+    if not cfg.skip_eval and any((e + 1) % cfg.eval_ep == 0
+                                 for e in range(begin_epoch, n_epochs)):
+        raise NotImplementedError(
+            "the periodic evaluation during training (eval_ep) is not "
+            "ported yet; raise eval_ep or set skip_eval True")
+
+    try:
+        for epoch in range(begin_epoch, n_epochs):
+            trainer.train_epoch(loader, recorder, epoch, max_iter,
+                                log_interval=cfg.log_interval,
+                                record_interval=cfg.record_interval)
+            ckpt = (cfg.trained_model_dir, model, trainer.optimizer, epoch,
+                    trainer.step, recorder.state_dict())
+            if (epoch + 1) % cfg.save_ep == 0:
+                save_checkpoint(*ckpt)
+            if (epoch + 1) % cfg.save_latest_ep == 0 or epoch == n_epochs - 1:
+                save_checkpoint(*ckpt, latest=True)
+    finally:
+        recorder.close()
+    return trainer, recorder

@@ -61,8 +61,11 @@ def packed_layers(owner: nn.Module, linears, skips, din: int):
 def run_skip_mlp(owner: nn.Module, x, linears, skips, act_last: bool = False):
     """Apply a stack of nn.Linear layers held by `owner` as one K1 call
     (ReLU). On the card the weights go in packed once per weight version
-    (`packed_layers`); the CPU runs the plain version on them as they
-    are."""
+    (`packed_layers`; in training every optimizer step makes a new
+    version, so K1 repacks once a step); the CPU runs the plain version
+    on them as they are. With grad mode on, the call goes through
+    ops/skip_mlp.py `SkipMLPFunction`, whose backward differentiates the
+    plain version."""
     x = x.contiguous()
     skips = tuple(skips)
     packed = (packed_layers(owner, linears, skips, x.shape[-1])

@@ -1,9 +1,10 @@
-"""AniNeRF: neural blend-weight field + canonical NeRF, eval path.
+"""AniNeRF: neural blend-weight field + canonical NeRF, eval and train
+paths.
 
 JAX counterpart: animatable_nerf_tpu/models/aninerf.py (`AniNeRF`,
 eval branch: `_compact_inputs` :231, `_conservative_dist_rows` :266,
-`_eval_compacted` :595, `_eval_finish` :625; reference
-tpose_nerf_network.py:139-215).
+`_eval_compacted` :595, `_eval_finish` :625; the dense train branch of
+`__call__` :740-861; reference tpose_nerf_network.py:139-215).
 
 The point filter keeps the JAX semantics exactly:
   * pass 1 interpolates only the distance channel, from corners rounded
@@ -19,6 +20,12 @@ nothing overflows; PyTorch has dynamic shapes, so both passes compact
 exactly with torch.nonzero, and the MLPs run on the exact survivors only
 (the JAX code runs them on every candidate and zeroes alpha after; the
 composited maps are the same).
+
+The train path (`train_forward`) is JAX's default dense masked one
+(`train_keep_frac` 0): every sampled point runs both blend-weight passes
+and the canonical NeRF, masked points on a substituted safe point, and
+the filter's argmin and the consistency selection's argmax are forced
+over the whole step's points.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from .common import (
     inside_bounds,
     keep_mask_with_argmin,
     raw_alpha_from_sigma,
+    substitute_masked,
     volume_lipschitz_bound,
 )
 
@@ -50,15 +58,19 @@ class AniNeRF(BlendWeightField):
     i — tpose_nerf_network.py:17,96,173).
     """
 
-    # the per-frame tensors the engine moves to the device
+    # the per-frame tensors the engine moves to the device (training
+    # also reads the canonical volume `tbw`)
     frame_keys = ("A", "pbw", "pbounds", "tbounds", "R", "Th")
+    train_frame_keys = frame_keys + ("tbw",)
     knn_pass1 = False
 
     def __init__(self, num_train_frames: int, norm_th: float = 0.05,
-                 xyz_res: int = 10, view_res: int = 4):
+                 xyz_res: int = 10, view_res: int = 4,
+                 train_th: float = 0.0):
         super().__init__(num_latents=num_train_frames + 1, xyz_res=xyz_res)
         self.tpose_human = TPoseNeRF(num_train_frames, xyz_res, view_res)
         self.norm_th = float(norm_th)
+        self.train_th = float(train_th)
 
     def _conservative_dist_rows(self, frame):
         """bf16-rounded distance volume (D, H, W, 1) and the widened
@@ -124,3 +136,48 @@ class AniNeRF(BlendWeightField):
             "rgb_map": rgb_map, "acc_map": acc_map, "depth_map": depth_map,
             "n_candidates": cand.numel(), "n_survivors": sidx.numel(),
         }
+
+    def train_forward(self, wpts, viewdir, z_vals, frame):
+        """Dense masked train forward (JAX aninerf.py:808-861): wpts
+        (R, S, 3), viewdir (R, 3), z_vals (R, S) -> raw (R, S, 4), the
+        blend weights pbw (R*S, 24) at the posed points and tbw (R*S,
+        24) at their canonical images (the consistency pair), and
+        bw_mask (R*S,), the points the consistency loss reads."""
+        n_rays, n_samples = z_vals.shape
+        pose_pts = world_points_to_pose_points(
+            wpts.reshape(-1, 3), frame["R"], frame["Th"])
+        vd = viewdir[:, None, :].expand(n_rays, n_samples, 3).reshape(-1, 3)
+        dists = z_vals_to_dists(z_vals).reshape(-1)
+
+        # the filter on the posed volume's distance channel (:808-822);
+        # the grid prior comes in under stop-gradient
+        init_pbw = pts_sample_blend_weights(
+            pose_pts, frame["pbw"], frame["pbounds"]).detach()
+        pind = keep_mask_with_argmin(init_pbw[:, 24], self.norm_th)
+        safe = (frame["pbounds"][0] + frame["pbounds"][1]) * 0.5
+        safe_bw = pts_sample_blend_weights(safe[None], frame["pbw"],
+                                           frame["pbounds"])
+        pose_pts = substitute_masked(pose_pts, pind, safe)
+        init_pbw = torch.where(pind[:, None], init_pbw, safe_bw[0])
+
+        latent_index = int(frame["latent_index"])
+        pbw = self.blend_weights(pose_pts, init_pbw[:, :24], latent_index + 1)
+        tpose = pose_points_to_tpose_points(pose_pts, pbw, frame["A"])
+        # the consistency target: the field at latent 0 on the canonical
+        # points, over the canonical volume's prior (:835-845)
+        init_tbw = pts_sample_blend_weights(tpose, frame["tbw"],
+                                            frame["tbounds"])
+        tbw = self.blend_weights(tpose, init_tbw[:, :24], 0)
+
+        sigma, rgb_logits = self.tpose_human(tpose, vd, latent_index)
+        sigma = torch.where(inside_bounds(tpose, frame["tbounds"]), sigma, 0.0)
+        alpha = raw_alpha_from_sigma(sigma, dists)
+        raw = torch.cat([torch.sigmoid(rgb_logits), alpha[:, None]], dim=-1)
+        raw = torch.where(pind[:, None], raw, 0.0)
+
+        # density above train_th, the argmax forced on (:852-859)
+        d_sel = torch.where(pind, sigma.detach(), float("-inf"))
+        bw_mask = d_sel > self.train_th
+        bw_mask[torch.argmax(d_sel)] = True
+        return {"raw": raw.reshape(n_rays, n_samples, 4), "pbw": pbw,
+                "tbw": tbw, "bw_mask": bw_mask}

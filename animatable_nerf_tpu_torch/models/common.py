@@ -1,7 +1,7 @@
 """Shared helpers of the model layer.
 
 JAX counterpart: animatable_nerf_tpu/models/common.py (the subset the
-AniNeRF and SDF-PDF eval paths use).
+AniNeRF and SDF-PDF eval paths and the AniNeRF train path use).
 """
 
 from __future__ import annotations
@@ -26,6 +26,17 @@ def keep_mask_with_argmin(norm_vals, threshold):
     if mask.numel():
         mask[torch.argmin(norm_vals)] = True
     return mask
+
+
+def substitute_masked(pose_pts, pind, safe_point):
+    """Masked-out rows of pose_pts (N, 3) replaced by `safe_point` (3,)
+    before the blend-weight field and the LBS warp (JAX common.py:25).
+    The dense train path evaluates every point; far from the body the
+    learned blend can drift to a singular LBS matrix, and its inverse
+    would send inf/NaN back through the masked loss (nan * 0 = nan in
+    both the value and the gradient). Their raw is zeroed and the loss
+    masks depend on geometry only, so the loss is unchanged."""
+    return torch.where(pind[:, None], pose_pts, safe_point)
 
 
 def inside_bounds(pts, bounds, pad: float = 0.0):

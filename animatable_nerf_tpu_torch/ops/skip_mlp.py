@@ -4,8 +4,12 @@ Replaces the TPU kernel animatable_nerf_tpu/ops/mlp_pallas.py:108
 `fused_skip_mlp` (body `_mlp_kernel` :85, twin `_ref_forward` :39).
 `skip_mlp` launches the hand-written CUDA kernel csrc/skip_mlp.cu for
 CUDA tensors and takes `skip_mlp_plain` for CPU tensors; there is no
-fallback from one to the other. The kernel is forward-only, as in JAX;
-a gradient comes with the training slice.
+fallback from one to the other. The kernel is forward-only, as in JAX:
+where a gradient is wanted, `skip_mlp` goes through `SkipMLPFunction`,
+whose forward is that same call and whose backward is the vjp of
+`skip_mlp_plain` recomputed from the saved input and weights (JAX
+`make_fused_skip_mlp`, mlp_pallas.py:173-197, differentiates its XLA
+twin `_ref_forward` the same way).
 
 The kernel multiplies on the tensor cores in 3xTF32 (each operand split
 into a TF32 `hi` and the TF32 rounding of its remainder `lo`; the
@@ -170,17 +174,11 @@ def _check(x, packed: PackedMLP):
             )
 
 
-def skip_mlp(x, layers, skips=(), act: str = "relu", act_last: bool = False,
-             packed: PackedMLP | None = None):
-    """The K1 contract on `x`'s device: CPU tensors take the plain
-    version, CUDA tensors launch the kernel (or raise). Arguments as in
-    `skip_mlp_plain`; weights are (in, out) like the JAX wrapper's.
-    `packed`, where given, is `pack_layers(layers, skips)`, made once by
-    the weights' owner; otherwise the call packs them."""
+def _forward(x, layers, skips, act, act_last, packed):
+    """The K1 contract on `x`'s device, without a gradient: CPU tensors
+    take the plain version, CUDA tensors launch the kernel (or raise)."""
     if x.device.type == "cpu":
         return skip_mlp_plain(x, layers, skips, act, act_last)
-    if x.device.type != "cuda":
-        raise ValueError(f"skip_mlp: unsupported device {x.device}")
     if packed is None:
         packed = pack_layers(layers, skips, x.shape[-1])
     _check(x, packed)
@@ -204,6 +202,55 @@ def skip_mlp(x, layers, skips=(), act: str = "relu", act_last: bool = False,
     if n > 0:
         skip_mlp.launches += 1
     return out
+
+
+class SkipMLPFunction(torch.autograd.Function):
+    """K1 with a gradient. Forward: `_forward` (the kernel on CUDA
+    tensors, the plain version on CPU tensors). Backward: the vjp of
+    `skip_mlp_plain`, recomputed from the saved input and weights in
+    plain PyTorch matmuls, as JAX's `bwd` recomputes `_ref_forward`.
+
+    apply(x, packed, (skips, act, act_last), W0, b0, W1, b1, ...)."""
+
+    @staticmethod
+    def forward(ctx, x, packed, config, *flat):
+        skips, act, act_last = config
+        ctx.config = config
+        ctx.save_for_backward(x, *flat)
+        return _forward(x, list(zip(flat[0::2], flat[1::2])), skips, act,
+                        act_last, packed)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        skips, act, act_last = ctx.config
+        needs = (ctx.needs_input_grad[0], *ctx.needs_input_grad[3:])
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, needs)]
+        with torch.enable_grad():
+            y = skip_mlp_plain(inputs[0], list(zip(inputs[1::2], inputs[2::2])),
+                               skips, act, act_last)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(y, wanted, grad_out))
+        out = [next(grads) if t.requires_grad else None for t in inputs]
+        return (out[0], None, None, *out[1:])
+
+
+def skip_mlp(x, layers, skips=(), act: str = "relu", act_last: bool = False,
+             packed: PackedMLP | None = None):
+    """The K1 contract on `x`'s device: CPU tensors take the plain
+    version, CUDA tensors launch the kernel (or raise). Arguments as in
+    `skip_mlp_plain`; weights are (in, out) like the JAX wrapper's.
+    `packed`, where given, is `pack_layers(layers, skips)`, made once by
+    the weights' owner; otherwise the call packs them. When grad mode is
+    on and x or a weight requires grad, the call goes through
+    `SkipMLPFunction`, so the output carries a gradient on both devices."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"skip_mlp: unsupported device {x.device}")
+    skips = tuple(skips)
+    flat = [t for wb in layers for t in wb]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *flat)):
+        return SkipMLPFunction.apply(x, packed, (skips, act, act_last), *flat)
+    return _forward(x, layers, skips, act, act_last, packed)
 
 
 # launches of the CUDA kernel in this process (the CPU path never counts)

@@ -1,11 +1,14 @@
-"""Volume rendering of eval rays in fixed-size tiles, for every ported
-model (AniNeRF, SDF-PDF): each takes one tile's samples and composites
-its own maps.
+"""Volume rendering: eval rays in fixed-size tiles, for every ported
+model (AniNeRF, SDF-PDF), each taking one tile's samples and compositing
+its own maps; and a training ray batch through AniNeRF's dense train
+path.
 
 JAX counterpart: animatable_nerf_tpu/render/renderer.py (`pad_rays`
-:63-88, `render_rays` eval branch :159-320, `render_image` :329-384).
-The JAX `apply_model` row chunking (`dense_chunk_rows`) guards a TPU
-compiler fault and has no counterpart here.
+:63-88, `render_rays` :159-320, `render_image` :329-384). The JAX
+`apply_model` row chunking (`dense_chunk_rows`) guards a TPU compiler
+fault and has no counterpart here; on the train path it also forces the
+argmin and argmax per chunk, so the port refuses a train batch above
+that size (`render_rays_train`).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core.composite import raw2outputs
 from ..core.sampling import stratified_z_vals, z_vals_to_pts
 
 _IMAGE_OUTPUTS = ("rgb_map", "acc_map", "depth_map")
@@ -25,6 +29,13 @@ class RenderSettings(NamedTuple):
     n_samples: int = 64
     white_bkgd: bool = False
     eval_tile: int = 8192
+    # training's stratified jitter (cfg.perturb > 0)
+    perturb: bool = False
+
+
+# JAX RenderSettings.dense_chunk_rows: a larger dense train call is run
+# in ray chunks there, each forcing its own argmin/argmax
+_DENSE_CHUNK_ROWS = 131072
 
 
 def pad_rays(rays: dict, multiple: int):
@@ -83,3 +94,34 @@ def render_image(model, rays: dict, frame: dict, settings: RenderSettings):
     for k in _COUNTS:
         result[k] = sum(o[k] for o in outs)
     return result
+
+
+def render_rays_train(model, rays: dict, frame: dict,
+                      settings: RenderSettings,
+                      generator: torch.Generator | None = None):
+    """Render one training batch (JAX render_rays, train branch
+    :159-230 with :282-305): z values jittered by `generator` when
+    `settings.perturb`, the model's dense train forward, `raw2outputs`
+    with `white_bkgd`, and the maps zeroed on pad rays (`mask`). Returns
+    the model's dict (raw, pbw, tbw, bw_mask) plus rgb_map, acc_map,
+    depth_map, weights and z_vals."""
+    n_rays = rays["ray_o"].shape[0]
+    if n_rays * settings.n_samples > _DENSE_CHUNK_ROWS:
+        raise NotImplementedError(
+            f"{n_rays} x {settings.n_samples} samples: JAX trains batches "
+            f"above {_DENSE_CHUNK_ROWS} points in ray chunks, forcing the "
+            "filter's argmin per chunk; that chunking is not ported")
+    z_vals = stratified_z_vals(rays["near"], rays["far"], settings.n_samples,
+                               perturb=settings.perturb, generator=generator)
+    wpts = z_vals_to_pts(rays["ray_o"], rays["ray_d"], z_vals)
+    ret = model.train_forward(wpts, rays["ray_d"], z_vals, frame)
+    rgb_map, _, acc_map, weights, depth_map = raw2outputs(
+        ret["raw"], z_vals, settings.white_bkgd)
+    if "mask" in rays:
+        m = rays["mask"]
+        rgb_map = torch.where(m[:, None], rgb_map, 0.0)
+        acc_map = torch.where(m, acc_map, 0.0)
+        depth_map = torch.where(m, depth_map, 0.0)
+    ret.update(rgb_map=rgb_map, acc_map=acc_map, depth_map=depth_map,
+               weights=weights, z_vals=z_vals)
+    return ret

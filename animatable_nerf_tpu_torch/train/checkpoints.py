@@ -1,0 +1,134 @@
+"""Training checkpoints in the JAX package's format.
+
+JAX counterpart: animatable_nerf_tpu/train/checkpoints.py
+(`save_checkpoint` :33, `_prune` :104, `latest_epoch` :115,
+`load_checkpoint` :128; reference lib/utils/net_utils.py:288-347).
+A checkpoint is a flax msgpack file, `<epoch>.flax` (the 20 newest
+kept) or `latest.flax`, of {params, opt_state, epoch, step, recorder}:
+`params` is the JAX param tree (compat/jax_params.py) and `opt_state`
+the state dict of JAX's optimizer, optax.chain(clip(40), adam(schedule)):
+{"0": {} (the clip), "1": {"0": {count, mu, nu} (Adam's update count
+and moments, as param trees), "1": {count} (the schedule's count)}}.
+So the JAX package's `load_checkpoint` and `run.py --type evaluate`
+read what the port writes, and the port resumes from what JAX writes.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from ..compat.flax_msgpack import read_checkpoint, write_checkpoint
+from ..compat.jax_params import aninerf_param_tree, aninerf_state_dict
+
+
+def adam_moments(model, optimizer):
+    """(count, mu, nu) of a torch Adam over `model`'s parameters: its
+    update count and first and second moments by parameter name (zeros
+    before the first update)."""
+    mu, nu, count = {}, {}, 0
+    for name, p in model.named_parameters():
+        state = optimizer.state.get(p, {})
+        if "step" in state:
+            count = int(state["step"])
+        mu[name] = state.get("exp_avg", torch.zeros_like(p))
+        nu[name] = state.get("exp_avg_sq", torch.zeros_like(p))
+    return count, mu, nu
+
+
+def opt_state_tree(count: int, mu: dict, nu: dict) -> dict:
+    """The state dict of JAX's optax.chain(clip(40), adam(schedule))."""
+    c = np.asarray(count, np.int32)
+    return {"0": {}, "1": {
+        "0": {"count": c, "mu": aninerf_param_tree(mu),
+              "nu": aninerf_param_tree(nu)},
+        "1": {"count": c.copy()}}}
+
+
+def save_checkpoint(model_dir: str, model, optimizer, epoch: int, step: int,
+                    recorder_state: dict | None = None, latest: bool = False,
+                    keep: int = 20):
+    """Write `latest.flax` or `<epoch>.flax` (then keep the `keep`
+    newest snapshots). `step` counts the frames trained on."""
+    os.makedirs(model_dir, exist_ok=True)
+    tree = {
+        "params": aninerf_param_tree(dict(model.named_parameters())),
+        "opt_state": opt_state_tree(*adam_moments(model, optimizer)),
+        "epoch": np.asarray(epoch, np.int64),
+        "step": np.asarray(step, np.int64),
+        "recorder": recorder_state or {},
+    }
+    name = "latest.flax" if latest else f"{epoch}.flax"
+    write_checkpoint(os.path.join(model_dir, name), tree)
+    if not latest:
+        _prune(model_dir, keep)
+
+
+def _snapshots(model_dir: str) -> list:
+    return sorted(int(p[:-5]) for p in os.listdir(model_dir)
+                  if p.endswith(".flax") and p[:-5].isdigit())
+
+
+def _prune(model_dir: str, keep: int):
+    snaps = _snapshots(model_dir)
+    for e in snaps[: max(len(snaps) - keep, 0)]:
+        os.remove(os.path.join(model_dir, f"{e}.flax"))
+
+
+def checkpoint_file(model_dir: str) -> str | None:
+    """The file a resume reads: `latest.flax`, else the newest
+    snapshot; None if there is neither."""
+    if os.path.exists(os.path.join(model_dir, "latest.flax")):
+        return os.path.join(model_dir, "latest.flax")
+    snaps = _snapshots(model_dir) if os.path.isdir(model_dir) else []
+    return os.path.join(model_dir, f"{snaps[-1]}.flax") if snaps else None
+
+
+def set_adam_state(model, optimizer, count: int, mu: dict, nu: dict):
+    """Give a torch Adam the update count and moments of a checkpoint."""
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": mu[name].to(p.device).reshape(p.shape).clone(),
+            "exp_avg_sq": nu[name].to(p.device).reshape(p.shape).clone(),
+        }
+
+
+def load_checkpoint(model_dir: str, model, optimizer=None):
+    """Restore the checkpoint `checkpoint_file` picks into `model`
+    (strictly) and, where given and
+    the file has one, Adam's state into `optimizer`. Returns (epoch,
+    step, updates, recorder_state), `updates` being Adam's update count
+    (0 without an optimizer state), or None when there is nothing to
+    resume."""
+    path = checkpoint_file(model_dir)
+    if path is None:
+        return None
+    raw = read_checkpoint(path)
+    model.load_state_dict(aninerf_state_dict(raw["params"]), strict=True)
+    adam = raw.get("opt_state", {}).get("1", {}).get("0")
+    updates = 0
+    if optimizer is not None and adam:
+        updates = int(adam["count"])
+        set_adam_state(model, optimizer, updates,
+                       aninerf_state_dict(adam["mu"]),
+                       aninerf_state_dict(adam["nu"]))
+    return int(raw["epoch"]), int(raw["step"]), updates, raw.get("recorder", {})
+
+
+def write_fresh_start(src_path: str, model_dir: str):
+    """A `latest.flax` in `model_dir` that resumes as a fresh run from
+    the params of checkpoint `src_path`: zero Adam moments, update
+    count 0, step 0, epoch -1 (so training starts at epoch 0). Either
+    package's trainer, with `resume True`, then trains from those
+    weights."""
+    params = read_checkpoint(src_path)["params"]
+    named = aninerf_state_dict(params)
+    zeros = {k: torch.zeros_like(v) for k, v in named.items()}
+    os.makedirs(model_dir, exist_ok=True)
+    write_checkpoint(os.path.join(model_dir, "latest.flax"), {
+        "params": params, "opt_state": opt_state_tree(0, zeros, zeros),
+        "epoch": np.asarray(-1, np.int64), "step": np.asarray(0, np.int64),
+        "recorder": {"step": 0}})

@@ -1,0 +1,31 @@
+"""The port's training CLI (counterpart of the repo's train_net.py):
+
+    python -m animatable_nerf_tpu_torch.train_net \\
+        --cfg_file configs/synthetic.yaml [--device cpu] [key value ...]
+
+Trains AniNeRF (engine.py `run_train`) on `cuda` unless `--device cpu`
+is given; without a GPU and without `--device cpu` it raises.
+Checkpoints go to data/trained_model/<task>/<exp_name>/ in the JAX
+package's flax format, so `python run.py --type evaluate` (JAX) and
+`python -m animatable_nerf_tpu_torch.run --type evaluate` (the port)
+both read them. `resume False` starts afresh; `fix_random True` seeds
+the ray draw.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from . import engine
+from .config import parse_cli
+
+
+def main(argv=None):
+    args, cfg = parse_cli(argv)
+    if cfg.fix_random:
+        np.random.seed(0)
+    engine.run_train(cfg, args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -41,6 +41,17 @@ Phases, one JSON line each:
      the frame's pass-2 points differs only on rows with an exact
      distance tie, and the maps within 1e-6 on every other ray; K2 and
      K5 timed on those points, per tile launch and per 131,072;
+  8. training (configs/synthetic.yaml, AniNeRF): K1's gradient
+     (ops/skip_mlp.py `SkipMLPFunction`: the kernel forward, the vjp of
+     the plain version) against autograd through the plain version at
+     one step's 32,768 rows; one train step on the card against the
+     same step on this machine's CPU; `run_train` for one epoch of 50
+     steps (perturb 0, the ray draw seeded, from the tracked weights
+     with a fresh Adam at step 0) with K1's launches counted; the
+     port's evaluate of the checkpoint it wrote, each view held to the
+     JAX package's PSNR for the same run on the CPU; and a profile of
+     train steps (device ms by kernel, K1's share, the backward's time,
+     the per-step repack of K1's weights);
 then the kernel table line, the card line and {"ok": true, ...} last.
 Kernel launch counts are set to 0 just before each path and read just
 after it. Any failed phase raises and exits non-zero. Imports nothing of
@@ -71,7 +82,32 @@ JAX_PSNR = [7.655750694805134, 7.5696494082365495, 8.05470772363299,
 #   python -c "import numpy as np; print(np.load('data/result/deform/synthetic_sdf_pdf/metrics.npy', allow_pickle=True).item()['psnr'])"
 JAX_PSNR_SDF = [19.918607338172638, 22.15452214101879, 23.829273881602546,
                 25.011918868247466]
+# Per-view PSNR (frames 0-3, view 3) of the JAX package after one epoch
+# of 50 steps of configs/synthetic.yaml from the tracked weights with a
+# fresh Adam at step 0, perturb 0 and the ray draw seeded, computed on
+# the CPU with (the starting checkpoint written by the port, which JAX
+# resumes from; `train.num_workers 2` gives JAX's loader one thread,
+# so the seeded draws come in item order):
+#   python -c "from animatable_nerf_tpu_torch.train.checkpoints import write_fresh_start as w; w('data/trained_model/deform/synthetic/latest.flax', 'data/trained_model/deform/train50_jax')"
+#   JAX_PLATFORMS=cpu python train_net.py --cfg_file configs/synthetic.yaml exp_name train50_jax train.epoch 1 perturb 0 fix_random True train.num_workers 2 resume True
+#   JAX_PLATFORMS=cpu python run.py --type evaluate --cfg_file configs/synthetic.yaml exp_name train50_jax
+#   python -c "import numpy as np; print(np.load('data/result/deform/train50_jax/metrics.npy', allow_pickle=True).item()['psnr'])"
+JAX_PSNR_TRAIN = [12.357885896866387, 13.075392752633316, 13.178003074358783,
+                  14.846938962667753]
 PSNR_TOL_DB = 0.1
+TRAIN_EXP = "chip_smoke_train"  # exp_name of the train phase's run
+TRAIN_OPTS = ["exp_name", TRAIN_EXP, "train.epoch", "1", "perturb", "0",
+              "fix_random", "True", "resume", "True", "log_interval", "10"]
+TRAIN_ROWS = 32768  # one step's dense points: N_rand 512 x N_samples 64
+# the card's train step against the CPU's: loss rtol, and each gradient
+# leaf within TRAIN_GRAD_REL of its largest entry (rounding in the
+# canonical points is multiplied by the positional encoding; the JAX
+# and port CPU steps differ by up to 2.3e-3, tests/test_torch_train.py)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_REL = 1e-2
+# K1's gradient against autograd through the plain version: the
+# backward is the plain version's own vjp, so only the forward's 3xTF32
+# rounding enters (K1_REL_TOL of the scale of each tensor)
 # K1 against its plain version: 3xTF32 on the tensor cores against FP32
 # (TF32 off), summed in another order over up to 447 terms per layer and
 # 9 chained layers; the split keeps float32 accuracy (its CPU emulation in
@@ -168,8 +204,11 @@ def device_breakdown(fn, top=8):
     by_kernel = {}
     for e in prof.key_averages():
         # device-side events only: an operator's own entry repeats the
-        # time of the kernels it launched
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # time of the kernels it launched, and so does a range recorded
+        # on the device's timeline (torch.optim's "Optimizer.step#...")
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)
+                or e.key.startswith("Optimizer.")):
             continue
         us = getattr(e, "device_time_total", None)
         if us is None:
@@ -928,6 +967,246 @@ def phase_blocked_vs_flat(eng, item, flat, knn, common):
     return result["frame_points"]
 
 
+def phase_k1_grad(k1):
+    """K1 with a gradient on the card, at one train step's rows and the
+    three wirings: the output and the gradients of x, W and b against
+    autograd through the plain version, and the times of the forward
+    (the kernel), of the backward (the plain vjp) and of the plain
+    forward and backward."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for name, din, dims, skips, act_last in k1_wirings():
+        x = (torch.rand(TRAIN_ROWS, din, device="cuda", generator=gen) * 2
+             - 1).requires_grad_()
+        layers = [
+            ((torch.randn(i, o, device="cuda", generator=gen)
+              / math.sqrt(i)).requires_grad_(),
+             (torch.randn(o, device="cuda", generator=gen) * 0.1).requires_grad_())
+            for i, o in dims
+        ]
+        leaves = [x] + [t for wb in layers for t in wb]
+        g = torch.randn(TRAIN_ROWS, dims[-1][1], device="cuda", generator=gen)
+        kwargs = dict(skips=skips, act="relu", act_last=act_last)
+
+        def grads(fn):
+            out = fn(x, layers, **kwargs)
+            return [out.detach()] + list(torch.autograd.grad(out, leaves, g))
+
+        before = k1.skip_mlp.launches
+        got = grads(k1.skip_mlp)
+        torch.cuda.synchronize()
+        check(k1.skip_mlp.launches == before + 1,
+              f"K1 grad {name}: the forward did not launch the kernel")
+        want = grads(k1.skip_mlp_plain)
+        errs = []
+        for a, b in zip(got, want):
+            err = (a - b).abs().max().item()
+            scale = b.abs().max().item()
+            errs.append(err / max(scale, 1e-30))
+            check(math.isfinite(err) and err <= K1_REL_TOL * max(scale, 1e-30),
+                  f"K1 grad {name}: max abs err {err} vs scale {scale}")
+        packed = k1.pack_layers([(w.detach(), b.detach()) for w, b in layers],
+                                skips)
+        out = k1.skip_mlp(x, layers, packed=packed, **kwargs)
+        rows.append({
+            "wiring": name, "rows": TRAIN_ROWS,
+            "max_rel_err": {"out": errs[0], "x": errs[1],
+                            "weights": max(errs[2:])},
+            "forward_ms": cuda_ms(lambda: k1.skip_mlp(
+                x, layers, packed=packed, **kwargs)),
+            "backward_ms": cuda_ms(lambda: torch.autograd.grad(
+                out, leaves, g, retain_graph=True)),
+            "plain_forward_backward_ms": cuda_ms(
+                lambda: grads(k1.skip_mlp_plain), iters=5),
+        })
+    emit({"phase": "k1_grad_vs_plain", "tolerance": (
+        f"max abs err <= {K1_REL_TOL} x max |plain| for the output and "
+        "each gradient (x, every W and b)"), "wirings": rows})
+    return rows
+
+
+def train_step_grads(trainer, batch):
+    """(loss, {name: grad on the CPU}) of one train step's loss."""
+    trainer.optimizer.zero_grad(set_to_none=True)
+    loss, _, _ = trainer.loss({k: v[0] for k, v in batch.items()})
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().cpu() for n, p in
+                                  trainer.model.named_parameters()}
+
+
+def phase_train_step_vs_cpu(cfg, state_dict, batch, k1):
+    """One train step's loss and gradients on the card against the same
+    step with the port on this machine's CPU (the plain versions), from
+    the same weights and batch."""
+    from animatable_nerf_tpu_torch.engine import make_model
+    from animatable_nerf_tpu_torch.train.trainer import Trainer
+
+    results = {}
+    for device in ("cpu", "cuda"):
+        model = make_model(cfg)
+        model.load_state_dict(state_dict)
+        trainer = Trainer(cfg, model.to(device), device)
+        before = k1.skip_mlp.launches
+        t0 = time.time()
+        loss, grads = train_step_grads(trainer, batch)
+        results[device] = (loss, grads, k1.skip_mlp.launches - before,
+                           time.time() - t0)
+    (cpu_loss, cpu_g, cpu_n, cpu_s), (gpu_loss, gpu_g, gpu_n, gpu_s) = (
+        results["cpu"], results["cuda"])
+    rel = {name: (gpu_g[name] - g).abs().max().item()
+           / max(g.abs().max().item(), 1e-30) for name, g in cpu_g.items()}
+    worst = max(rel, key=rel.get)
+    emit({"phase": "train_step_vs_cpu", "rays": int(cfg.N_rand),
+          "samples": int(cfg.N_samples), "loss_cuda": gpu_loss,
+          "loss_cpu": cpu_loss, "loss_rel_err": abs(gpu_loss / cpu_loss - 1),
+          "grad_max_rel_err": rel[worst], "grad_worst_leaf": worst,
+          "k1_launches": {"cuda": gpu_n, "cpu": cpu_n},
+          "first_step_s": {"cuda": gpu_s, "cpu": cpu_s},
+          "tolerance": f"loss rtol {TRAIN_LOSS_RTOL}; each gradient leaf "
+          f"max |d| <= {TRAIN_GRAD_REL} x its max |g| (CPU)"})
+    check(cpu_n == 0 and gpu_n == 3,
+          f"train step K1 launches: {cpu_n} on the CPU, {gpu_n} on the card")
+    check(abs(gpu_loss / cpu_loss - 1) <= TRAIN_LOSS_RTOL,
+          f"train step loss {gpu_loss} on the card vs {cpu_loss} on the CPU")
+    check(rel[worst] <= TRAIN_GRAD_REL,
+          f"train step gradient {worst}: {rel[worst]} of its scale")
+
+
+def repack_ms(model, iters=10):
+    """K1's per-step weight repack: after both trunks' parameters get a
+    new version (an in-place add of 0, as an optimizer step makes one),
+    the time of packing them anew (fields/mlp.py packed_layers), by CUDA
+    events around the packing alone; mean ms per step."""
+    import torch
+
+    from animatable_nerf_tpu_torch.fields.mlp import packed_layers
+
+    trunks = [(model, [*model.bw_linears, model.bw_fc], 191),
+              (model.tpose_human, model.tpose_human.pts_linears, 63)]
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in ev:
+        with torch.no_grad():
+            for _, linears, _ in trunks:
+                for lin in linears:
+                    lin.weight.add_(0.0)
+                    lin.bias.add_(0.0)
+        start.record()
+        for owner, linears, din in trunks:
+            packed_layers(owner, linears, (4,), din)
+        end.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in ev) / iters
+
+
+def step_parts_ms(trainer, batch, steps=5):
+    """Mean device-clock ms per train step of its forward (render and
+    loss), backward, and update, by CUDA events around each part."""
+    import torch
+
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+          for _ in range(steps)]
+    for e in ev:
+        trainer.optimizer.zero_grad(set_to_none=True)
+        e[0].record()
+        loss, _, _ = trainer.loss({k: v[0] for k, v in batch.items()})
+        e[1].record()
+        loss.backward()
+        e[2].record()
+        trainer.apply_gradients()
+        e[3].record()
+    torch.cuda.synchronize()
+    parts = [sum(e[i].elapsed_time(e[i + 1]) for e in ev) / steps
+             for i in range(3)]
+    return dict(zip(("forward_ms", "backward_ms", "update_ms"), parts))
+
+
+def phase_train(k1, knn):
+    """The training path: one step on the card against the CPU, one
+    epoch of run_train, the evaluate of its checkpoint against the JAX
+    PSNR, and a profile of train steps. Returns K1's launches in the
+    run."""
+    import torch
+
+    from animatable_nerf_tpu_torch.compat.flax_msgpack import read_checkpoint
+    from animatable_nerf_tpu_torch.compat.jax_params import aninerf_state_dict
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.engine import make_dataset, run_evaluate, run_train
+    from animatable_nerf_tpu_torch.train.checkpoints import write_fresh_start
+    from animatable_nerf_tpu_torch.train.trainer import collate_rays, stack_batch
+
+    ckpt = "data/trained_model/deform/synthetic/latest.flax"
+    cfg = load_config("configs/synthetic.yaml", TRAIN_OPTS)
+    state_dict = aninerf_state_dict(read_checkpoint(ckpt)["params"])
+    ds = make_dataset(cfg, "train")
+    ds._rng = np.random.RandomState(0)
+    batch = stack_batch([collate_rays(ds[0], int(cfg.N_rand))])
+    phase_train_step_vs_cpu(cfg, state_dict, batch, k1)
+
+    write_fresh_start(ckpt, cfg.trained_model_dir)
+    reset_counts(k1, knn)
+    t0 = time.time()
+    trainer, recorder = run_train(cfg, "cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = launch_counts(k1, knn)
+    steps = trainer.step
+    params_finite = all(bool(torch.isfinite(p).all())
+                        for p in trainer.model.parameters())
+    losses = {k: v.median for k, v in recorder.scalars.items()
+              if k.endswith("loss")}
+    res = run_evaluate(load_config("configs/synthetic.yaml",
+                                   ["exp_name", TRAIN_EXP], run_type="evaluate"),
+                       "cuda")
+    items = res["items"]
+    dpsnr = [it["psnr"] - ref for it, ref in zip(items, JAX_PSNR_TRAIN)]
+
+    # the steady state, on the trained model: a profile of 5 steps, the
+    # parts of a step by events, and the repack alone
+    def five_steps():
+        for _ in range(5):
+            trainer.train_step(batch)
+
+    five_steps()
+    prof = device_breakdown(five_steps, top=10)
+    k1_ms = (prof["own_kernels_ms"]["skip_mlp_kernel"] / 5
+             if prof["kernels"] is not None else None)
+    parts = step_parts_ms(trainer, batch)
+    emit({"phase": "train", "config": "configs/synthetic.yaml",
+          "opts": TRAIN_OPTS, "steps": steps, "rays_per_step": int(cfg.N_rand),
+          "samples_per_ray": int(cfg.N_samples), "wall_s": wall,
+          "s_per_step_mean": recorder.batch_time.global_avg,
+          "s_per_step_median_last20": recorder.batch_time.median,
+          "rays_per_s": int(cfg.N_rand) / recorder.batch_time.median,
+          "data_s_per_step_mean": recorder.data_time.global_avg,
+          "loss_medians_last20": losses, "params_finite": params_finite,
+          "launches": launches, "k1_launches_per_step": launches["skip_mlp"] / steps,
+          "eval_items": items, "jax_psnr": JAX_PSNR_TRAIN,
+          "delta_psnr_db": dpsnr, "tol_db": PSNR_TOL_DB,
+          "profile_per_step": {
+              "wall_ms": prof["wall_ms"] / 5,
+              "device_ms": None if prof["device_ms"] is None
+              else prof["device_ms"] / 5,
+              "idle_share": prof["idle_share"],
+              "k1_ms": k1_ms,
+              "k1_share": None if k1_ms is None
+              else k1_ms / (prof["device_ms"] / 5),
+              "kernels": None if prof["kernels"] is None else [
+                  dict(k, ms=k["ms"] / 5) for k in prof["kernels"]]},
+          "events_per_step": parts, "repack_ms": repack_ms(trainer.model)})
+    check(steps == 50 and launches["skip_mlp"] == 3 * steps
+          and all(v == 0 for k, v in launches.items() if k != "skip_mlp"),
+          f"train: {steps} steps launched {launches}")
+    check(params_finite and all(math.isfinite(v) for v in losses.values()),
+          f"train: the loss or the weights are not finite ({losses})")
+    check(len(items) == len(JAX_PSNR_TRAIN)
+          and all(abs(d) <= PSNR_TOL_DB for d in dpsnr),
+          f"train: PSNR of the trained weights differs from JAX by {dpsnr} dB")
+    return launches
+
+
 def main():
     import torch
 
@@ -1024,6 +1303,11 @@ def main():
           f"full_frame_sdf_pdf_blocked launched {blk_frame_launches}")
     frame_points = phase_blocked_vs_flat(eng_blk, full_item_sdf, sdf_frame,
                                          knn, common)
+    del eng_blk, eng
+
+    # ---- phase 8: training of AniNeRF (K1 with its gradient)
+    phase_k1_grad(k1)
+    train_launches = phase_train(k1, knn)
 
     # ---- kernel table
     def k1_sum(key):
@@ -1063,10 +1347,13 @@ def main():
             "route": "cuda",
             "source": "animatable_nerf_tpu_torch/csrc/skip_mlp.cu",
             "replaces": "animatable_nerf_tpu/ops/mlp_pallas.py:108",
-            # both evaluate paths (AniNeRF, SDF-PDF)
-            "launches": eval_launches["skip_mlp"] + sdf_launches["skip_mlp"],
+            # both evaluate paths (AniNeRF, SDF-PDF) and the 50 steps of
+            # training (the forward; the backward is plain PyTorch)
+            "launches": eval_launches["skip_mlp"] + sdf_launches["skip_mlp"]
+            + train_launches["skip_mlp"],
             "launches_by_path": {"evaluate": eval_launches["skip_mlp"],
-                                 "evaluate_sdf_pdf": sdf_launches["skip_mlp"]},
+                                 "evaluate_sdf_pdf": sdf_launches["skip_mlp"],
+                                 "train": train_launches["skip_mlp"]},
             "launches_full_frame": {
                 "full_frame": frame_launches["skip_mlp"],
                 "full_frame_sdf_pdf": sdf_frame_launches["skip_mlp"]},

@@ -6,7 +6,13 @@ without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: K1 rtol = atol = 1e-5, float32 against float32 summed in
-another order (tests/test_ops.py's tolerance for the same kernel). K2-K6
+another order (tests/test_ops.py's tolerance for the same kernel); the
+same for K1's gradient (ops/skip_mlp.py `SkipMLPFunction`) against
+autograd through the plain version, and for a train step on the card
+against the same step on the CPU (loss rtol 1e-4, each gradient leaf
+within 1e-2 of its largest entry: rounding in the canonical points is
+multiplied by the positional encoding, as between the JAX and port CPU
+steps, tests/test_torch_train.py, which measured 2.3e-3). K2-K6
 round every operation as their plain versions do (no FMA, the same
 order), so they must agree to the bit: atol = rtol = 0.
 """
@@ -124,6 +130,94 @@ def test_cuda_kernel_rejects_bad_inputs(cuda_device):
         k1.skip_mlp(xt, tl[1:], skips)
     with pytest.raises(ValueError):
         k1.skip_mlp(xt, torch_layers(layers), skips)  # weights on the CPU
+
+
+# one training step's dense points: 512 rays x 64 samples
+TRAIN_ROWS = 32768
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(PRODUCTION))
+def test_cuda_k1_gradient_matches_autograd_of_plain(cuda_device, name):
+    """K1 with a gradient (SkipMLPFunction) at one train step's rows:
+    the forward is the kernel's, the gradients of x, W and b those of
+    autograd through skip_mlp_plain."""
+    x, layers, skips, act, act_last = make_case(PRODUCTION[name], TRAIN_ROWS, 5)
+    grads = []
+    for fn in (k1.skip_mlp, k1.skip_mlp_plain):
+        xt = torch.tensor(x, device=cuda_device, requires_grad=True)
+        tl = [(w.requires_grad_(), b.requires_grad_())
+              for w, b in torch_layers(layers, cuda_device)]
+        out = fn(xt, tl, skips, act, act_last)
+        g = torch.randn(out.shape, device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(1))
+        out.backward(g)
+        grads.append([out.detach()] + [t.grad for t in (xt, *[u for wb in tl for u in wb])])
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_k1_with_grad_launches_the_kernel_and_keeps_a_grad_fn(
+        cuda_device, monkeypatch):
+    """A CUDA call whose input requires grad returns an output with a
+    grad_fn (its weights and input get a gradient), launches K1, and
+    does not run the plain forward: the plain version runs only in the
+    backward's recompute."""
+    x, layers, skips, act, act_last = make_case(PRODUCTION["bw_field"], 300, 6)
+    plain_calls = []
+    plain = k1.skip_mlp_plain
+    monkeypatch.setattr(k1, "skip_mlp_plain",
+                        lambda *a, **k: plain_calls.append(1) or plain(*a, **k))
+    xt = torch.tensor(x, device=cuda_device, requires_grad=True)
+    tl = [(w.requires_grad_(), b) for w, b in torch_layers(layers, cuda_device)]
+    before = k1.skip_mlp.launches
+    out = k1.skip_mlp(xt, tl, skips, act, act_last)
+    assert out.grad_fn is not None
+    assert k1.skip_mlp.launches == before + 1 and not plain_calls
+    out.sum().backward()
+    assert len(plain_calls) == 1 and k1.skip_mlp.launches == before + 1
+    assert xt.grad is not None and all(w.grad is not None for w, _ in tl)
+    assert all(b.grad is None for _, b in tl)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu(cuda_device):
+    """One AniNeRF train step (configs/synthetic.yaml, 64 rays of 16
+    samples, perturb 0, the tracked weights) on the card and on the
+    CPU: loss, each gradient leaf, and K1 launched three times."""
+    from animatable_nerf_tpu_torch import engine
+    from animatable_nerf_tpu_torch.compat.flax_msgpack import read_checkpoint
+    from animatable_nerf_tpu_torch.compat.jax_params import aninerf_state_dict
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.train.trainer import (
+        Trainer, collate_rays, stack_batch)
+
+    cfg = load_config("configs/synthetic.yaml",
+                      ["N_rand", "64", "N_samples", "16", "perturb", "0"])
+    state = aninerf_state_dict(read_checkpoint(
+        "data/trained_model/deform/synthetic/latest.flax")["params"])
+    ds = engine.make_dataset(cfg, "train")
+    ds._rng = np.random.RandomState(0)
+    batch = stack_batch([collate_rays(ds[4], 64)])
+    results = []
+    for device in ("cpu", cuda_device):
+        model = engine.make_model(cfg)
+        model.load_state_dict(state)
+        trainer = Trainer(cfg, model.to(device), device)
+        before = k1.skip_mlp.launches
+        loss, _, _ = trainer.loss({k: v[0] for k, v in batch.items()})
+        loss.backward()
+        results.append((float(loss.detach()), {n: p.grad.cpu() for n, p in
+                                      model.named_parameters()},
+                        k1.skip_mlp.launches - before))
+    (cpu_loss, cpu_g, cpu_n), (gpu_loss, gpu_g, gpu_n) = results
+    assert cpu_n == 0 and gpu_n == 3
+    np.testing.assert_allclose(gpu_loss, cpu_loss, rtol=1e-4)
+    for name, want in cpu_g.items():
+        err = (gpu_g[name] - want).abs().max().item()
+        assert err <= 1e-2 * want.abs().max().item(), (name, err)
 
 
 # (N queries, M vertices, C channels): SMPL's vertex count, M just past
