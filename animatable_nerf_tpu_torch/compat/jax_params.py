@@ -17,9 +17,9 @@ weight-normalized {v (in, out), g (out,), b} becomes `weight_v` (out,
 in), `weight_g` (out, 1), `bias`. Load the result with
 `load_state_dict(strict=True)`.
 
-`aninerf_param_tree` is the inverse for AniNeRF: a port state dict (or
-any dict of tensors under its names, such as Adam's moments) to the JAX
-param tree, which JAX's `load_checkpoint` restores.
+`aninerf_param_tree` and `sdf_pdf_param_tree` are the inverses: a port
+state dict (or any dict of tensors under its names, such as Adam's
+moments) to the JAX param tree, which JAX's `load_checkpoint` restores.
 """
 
 from __future__ import annotations
@@ -85,6 +85,24 @@ def aninerf_state_dict(params: dict) -> dict:
     return to_tensors(out)
 
 
+def _sdf_network_arrays(p: dict) -> dict:
+    """A JAX SDF network's params ({layers}) -> numpy arrays under
+    `tpose_human.sdf_network.lin{l}`."""
+    out = {}
+    for l, wn in enumerate(_as_list(p["layers"])):
+        _wn(wn, f"tpose_human.sdf_network.lin{l}", out)
+    return out
+
+
+def sdf_network_state_dict(params: dict) -> dict:
+    """The SDF network alone ({"params": {...}} or the inner dict), as
+    JAX's `init_sdf` reads it into an SDFPDF (engine.py:1237-1241): the
+    other subtrees may be missing; {} when `sdf_network` is."""
+    p = params["params"] if "params" in params else params
+    sdf = p.get("sdf_network")
+    return to_tensors(_sdf_network_arrays(sdf)) if sdf else {}
+
+
 def sdf_pdf_state_dict(params: dict) -> dict:
     """JAX SDFPDF params ({"params": {...}} or the inner dict) ->
     {reference name: torch.Tensor}."""
@@ -95,8 +113,7 @@ def sdf_pdf_state_dict(params: dict) -> dict:
         _linear(mlp[f"lin{i}"], f"resd_linears.{i}", out)
     _linear(mlp["out"], "resd_fc", out)
     th = "tpose_human."
-    for l, wn in enumerate(_as_list(p["sdf_network"]["layers"])):
-        _wn(wn, f"{th}sdf_network.lin{l}", out)
+    out.update(_sdf_network_arrays(p["sdf_network"]))
     out[f"{th}beta_network.beta"] = np.asarray(
         p["beta_network"]["beta"]).reshape(())
     color = p["color_network"]
@@ -135,4 +152,39 @@ def aninerf_param_tree(named: dict) -> dict:
     tree = {"params": {"bw_field": bw, "tpose_human": th}}
     if len(aninerf_state_dict(tree)) != len(named):
         raise KeyError("aninerf_param_tree: names that AniNeRF does not have")
+    return tree
+
+
+def _wn_tree(named: dict, name: str) -> dict:
+    return {"b": _numpy(named[f"{name}.bias"]),
+            "g": _numpy(named[f"{name}.weight_g"]).reshape(-1),
+            "v": np.ascontiguousarray(_numpy(named[f"{name}.weight_v"]).T)}
+
+
+def sdf_pdf_param_tree(named: dict) -> dict:
+    """{reference name: tensor} of SDF-PDF -> the JAX param tree
+    {"params": {"resd_field", "sdf_network", "beta_network",
+    "color_network"}} of numpy float32 arrays (the inverse of
+    `sdf_pdf_state_dict`). The SDF network's layer list is written as
+    flax writes a list, a dict keyed "0", "1", ... Every name must be
+    used: a stray one raises."""
+    mlp = {f"lin{i}": _kernel(named, f"resd_linears.{i}") for i in range(8)}
+    mlp["out"] = _kernel(named, "resd_fc")
+    th = "tpose_human."
+    n_sdf = sum(1 for k in named
+                if k.startswith(f"{th}sdf_network.lin") and k.endswith(".bias"))
+    color = {f"lin{l}": {"wn": _wn_tree(named, f"{th}color_network.lin{l}")}
+             for l in range(5)}
+    color["color_latent"] = {"embedding": _numpy(
+        named[f"{th}color_network.color_latent.weight"])}
+    tree = {"params": {
+        "resd_field": {"mlp": mlp},
+        "sdf_network": {"layers": {
+            str(l): _wn_tree(named, f"{th}sdf_network.lin{l}")
+            for l in range(n_sdf)}},
+        "beta_network": {"beta": _numpy(named[f"{th}beta_network.beta"])},
+        "color_network": color,
+    }}
+    if len(sdf_pdf_state_dict(tree)) != len(named):
+        raise KeyError("sdf_pdf_param_tree: names that SDF-PDF does not have")
     return tree

@@ -1,7 +1,8 @@
 """Volume-rendering compositing.
 
 JAX counterpart: animatable_nerf_tpu/core/composite.py (reference
-lib/networks/renderer/nerf_net_utils.py:6-36). `composite_compacted`
+lib/networks/renderer/nerf_net_utils.py:6-36, :78-88 for
+`get_intersection_mask`). `composite_compacted`
 computes what the JAX function of that name computes (composite.py:
 71-131) from a survivor-compacted sample stream. The JAX code runs a
 segmented Hillis-Steele scan because TPU scatters serialize; here the
@@ -55,3 +56,12 @@ def composite_compacted(sidx, rgb, alpha, z_vals, n_rays: int,
     raw = scatter_raw(sidx, rgb, alpha, n_rays, n_samples)
     rgb_map, _, acc_map, _, depth_map = raw2outputs(raw, z_vals)
     return rgb_map, acc_map, depth_map
+
+
+def get_intersection_mask(sdf):
+    """Per-ray surface crossing (JAX composite.py:165-177): sdf (..., S)
+    -> mask (...,) bool, true where some pair of neighbouring samples
+    changes sign. JAX's index of the crossing is not ported: no path
+    of the port reads it."""
+    sign = torch.sign(sdf[..., :-1] * sdf[..., 1:])
+    return sign.min(dim=-1).values == -1

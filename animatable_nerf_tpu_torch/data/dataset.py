@@ -1,5 +1,5 @@
-"""The datasets of the grid blend-weight models (AniNeRF; train and test
-splits) and of the KNN/displacement models (SDF-PDF; test split).
+"""The datasets of the grid blend-weight models (AniNeRF) and of the
+KNN/displacement models (SDF-PDF), train and test splits.
 
 JAX counterpart: animatable_nerf_tpu/data/dataset.py:52-456
 (`_BaseDataset`, `TPoseDataset`, `TPosePDFDataset` :324; reference
@@ -280,16 +280,15 @@ class TPoseDataset(_BaseDataset):
 
 
 class TPosePDFDataset(_BaseDataset):
-    """Eval items of the KNN/displacement dataset (JAX dataset.py:324;
+    """Items of the KNN/displacement dataset (JAX dataset.py:324-456;
     tpose_pdf_dataset.py): raw SMPL blend weights, the frame's posed
     vertices and the canonical bounds from the big-pose vertices
-    (`use_bigpose`) or the T-pose ones. Novel-pose latent lookup is not
-    ported, nor is its train split."""
+    (`use_bigpose`) or the T-pose ones. On the train split the rays are
+    drawn as `TPoseDataset`'s (`_image_rays`), with the occupancy of
+    the silhouette loss. The novel-pose latent lookup
+    (`nearest_training_frame`) is not ported."""
 
     def __init__(self, cfg, split: str):
-        if split == "train":
-            raise NotImplementedError(
-                "the SDF-PDF train split is not ported yet")
         super().__init__(cfg, split)
         self.weights = np.load(
             os.path.join(self.lbs_root, "weights.npy")).astype(np.float32)

@@ -4,7 +4,8 @@ run types.
 JAX counterpart: animatable_nerf_tpu/engine.py (`_bucket_pad` :139,
 `interleave_rays` :164, the per-frame grids and vertex blocks :259-287
 and :315-326, `Engine.render_item` :547-603, `run_evaluate` :749-830,
-`run_train` :1158-1352, its AniNeRF branch). The
+`run_train` :1158-1352, stage 1 of AniNeRF and SDF-PDF with `init_sdf`
+:1229-1242). The
 eval rays are padded and tiled exactly as in JAX, since the point
 filter's argmin forcing acts per tile. The JAX capacity ladder
 (engine.py:204-236, 465-545) sizes static survivor buffers for the TPU;
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from .compat.flax_msgpack import read_checkpoint
-from .compat.jax_params import aninerf_state_dict, sdf_pdf_state_dict
+from .compat.jax_params import sdf_network_state_dict
 from .data.dataset import TPoseDataset, TPosePDFDataset
 from .data.loader import Loader, eval_indices
 from .device import select_device
@@ -31,7 +32,12 @@ from .models.aninerf import AniNeRF
 from .models.pdf import SDFPDF
 from .ops.knn import build_d5_payload, build_knn_blocks, build_pdist_payload
 from .render.renderer import RenderSettings, pad_rays, render_image
-from .train.checkpoints import load_checkpoint, save_checkpoint
+from .train.checkpoints import (
+    checkpoint_file,
+    load_checkpoint,
+    param_codec,
+    save_checkpoint,
+)
 from .train.recorder import Recorder
 from .train.trainer import Trainer
 
@@ -49,7 +55,6 @@ _DATASETS = {
     "lib.datasets.tpose_pdf_dataset": TPosePDFDataset,
     "tpose_pdf": TPosePDFDataset,
 }
-_STATE_DICTS = {AniNeRF: aninerf_state_dict, SDFPDF: sdf_pdf_state_dict}
 _RAY_KEYS = ("ray_o", "ray_d", "near", "far")
 
 
@@ -175,7 +180,7 @@ class Engine:
         the checkpoint the config selects."""
         if params is None:
             params = read_checkpoint(checkpoint_path(self.cfg))["params"]
-        state = _STATE_DICTS[type(self.model)](params)
+        state = param_codec(self.model)[0](params)
         self.model.load_state_dict(state, strict=True)
 
     def _device_frame(self, item):
@@ -269,24 +274,44 @@ def run_evaluate(cfg, device=None, max_items: int = -1):
     return {**evaluator.summarize(), "items": items}
 
 
+def load_init_sdf(cfg, model):
+    """`init_sdf`: the SDF network's weights, and nothing else, from the
+    checkpoint in data/trained_model/<task>/<init_sdf> (its latest.flax,
+    else its newest snapshot; JAX engine.py:1229-1242, reference
+    net_utils.py `load_network(..., only=['tpose_human.sdf_network'])`).
+    Only that subtree is read, so the file may lack every other module
+    (an SDF-only pretrain); a file with no SDF network loads nothing,
+    as JAX's non-strict partial load. A missing directory raises, as in
+    JAX."""
+    init_dir = os.path.join("data/trained_model", cfg.task, cfg.init_sdf)
+    path = checkpoint_file(init_dir)
+    if path is None:
+        raise FileNotFoundError(f"init_sdf checkpoint dir not found: {init_dir}")
+    raw = read_checkpoint(path)
+    state = sdf_network_state_dict(raw.get("params", raw))
+    model.load_state_dict(state, strict=False)
+
+
 def run_train(cfg, device=None):
-    """Train AniNeRF (JAX engine.py:1158-1352, the AniNeRF branch on one
+    """Train AniNeRF or SDF-PDF (JAX engine.py:1158-1352, stage 1 on one
     device): the train split in epochs of `ep_iter` steps, one frame a
     step; `latest.flax` every `save_latest_ep` epochs and after the last,
     `<epoch>.flax` every `save_ep`; with `resume` (the default) it goes
     on from the checkpoint in `trained_model_dir`, otherwise it wipes
-    that directory. `fix_random` seeds the ray draw (RandomState(0), as
-    JAX) and the z jitter. Returns (trainer, recorder)."""
+    that directory. A fresh SDF-PDF run with `init_sdf` takes its SDF
+    network from that checkpoint first (a resume then overrides it, as
+    in JAX). `fix_random` seeds the ray draw (RandomState(0), as JAX)
+    and the z jitter. Returns (trainer, recorder)."""
     dev = select_device(device)
     # the initial weights do not depend on the caller's random state
     # (JAX initializes from PRNGKey(42))
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(42)
         model = make_model(cfg)
-    if not isinstance(model, AniNeRF):
-        raise NotImplementedError(
-            f"training of {cfg.network_module!r} is not ported yet "
-            "(AniNeRF is)")
+    if cfg.get("init_sdf"):
+        if not isinstance(model, SDFPDF):
+            raise NotImplementedError("init_sdf is an SDF-PDF option")
+        load_init_sdf(cfg, model)
     model.to(dev).train()
     trainer = Trainer(cfg, model, dev)
     n_epochs = int(cfg.train.epoch)

@@ -18,7 +18,13 @@ import torch
 from torch import nn
 
 from ..core.encoding import encoding_dim, positional_encoding
-from .mlp import WNLinear, run_skip_mlp, skip_linears
+from .mlp import (
+    WNLinear,
+    dense_init_,
+    geometric_init_,
+    run_skip_mlp,
+    skip_linears,
+)
 
 _SKIPS = (4,)
 
@@ -102,7 +108,9 @@ class ResidualField(nn.Module):
     """Pose-dependent displacement field (JAX fields.py:53; reference
     anisdf_pdf_network.py:23-32, 49-73): [PE(xyz) (63), pose (72)] = 135
     -> 8x256 skip-4 MLP -> 3, scaled by 0.05 * tanh. The parameters
-    carry the reference's names `resd_linears.{i}`, `resd_fc`."""
+    carry the reference's names `resd_linears.{i}`, `resd_fc`. Initial
+    weights as JAX's SkipMLP: lecun_normal kernels and zero biases, so
+    the initial displacement is near 0."""
 
     def __init__(self, xyz_res: int = 10, pose_dim: int = 72):
         super().__init__()
@@ -110,6 +118,7 @@ class ResidualField(nn.Module):
         din = encoding_dim(xyz_res, 3) + pose_dim
         self.resd_linears = skip_linears(din, 256, 8, _SKIPS)
         self.resd_fc = nn.Linear(256, 3)
+        dense_init_([*self.resd_linears, self.resd_fc])
 
     def residual(self, pts, pose_vec):
         """pts (N, 3); pose_vec (72,) -> resd (N, 3)."""
@@ -133,6 +142,8 @@ class GeometricFieldNetwork(nn.Module):
     (39 channels) -> lin0..lin8, softplus(100 x)/100 after all but the
     last; before lin4 x = [x, inputs] / sqrt(2), so lin3 outputs
     256 - 39 = 217. Output (N, 257): channel 0 the sdf, 1: the feature.
+    Initial weights: the IDR geometric init (`geometric_init_`), an sdf
+    near |x| - 0.5.
     """
 
     def __init__(self, multires: int = 6, d_hidden: int = 256,
@@ -146,6 +157,8 @@ class GeometricFieldNetwork(nn.Module):
             out_dim = dims[l + 1] - d_pe if (l + 1) in self.skip_in else dims[l + 1]
             setattr(self, f"lin{l}", WNLinear(dims[l], out_dim))
         self.n_linear = len(dims) - 1
+        geometric_init_([getattr(self, f"lin{l}") for l in range(self.n_linear)],
+                        d_pe, self.skip_in)
 
     def forward(self, pts):
         inputs = positional_encoding(pts, self.multires)

@@ -9,16 +9,41 @@ stack always goes through ops/skip_mlp.py, which launches the CUDA
 kernel on the card and runs its plain version on the CPU.
 
 Also the weight-normalized dense layer of the SDF-PDF heads (JAX
-fields/mlp.py:108 `wn_apply`, :127 `WNDense`).
+fields/mlp.py:108 `wn_apply`, :127 `WNDense`), and the initial weights
+a training run from scratch takes: flax's `lecun_normal` with zero
+biases (`dense_init_`, JAX :20 `dense_param_init`) and the IDR geometric
+init of the SDF network (`geometric_init_`, JAX :147
+`geometric_mlp_params`). They follow JAX's rules with torch's random
+numbers, not its PRNG's.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.skip_mlp import pack_layers, skip_mlp
+
+
+def lecun_normal_(weight):
+    """flax's lecun_normal on a torch (out, in) weight: a normal of
+    variance 1 / fan_in, truncated at two standard deviations and
+    rescaled to keep that variance (jax.nn.initializers.variance_scaling
+    with 'truncated_normal')."""
+    std = math.sqrt(1.0 / weight.shape[1]) / 0.87962566103423978
+    return nn.init.trunc_normal_(weight, std=std, a=-2.0 * std, b=2.0 * std)
+
+
+def dense_init_(linears):
+    """JAX `dense_param_init` on nn.Linear layers: lecun_normal kernels,
+    zero biases."""
+    with torch.no_grad():
+        for lin in linears:
+            lecun_normal_(lin.weight)
+            lin.bias.zero_()
 
 
 def skip_linears(din: int, width: int, depth: int, skips) -> nn.ModuleList:
@@ -93,10 +118,48 @@ class WNLinear(nn.Module):
         self.weight_v = nn.Parameter(torch.empty(dout, din))
         self.weight_g = nn.Parameter(torch.empty(dout, 1))
         self.bias = nn.Parameter(torch.zeros(dout))
-        nn.init.normal_(self.weight_v, std=din ** -0.5)
+        # JAX `_wn_init` with WNDense's lecun_normal direction
         with torch.no_grad():
-            self.weight_g.copy_(torch.linalg.norm(self.weight_v, dim=1,
-                                                  keepdim=True))
+            lecun_normal_(self.weight_v)
+            self.reset_norm()
+
+    def reset_norm(self):
+        """g = ||v|| per output unit (torch weight_norm's init)."""
+        self.weight_g.copy_(torch.linalg.norm(self.weight_v, dim=1,
+                                              keepdim=True))
 
     def forward(self, x):
         return F.linear(x, wn_weight(self.weight_v, self.weight_g), self.bias)
+
+
+@torch.no_grad()
+def geometric_init_(layers, d_pe: int, skip_in):
+    """The IDR geometric init of a weight-normalized SDF MLP (JAX
+    fields/mlp.py:147 `geometric_mlp_params` with its bias 0.5;
+    reference anisdf_pdf_network.py:379-413), on WNLinear `layers` whose
+    first takes the positional encoding of xyz (d_pe channels, the raw
+    xyz first):
+      * the last layer: v ~ N(sqrt(pi) / sqrt(in), 1e-4), bias -0.5;
+      * the first: v ~ N(0, sqrt(2) / sqrt(out)) on the xyz columns,
+        its encoding columns zero;
+      * a skip layer: the same normal, the columns of the re-concatenated
+        encoding (its last d_pe - 3 inputs) zero;
+      * the others: N(0, sqrt(2) / sqrt(out));
+    zero biases but the last, and g = ||v|| per output unit. The sdf
+    then starts near |x| - 0.5."""
+    n = len(layers)
+    for l, lin in enumerate(layers):
+        v = lin.weight_v
+        dout, din = v.shape
+        lin.bias.zero_()
+        if l == n - 1:
+            nn.init.normal_(v, mean=math.sqrt(math.pi) / math.sqrt(din),
+                            std=1e-4)
+            lin.bias.fill_(-0.5)
+        else:
+            nn.init.normal_(v, std=math.sqrt(2.0) / math.sqrt(dout))
+            if l == 0:
+                v[:, 3:] = 0.0
+            elif l in skip_in:
+                v[:, din - (d_pe - 3):] = 0.0
+        lin.reset_norm()

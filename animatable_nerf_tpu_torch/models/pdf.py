@@ -1,11 +1,12 @@
 """SDF-PDF: pose-dependent displacement field + VolSDF canonical
-surface, eval path.
+surface, eval and train paths.
 
 JAX counterpart: animatable_nerf_tpu/models/pdf.py (`_PDFBase._warp`
-:103, `_compact_inputs` :138 conservative branch, `_eval_compacted`
-:282, `SDFPDF` :470 with `_sdf_and_grad` :492 and `_eval_head` :542;
-reference anisdf_pdf_network.py). NeRF-PDF and NeuS-PDF are not ported
-yet.
+:103, `_filter` :131, `_compact_inputs` :138 conservative branch,
+`_eval_compacted` :282, `SDFPDF` :470 with `_sdf_and_grad` :492,
+`_observed_grad` :509, `_eval_head` :542 and the dense train branch of
+`__call__` :635-700; reference anisdf_pdf_network.py). NeRF-PDF and
+NeuS-PDF are not ported yet.
 
 The point filter keeps the JAX semantics:
   * pass 1 reads the per-frame nearest-vertex distance grid (built by
@@ -23,6 +24,15 @@ slots on bone 0; the port compacts exactly with torch.nonzero, so it has
 neither capacities nor dead slots. The warp, the displacement field
 (K1), the SDF network with its autograd normals and the color network
 run on the exact survivors only.
+
+The train path (`train_forward`) is JAX's default dense masked one
+(`train_keep_frac` 0): every sampled point is filtered by one K2 launch
+(argmin forced over the whole step), masked points are moved onto the
+first posed vertex, and the displacement field (K1), the SDF network
+with its normals kept on the graph, and the color network run on all of
+them. The observed-space eikonal term differentiates sdf(x + resd(x))
+with respect to x with a graph, so the loss reaches the displacement
+field through K1's gradient of a gradient (ops/skip_mlp.py).
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import torch
 from torch import nn
 
 from ..core.composite import composite_compacted
+from ..core.knn import sample_blend_closest_points
 from ..core.lbs import (
     backward_warp_points_dirs,
     world_dirs_to_pose_dirs,
@@ -48,10 +59,15 @@ from .common import (
     inside_bounds,
     keep_mask_with_argmin,
     knn_blend_for_frame,
+    substitute_masked,
 )
 
 NORM_TH = 0.1  # hard-coded in the pdf models (anisdf_pdf_network.py:172)
 TBOUNDS_PAD = 0.05  # canonical bbox growth (JAX pdf.py:344)
+# |sdf| below which a point enters the observed-space eikonal term
+# (JAX pdf.py:692-694; reference anisdf_pdf_network.py:194-199)
+OBSERVED_GRAD_BAND = 0.02
+SDF_FILL = 10.0  # sdf of masked points (anisdf_pdf_network.py:218-219)
 
 
 class TPoseSDF(nn.Module):
@@ -78,6 +94,9 @@ class SDFPDF(ResidualField):
     # the per-frame tensors the engine moves to the device
     frame_keys = ("A", "big_A", "poses", "weights", "pvertices", "tbounds",
                   "R", "Th")
+    # training reads the same ones (no distance grid: the dense path
+    # filters every point with K2)
+    train_frame_keys = frame_keys
 
     def __init__(self, num_latents: int, tpose_viewdir: bool = True,
                  xyz_res: int = 10):
@@ -88,24 +107,50 @@ class SDFPDF(ResidualField):
     def _warp(self, pose_pts, pose_dirs, pbw, frame):
         """Posed SMPL -> canonical big pose plus the residual
         displacement (JAX pdf.py:103). Returns (tpose, bigpose dirs)."""
-        dirs_in = pose_dirs if self.tpose_viewdir else None
-        init_bigpose, tpose_dirs = backward_warp_points_dirs(
-            pose_pts, dirs_in, pbw, frame["A"], frame["big_A"]
-        )
+        init_bigpose, tpose_dirs = self._to_bigpose(pose_pts, pose_dirs, pbw,
+                                                    frame)
         tpose = init_bigpose + self.residual(init_bigpose, frame["poses"])
         return tpose, tpose_dirs
 
-    def _sdf_and_grad(self, tpose):
+    def _to_bigpose(self, pose_pts, pose_dirs, pbw, frame):
+        """The LBS part of the warp: (init_bigpose, bigpose dirs)."""
+        dirs_in = pose_dirs if self.tpose_viewdir else None
+        return backward_warp_points_dirs(pose_pts, dirs_in, pbw, frame["A"],
+                                         frame["big_A"])
+
+    def _sdf_and_grad(self, tpose, create_graph: bool = False):
         """sdf (N, 1), feature (N, 256) and d sdf / d point (N, 3) (JAX
         pdf.py:492). The network is pointwise, so the gradient of the
-        summed sdf is every point's own; it runs under enable_grad on a
-        detached copy, inside an otherwise gradient-free render."""
+        summed sdf is every point's own. For eval it runs under
+        enable_grad on a detached copy, inside an otherwise gradient-free
+        render, and returns detached values; with `create_graph`
+        (training) it differentiates `tpose` itself and the gradient
+        stays on the graph, so a loss on it reaches every weight."""
+        if create_graph:
+            if not tpose.requires_grad:
+                tpose = tpose.detach().requires_grad_(True)
+            out = self.tpose_human.sdf_network(tpose)
+            (grad,) = torch.autograd.grad(out[:, 0].sum(), tpose,
+                                          create_graph=True)
+            return out[:, :1], out[:, 1:], grad
         with torch.enable_grad():
             x = tpose.detach().requires_grad_(True)
             out = self.tpose_human.sdf_network(x)
             (grad,) = torch.autograd.grad(out[:, 0].sum(), x)
         out = out.detach()
         return out[:, :1], out[:, 1:], grad
+
+    def _observed_grad(self, init_bigpose, frame):
+        """d/dx [sdf(x + resd(x))] at the detached big-pose points (JAX
+        pdf.py:509; reference anisdf_pdf_network.py:140-154): the
+        displacement field's second K1 launch of a step, differentiated
+        with a graph, so the eikonal loss on it reaches the displacement
+        field through the gradient of K1's gradient."""
+        x = init_bigpose.detach().requires_grad_(True)
+        sdf = self.tpose_human.sdf_network(
+            x + self.residual(x, frame["poses"]))[:, 0]
+        (grad,) = torch.autograd.grad(sdf.sum(), x, create_graph=True)
+        return grad
 
     def _eval_head(self, tpose, dirs, latent_index: int):
         """rgb (N, 3) and VolSDF alpha (N,) (JAX pdf.py:542)."""
@@ -149,4 +194,56 @@ class SDFPDF(ResidualField):
         return {
             "rgb_map": rgb_map, "acc_map": acc_map, "depth_map": depth_map,
             "n_candidates": cand.numel(), "n_survivors": sidx.numel(),
+        }
+
+    def train_forward(self, wpts, viewdir, z_vals, frame):
+        """Dense masked train forward (JAX pdf.py:658-700): wpts (R, S,
+        3), viewdir (R, 3), z_vals (R, S) -> raw (R, S, 4), sdf (R, S)
+        with SDF_FILL on masked points, and per point (R*S rows) resd and
+        its mask, the canonical normals `gradients` and their mask, and
+        the observed-space normals `observed_gradients` with their mask
+        (filtered points whose |sdf| < OBSERVED_GRAD_BAND).
+
+        One K2 launch serves the filter and the warp: JAX runs the KNN
+        again on the substituted points, whose blend at a kept point is
+        the filter's and at a masked one that of the first vertex, the
+        launch's extra last query."""
+        n_rays, n_samples = z_vals.shape
+        pose_pts = world_points_to_pose_points(
+            wpts.reshape(-1, 3), frame["R"], frame["Th"])
+        vd = viewdir[:, None, :].expand(n_rays, n_samples, 3).reshape(-1, 3)
+        pose_dirs = world_dirs_to_pose_dirs(vd, frame["R"])
+
+        # the KNN filter (:131-136), data only, its argmin forced over
+        # the step's points; masked points onto pvertices[0] (:664-666)
+        safe = frame["pvertices"][0]
+        pbw, pnorm = sample_blend_closest_points(
+            torch.cat([pose_pts, safe[None]]), frame["pvertices"],
+            frame["weights"])
+        pind = keep_mask_with_argmin(pnorm[:-1, 0], NORM_TH)
+        pose_pts = substitute_masked(pose_pts, pind, safe)
+        pbw = torch.where(pind[:, None], pbw[:-1], pbw[-1])
+
+        # the warp (:103-129), its parts kept for the loss
+        init_bigpose, tpose_dirs = self._to_bigpose(pose_pts, pose_dirs, pbw,
+                                                    frame)
+        resd = self.residual(init_bigpose, frame["poses"])
+        tpose = init_bigpose + resd
+        dirs = tpose_dirs if self.tpose_viewdir else vd
+        sdf, feat, gradients = self._sdf_and_grad(tpose, create_graph=True)
+        sigma = volsdf_sigma(sdf[:, 0], self.tpose_human.beta_network())
+        rgb = self.tpose_human.color_network(tpose, gradients, dirs, feat,
+                                             int(frame["latent_index"]))
+        raw = torch.cat([rgb, sigma_to_alpha(sigma)[:, None]], dim=-1)
+        inside = inside_bounds(tpose, frame["tbounds"], pad=TBOUNDS_PAD)
+        raw = torch.where((pind & inside)[:, None], raw, 0.0)
+        og_mask = pind & (torch.abs(sdf[:, 0].detach()) < OBSERVED_GRAD_BAND)
+        return {
+            "raw": raw.reshape(n_rays, n_samples, 4),
+            "sdf": torch.where(pind, sdf[:, 0], SDF_FILL).reshape(
+                n_rays, n_samples),
+            "resd": resd, "resd_mask": pind,
+            "gradients": gradients, "grad_mask": pind,
+            "observed_gradients": self._observed_grad(init_bigpose, frame),
+            "observed_grad_mask": og_mask,
         }

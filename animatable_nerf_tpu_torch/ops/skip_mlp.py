@@ -7,9 +7,10 @@ CUDA tensors and takes `skip_mlp_plain` for CPU tensors; there is no
 fallback from one to the other. The kernel is forward-only, as in JAX:
 where a gradient is wanted, `skip_mlp` goes through `SkipMLPFunction`,
 whose forward is that same call and whose backward is the vjp of
-`skip_mlp_plain` recomputed from the saved input and weights (JAX
-`make_fused_skip_mlp`, mlp_pallas.py:173-197, differentiates its XLA
-twin `_ref_forward` the same way).
+`skip_mlp_plain` recomputed from the saved input and weights, itself
+differentiable for a gradient of a gradient (JAX `make_fused_skip_mlp`,
+mlp_pallas.py:173-197, differentiates its XLA twin `_ref_forward` the
+same way).
 
 The kernel multiplies on the tensor cores in 3xTF32 (each operand split
 into a TF32 `hi` and the TF32 rounding of its remainder `lo`; the
@@ -210,6 +211,14 @@ class SkipMLPFunction(torch.autograd.Function):
     `skip_mlp_plain`, recomputed from the saved input and weights in
     plain PyTorch matmuls, as JAX's `bwd` recomputes `_ref_forward`.
 
+    The backward is differentiable again: the recompute runs on views
+    of the saved tensors, and when the outer call asks for
+    `create_graph` (grad mode is on inside the backward) the returned
+    gradients carry a graph back to the input, to every weight and to
+    the incoming cotangent, as JAX differentiates its `bwd` (a gradient
+    of a gradient, e.g. an eikonal loss on d y / d x). Otherwise they
+    keep no graph.
+
     apply(x, packed, (skips, act, act_last), W0, b0, W1, b1, ...)."""
 
     @staticmethod
@@ -224,14 +233,21 @@ class SkipMLPFunction(torch.autograd.Function):
     def backward(ctx, grad_out):
         skips, act, act_last = ctx.config
         needs = (ctx.needs_input_grad[0], *ctx.needs_input_grad[3:])
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, needs)]
+        create_graph = torch.is_grad_enabled()
         with torch.enable_grad():
+            # aliases of the saved tensors: the vjp stops at them, so it
+            # gives partial derivatives even where x was computed from
+            # these weights, and frees nothing of the outer graph; under
+            # create_graph its result reaches the saved tensors through
+            # the aliases
+            inputs = [t.view_as(t) if need else t.detach()
+                      for t, need in zip(ctx.saved_tensors, needs)]
             y = skip_mlp_plain(inputs[0], list(zip(inputs[1::2], inputs[2::2])),
                                skips, act, act_last)
-        wanted = [t for t in inputs if t.requires_grad]
-        grads = iter(torch.autograd.grad(y, wanted, grad_out))
-        out = [next(grads) if t.requires_grad else None for t in inputs]
+        wanted = [t for t, need in zip(inputs, needs) if need]
+        grads = iter(torch.autograd.grad(y, wanted, grad_out,
+                                         create_graph=create_graph))
+        out = [next(grads) if need else None for need in needs]
         return (out[0], None, None, *out[1:])
 
 

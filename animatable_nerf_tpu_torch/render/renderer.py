@@ -1,10 +1,11 @@
 """Volume rendering: eval rays in fixed-size tiles, for every ported
 model (AniNeRF, SDF-PDF), each taking one tile's samples and compositing
-its own maps; and a training ray batch through AniNeRF's dense train
-path.
+its own maps; and a training ray batch through a model's dense train
+path, with the SDF models' silhouette tensors.
 
 JAX counterpart: animatable_nerf_tpu/render/renderer.py (`pad_rays`
-:63-88, `render_rays` :159-320, `render_image` :329-384). The JAX
+:63-88, `render_rays` :159-320 with the silhouette tensors :305-319,
+`render_image` :329-384). The JAX
 `apply_model` row chunking (`dense_chunk_rows`) guards a TPU compiler
 fault and has no counterpart here; on the train path it also forces the
 argmin and argmax per chunk, so the port refuses a train batch above
@@ -18,7 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.composite import raw2outputs
+from ..core.composite import get_intersection_mask, raw2outputs
 from ..core.sampling import stratified_z_vals, z_vals_to_pts
 
 _IMAGE_OUTPUTS = ("rgb_map", "acc_map", "depth_map")
@@ -103,8 +104,14 @@ def render_rays_train(model, rays: dict, frame: dict,
     :159-230 with :282-305): z values jittered by `generator` when
     `settings.perturb`, the model's dense train forward, `raw2outputs`
     with `white_bkgd`, and the maps zeroed on pad rays (`mask`). Returns
-    the model's dict (raw, pbw, tbw, bw_mask) plus rgb_map, acc_map,
-    depth_map, weights and z_vals."""
+    the model's dict (AniNeRF: raw, pbw, tbw, bw_mask; SDF-PDF: raw,
+    sdf, resd, gradients, observed_gradients and their masks) plus
+    rgb_map, acc_map, depth_map, weights and z_vals; for a model that
+    returns `sdf`, with the rays' `occupancy`, also the silhouette
+    tensors: msk_sdf, each ray's least sdf; msk_free, the real rays
+    outside the mask; msk_in, the real rays inside it whose samples
+    never change sign (JAX :305-319, reference tpose_renderer.py:
+    134-152)."""
     n_rays = rays["ray_o"].shape[0]
     if n_rays * settings.n_samples > _DENSE_CHUNK_ROWS:
         raise NotImplementedError(
@@ -124,4 +131,13 @@ def render_rays_train(model, rays: dict, frame: dict,
         depth_map = torch.where(m, depth_map, 0.0)
     ret.update(rgb_map=rgb_map, acc_map=acc_map, depth_map=depth_map,
                weights=weights, z_vals=z_vals)
+    if "sdf" in ret and "occupancy" in rays:
+        sdf = ret["sdf"]
+        inter = get_intersection_mask(sdf)
+        occ = rays["occupancy"]
+        valid = rays.get("mask", torch.ones_like(occ, dtype=torch.bool))
+        # amin: a tie shares the gradient evenly, as jnp.min's does
+        ret.update(msk_sdf=torch.amin(sdf, dim=-1),
+                   msk_free=(occ == 0) & valid,
+                   msk_in=(~inter) & (occ == 1) & valid)
     return ret

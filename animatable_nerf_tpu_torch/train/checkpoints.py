@@ -11,6 +11,7 @@ the state dict of JAX's optimizer, optax.chain(clip(40), adam(schedule)):
 and moments, as param trees), "1": {count} (the schedule's count)}}.
 So the JAX package's `load_checkpoint` and `run.py --type evaluate`
 read what the port writes, and the port resumes from what JAX writes.
+Both trained families are handled: AniNeRF and SDF-PDF (`param_codec`).
 """
 
 from __future__ import annotations
@@ -21,7 +22,24 @@ import numpy as np
 import torch
 
 from ..compat.flax_msgpack import read_checkpoint, write_checkpoint
-from ..compat.jax_params import aninerf_param_tree, aninerf_state_dict
+from ..compat.jax_params import (
+    aninerf_param_tree,
+    aninerf_state_dict,
+    sdf_pdf_param_tree,
+    sdf_pdf_state_dict,
+)
+from ..models.aninerf import AniNeRF
+from ..models.pdf import SDFPDF
+
+# (JAX param tree -> state dict, state dict -> JAX param tree) by model
+_CODECS = {AniNeRF: (aninerf_state_dict, aninerf_param_tree),
+           SDFPDF: (sdf_pdf_state_dict, sdf_pdf_param_tree)}
+
+
+def param_codec(model):
+    """(state_dict, param_tree): the converters between the JAX param
+    tree and the state dict of `model`'s family (compat/jax_params.py)."""
+    return _CODECS[type(model)]
 
 
 def adam_moments(model, optimizer):
@@ -38,12 +56,12 @@ def adam_moments(model, optimizer):
     return count, mu, nu
 
 
-def opt_state_tree(count: int, mu: dict, nu: dict) -> dict:
-    """The state dict of JAX's optax.chain(clip(40), adam(schedule))."""
+def opt_state_tree(count: int, mu_tree: dict, nu_tree: dict) -> dict:
+    """The state dict of JAX's optax.chain(clip(40), adam(schedule)),
+    from Adam's moments as JAX param trees."""
     c = np.asarray(count, np.int32)
     return {"0": {}, "1": {
-        "0": {"count": c, "mu": aninerf_param_tree(mu),
-              "nu": aninerf_param_tree(nu)},
+        "0": {"count": c, "mu": mu_tree, "nu": nu_tree},
         "1": {"count": c.copy()}}}
 
 
@@ -53,9 +71,11 @@ def save_checkpoint(model_dir: str, model, optimizer, epoch: int, step: int,
     """Write `latest.flax` or `<epoch>.flax` (then keep the `keep`
     newest snapshots). `step` counts the frames trained on."""
     os.makedirs(model_dir, exist_ok=True)
+    to_tree = param_codec(model)[1]
+    count, mu, nu = adam_moments(model, optimizer)
     tree = {
-        "params": aninerf_param_tree(dict(model.named_parameters())),
-        "opt_state": opt_state_tree(*adam_moments(model, optimizer)),
+        "params": to_tree(dict(model.named_parameters())),
+        "opt_state": opt_state_tree(count, to_tree(mu), to_tree(nu)),
         "epoch": np.asarray(epoch, np.int64),
         "step": np.asarray(step, np.int64),
         "recorder": recorder_state or {},
@@ -107,28 +127,33 @@ def load_checkpoint(model_dir: str, model, optimizer=None):
     if path is None:
         return None
     raw = read_checkpoint(path)
-    model.load_state_dict(aninerf_state_dict(raw["params"]), strict=True)
+    to_state = param_codec(model)[0]
+    model.load_state_dict(to_state(raw["params"]), strict=True)
     adam = raw.get("opt_state", {}).get("1", {}).get("0")
     updates = 0
     if optimizer is not None and adam:
         updates = int(adam["count"])
-        set_adam_state(model, optimizer, updates,
-                       aninerf_state_dict(adam["mu"]),
-                       aninerf_state_dict(adam["nu"]))
+        set_adam_state(model, optimizer, updates, to_state(adam["mu"]),
+                       to_state(adam["nu"]))
     return int(raw["epoch"]), int(raw["step"]), updates, raw.get("recorder", {})
+
+
+def _zeros_like_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _zeros_like_tree(v) for k, v in tree.items()}
+    return np.zeros_like(np.asarray(tree, np.float32))
 
 
 def write_fresh_start(src_path: str, model_dir: str):
     """A `latest.flax` in `model_dir` that resumes as a fresh run from
-    the params of checkpoint `src_path`: zero Adam moments, update
-    count 0, step 0, epoch -1 (so training starts at epoch 0). Either
-    package's trainer, with `resume True`, then trains from those
-    weights."""
+    the params of checkpoint `src_path` (of either family): zero Adam
+    moments, update count 0, step 0, epoch -1 (so training starts at
+    epoch 0). Either package's trainer, with `resume True`, then trains
+    from those weights."""
     params = read_checkpoint(src_path)["params"]
-    named = aninerf_state_dict(params)
-    zeros = {k: torch.zeros_like(v) for k, v in named.items()}
     os.makedirs(model_dir, exist_ok=True)
     write_checkpoint(os.path.join(model_dir, "latest.flax"), {
-        "params": params, "opt_state": opt_state_tree(0, zeros, zeros),
+        "params": params, "opt_state": opt_state_tree(
+            0, _zeros_like_tree(params), _zeros_like_tree(params)),
         "epoch": np.asarray(-1, np.int64), "step": np.asarray(0, np.int64),
         "recorder": {"step": 0}})

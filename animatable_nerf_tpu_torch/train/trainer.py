@@ -6,7 +6,9 @@ JAX counterpart: animatable_nerf_tpu/train/trainer.py (`collate_rays`
 tpose_trainer.py). One step: the render of one frame's rays, the loss,
 its gradient, the value clip at 40 and an Adam update at the schedule's
 rate for the update count. The step counter counts the frames trained
-on, as in JAX. JAX's fused multi-step dispatch (`steps_per_dispatch`),
+on, as in JAX; the loss reads it (the SDF silhouette alpha's schedule).
+The model is AniNeRF or SDF-PDF; its `train_frame_keys` name the frame
+tensors the trainer moves to the device. JAX's fused multi-step dispatch (`steps_per_dispatch`),
 packed stats, device frame store and shard_map data parallelism serve
 its TPU and its remote relay; the port has none of them and raises on a
 config that asks for more than one step a dispatch, more than one frame
@@ -94,7 +96,7 @@ def check_train_config(cfg):
 
 
 class Trainer:
-    """Train steps of `model` (AniNeRF) on `device`."""
+    """Train steps of `model` (AniNeRF or SDF-PDF) on `device`."""
 
     def __init__(self, cfg, model, device):
         check_train_config(cfg)
@@ -107,6 +109,7 @@ class Trainer:
         )
         self.optimizer = make_optimizer(cfg, model.parameters())
         self.sched = make_schedule(cfg)
+        self.mask_alpha_max = float(cfg.get("sdf_mask_alpha_max", 0.0))
         self.step = 0  # frames trained on
         self.updates = 0  # optimizer updates (the schedule's count)
         # the jitter of the z values; seeded by the caller
@@ -134,11 +137,12 @@ class Trainer:
 
     def loss(self, batch):
         """(loss, stats, ret) of one frame's collated batch (no leading
-        axis) at the current weights (JAX `_loss_one`)."""
+        axis) at the current weights and step (JAX `_loss_one`)."""
         rays = self._rays(batch)
         ret = render_rays_train(self.model, rays, self._frame(batch),
                                 self.settings, self.generator)
-        loss, stats = compute_losses(ret, rays)
+        loss, stats = compute_losses(ret, rays, self.step,
+                                     mask_alpha_max=self.mask_alpha_max)
         return loss, stats, ret
 
     def apply_gradients(self):

@@ -2,9 +2,13 @@
 
     python -m animatable_nerf_tpu_torch.train_net \\
         --cfg_file configs/synthetic.yaml [--device cpu] [key value ...]
+    python -m animatable_nerf_tpu_torch.train_net \\
+        --cfg_file configs/synthetic_sdf_pdf.yaml [--device cpu] [key value ...]
 
-Trains AniNeRF (engine.py `run_train`) on `cuda` unless `--device cpu`
-is given; without a GPU and without `--device cpu` it raises.
+Trains AniNeRF or SDF-PDF, stage 1 (engine.py `run_train`), on `cuda`
+unless `--device cpu` is given; without a GPU and without
+`--device cpu` it raises. SDF-PDF's `init_sdf <exp>` starts a fresh run
+from the SDF network of data/trained_model/<task>/<exp>.
 Checkpoints go to data/trained_model/<task>/<exp_name>/ in the JAX
 package's flax format, so `python run.py --type evaluate` (JAX) and
 `python -m animatable_nerf_tpu_torch.run --type evaluate` (the port)

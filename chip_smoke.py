@@ -52,6 +52,17 @@ Phases, one JSON line each:
      JAX package's PSNR for the same run on the CPU; and a profile of
      train steps (device ms by kernel, K1's share, the backward's time,
      the per-step repack of K1's weights);
+  9. training of SDF-PDF (configs/synthetic_sdf_pdf.yaml): K1's gradient
+     of a gradient (the observed-space eikonal term's path) against
+     autograd-of-autograd through the plain version at 32,768 rows of
+     the displacement field's wiring; one train step on the card against
+     the CPU (K1 twice and K2 once on the card); `run_train` for one
+     epoch of 50 steps as in phase 8, with every kernel's launches
+     counted (K1 2 and K2 1 a step, K3-K6 none); the evaluate of its
+     checkpoint held to the JAX package's PSNR for the same run on the
+     CPU; a profile of 5 steps (K1's and K2's shares, the backward with
+     its double backward by events); and K2 on one step's dense points
+     (timed, its bound, the cdist chain);
 then the kernel table line, the card line and {"ok": true, ...} last.
 Kernel launch counts are set to 0 just before each path and read just
 after it. Any failed phase raises and exits non-zero. Imports nothing of
@@ -94,10 +105,22 @@ JAX_PSNR_SDF = [19.918607338172638, 22.15452214101879, 23.829273881602546,
 #   python -c "import numpy as np; print(np.load('data/result/deform/train50_jax/metrics.npy', allow_pickle=True).item()['psnr'])"
 JAX_PSNR_TRAIN = [12.357885896866387, 13.075392752633316, 13.178003074358783,
                   14.846938962667753]
+# The same for SDF-PDF: one epoch of 50 steps of
+# configs/synthetic_sdf_pdf.yaml from the tracked weights, fresh Adam,
+# perturb 0 and the ray draw seeded, computed on the CPU with:
+#   python -c "from animatable_nerf_tpu_torch.train.checkpoints import write_fresh_start as w; w('data/trained_model/deform/synthetic_sdf_pdf/latest.flax', 'data/trained_model/deform/train50_sdf_jax')"
+#   JAX_PLATFORMS=cpu python train_net.py --cfg_file configs/synthetic_sdf_pdf.yaml exp_name train50_sdf_jax train.epoch 1 perturb 0 fix_random True train.num_workers 2 resume True
+#   JAX_PLATFORMS=cpu python run.py --type evaluate --cfg_file configs/synthetic_sdf_pdf.yaml exp_name train50_sdf_jax
+#   python -c "import numpy as np; print(np.load('data/result/deform/train50_sdf_jax/metrics.npy', allow_pickle=True).item()['psnr'])"
+JAX_PSNR_TRAIN_SDF = [21.096650006737693, 22.82760370503967, 24.089425792358725,
+                      24.915604842368836]
 PSNR_TOL_DB = 0.1
 TRAIN_EXP = "chip_smoke_train"  # exp_name of the train phase's run
 TRAIN_OPTS = ["exp_name", TRAIN_EXP, "train.epoch", "1", "perturb", "0",
               "fix_random", "True", "resume", "True", "log_interval", "10"]
+TRAIN_SDF_CFG = "configs/synthetic_sdf_pdf.yaml"
+TRAIN_SDF_EXP = "chip_smoke_train_sdf"
+TRAIN_SDF_OPTS = ["exp_name", TRAIN_SDF_EXP] + TRAIN_OPTS[2:]
 TRAIN_ROWS = 32768  # one step's dense points: N_rand 512 x N_samples 64
 # the card's train step against the CPU's: loss rtol, and each gradient
 # leaf within TRAIN_GRAD_REL of its largest entry (rounding in the
@@ -1028,18 +1051,20 @@ def phase_k1_grad(k1):
 
 
 def train_step_grads(trainer, batch):
-    """(loss, {name: grad on the CPU}) of one train step's loss."""
+    """(loss, stats, {name: grad on the CPU}) of one train step's loss."""
     trainer.optimizer.zero_grad(set_to_none=True)
-    loss, _, _ = trainer.loss({k: v[0] for k, v in batch.items()})
+    loss, stats, _ = trainer.loss({k: v[0] for k, v in batch.items()})
     loss.backward()
-    return float(loss.detach()), {n: p.grad.detach().cpu() for n, p in
-                                  trainer.model.named_parameters()}
+    return (float(loss.detach()), {k: float(v.detach()) for k, v in stats.items()},
+            {n: p.grad.detach().cpu() for n, p in
+             trainer.model.named_parameters()})
 
 
-def phase_train_step_vs_cpu(cfg, state_dict, batch, k1):
+def phase_train_step_vs_cpu(name, cfg, state_dict, batch, k1, knn, expect):
     """One train step's loss and gradients on the card against the same
     step with the port on this machine's CPU (the plain versions), from
-    the same weights and batch."""
+    the same weights and batch, with each stat's difference reported;
+    `expect` the kernels' launches on the card (none on the CPU)."""
     from animatable_nerf_tpu_torch.engine import make_model
     from animatable_nerf_tpu_torch.train.trainer import Trainer
 
@@ -1048,30 +1073,40 @@ def phase_train_step_vs_cpu(cfg, state_dict, batch, k1):
         model = make_model(cfg)
         model.load_state_dict(state_dict)
         trainer = Trainer(cfg, model.to(device), device)
-        before = k1.skip_mlp.launches
+        before = launch_counts(k1, knn)
         t0 = time.time()
-        loss, grads = train_step_grads(trainer, batch)
-        results[device] = (loss, grads, k1.skip_mlp.launches - before,
+        loss, stats, grads = train_step_grads(trainer, batch)
+        after = launch_counts(k1, knn)
+        results[device] = (loss, stats, grads,
+                           {k: after[k] - before[k] for k in after},
                            time.time() - t0)
-    (cpu_loss, cpu_g, cpu_n, cpu_s), (gpu_loss, gpu_g, gpu_n, gpu_s) = (
-        results["cpu"], results["cuda"])
-    rel = {name: (gpu_g[name] - g).abs().max().item()
-           / max(g.abs().max().item(), 1e-30) for name, g in cpu_g.items()}
+    (cpu_loss, cpu_s, cpu_g, cpu_n, cpu_t), (gpu_loss, gpu_s, gpu_g, gpu_n,
+                                             gpu_t) = (results["cpu"],
+                                                       results["cuda"])
+    rel = {n: (gpu_g[n] - g).abs().max().item()
+           / max(g.abs().max().item(), 1e-30) for n, g in cpu_g.items()}
     worst = max(rel, key=rel.get)
-    emit({"phase": "train_step_vs_cpu", "rays": int(cfg.N_rand),
+    stats_rel = {k: abs(gpu_s[k] / v - 1) if v else abs(gpu_s[k])
+                 for k, v in cpu_s.items()}
+    emit({"phase": name, "rays": int(cfg.N_rand),
           "samples": int(cfg.N_samples), "loss_cuda": gpu_loss,
           "loss_cpu": cpu_loss, "loss_rel_err": abs(gpu_loss / cpu_loss - 1),
+          "stats_cuda": gpu_s, "stats_rel_err": stats_rel,
           "grad_max_rel_err": rel[worst], "grad_worst_leaf": worst,
-          "k1_launches": {"cuda": gpu_n, "cpu": cpu_n},
-          "first_step_s": {"cuda": gpu_s, "cpu": cpu_s},
-          "tolerance": f"loss rtol {TRAIN_LOSS_RTOL}; each gradient leaf "
-          f"max |d| <= {TRAIN_GRAD_REL} x its max |g| (CPU)"})
-    check(cpu_n == 0 and gpu_n == 3,
-          f"train step K1 launches: {cpu_n} on the CPU, {gpu_n} on the card")
-    check(abs(gpu_loss / cpu_loss - 1) <= TRAIN_LOSS_RTOL,
-          f"train step loss {gpu_loss} on the card vs {cpu_loss} on the CPU")
-    check(rel[worst] <= TRAIN_GRAD_REL,
-          f"train step gradient {worst}: {rel[worst]} of its scale")
+          "launches": {"cuda": gpu_n, "cpu": cpu_n},
+          "first_step_s": {"cuda": gpu_t, "cpu": cpu_t},
+          "tolerance": f"loss rtol {TRAIN_LOSS_RTOL} (the stats reported); "
+          f"each gradient leaf max |d| <= {TRAIN_GRAD_REL} x its max |g| "
+          "(CPU)"})
+    want = {k: expect.get(k, 0) for k in gpu_n}
+    check(all(v == 0 for v in cpu_n.values()) and gpu_n == want,
+          f"{name}: launches {cpu_n} on the CPU, {gpu_n} on the card "
+          f"(expected {want})")
+    check(stats_rel["loss"] <= TRAIN_LOSS_RTOL,
+          f"{name}: loss {gpu_loss} on the card vs {cpu_loss} on the CPU")
+    check(all(bool(g.isfinite().all()) for g in gpu_g.values())
+          and rel[worst] <= TRAIN_GRAD_REL,
+          f"{name}: gradient {worst}: {rel[worst]} of its scale")
 
 
 def repack_ms(model, iters=10):
@@ -1123,18 +1158,107 @@ def step_parts_ms(trainer, batch, steps=5):
     return dict(zip(("forward_ms", "backward_ms", "update_ms"), parts))
 
 
-def phase_train(k1, knn):
-    """The training path: one step on the card against the CPU, one
-    epoch of run_train, the evaluate of its checkpoint against the JAX
-    PSNR, and a profile of train steps. Returns K1's launches in the
-    run."""
+def train_and_evaluate(cfg_file, opts, exp, jax_psnr, k1, knn):
+    """`run_train` of `cfg_file` with `opts` on the card from a fresh
+    start on the config's tracked weights (`write_fresh_start`), its
+    kernels' launches counted from 0, then the port's evaluate of the
+    checkpoint it wrote, each view against the JAX package's PSNR for
+    the same run on the CPU. Returns (cfg, trainer, recorder, launches,
+    wall s, evaluate items, dPSNR)."""
     import torch
 
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.engine import run_evaluate, run_train
+    from animatable_nerf_tpu_torch.train.checkpoints import write_fresh_start
+
+    cfg = load_config(cfg_file, opts)
+    src = os.path.join("data/trained_model", cfg.task,
+                       load_config(cfg_file, []).exp_name, "latest.flax")
+    write_fresh_start(src, cfg.trained_model_dir)
+    reset_counts(k1, knn)
+    t0 = time.time()
+    trainer, recorder = run_train(cfg, "cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = launch_counts(k1, knn)
+    res = run_evaluate(load_config(cfg_file, ["exp_name", exp],
+                                   run_type="evaluate"), "cuda")
+    items = res["items"]
+    dpsnr = [it["psnr"] - ref for it, ref in zip(items, jax_psnr)]
+    return cfg, trainer, recorder, launches, wall, items, dpsnr
+
+
+def train_summary(cfg, trainer, recorder, launches, wall, items, dpsnr,
+                  jax_psnr):
+    """The train phases' common record."""
+    import torch
+
+    return {"steps": trainer.step, "rays_per_step": int(cfg.N_rand),
+            "samples_per_ray": int(cfg.N_samples), "wall_s": wall,
+            "s_per_step_mean": recorder.batch_time.global_avg,
+            "s_per_step_median_last20": recorder.batch_time.median,
+            "rays_per_s": int(cfg.N_rand) / recorder.batch_time.median,
+            "data_s_per_step_mean": recorder.data_time.global_avg,
+            "loss_medians_last20": {k: v.median for k, v in
+                                    recorder.scalars.items()
+                                    if k.endswith("loss")},
+            "params_finite": all(bool(torch.isfinite(p).all())
+                                 for p in trainer.model.parameters()),
+            "launches": launches, "eval_items": items, "jax_psnr": jax_psnr,
+            "delta_psnr_db": dpsnr, "tol_db": PSNR_TOL_DB}
+
+
+def check_train(name, summary, per_step):
+    """A train phase's checks: 50 steps, each kernel launched `per_step`
+    times a step (the others never), finite weights and losses, and each
+    view within PSNR_TOL_DB of the JAX PSNR."""
+    steps, launches = summary["steps"], summary["launches"]
+    check(steps == 50 and launches == {
+        k: per_step.get(k, 0) * steps for k in launches},
+          f"{name}: {steps} steps launched {launches}")
+    losses = summary["loss_medians_last20"]
+    check(summary["params_finite"]
+          and all(math.isfinite(v) for v in losses.values()),
+          f"{name}: the loss or the weights are not finite ({losses})")
+    dpsnr = summary["delta_psnr_db"]
+    check(len(summary["eval_items"]) == len(summary["jax_psnr"])
+          and all(abs(d) <= PSNR_TOL_DB for d in dpsnr),
+          f"{name}: PSNR of the trained weights differs from JAX by {dpsnr} dB")
+
+
+def steps_profile(trainer, batch, kernels, n=5):
+    """A profile of `n` train steps on the trained model after one more
+    step: per step the wall, device ms and idle share, each of
+    `kernels` (the port's kernel names) ms and share, the top kernels."""
+    def steps():
+        for _ in range(n):
+            trainer.train_step(batch)
+
+    steps()
+    prof = device_breakdown(steps, top=10)
+    out = {"steps": n, "wall_ms": prof["wall_ms"] / n,
+           "device_ms": None if prof["device_ms"] is None
+           else prof["device_ms"] / n, "idle_share": prof["idle_share"]}
+    for kernel in kernels:
+        ms = (None if prof["kernels"] is None
+              else prof["own_kernels_ms"][kernel] / n)
+        out[f"{kernel}_ms"] = ms
+        out[f"{kernel}_share"] = (None if ms is None
+                                  else ms / out["device_ms"])
+    out["kernels"] = None if prof["kernels"] is None else [
+        dict(k, ms=k["ms"] / n) for k in prof["kernels"]]
+    return out
+
+
+def phase_train(k1, knn):
+    """The training path of AniNeRF: one step on the card against the
+    CPU, one epoch of run_train, the evaluate of its checkpoint against
+    the JAX PSNR, and a profile of train steps. Returns the kernels'
+    launches in the run."""
     from animatable_nerf_tpu_torch.compat.flax_msgpack import read_checkpoint
     from animatable_nerf_tpu_torch.compat.jax_params import aninerf_state_dict
     from animatable_nerf_tpu_torch.config import load_config
-    from animatable_nerf_tpu_torch.engine import make_dataset, run_evaluate, run_train
-    from animatable_nerf_tpu_torch.train.checkpoints import write_fresh_start
+    from animatable_nerf_tpu_torch.engine import make_dataset
     from animatable_nerf_tpu_torch.train.trainer import collate_rays, stack_batch
 
     ckpt = "data/trained_model/deform/synthetic/latest.flax"
@@ -1143,68 +1267,185 @@ def phase_train(k1, knn):
     ds = make_dataset(cfg, "train")
     ds._rng = np.random.RandomState(0)
     batch = stack_batch([collate_rays(ds[0], int(cfg.N_rand))])
-    phase_train_step_vs_cpu(cfg, state_dict, batch, k1)
+    phase_train_step_vs_cpu("train_step_vs_cpu", cfg, state_dict, batch, k1,
+                            knn, {"skip_mlp": 3})
 
-    write_fresh_start(ckpt, cfg.trained_model_dir)
-    reset_counts(k1, knn)
-    t0 = time.time()
-    trainer, recorder = run_train(cfg, "cuda")
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = launch_counts(k1, knn)
+    run = train_and_evaluate("configs/synthetic.yaml", TRAIN_OPTS, TRAIN_EXP,
+                             JAX_PSNR_TRAIN, k1, knn)
+    cfg, trainer, _, launches, _, _, _ = run
+    summary = train_summary(*run, JAX_PSNR_TRAIN)
     steps = trainer.step
-    params_finite = all(bool(torch.isfinite(p).all())
-                        for p in trainer.model.parameters())
-    losses = {k: v.median for k, v in recorder.scalars.items()
-              if k.endswith("loss")}
-    res = run_evaluate(load_config("configs/synthetic.yaml",
-                                   ["exp_name", TRAIN_EXP], run_type="evaluate"),
-                       "cuda")
-    items = res["items"]
-    dpsnr = [it["psnr"] - ref for it, ref in zip(items, JAX_PSNR_TRAIN)]
-
     # the steady state, on the trained model: a profile of 5 steps, the
     # parts of a step by events, and the repack alone
-    def five_steps():
-        for _ in range(5):
-            trainer.train_step(batch)
-
-    five_steps()
-    prof = device_breakdown(five_steps, top=10)
-    k1_ms = (prof["own_kernels_ms"]["skip_mlp_kernel"] / 5
-             if prof["kernels"] is not None else None)
-    parts = step_parts_ms(trainer, batch)
+    prof = steps_profile(trainer, batch, ["skip_mlp_kernel"])
+    prof["k1_ms"], prof["k1_share"] = (prof.pop("skip_mlp_kernel_ms"),
+                                       prof.pop("skip_mlp_kernel_share"))
     emit({"phase": "train", "config": "configs/synthetic.yaml",
-          "opts": TRAIN_OPTS, "steps": steps, "rays_per_step": int(cfg.N_rand),
-          "samples_per_ray": int(cfg.N_samples), "wall_s": wall,
-          "s_per_step_mean": recorder.batch_time.global_avg,
-          "s_per_step_median_last20": recorder.batch_time.median,
-          "rays_per_s": int(cfg.N_rand) / recorder.batch_time.median,
-          "data_s_per_step_mean": recorder.data_time.global_avg,
-          "loss_medians_last20": losses, "params_finite": params_finite,
-          "launches": launches, "k1_launches_per_step": launches["skip_mlp"] / steps,
-          "eval_items": items, "jax_psnr": JAX_PSNR_TRAIN,
-          "delta_psnr_db": dpsnr, "tol_db": PSNR_TOL_DB,
-          "profile_per_step": {
-              "wall_ms": prof["wall_ms"] / 5,
-              "device_ms": None if prof["device_ms"] is None
-              else prof["device_ms"] / 5,
-              "idle_share": prof["idle_share"],
-              "k1_ms": k1_ms,
-              "k1_share": None if k1_ms is None
-              else k1_ms / (prof["device_ms"] / 5),
-              "kernels": None if prof["kernels"] is None else [
-                  dict(k, ms=k["ms"] / 5) for k in prof["kernels"]]},
-          "events_per_step": parts, "repack_ms": repack_ms(trainer.model)})
-    check(steps == 50 and launches["skip_mlp"] == 3 * steps
-          and all(v == 0 for k, v in launches.items() if k != "skip_mlp"),
-          f"train: {steps} steps launched {launches}")
-    check(params_finite and all(math.isfinite(v) for v in losses.values()),
-          f"train: the loss or the weights are not finite ({losses})")
-    check(len(items) == len(JAX_PSNR_TRAIN)
-          and all(abs(d) <= PSNR_TOL_DB for d in dpsnr),
-          f"train: PSNR of the trained weights differs from JAX by {dpsnr} dB")
+          "opts": TRAIN_OPTS, **summary,
+          "k1_launches_per_step": launches["skip_mlp"] / steps,
+          "profile_per_step": prof,
+          "events_per_step": step_parts_ms(trainer, batch),
+          "repack_ms": repack_ms(trainer.model)})
+    check_train("train", summary, {"skip_mlp": 3})
     return launches
+
+
+def phase_k1_second_derivative(k1):
+    """K1's gradient of a gradient on the card, at one train step's rows
+    of the displacement field's wiring: a loss on d(u . y)/dx
+    differentiated again with respect to x and every layer, against
+    autograd-of-autograd through the plain version; with its times."""
+    import torch
+
+    _, din, dims, skips, _ = k1_wirings()[2]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = (torch.rand(TRAIN_ROWS, din, device="cuda", generator=gen) * 2
+         - 1).requires_grad_()
+    layers = [((torch.randn(i, o, device="cuda", generator=gen)
+                / math.sqrt(i)).requires_grad_(),
+               (torch.randn(o, device="cuda", generator=gen) * 0.1).requires_grad_())
+              for i, o in dims]
+    leaves = [x] + [t for wb in layers for t in wb]
+    u = torch.randn(TRAIN_ROWS, dims[-1][1], device="cuda", generator=gen)
+
+    def second(fn):
+        y = fn(x, layers, skips=skips, act="relu")
+        (g,) = torch.autograd.grad((y * u).sum(), x, create_graph=True)
+        d2 = torch.autograd.grad((g * g).sum(), leaves, allow_unused=True)
+        return [g.detach()] + [torch.zeros_like(t) if d is None else d
+                               for d, t in zip(d2, leaves)]
+
+    before = k1.skip_mlp.launches
+    got = second(k1.skip_mlp)
+    torch.cuda.synchronize()
+    check(k1.skip_mlp.launches == before + 1,
+          "K1 second derivative: the forward did not launch the kernel")
+    want = second(k1.skip_mlp_plain)
+    errs = []
+    for a, b in zip(got, want):
+        err = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        errs.append(err / max(scale, 1e-30))
+        check(math.isfinite(err) and err <= K1_REL_TOL * max(scale, 1e-30),
+              f"K1 second derivative: max abs err {err} vs scale {scale}")
+
+    def forward():
+        with torch.no_grad():
+            k1.skip_mlp(x, layers, skips=skips, act="relu")
+
+    def recompute_vjp(wanted):
+        # what SkipMLPFunction.backward runs: the plain forward and its
+        # vjp with a graph, here for x alone or for x and every layer
+        y = k1.skip_mlp_plain(x, layers, skips=skips, act="relu")
+        return torch.autograd.grad(y, wanted, u, create_graph=True)
+
+    row = {"wiring": "resd_field", "rows": TRAIN_ROWS,
+           "max_rel_err": {"dy_dx": errs[0], "x": errs[1],
+                           "weights": max(errs[2:])},
+           "ms": cuda_ms(lambda: second(k1.skip_mlp), iters=5),
+           "plain_ms": cuda_ms(lambda: second(k1.skip_mlp_plain), iters=5),
+           # the split of ms - plain_ms: the kernel's forward, and the
+           # weight gradients the backward builds for every layer (the
+           # difference of the two recompute_vjp times), which a
+           # gradient with respect to x alone then discards
+           "split_ms": {
+               "kernel_forward": cuda_ms(forward, iters=5),
+               "recompute_vjp_x": cuda_ms(lambda: recompute_vjp([x]), iters=5),
+               "recompute_vjp_all": cuda_ms(lambda: recompute_vjp(leaves),
+                                            iters=5)}}
+    emit({"phase": "k1_second_derivative_vs_plain", "tolerance": (
+        f"max abs err <= {K1_REL_TOL} x max |plain| for d(u.y)/dx and the "
+        "gradient of |d(u.y)/dx|^2 with respect to x, every W and b"),
+          **row})
+    return row
+
+
+def k2_on_train_points(knn, trainer, batch):
+    """K2 on the points of one SDF-PDF train step (its one launch a step,
+    recorded from the model's call): the kernel's time, its plain
+    version's and the cdist chain's, the bound of the work this data
+    needs (band_pairs, the blend, the bytes), and its walk's pairs
+    counted by the counting build."""
+    from animatable_nerf_tpu_torch.models import pdf
+
+    real, recorded = pdf.sample_blend_closest_points, []
+
+    def recording(src, ref, values, *args, **kwargs):
+        recorded.append((src, ref, values))
+        return real(src, ref, values, *args, **kwargs)
+
+    pdf.sample_blend_closest_points = recording
+    try:
+        trainer.loss({k: v[0] for k, v in batch.items()})
+    finally:
+        pdf.sample_blend_closest_points = real
+    check(len(recorded) == 1, f"an SDF-PDF step made {len(recorded)} KNN calls")
+    src, ref, values = (t.contiguous() for t in recorded[0])
+    n, m, c = src.shape[0], ref.shape[0], values.shape[1]
+    times = timed_pair(lambda: knn.knn_blend(src, ref, values),
+                       lambda: knn.knn_blend_plain(src, ref, values),
+                       lambda: cdist_knn(src, ref, values))
+    kth2 = kth_sq_dist(src, ref)
+    band = int(band_pairs(src, ref, int(knn.sweep_layout(ref)[1]), kth2).sum())
+    b, by = bound(OPS_PER_PAIR * band + blend_ops(n, c), knn_io_bytes(n, m, c))
+    tested, full = knn.knn_blend_counts(src, ref, values).tolist()
+    got_v, got_d = knn.knn_blend(src, ref, values)
+    want_v, want_d = knn.knn_blend_plain(src, ref, values)
+    err = max_err(got_v, got_d, want_v, want_d)
+    check(err <= KNN_TOL, f"K2 on the train points differs from its plain "
+          f"version by {err}")
+    return {"queries": n, "max_abs_err": err, **times,
+            "pairs": n * m, "pairs_band": band,
+            "pairs_band_per_query": band / n, "pairs_tested": tested,
+            "pairs_full": full, "pairs_tested_per_query": tested / n,
+            "filter_pass_share": float((got_d[:-1, 0] < NORM_TH).float().mean()),
+            "bound_ms": b, "bound_by": by,
+            "share_of_bound": b / times["kernel_ms"],
+            "library": "torch.cdist + torch.topk + gather, chunks of 16384 "
+            "queries"}
+
+
+def phase_train_sdf_pdf(k1, knn):
+    """The training path of SDF-PDF: K1's gradient of a gradient, one
+    step on the card against the CPU, one epoch of run_train (K1 twice
+    and K2 once a step), the evaluate of its checkpoint against the JAX
+    PSNR, a profile of train steps and K2 on one step's dense points.
+    Returns (the kernels' launches in the run, K2's row on the points)."""
+    from animatable_nerf_tpu_torch.compat.flax_msgpack import read_checkpoint
+    from animatable_nerf_tpu_torch.compat.jax_params import sdf_pdf_state_dict
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.engine import make_dataset
+    from animatable_nerf_tpu_torch.train.trainer import collate_rays, stack_batch
+
+    second = phase_k1_second_derivative(k1)
+    ckpt = "data/trained_model/deform/synthetic_sdf_pdf/latest.flax"
+    cfg = load_config(TRAIN_SDF_CFG, TRAIN_SDF_OPTS)
+    state_dict = sdf_pdf_state_dict(read_checkpoint(ckpt)["params"])
+    ds = make_dataset(cfg, "train")
+    ds._rng = np.random.RandomState(0)
+    batch = stack_batch([collate_rays(ds[0], int(cfg.N_rand))])
+    per_step = {"skip_mlp": 2, "knn_blend": 1}
+    phase_train_step_vs_cpu("train_sdf_pdf_step_vs_cpu", cfg, state_dict,
+                            batch, k1, knn, per_step)
+
+    run = train_and_evaluate(TRAIN_SDF_CFG, TRAIN_SDF_OPTS, TRAIN_SDF_EXP,
+                             JAX_PSNR_TRAIN_SDF, k1, knn)
+    cfg, trainer, _, launches, _, _, _ = run
+    summary = train_summary(*run, JAX_PSNR_TRAIN_SDF)
+    steps = trainer.step
+    prof = steps_profile(trainer, batch, ["skip_mlp_kernel",
+                                          "knn_blend_kernel"])
+    k2_points = k2_on_train_points(knn, trainer, batch)
+    emit({"phase": "train_sdf_pdf", "config": TRAIN_SDF_CFG,
+          "opts": TRAIN_SDF_OPTS, **summary,
+          "launches_per_step": {k: v / steps for k, v in launches.items()},
+          "profile_per_step": prof,
+          "events_per_step": step_parts_ms(trainer, batch),
+          "k2_train_points": k2_points,
+          "k1_second_derivative_ms": second["ms"],
+          "k1_second_derivative_split_ms": second["split_ms"]})
+    check_train("train_sdf_pdf", summary, per_step)
+    return launches, k2_points
 
 
 def main():
@@ -1309,6 +1550,10 @@ def main():
     phase_k1_grad(k1)
     train_launches = phase_train(k1, knn)
 
+    # ---- phase 9: training of SDF-PDF (K1 twice a step, differentiated
+    # twice; K2 once a step on the dense points)
+    sdf_train_launches, k2_train = phase_train_sdf_pdf(k1, knn)
+
     # ---- kernel table
     def k1_sum(key):
         return sum(r[key] for r in k1_rows)
@@ -1341,6 +1586,19 @@ def main():
             **call,
         }
 
+    k2_entry = knn_entry(k2_row, 55, sdf_launches, sdf_frame_launches, "k2")
+    # K2 also runs once a step on SDF-PDF training's dense points
+    k2_entry["launches"] += sdf_train_launches["knn_blend"]
+    k2_entry.update(
+        launches_by_path={"evaluate_sdf_pdf": sdf_launches["knn_blend"],
+                          "train_sdf_pdf": sdf_train_launches["knn_blend"]},
+        launches_per_train_step={"train": train_launches["knn_blend"] / 50,
+                                 "train_sdf_pdf":
+                                 sdf_train_launches["knn_blend"] / 50},
+        train_points={k: k2_train[k] for k in (
+            "queries", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "share_of_bound", "pairs_band_per_query",
+            "pairs_tested_per_query", "filter_pass_share")})
     emit({"kernels": [
         {
             "name": "skip_mlp",
@@ -1348,12 +1606,18 @@ def main():
             "source": "animatable_nerf_tpu_torch/csrc/skip_mlp.cu",
             "replaces": "animatable_nerf_tpu/ops/mlp_pallas.py:108",
             # both evaluate paths (AniNeRF, SDF-PDF) and the 50 steps of
-            # training (the forward; the backward is plain PyTorch)
+            # each training (the forward; the backward and its derivative
+            # are plain PyTorch)
             "launches": eval_launches["skip_mlp"] + sdf_launches["skip_mlp"]
-            + train_launches["skip_mlp"],
-            "launches_by_path": {"evaluate": eval_launches["skip_mlp"],
-                                 "evaluate_sdf_pdf": sdf_launches["skip_mlp"],
-                                 "train": train_launches["skip_mlp"]},
+            + train_launches["skip_mlp"] + sdf_train_launches["skip_mlp"],
+            "launches_by_path": {
+                "evaluate": eval_launches["skip_mlp"],
+                "evaluate_sdf_pdf": sdf_launches["skip_mlp"],
+                "train": train_launches["skip_mlp"],
+                "train_sdf_pdf": sdf_train_launches["skip_mlp"]},
+            "launches_per_train_step": {
+                "train": train_launches["skip_mlp"] / 50,
+                "train_sdf_pdf": sdf_train_launches["skip_mlp"] / 50},
             "launches_full_frame": {
                 "full_frame": frame_launches["skip_mlp"],
                 "full_frame_sdf_pdf": sdf_frame_launches["skip_mlp"]},
@@ -1372,7 +1636,7 @@ def main():
             "share_of_bound": k1_sum("bound_ms") / k1_sum("kernel_ms"),
             "library_ms": k1_sum("library_ms"),
         },
-        knn_entry(k2_row, 55, sdf_launches, sdf_frame_launches, "k2"),
+        k2_entry,
         knn_entry(k3_row, 129, sdf_launches, sdf_frame_launches),
         knn_entry(k4_row, 240, blk_launches, blk_frame_launches),
         knn_entry(k5_row, 460, blk_launches, blk_frame_launches, "k5"),

@@ -12,7 +12,10 @@ autograd through the plain version, and for a train step on the card
 against the same step on the CPU (loss rtol 1e-4, each gradient leaf
 within 1e-2 of its largest entry: rounding in the canonical points is
 multiplied by the positional encoding, as between the JAX and port CPU
-steps, tests/test_torch_train.py, which measured 2.3e-3). K2-K6
+steps, tests/test_torch_train.py, which measured 2.3e-3); the same for
+an SDF-PDF train step, and K1's gradient of a gradient within 1e-5 of
+each tensor's scale (the backward and its derivative are the plain
+version's on both sides). K2-K6
 round every operation as their plain versions do (no FMA, the same
 order), so they must agree to the bit: atol = rtol = 0.
 """
@@ -218,6 +221,126 @@ def test_cuda_train_step_matches_cpu(cuda_device):
     for name, want in cpu_g.items():
         err = (gpu_g[name] - want).abs().max().item()
         assert err <= 1e-2 * want.abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+def test_cuda_k1_gradient_of_gradient_matches_autograd_of_plain(cuda_device):
+    """A loss on d(u . y)/dx through K1 at one train step's rows of the
+    displacement field's wiring, differentiated again with respect to x
+    and every layer, against autograd-of-autograd through
+    skip_mlp_plain: the backward keeps a graph under create_graph."""
+    x, layers, skips, act, act_last = make_case(PRODUCTION["resd_field"],
+                                                TRAIN_ROWS, 8)
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    u = torch.randn(TRAIN_ROWS, 3, device=cuda_device, generator=gen)
+    results = []
+    for fn in (k1.skip_mlp, k1.skip_mlp_plain):
+        xt = torch.tensor(x, device=cuda_device, requires_grad=True)
+        tl = [(w.requires_grad_(), b.requires_grad_())
+              for w, b in torch_layers(layers, cuda_device)]
+        before = k1.skip_mlp.launches
+        y = fn(xt, tl, skips, act, act_last)
+        (g,) = torch.autograd.grad((y * u).sum(), xt, create_graph=True)
+        flat = [xt] + [t for wb in tl for t in wb]
+        second = torch.autograd.grad((g * g).sum(), flat, allow_unused=True)
+        results.append((k1.skip_mlp.launches - before,
+                        [torch.zeros_like(t) if d is None else d
+                         for d, t in zip(second, flat)]))
+    torch.cuda.synchronize()
+    (n_kernel, got), (n_plain, want) = results
+    assert n_kernel == 1 and n_plain == 0
+    for a, b in zip(got, want):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-5 * max(1.0, b.abs().max().item()), err
+
+
+def sdf_pdf_step_inputs(n_rays=64, n_samples=16):
+    """configs/synthetic_sdf_pdf.yaml at n_rays x n_samples (perturb 0),
+    the tracked weights and one seeded train batch."""
+    from animatable_nerf_tpu_torch import engine
+    from animatable_nerf_tpu_torch.compat.flax_msgpack import read_checkpoint
+    from animatable_nerf_tpu_torch.compat.jax_params import sdf_pdf_state_dict
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.train.trainer import collate_rays, stack_batch
+
+    cfg = load_config("configs/synthetic_sdf_pdf.yaml",
+                      ["N_rand", str(n_rays), "N_samples", str(n_samples),
+                       "perturb", "0"])
+    state = sdf_pdf_state_dict(read_checkpoint(
+        "data/trained_model/deform/synthetic_sdf_pdf/latest.flax")["params"])
+    ds = engine.make_dataset(cfg, "train")
+    ds._rng = np.random.RandomState(0)
+    return cfg, state, stack_batch([collate_rays(ds[4], n_rays)])
+
+
+def sdf_pdf_trainer(cfg, state, device):
+    from animatable_nerf_tpu_torch import engine
+    from animatable_nerf_tpu_torch.train.trainer import Trainer
+
+    model = engine.make_model(cfg)
+    model.load_state_dict(state)
+    return Trainer(cfg, model.to(device), device)
+
+
+@pytest.mark.cuda
+def test_cuda_sdf_pdf_train_step_matches_cpu(cuda_device):
+    """One SDF-PDF train step (64 rays of 16 samples, the tracked
+    weights) on the card and on the CPU: loss and stats, each gradient
+    leaf, K1 launched twice and K2 once on the card, neither on the CPU."""
+    cfg, state, batch = sdf_pdf_step_inputs()
+    results = []
+    for device in ("cpu", cuda_device):
+        trainer = sdf_pdf_trainer(cfg, state, device)
+        before = (k1.skip_mlp.launches, knn.knn_blend.launches)
+        loss, stats, _ = trainer.loss({k: v[0] for k, v in batch.items()})
+        loss.backward()
+        results.append((
+            {k: float(v.detach()) for k, v in stats.items()},
+            {n: p.grad.cpu() for n, p in trainer.model.named_parameters()},
+            (k1.skip_mlp.launches - before[0], knn.knn_blend.launches - before[1])))
+    (cpu_s, cpu_g, cpu_n), (gpu_s, gpu_g, gpu_n) = results
+    assert cpu_n == (0, 0) and gpu_n == (2, 1)
+    assert set(cpu_s) == {"offset_loss", "grad_loss", "ograd_loss",
+                          "mask_loss", "img_loss", "loss"}
+    for k, v in cpu_s.items():
+        np.testing.assert_allclose(gpu_s[k], v, rtol=1e-4, err_msg=k)
+    for name, want in cpu_g.items():
+        err = (gpu_g[name] - want).abs().max().item()
+        assert torch.isfinite(gpu_g[name]).all(), name
+        assert err <= 1e-2 * want.abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+def test_cuda_sdf_pdf_train_forward_takes_no_plain_version(cuda_device,
+                                                           monkeypatch):
+    """SDFPDF.train_forward on the card launches K1 twice and K2 once; no
+    KNN plain version runs, and the plain skip-MLP runs once, as the
+    recompute of K1's backward inside the observed-space normal (the
+    gradient the forward itself takes)."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("knn_blend_plain", "min_dist_plain", "kth_distance_plain",
+                 "knn_blend_blocked_plain", "knn_blend_celled_plain",
+                 "_select_blend"):
+        monkeypatch.setattr(knn, name, refuse)
+    plain_calls = []
+    plain = k1.skip_mlp_plain
+    monkeypatch.setattr(k1, "skip_mlp_plain",
+                        lambda *a, **k: plain_calls.append(1) or plain(*a, **k))
+    cfg, state, batch = sdf_pdf_step_inputs()
+    trainer = sdf_pdf_trainer(cfg, state, cuda_device)
+    before = (k1.skip_mlp.launches, knn.knn_blend.launches)
+    loss, _, ret = trainer.loss({k: v[0] for k, v in batch.items()})
+    assert (k1.skip_mlp.launches - before[0],
+            knn.knn_blend.launches - before[1]) == (2, 1)
+    assert len(plain_calls) == 1
+    assert ret["observed_gradients"].grad_fn is not None
+    loss.backward()
+    # the backward recomputes each of the two K1 calls once more
+    assert k1.skip_mlp.launches - before[0] == 2 and len(plain_calls) >= 2
+    assert all(torch.isfinite(p.grad).all()
+               for p in trainer.model.parameters() if p.grad is not None)
 
 
 # (N queries, M vertices, C channels): SMPL's vertex count, M just past

@@ -380,8 +380,7 @@ def test_compute_losses_matches_jax(with_mask):
     np.testing.assert_allclose(float(loss), float(j_loss), rtol=1e-6)
 
 
-@pytest.mark.parametrize("key", ["resd", "msk_sdf", "gradients",
-                                 "compact_overflow"])
+@pytest.mark.parametrize("key", ["compact_overflow", "compact_overflow_stage2"])
 def test_compute_losses_raises_on_unported_terms(key):
     ret = {"rgb_map": torch.zeros(4, 3), key: torch.zeros(4)}
     batch = {"rgb": torch.zeros(4, 3), "mask_at_box": torch.ones(4, dtype=bool)}
