@@ -1,5 +1,4 @@
-"""The JAX package's AniNeRF and SDF-PDF parameters as the port's state
-dicts.
+"""The JAX package's parameters as the port's state dicts.
 
 The JAX param tree (nested dict of numpy arrays, as flax checkpoints
 hold it) maps onto the reference's PyTorch names, the ones
@@ -8,18 +7,22 @@ animatable_nerf_tpu/compat/torch_export.py writes:
     `tpose_human.pts_linears.{i}`,
     `tpose_human.{alpha,feature,latent,view,rgb}_fc` and
     `tpose_human.nf_latent`;
-  * SDF-PDF (:166 `export_sdf_pdf`): `resd_linears.{i}`, `resd_fc`,
-    `tpose_human.sdf_network.lin{l}`, `tpose_human.beta_network.beta`,
-    `tpose_human.color_network.color_latent` and
-    `tpose_human.color_network.lin{l}`.
+  * the displacement-field families: `resd_linears.{i}`, `resd_fc`,
+    `tpose_human.color_network.color_latent`,
+    `tpose_human.color_network.lin{l}`, and NeRF-PDF's (:112
+    `export_nerf_pdf`) `tpose_human.nerf_network.lin{l}`, SDF-PDF's
+    (:166 `export_sdf_pdf`) `tpose_human.sdf_network.lin{l}` and
+    `tpose_human.beta_network.beta`, NeuS-PDF's (:177
+    `export_neus_pdf`) `tpose_human.sdf_network.lin{l}` and
+    `tpose_human.variance_network.variance`.
 Dense kernels (in, out) become nn.Linear weights (out, in); a
 weight-normalized {v (in, out), g (out,), b} becomes `weight_v` (out,
 in), `weight_g` (out, 1), `bias`. Load the result with
 `load_state_dict(strict=True)`.
 
-`aninerf_param_tree` and `sdf_pdf_param_tree` are the inverses: a port
-state dict (or any dict of tensors under its names, such as Adam's
-moments) to the JAX param tree, which JAX's `load_checkpoint` restores.
+The `*_param_tree` functions are the inverses: a port state dict (or
+any dict of tensors under its names, such as Adam's moments) to the JAX
+param tree, which JAX's `load_checkpoint` restores.
 """
 
 from __future__ import annotations
@@ -85,12 +88,12 @@ def aninerf_state_dict(params: dict) -> dict:
     return to_tensors(out)
 
 
-def _sdf_network_arrays(p: dict) -> dict:
-    """A JAX SDF network's params ({layers}) -> numpy arrays under
-    `tpose_human.sdf_network.lin{l}`."""
+def _wn_layers_arrays(p: dict, net: str) -> dict:
+    """A JAX GeometricFieldNetwork's params ({layers}) -> numpy arrays
+    under `tpose_human.<net>.lin{l}`."""
     out = {}
     for l, wn in enumerate(_as_list(p["layers"])):
-        _wn(wn, f"tpose_human.sdf_network.lin{l}", out)
+        _wn(wn, f"tpose_human.{net}.lin{l}", out)
     return out
 
 
@@ -100,27 +103,52 @@ def sdf_network_state_dict(params: dict) -> dict:
     other subtrees may be missing; {} when `sdf_network` is."""
     p = params["params"] if "params" in params else params
     sdf = p.get("sdf_network")
-    return to_tensors(_sdf_network_arrays(sdf)) if sdf else {}
+    return to_tensors(_wn_layers_arrays(sdf, "sdf_network")) if sdf else {}
+
+
+def _pdf_arrays(p: dict, net: str) -> dict:
+    """The parts every displacement-field family has: the displacement
+    field, its canonical GeometricFieldNetwork `net` and the color
+    network."""
+    out = {}
+    mlp = p["resd_field"]["mlp"]
+    for i in range(8):
+        _linear(mlp[f"lin{i}"], f"resd_linears.{i}", out)
+    _linear(mlp["out"], "resd_fc", out)
+    out.update(_wn_layers_arrays(p[net], net))
+    color = p["color_network"]
+    th = "tpose_human.color_network."
+    out[f"{th}color_latent.weight"] = np.asarray(
+        color["color_latent"]["embedding"])
+    for l in range(5):
+        _wn(color[f"lin{l}"]["wn"], f"{th}lin{l}", out)
+    return out
+
+
+def nerf_pdf_state_dict(params: dict) -> dict:
+    """JAX NeRFPDF params ({"params": {...}} or the inner dict) ->
+    {reference name: torch.Tensor}."""
+    p = params["params"] if "params" in params else params
+    return to_tensors(_pdf_arrays(p, "nerf_network"))
 
 
 def sdf_pdf_state_dict(params: dict) -> dict:
     """JAX SDFPDF params ({"params": {...}} or the inner dict) ->
     {reference name: torch.Tensor}."""
     p = params["params"] if "params" in params else params
-    out = {}
-    mlp = p["resd_field"]["mlp"]
-    for i in range(8):
-        _linear(mlp[f"lin{i}"], f"resd_linears.{i}", out)
-    _linear(mlp["out"], "resd_fc", out)
-    th = "tpose_human."
-    out.update(_sdf_network_arrays(p["sdf_network"]))
-    out[f"{th}beta_network.beta"] = np.asarray(
+    out = _pdf_arrays(p, "sdf_network")
+    out["tpose_human.beta_network.beta"] = np.asarray(
         p["beta_network"]["beta"]).reshape(())
-    color = p["color_network"]
-    out[f"{th}color_network.color_latent.weight"] = np.asarray(
-        color["color_latent"]["embedding"])
-    for l in range(5):
-        _wn(color[f"lin{l}"]["wn"], f"{th}color_network.lin{l}", out)
+    return to_tensors(out)
+
+
+def neus_pdf_state_dict(params: dict) -> dict:
+    """JAX NeuSPDF params ({"params": {...}} or the inner dict) ->
+    {reference name: torch.Tensor}."""
+    p = params["params"] if "params" in params else params
+    out = _pdf_arrays(p, "sdf_network")
+    out["tpose_human.variance_network.variance"] = np.asarray(
+        p["variance_network"]["variance"]).reshape(())
     return to_tensors(out)
 
 
@@ -133,6 +161,15 @@ def _numpy(t) -> np.ndarray:
     if isinstance(t, torch.Tensor):
         t = t.detach().cpu().numpy()
     return np.asarray(t, np.float32)
+
+
+def _checked(tree: dict, named: dict, state_dict, family: str) -> dict:
+    """`tree`, once its state dict is as long as `named`: every name
+    must be used, and a stray one raises."""
+    if len(state_dict(tree)) != len(named):
+        raise KeyError(f"{family}_param_tree: names that {family} does "
+                       "not have")
+    return tree
 
 
 def aninerf_param_tree(named: dict) -> dict:
@@ -149,10 +186,8 @@ def aninerf_param_tree(named: dict) -> dict:
     for head in _HEADS:
         th[head] = _kernel(named, f"tpose_human.{head}")
     th["nf_latent"] = {"embedding": _numpy(named["tpose_human.nf_latent.weight"])}
-    tree = {"params": {"bw_field": bw, "tpose_human": th}}
-    if len(aninerf_state_dict(tree)) != len(named):
-        raise KeyError("aninerf_param_tree: names that AniNeRF does not have")
-    return tree
+    return _checked({"params": {"bw_field": bw, "tpose_human": th}}, named,
+                    aninerf_state_dict, "aninerf")
 
 
 def _wn_tree(named: dict, name: str) -> dict:
@@ -161,30 +196,52 @@ def _wn_tree(named: dict, name: str) -> dict:
             "v": np.ascontiguousarray(_numpy(named[f"{name}.weight_v"]).T)}
 
 
-def sdf_pdf_param_tree(named: dict) -> dict:
-    """{reference name: tensor} of SDF-PDF -> the JAX param tree
-    {"params": {"resd_field", "sdf_network", "beta_network",
-    "color_network"}} of numpy float32 arrays (the inverse of
-    `sdf_pdf_state_dict`). The SDF network's layer list is written as
-    flax writes a list, a dict keyed "0", "1", ... Every name must be
-    used: a stray one raises."""
+def _pdf_tree(named: dict, net: str) -> dict:
+    """The inverse of `_pdf_arrays`: {"resd_field", net,
+    "color_network"}. The GeometricFieldNetwork's layer list is written
+    as flax writes a list, a dict keyed "0", "1", ..."""
     mlp = {f"lin{i}": _kernel(named, f"resd_linears.{i}") for i in range(8)}
     mlp["out"] = _kernel(named, "resd_fc")
     th = "tpose_human."
-    n_sdf = sum(1 for k in named
-                if k.startswith(f"{th}sdf_network.lin") and k.endswith(".bias"))
+    n_layers = sum(1 for k in named
+                   if k.startswith(f"{th}{net}.lin") and k.endswith(".bias"))
     color = {f"lin{l}": {"wn": _wn_tree(named, f"{th}color_network.lin{l}")}
              for l in range(5)}
     color["color_latent"] = {"embedding": _numpy(
         named[f"{th}color_network.color_latent.weight"])}
-    tree = {"params": {
+    return {
         "resd_field": {"mlp": mlp},
-        "sdf_network": {"layers": {
-            str(l): _wn_tree(named, f"{th}sdf_network.lin{l}")
-            for l in range(n_sdf)}},
-        "beta_network": {"beta": _numpy(named[f"{th}beta_network.beta"])},
+        net: {"layers": {str(l): _wn_tree(named, f"{th}{net}.lin{l}")
+                         for l in range(n_layers)}},
         "color_network": color,
-    }}
-    if len(sdf_pdf_state_dict(tree)) != len(named):
-        raise KeyError("sdf_pdf_param_tree: names that SDF-PDF does not have")
-    return tree
+    }
+
+
+def nerf_pdf_param_tree(named: dict) -> dict:
+    """{reference name: tensor} of NeRF-PDF -> the JAX param tree
+    {"params": {"resd_field", "nerf_network", "color_network"}} of numpy
+    float32 arrays (the inverse of `nerf_pdf_state_dict`)."""
+    tree = {"params": _pdf_tree(named, "nerf_network")}
+    return _checked(tree, named, nerf_pdf_state_dict, "nerf_pdf")
+
+
+def sdf_pdf_param_tree(named: dict) -> dict:
+    """{reference name: tensor} of SDF-PDF -> the JAX param tree
+    {"params": {"resd_field", "sdf_network", "beta_network",
+    "color_network"}} of numpy float32 arrays (the inverse of
+    `sdf_pdf_state_dict`)."""
+    tree = {"params": _pdf_tree(named, "sdf_network")}
+    tree["params"]["beta_network"] = {
+        "beta": _numpy(named["tpose_human.beta_network.beta"])}
+    return _checked(tree, named, sdf_pdf_state_dict, "sdf_pdf")
+
+
+def neus_pdf_param_tree(named: dict) -> dict:
+    """{reference name: tensor} of NeuS-PDF -> the JAX param tree
+    {"params": {"resd_field", "sdf_network", "variance_network",
+    "color_network"}} of numpy float32 arrays (the inverse of
+    `neus_pdf_state_dict`)."""
+    tree = {"params": _pdf_tree(named, "sdf_network")}
+    tree["params"]["variance_network"] = {
+        "variance": _numpy(named["tpose_human.variance_network.variance"])}
+    return _checked(tree, named, neus_pdf_state_dict, "neus_pdf")

@@ -1,7 +1,8 @@
-"""SDF -> opacity (VolSDF Laplace CDF).
+"""SDF -> opacity (VolSDF Laplace CDF, NeuS sigmoid-CDF residuals).
 
-JAX counterpart: animatable_nerf_tpu/core/sdf.py:22 `volsdf_sigma` and
-:35 `sigma_to_alpha` (reference anisdf_pdf_network.py:271-286, 330-331).
+JAX counterpart: animatable_nerf_tpu/core/sdf.py:22 `volsdf_sigma`, :35
+`sigma_to_alpha` (reference anisdf_pdf_network.py:271-286, 330-331) and
+:42 `neus_alpha` (reference sdf_utils.py:40-61).
 """
 
 from __future__ import annotations
@@ -22,3 +23,15 @@ def sigma_to_alpha(sigma, step: float = 0.005):
     """alpha = 1 - exp(-relu(sigma) * step); the reference hard-codes the
     0.005 step whatever the sample spacing."""
     return 1.0 - torch.exp(-torch.clamp(sigma, min=0.0) * step)
+
+
+def neus_alpha(sdf, inv_variance):
+    """NeuS opacity of ray-ordered samples: sdf (R, S), masked samples
+    holding a large positive value (+10, whose cdf ~= 1 is the
+    reference's `full_cdf = 1` fill) -> alpha (R, S).
+    cdf = sigmoid(sdf * inv_variance), p_i = cdf_i - cdf_{i+1} with the
+    last residual repeated, alpha = clip((p + 1e-5) / (cdf + 1e-5), 0, 1)."""
+    cdf = 1.0 / (1.0 + torch.exp(-sdf * inv_variance))
+    residual = cdf[..., :-1] - cdf[..., 1:]
+    p = torch.cat([residual, residual[..., -1:]], dim=-1)
+    return torch.clamp((p + 1e-5) / (cdf + 1e-5), 0.0, 1.0)

@@ -1,5 +1,6 @@
 """The datasets of the grid blend-weight models (AniNeRF) and of the
-KNN/displacement models (SDF-PDF), train and test splits.
+KNN/displacement models (NeRF-PDF, SDF-PDF, NeuS-PDF), train and test
+splits.
 
 JAX counterpart: animatable_nerf_tpu/data/dataset.py:52-456
 (`_BaseDataset`, `TPoseDataset`, `TPosePDFDataset` :324; reference

@@ -5,7 +5,8 @@ JAX counterpart: animatable_nerf_tpu/engine.py (`_bucket_pad` :139,
 `interleave_rays` :164, the per-frame grids and vertex blocks :259-287
 and :315-326, `Engine.render_item` :547-603, `run_evaluate` :749-830,
 `run_train` :1158-1352, stage 1 of AniNeRF and SDF-PDF with `init_sdf`
-:1229-1242). The
+:1229-1242; the models from the config as `models/registry.py`
+`make_model` :99-126 builds them). The
 eval rays are padded and tiled exactly as in JAX, since the point
 filter's argmin forcing acts per tile. The JAX capacity ladder
 (engine.py:204-236, 465-545) sizes static survivor buffers for the TPU;
@@ -29,7 +30,7 @@ from .data.loader import Loader, eval_indices
 from .device import select_device
 from .evaluators.image import ImageEvaluator
 from .models.aninerf import AniNeRF
-from .models.pdf import SDFPDF
+from .models.pdf import NeRFPDF, NeuSPDF, SDFPDF
 from .ops.knn import build_d5_payload, build_knn_blocks, build_pdist_payload
 from .render.renderer import RenderSettings, pad_rays, render_image
 from .train.checkpoints import (
@@ -43,12 +44,14 @@ from .train.trainer import Trainer
 
 # network_module names (the JAX registry's, models/registry.py:14-33)
 _ANINERF_MODULES = ("aninerf", "lib.networks.bw_deform.tpose_nerf_network")
-_SDF_PDF_MODULES = ("sdf_pdf", "lib.networks.bw_deform.anisdf_pdf_network")
-_LATER_PDF_MODULES = (
-    "nerf_pdf", "neus_pdf",
-    "lib.networks.bw_deform.aligned_aninerf_pdf_network",
-    "lib.networks.bw_deform.anisdf_neus_pdf_network",
-)
+_PDF_MODULES = {
+    "nerf_pdf": NeRFPDF,
+    "lib.networks.bw_deform.aligned_aninerf_pdf_network": NeRFPDF,
+    "sdf_pdf": SDFPDF,
+    "lib.networks.bw_deform.anisdf_pdf_network": SDFPDF,
+    "neus_pdf": NeuSPDF,
+    "lib.networks.bw_deform.anisdf_neus_pdf_network": NeuSPDF,
+}
 _DATASETS = {
     "lib.datasets.tpose_dataset": TPoseDataset,
     "tpose": TPoseDataset,
@@ -59,16 +62,12 @@ _RAY_KEYS = ("ray_o", "ray_d", "near", "far")
 
 
 def make_model(cfg):
-    """The config's model: the AniNeRF and SDF-PDF eval paths are
-    ported. SDF-PDF's `stage2_ratio` sizes a JAX survivor capacity and
-    has no counterpart in the port's exact compaction."""
+    """The config's model: AniNeRF or a displacement-field family
+    (NeRF-PDF, SDF-PDF, NeuS-PDF). The PDF families' `stage2_ratio`
+    sizes a JAX survivor capacity and has no counterpart in the port's
+    exact compaction."""
     name = cfg.network_module
-    if name in _LATER_PDF_MODULES:
-        raise NotImplementedError(
-            f"network_module {name!r}: the NeRF-PDF and NeuS-PDF families "
-            "are not ported yet (only SDF-PDF is)"
-        )
-    if name not in _ANINERF_MODULES + _SDF_PDF_MODULES:
+    if name not in _ANINERF_MODULES and name not in _PDF_MODULES:
         raise NotImplementedError(f"network_module {name!r} is not ported yet")
     if cfg.aninerf_animation or cfg.test_novel_pose:
         raise NotImplementedError("novel-pose evaluation is not ported yet")
@@ -77,9 +76,10 @@ def make_model(cfg):
             raise NotImplementedError(f"the {key} eval option is not ported yet")
     if str(cfg.get("compute_dtype", "float32")) != "float32":
         raise NotImplementedError("only float32 compute is ported")
-    if name in _SDF_PDF_MODULES:
-        return SDFPDF(num_latents=cfg.num_latent_code,
-                      tpose_viewdir=cfg.tpose_viewdir, xyz_res=cfg.xyz_res)
+    if name in _PDF_MODULES:
+        return _PDF_MODULES[name](num_latents=cfg.num_latent_code,
+                                  tpose_viewdir=cfg.tpose_viewdir,
+                                  xyz_res=cfg.xyz_res)
     return AniNeRF(
         num_train_frames=cfg.num_train_frame, norm_th=cfg.norm_th,
         xyz_res=cfg.xyz_res, view_res=cfg.view_res, train_th=cfg.train_th,
@@ -302,6 +302,13 @@ def run_train(cfg, device=None):
     network from that checkpoint first (a resume then overrides it, as
     in JAX). `fix_random` seeds the ray draw (RandomState(0), as JAX)
     and the z jitter. Returns (trainer, recorder)."""
+    family = _PDF_MODULES.get(cfg.network_module, AniNeRF)
+    if not hasattr(family, "train_forward"):
+        raise NotImplementedError(
+            f"network_module {cfg.network_module!r}: {family.__name__} "
+            "training is not ported yet")
+    if cfg.get("init_sdf") and family is not SDFPDF:
+        raise NotImplementedError("init_sdf is an SDF-PDF option")
     dev = select_device(device)
     # the initial weights do not depend on the caller's random state
     # (JAX initializes from PRNGKey(42))
@@ -309,8 +316,6 @@ def run_train(cfg, device=None):
         torch.manual_seed(42)
         model = make_model(cfg)
     if cfg.get("init_sdf"):
-        if not isinstance(model, SDFPDF):
-            raise NotImplementedError("init_sdf is an SDF-PDF option")
         load_init_sdf(cfg, model)
     model.to(dev).train()
     trainer = Trainer(cfg, model, dev)

@@ -1,4 +1,5 @@
-"""The field modules of the AniNeRF and SDF-PDF families.
+"""The field modules of the AniNeRF and displacement-field (PDF)
+families.
 
 JAX counterpart: animatable_nerf_tpu/fields/fields.py. Parameter names
 follow the reference's PyTorch modules (tpose_nerf_network.py,
@@ -6,8 +7,8 @@ anisdf_pdf_network.py), as animatable_nerf_tpu/compat/torch_export.py
 writes them, so compat/jax_params.py state dicts and reference
 checkpoints strict-load. The 8x256 trunks (blend-weight field, NeRF
 trunk, displacement field) run through kernel K1 (ops/skip_mlp.py); the
-heads and the weight-normalized SDF/color networks are plain PyTorch,
-as the JAX package leaves them to XLA.
+heads, the weight-normalized SDF/NeRF/color networks and the opacity
+scalars are plain PyTorch, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -137,11 +138,13 @@ def _softplus(x):
 
 
 class GeometricFieldNetwork(nn.Module):
-    """Weight-normalized 9-layer SDF network (JAX fields.py:154;
-    reference anisdf_pdf_network.py:348-453): PE(xyz) with multires 6
+    """Weight-normalized 9-layer SDF network, also NeRF-PDF's softplus
+    NeRF (JAX fields.py:154; reference anisdf_pdf_network.py:348-453,
+    aligned_aninerf_pdf_network.py:204-292): PE(xyz) with multires 6
     (39 channels) -> lin0..lin8, softplus(100 x)/100 after all but the
     last; before lin4 x = [x, inputs] / sqrt(2), so lin3 outputs
-    256 - 39 = 217. Output (N, 257): channel 0 the sdf, 1: the feature.
+    256 - 39 = 217. Output (N, 257): channel 0 the sdf (or the
+    pre-activation density), 1: the feature.
     Initial weights: the IDR geometric init (`geometric_init_`), an sdf
     near |x| - 0.5.
     """
@@ -173,17 +176,20 @@ class GeometricFieldNetwork(nn.Module):
 
 
 class ColorNetwork(nn.Module):
-    """IDR-style rendering network with normals and view directions (JAX
-    fields.py:210; reference anisdf_pdf_network.py:468-549):
-    [points (3), PE(viewdir) (27), normals (3), feature (256)] ->
+    """IDR-style rendering network (JAX fields.py:210; reference
+    anisdf_pdf_network.py:468-549 with normals,
+    aligned_aninerf_pdf_network.py:296-379 without): [points (3),
+    PE(viewdir) (27), normals (3) with `use_normals`, feature (256)] ->
     lin0..lin2 (256, relu) -> concat the 128-d frame latent -> lin3
     (relu) -> lin4 -> sigmoid. All layers weight-normalized."""
 
     def __init__(self, num_latents: int, view_res: int = 4,
-                 d_feature: int = 256):
+                 d_feature: int = 256, use_normals: bool = True):
         super().__init__()
         self.view_res = view_res
-        din = 3 + encoding_dim(view_res, 3) + 3 + d_feature
+        self.use_normals = bool(use_normals)
+        din = (3 + encoding_dim(view_res, 3) + (3 if use_normals else 0)
+               + d_feature)
         self.color_latent = nn.Embedding(num_latents, 128)
         self.lin0 = WNLinear(din, 256)
         self.lin1 = WNLinear(256, 256)
@@ -192,8 +198,11 @@ class ColorNetwork(nn.Module):
         self.lin4 = WNLinear(256, 3)
 
     def forward(self, points, normals, viewdirs, features, latent_index: int):
-        x = torch.cat([points, positional_encoding(viewdirs, self.view_res),
-                       normals, features], dim=-1)
+        """normals is read only with `use_normals` (None otherwise)."""
+        parts = [points, positional_encoding(viewdirs, self.view_res)]
+        if self.use_normals:
+            parts.append(normals)
+        x = torch.cat([*parts, features], dim=-1)
         h = torch.relu(self.lin0(x))
         h = torch.relu(self.lin1(h))
         h = torch.relu(self.lin2(h))
@@ -213,3 +222,16 @@ class BetaNetwork(nn.Module):
 
     def forward(self):
         return torch.clamp(self.beta, 1e-9, 1e6)
+
+
+class SingleVarianceNetwork(nn.Module):
+    """NeuS's learnable inverse variance, exp(10 s) clipped to [1e-6,
+    1e6] (JAX fields.py:266; reference anisdf_neus_pdf_network.py:
+    373-383), with s the parameter `variance`."""
+
+    def __init__(self):
+        super().__init__()
+        self.variance = nn.Parameter(torch.tensor(0.2))
+
+    def forward(self):
+        return torch.clamp(torch.exp(10.0 * self.variance), 1e-6, 1e6)

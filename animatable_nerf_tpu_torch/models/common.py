@@ -1,7 +1,8 @@
 """Shared helpers of the model layer.
 
 JAX counterpart: animatable_nerf_tpu/models/common.py (the subset the
-AniNeRF and SDF-PDF eval paths and the AniNeRF train path use).
+AniNeRF and displacement-field eval paths and the AniNeRF and SDF-PDF
+train paths use).
 """
 
 from __future__ import annotations

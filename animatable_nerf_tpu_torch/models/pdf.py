@@ -1,14 +1,18 @@
-"""SDF-PDF: pose-dependent displacement field + VolSDF canonical
-surface, eval and train paths.
+"""The displacement-field (PDF) families: NeRF-PDF, SDF-PDF and
+NeuS-PDF, their eval paths, and SDF-PDF's train path.
 
 JAX counterpart: animatable_nerf_tpu/models/pdf.py (`_PDFBase._warp`
 :103, `_filter` :131, `_compact_inputs` :138 conservative branch,
-`_eval_compacted` :282, `SDFPDF` :470 with `_sdf_and_grad` :492,
-`_observed_grad` :509, `_eval_head` :542 and the dense train branch of
-`__call__` :635-700; reference anisdf_pdf_network.py). NeRF-PDF and
-NeuS-PDF are not ported yet.
+`_eval_compacted` :282; `NeRFPDF` :353 with its `_eval_head` :379;
+`SDFPDF` :470 with `_sdf_and_grad` :492, `_observed_grad` :509,
+`_eval_head` :542 and the dense train branch of `__call__` :635-700;
+`NeuSPDF` :701 with `_eval_compacted_neus` :718; reference
+aligned_aninerf_pdf_network.py, anisdf_pdf_network.py,
+anisdf_neus_pdf_network.py). The training of NeRF-PDF and NeuS-PDF is
+not ported yet.
 
-The point filter keeps the JAX semantics:
+The eval path (`_PDFBase.forward`) is the families' shared part and
+keeps the JAX semantics:
   * pass 1 reads the per-frame nearest-vertex distance grid (built by
     kernel K3, `grid_pdist_keep`): a certified superset of the
     survivors, with the argmin of the bound forced on;
@@ -16,23 +20,35 @@ The point filter keeps the JAX semantics:
     K5 over the vertex blocks within each candidate tile's certified
     5-NN radius): IDW blend weights over the posed vertices and the
     weighted distance, whose exact filter (< NORM_TH) is re-applied with
-    its argmin over the candidates forced on.
+    its argmin over the candidates forced on;
+  * the LBS warp and the displacement field (K1) on the exact
+    survivors, then the family's canonical head (`_eval_head`), and
+    rgb and alpha zeroed outside the canonical box grown by
+    TBOUNDS_PAD.
 Forcing happens once per call, i.e. once per eval tile. The JAX package
 compacts into fixed capacities twice (pass 1, then the stage-2
 re-compaction to the exact survivors, `stage2_ratio`) and parks dead
 slots on bone 0; the port compacts exactly with torch.nonzero, so it has
-neither capacities nor dead slots. The warp, the displacement field
-(K1), the SDF network with its autograd normals and the color network
-run on the exact survivors only.
+neither capacities nor dead slots.
 
-The train path (`train_forward`) is JAX's default dense masked one
-(`train_keep_frac` 0): every sampled point is filtered by one K2 launch
-(argmin forced over the whole step), masked points are moved onto the
-first posed vertex, and the displacement field (K1), the SDF network
-with its normals kept on the graph, and the color network run on all of
-them. The observed-space eikonal term differentiates sdf(x + resd(x))
-with respect to x with a graph, so the loss reaches the displacement
-field through K1's gradient of a gradient (ops/skip_mlp.py).
+The heads: NeRF-PDF's softplus NeRF takes alpha over the real sample
+spacing; SDF-PDF's VolSDF the reference's fixed 0.005 step; NeuS-PDF's
+opacity couples consecutive samples of a ray, so its head scatters the
+survivors' sdf into the tile's ray-ordered (R, S) grid, +10 elsewhere,
+and reads `neus_alpha` back at the survivors (JAX's dense oracle form,
+pdf.py:851-865; tiles hold whole rays). A survivor outside the box
+keeps its true sdf in its neighbours' CDF and loses only its own alpha
+and rgb.
+
+The train path (`SDFPDF.train_forward`) is JAX's default dense masked
+one (`train_keep_frac` 0): every sampled point is filtered by one K2
+launch (argmin forced over the whole step), masked points are moved
+onto the first posed vertex, and the displacement field (K1), the SDF
+network with its normals kept on the graph, and the color network run
+on all of them. The observed-space eikonal term differentiates
+sdf(x + resd(x)) with respect to x with a graph, so the loss reaches
+the displacement field through K1's gradient of a gradient
+(ops/skip_mlp.py).
 """
 
 from __future__ import annotations
@@ -47,18 +63,21 @@ from ..core.lbs import (
     world_dirs_to_pose_dirs,
     world_points_to_pose_points,
 )
-from ..core.sdf import sigma_to_alpha, volsdf_sigma
+from ..core.sampling import z_vals_to_dists
+from ..core.sdf import neus_alpha, sigma_to_alpha, volsdf_sigma
 from ..fields.fields import (
     BetaNetwork,
     ColorNetwork,
     GeometricFieldNetwork,
     ResidualField,
+    SingleVarianceNetwork,
 )
 from .common import (
     grid_pdist_keep,
     inside_bounds,
     keep_mask_with_argmin,
     knn_blend_for_frame,
+    raw_alpha_from_sigma,
     substitute_masked,
 )
 
@@ -67,24 +86,29 @@ TBOUNDS_PAD = 0.05  # canonical bbox growth (JAX pdf.py:344)
 # |sdf| below which a point enters the observed-space eikonal term
 # (JAX pdf.py:692-694; reference anisdf_pdf_network.py:194-199)
 OBSERVED_GRAD_BAND = 0.02
-SDF_FILL = 10.0  # sdf of masked points (anisdf_pdf_network.py:218-219)
+# sdf of masked points (anisdf_pdf_network.py:218-219), and NeuS's fill
+# of the non-survivors in a ray's CDF (sdf_utils.py:40-61)
+SDF_FILL = 10.0
 
 
-class TPoseSDF(nn.Module):
-    """The canonical networks, under the reference's `tpose_human.`
-    prefix: `sdf_network`, `beta_network`, `color_network`."""
+class Canonical(nn.Module):
+    """The canonical networks under the reference's `tpose_human.`
+    prefix, registered (and initialized) in the order given: SDF-PDF's
+    `sdf_network`, `beta_network`, `color_network`; NeRF-PDF's
+    `nerf_network`, `color_network`; NeuS-PDF's `sdf_network`,
+    `variance_network`, `color_network`."""
 
-    def __init__(self, num_latents: int):
+    def __init__(self, **modules: nn.Module):
         super().__init__()
-        self.sdf_network = GeometricFieldNetwork()
-        self.beta_network = BetaNetwork()
-        self.color_network = ColorNetwork(num_latents)
+        for name, module in modules.items():
+            self.add_module(name, module)
 
 
-class SDFPDF(ResidualField):
-    """The module is the displacement field itself (`resd_linears`,
-    `resd_fc` at the top level, as in the reference network) plus
-    `tpose_human`, so its state dict has the reference's names.
+class _PDFBase(ResidualField):
+    """The families' shared part. The module is the displacement field
+    itself (`resd_linears`, `resd_fc` at the top level, as in the
+    reference networks) plus `tpose_human`, the family's `_canonical`
+    networks, so its state dict has the reference's names.
 
     num_latents: rows of the color latent table (num_latent_code)."""
 
@@ -94,15 +118,16 @@ class SDFPDF(ResidualField):
     # the per-frame tensors the engine moves to the device
     frame_keys = ("A", "big_A", "poses", "weights", "pvertices", "tbounds",
                   "R", "Th")
-    # training reads the same ones (no distance grid: the dense path
-    # filters every point with K2)
-    train_frame_keys = frame_keys
 
     def __init__(self, num_latents: int, tpose_viewdir: bool = True,
                  xyz_res: int = 10):
         super().__init__(xyz_res=xyz_res)
-        self.tpose_human = TPoseSDF(num_latents)
+        self.tpose_human = self._canonical(num_latents)
         self.tpose_viewdir = bool(tpose_viewdir)
+
+    @staticmethod
+    def _canonical(num_latents: int) -> Canonical:
+        raise NotImplementedError
 
     def _warp(self, pose_pts, pose_dirs, pbw, frame):
         """Posed SMPL -> canonical big pose plus the residual
@@ -118,47 +143,11 @@ class SDFPDF(ResidualField):
         return backward_warp_points_dirs(pose_pts, dirs_in, pbw, frame["A"],
                                          frame["big_A"])
 
-    def _sdf_and_grad(self, tpose, create_graph: bool = False):
-        """sdf (N, 1), feature (N, 256) and d sdf / d point (N, 3) (JAX
-        pdf.py:492). The network is pointwise, so the gradient of the
-        summed sdf is every point's own. For eval it runs under
-        enable_grad on a detached copy, inside an otherwise gradient-free
-        render, and returns detached values; with `create_graph`
-        (training) it differentiates `tpose` itself and the gradient
-        stays on the graph, so a loss on it reaches every weight."""
-        if create_graph:
-            if not tpose.requires_grad:
-                tpose = tpose.detach().requires_grad_(True)
-            out = self.tpose_human.sdf_network(tpose)
-            (grad,) = torch.autograd.grad(out[:, 0].sum(), tpose,
-                                          create_graph=True)
-            return out[:, :1], out[:, 1:], grad
-        with torch.enable_grad():
-            x = tpose.detach().requires_grad_(True)
-            out = self.tpose_human.sdf_network(x)
-            (grad,) = torch.autograd.grad(out[:, 0].sum(), x)
-        out = out.detach()
-        return out[:, :1], out[:, 1:], grad
-
-    def _observed_grad(self, init_bigpose, frame):
-        """d/dx [sdf(x + resd(x))] at the detached big-pose points (JAX
-        pdf.py:509; reference anisdf_pdf_network.py:140-154): the
-        displacement field's second K1 launch of a step, differentiated
-        with a graph, so the eikonal loss on it reaches the displacement
-        field through the gradient of K1's gradient."""
-        x = init_bigpose.detach().requires_grad_(True)
-        sdf = self.tpose_human.sdf_network(
-            x + self.residual(x, frame["poses"]))[:, 0]
-        (grad,) = torch.autograd.grad(sdf.sum(), x, create_graph=True)
-        return grad
-
-    def _eval_head(self, tpose, dirs, latent_index: int):
-        """rgb (N, 3) and VolSDF alpha (N,) (JAX pdf.py:542)."""
-        sdf, feat, normals = self._sdf_and_grad(tpose)
-        sigma = volsdf_sigma(sdf[:, 0], self.tpose_human.beta_network())
-        rgb = self.tpose_human.color_network(tpose, normals, dirs, feat,
-                                             latent_index)
-        return rgb, sigma_to_alpha(sigma)
+    def _eval_head(self, tpose, dirs, latent_index: int, sidx, z_vals):
+        """The family's canonical head on the survivors: tpose (N, 3),
+        dirs (N, 3), their flat sample indices sidx (N,) and the tile's
+        z_vals (R, S) -> rgb (N, 3), alpha (N,)."""
+        raise NotImplementedError
 
     @torch.no_grad()
     def forward(self, wpts, viewdir, z_vals, frame):
@@ -183,7 +172,7 @@ class SDFPDF(ResidualField):
         )
         rgb, alpha = self._eval_head(
             tpose, tdirs if self.tpose_viewdir else s_dirs,
-            int(frame["latent_index"]),
+            int(frame["latent_index"]), sidx, z_vals,
         )
         keep = inside_bounds(tpose, frame["tbounds"], pad=TBOUNDS_PAD)
         rgb = torch.where(keep[:, None], rgb, 0.0)
@@ -195,6 +184,96 @@ class SDFPDF(ResidualField):
             "rgb_map": rgb_map, "acc_map": acc_map, "depth_map": depth_map,
             "n_candidates": cand.numel(), "n_survivors": sidx.numel(),
         }
+
+
+class NeRFPDF(_PDFBase):
+    """Displacement field + softplus canonical NeRF (JAX pdf.py:353;
+    reference aligned_aninerf_pdf_network.py): `tpose_human.nerf_network`
+    (channel 0 the pre-activation density, 1: the feature) and
+    `tpose_human.color_network` without normals."""
+
+    @staticmethod
+    def _canonical(num_latents: int) -> Canonical:
+        return Canonical(
+            nerf_network=GeometricFieldNetwork(),
+            color_network=ColorNetwork(num_latents, use_normals=False),
+        )
+
+    def _eval_head(self, tpose, dirs, latent_index: int, sidx, z_vals):
+        """rgb and alpha = 1 - exp(-relu(sigma) * dist) over the real
+        sample spacing, the last interval repeated (JAX pdf.py:379)."""
+        out = self.tpose_human.nerf_network(tpose)
+        dists = z_vals_to_dists(z_vals).reshape(-1)[sidx]
+        alpha = raw_alpha_from_sigma(out[:, 0], dists)
+        rgb = self.tpose_human.color_network(tpose, None, dirs, out[:, 1:],
+                                             latent_index)
+        return rgb, alpha
+
+
+class _SDFFamily(_PDFBase):
+    """The families with an SDF network (`tpose_human.sdf_network`)."""
+
+    def _sdf_and_grad(self, tpose, create_graph: bool = False):
+        """sdf (N, 1), feature (N, 256) and d sdf / d point (N, 3) (JAX
+        pdf.py:492). The network is pointwise, so the gradient of the
+        summed sdf is every point's own. For eval it runs under
+        enable_grad on a detached copy, inside an otherwise gradient-free
+        render, and returns detached values; with `create_graph`
+        (training) it differentiates `tpose` itself and the gradient
+        stays on the graph, so a loss on it reaches every weight."""
+        if create_graph:
+            if not tpose.requires_grad:
+                tpose = tpose.detach().requires_grad_(True)
+            out = self.tpose_human.sdf_network(tpose)
+            (grad,) = torch.autograd.grad(out[:, 0].sum(), tpose,
+                                          create_graph=True)
+            return out[:, :1], out[:, 1:], grad
+        with torch.enable_grad():
+            x = tpose.detach().requires_grad_(True)
+            out = self.tpose_human.sdf_network(x)
+            (grad,) = torch.autograd.grad(out[:, 0].sum(), x)
+        out = out.detach()
+        return out[:, :1], out[:, 1:], grad
+
+
+class SDFPDF(_SDFFamily):
+    """Displacement field + VolSDF canonical surface (JAX pdf.py:470;
+    reference anisdf_pdf_network.py): `tpose_human.sdf_network`,
+    `beta_network` and `color_network` with normals."""
+
+    # training reads the same frame tensors as eval (no distance grid:
+    # the dense path filters every point with K2)
+    train_frame_keys = _PDFBase.frame_keys
+
+    @staticmethod
+    def _canonical(num_latents: int) -> Canonical:
+        return Canonical(
+            sdf_network=GeometricFieldNetwork(),
+            beta_network=BetaNetwork(),
+            color_network=ColorNetwork(num_latents),
+        )
+
+    def _observed_grad(self, init_bigpose, frame):
+        """d/dx [sdf(x + resd(x))] at the detached big-pose points (JAX
+        pdf.py:509; reference anisdf_pdf_network.py:140-154): the
+        displacement field's second K1 launch of a step, differentiated
+        with a graph, so the eikonal loss on it reaches the displacement
+        field through the gradient of K1's gradient."""
+        x = init_bigpose.detach().requires_grad_(True)
+        sdf = self.tpose_human.sdf_network(
+            x + self.residual(x, frame["poses"]))[:, 0]
+        (grad,) = torch.autograd.grad(sdf.sum(), x, create_graph=True)
+        return grad
+
+    def _eval_head(self, tpose, dirs, latent_index: int, sidx=None,
+                   z_vals=None):
+        """rgb (N, 3) and VolSDF alpha (N,) (JAX pdf.py:542); pointwise,
+        with the reference's fixed step, so sidx and z_vals go unread."""
+        sdf, feat, normals = self._sdf_and_grad(tpose)
+        sigma = volsdf_sigma(sdf[:, 0], self.tpose_human.beta_network())
+        rgb = self.tpose_human.color_network(tpose, normals, dirs, feat,
+                                             latent_index)
+        return rgb, sigma_to_alpha(sigma)
 
     def train_forward(self, wpts, viewdir, z_vals, frame):
         """Dense masked train forward (JAX pdf.py:658-700): wpts (R, S,
@@ -247,3 +326,36 @@ class SDFPDF(ResidualField):
             "observed_gradients": self._observed_grad(init_bigpose, frame),
             "observed_grad_mask": og_mask,
         }
+
+
+class NeuSPDF(_SDFFamily):
+    """Displacement field + NeuS canonical surface (JAX pdf.py:701;
+    reference anisdf_neus_pdf_network.py): `tpose_human.sdf_network`,
+    `variance_network` (the inverse variance) and `color_network` with
+    normals."""
+
+    @staticmethod
+    def _canonical(num_latents: int) -> Canonical:
+        return Canonical(
+            sdf_network=GeometricFieldNetwork(),
+            variance_network=SingleVarianceNetwork(),
+            color_network=ColorNetwork(num_latents),
+        )
+
+    def _eval_head(self, tpose, dirs, latent_index: int, sidx, z_vals):
+        """rgb (N, 3) and the NeuS alpha (N,) of the survivors (JAX
+        pdf.py:851-865): every survivor's sdf, the point the argmin
+        forcing turned on included, at its place in the tile's (R, S)
+        grid and SDF_FILL at every other sample, so a sample's CDF
+        neighbour is the next sample of its ray; the last sample of a
+        ray takes the residual before it."""
+        sdf, feat, normals = self._sdf_and_grad(tpose)
+        rgb = self.tpose_human.color_network(tpose, normals, dirs, feat,
+                                             latent_index)
+        n_rays, n_samples = z_vals.shape
+        grid = torch.full((n_rays * n_samples,), SDF_FILL, dtype=sdf.dtype,
+                          device=sdf.device)
+        grid[sidx] = sdf[:, 0]
+        alpha = neus_alpha(grid.reshape(n_rays, n_samples),
+                           self.tpose_human.variance_network())
+        return rgb, alpha.reshape(-1)[sidx]

@@ -1,6 +1,6 @@
 """Volume rendering: eval rays in fixed-size tiles, for every ported
-model (AniNeRF, SDF-PDF), each taking one tile's samples and compositing
-its own maps; and a training ray batch through a model's dense train
+model (AniNeRF, NeRF-PDF, SDF-PDF, NeuS-PDF), each taking one tile's
+samples and compositing its own maps; and a training ray batch through a model's dense train
 path, with the SDF models' silhouette tensors.
 
 JAX counterpart: animatable_nerf_tpu/render/renderer.py (`pad_rays`

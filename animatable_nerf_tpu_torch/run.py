@@ -4,7 +4,8 @@ reference run.py):
     python -m animatable_nerf_tpu_torch.run --type evaluate \\
         --cfg_file configs/synthetic.yaml [--device cpu] [key value ...]
 
-(or configs/synthetic_sdf_pdf.yaml for SDF-PDF).
+(or configs/synthetic_nerf_pdf.yaml, configs/synthetic_sdf_pdf.yaml,
+configs/synthetic_neus_pdf.yaml for the displacement-field families).
 
 Runs on `cuda` unless `--device cpu` is given; without a GPU and
 without `--device cpu` it raises.

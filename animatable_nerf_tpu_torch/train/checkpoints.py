@@ -11,7 +11,8 @@ the state dict of JAX's optimizer, optax.chain(clip(40), adam(schedule)):
 and moments, as param trees), "1": {count} (the schedule's count)}}.
 So the JAX package's `load_checkpoint` and `run.py --type evaluate`
 read what the port writes, and the port resumes from what JAX writes.
-Both trained families are handled: AniNeRF and SDF-PDF (`param_codec`).
+Every ported family is handled (`param_codec`): AniNeRF, NeRF-PDF,
+SDF-PDF and NeuS-PDF.
 """
 
 from __future__ import annotations
@@ -25,15 +26,21 @@ from ..compat.flax_msgpack import read_checkpoint, write_checkpoint
 from ..compat.jax_params import (
     aninerf_param_tree,
     aninerf_state_dict,
+    nerf_pdf_param_tree,
+    nerf_pdf_state_dict,
+    neus_pdf_param_tree,
+    neus_pdf_state_dict,
     sdf_pdf_param_tree,
     sdf_pdf_state_dict,
 )
 from ..models.aninerf import AniNeRF
-from ..models.pdf import SDFPDF
+from ..models.pdf import NeRFPDF, NeuSPDF, SDFPDF
 
 # (JAX param tree -> state dict, state dict -> JAX param tree) by model
 _CODECS = {AniNeRF: (aninerf_state_dict, aninerf_param_tree),
-           SDFPDF: (sdf_pdf_state_dict, sdf_pdf_param_tree)}
+           NeRFPDF: (nerf_pdf_state_dict, nerf_pdf_param_tree),
+           SDFPDF: (sdf_pdf_state_dict, sdf_pdf_param_tree),
+           NeuSPDF: (neus_pdf_state_dict, neus_pdf_param_tree)}
 
 
 def param_codec(model):

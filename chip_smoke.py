@@ -41,6 +41,13 @@ Phases, one JSON line each:
      the frame's pass-2 points differs only on rows with an exact
      distance tie, and the maps within 1e-6 on every other ray; K2 and
      K5 timed on those points, per tile launch and per 131,072;
+  7b. the same as phase 6 for NeRF-PDF and NeuS-PDF
+     (configs/synthetic_nerf_pdf.yaml, configs/synthetic_neus_pdf.yaml,
+     the capsule subject): `run_evaluate` held to each family's JAX
+     PSNR, then one 1000x1002 frame timed and profiled. Their point
+     filter reads only the posed vertices, so each path must launch K1,
+     K2 and K3 as often as phase 6's and report its candidate and
+     survivor counts, view by view and on the full frame;
   8. training (configs/synthetic.yaml, AniNeRF): K1's gradient
      (ops/skip_mlp.py `SkipMLPFunction`: the kernel forward, the vjp of
      the plain version) against autograd through the plain version at
@@ -114,6 +121,19 @@ JAX_PSNR_TRAIN = [12.357885896866387, 13.075392752633316, 13.178003074358783,
 #   python -c "import numpy as np; print(np.load('data/result/deform/train50_sdf_jax/metrics.npy', allow_pickle=True).item()['psnr'])"
 JAX_PSNR_TRAIN_SDF = [21.096650006737693, 22.82760370503967, 24.089425792358725,
                       24.915604842368836]
+# The same for NeRF-PDF and NeuS-PDF on configs/synthetic_nerf_pdf.yaml
+# and configs/synthetic_neus_pdf.yaml with their tracked checkpoints
+# (600 and 400 JAX CPU steps, the commands in each config's header; the
+# draw was not seeded, so the constants belong to the tracked files, and
+# a rebuilt file needs them computed again), computed on the CPU with:
+#   JAX_PLATFORMS=cpu python run.py --type evaluate --cfg_file configs/synthetic_nerf_pdf.yaml
+#   python -c "import numpy as np; print(np.load('data/result/deform/synthetic_nerf_pdf/metrics.npy', allow_pickle=True).item()['psnr'])"
+#   JAX_PLATFORMS=cpu python run.py --type evaluate --cfg_file configs/synthetic_neus_pdf.yaml
+#   python -c "import numpy as np; print(np.load('data/result/deform/synthetic_neus_pdf/metrics.npy', allow_pickle=True).item()['psnr'])"
+JAX_PSNR_NERF_PDF = [19.595280411095594, 22.00581491525693, 22.569217838586276,
+                     23.556801078276198]
+JAX_PSNR_NEUS_PDF = [21.087645831516657, 23.324572879268064, 24.59723973769971,
+                     25.410040919281137]
 PSNR_TOL_DB = 0.1
 TRAIN_EXP = "chip_smoke_train"  # exp_name of the train phase's run
 TRAIN_OPTS = ["exp_name", TRAIN_EXP, "train.epoch", "1", "perturb", "0",
@@ -801,7 +821,8 @@ def reset_counts(k1, knn):
 
 def phase_evaluate(name, cfg, jax_psnr, k1, knn):
     """run_evaluate of `cfg` on the card, each view held to the JAX
-    package's PSNR; returns the kernels' launches in this run."""
+    package's PSNR; returns the kernels' launches in this run and each
+    view's (candidates, survivors)."""
     from animatable_nerf_tpu_torch.engine import run_evaluate
 
     reset_counts(k1, knn)
@@ -819,7 +840,7 @@ def phase_evaluate(name, cfg, jax_psnr, k1, knn):
           "s_per_frame": [it["seconds"] for it in items]})
     check(all(abs(d) <= PSNR_TOL_DB for d in dpsnr),
           f"{name}: PSNR differs from JAX by {dpsnr} dB")
-    return launches
+    return launches, [(it["n_candidates"], it["n_survivors"]) for it in items]
 
 
 def full_frame_item(ds, item):
@@ -868,6 +889,40 @@ def phase_full_frame(name, eng, item, k1, knn):
     emit({"phase": f"{name}_profile",
           **device_breakdown(lambda: eng.render_item(item))})
     return launches, out
+
+
+FILTER_KERNELS = ("skip_mlp", "knn_blend", "min_dist")
+
+
+def phase_pdf_family(family, jax_psnr, full_item, sdf, k1, knn):
+    """evaluate_<family> and full_frame_<family> (phase 7b): the same
+    views and full frame as phase 6's SDF-PDF path `sdf` ({eval, eval
+    counts, frame, frame stats}), held to the family's JAX PSNR, with K1,
+    K2 and K3 launched as often as there and the same candidate and
+    survivor counts. Returns (eval launches, full-frame launches)."""
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.engine import Engine
+
+    cfg = load_config(f"configs/synthetic_{family}.yaml", [],
+                      run_type="evaluate")
+    check(cfg.network_module == family, f"{family}: config names "
+          f"{cfg.network_module}")
+    launches, counts = phase_evaluate(f"evaluate_{family}", cfg, jax_psnr,
+                                      k1, knn)
+    eng = Engine(cfg, "cuda")
+    eng.load_params()
+    frame_launches, _ = phase_full_frame(f"full_frame_{family}", eng,
+                                         full_item, k1, knn)
+    same = {"eval_launches": [launches[k] for k in FILTER_KERNELS]
+            == [sdf["eval"][k] for k in FILTER_KERNELS],
+            "eval_counts": counts == sdf["eval_counts"],
+            "frame_launches": frame_launches == sdf["frame"],
+            "frame_counts": eng.stats == sdf["frame_stats"]}
+    emit({"phase": f"{family}_filter_as_sdf_pdf", **same,
+          "eval_counts": counts, "frame_stats": eng.stats})
+    check(all(same.values()) and launches["skip_mlp"] > 0,
+          f"{family}: the point filter differs from SDF-PDF's: {same}")
+    return launches, frame_launches
 
 
 def kernels_on_points(knn, src, d5ub, parts, pverts, weights, blocks):
@@ -1497,7 +1552,7 @@ def main():
 
     # ---- phase 4: AniNeRF evaluate (the first slice's path)
     cfg = load_config("configs/synthetic.yaml", [], run_type="evaluate")
-    eval_launches = phase_evaluate("evaluate", cfg, JAX_PSNR, k1, knn)
+    eval_launches, _ = phase_evaluate("evaluate", cfg, JAX_PSNR, k1, knn)
     check(eval_launches["skip_mlp"] > 0, "evaluate did not launch K1")
 
     # ---- phase 5: device profile of one AniNeRF eval frame, then one
@@ -1513,22 +1568,25 @@ def main():
                                          full_frame_item(ds, item), k1, knn)
 
     # ---- phase 6: SDF-PDF evaluate (this slice's path) and full frame
-    sdf_launches = phase_evaluate("evaluate_sdf_pdf", cfg_sdf, JAX_PSNR_SDF, k1, knn)
-    for kernel in ("skip_mlp", "knn_blend", "min_dist"):
+    sdf_launches, sdf_counts = phase_evaluate("evaluate_sdf_pdf", cfg_sdf,
+                                              JAX_PSNR_SDF, k1, knn)
+    for kernel in FILTER_KERNELS:
         check(sdf_launches[kernel] > 0, f"evaluate_sdf_pdf did not launch {kernel}")
     eng_sdf = Engine(cfg_sdf, "cuda")
     eng_sdf.load_params()
     full_item_sdf = full_frame_item(ds_sdf, item_sdf)
     sdf_frame_launches, sdf_frame = phase_full_frame(
         "full_frame_sdf_pdf", eng_sdf, full_item_sdf, k1, knn)
+    sdf_path = {"eval": sdf_launches, "eval_counts": sdf_counts,
+                "frame": sdf_frame_launches, "frame_stats": dict(eng_sdf.stats)}
     del eng_sdf
 
     # ---- phase 7: the same with knn_blocked (K4 d5 grid, K5 pass 2); the
     # JAX package's CPU run takes its flat path, so its PSNR is phase 6's
     cfg_blk = load_config("configs/synthetic_sdf_pdf.yaml", ["knn_blocked", "True"],
                           run_type="evaluate")
-    blk_launches = phase_evaluate("evaluate_sdf_pdf_blocked", cfg_blk,
-                                  JAX_PSNR_SDF, k1, knn)
+    blk_launches, _ = phase_evaluate("evaluate_sdf_pdf_blocked", cfg_blk,
+                                     JAX_PSNR_SDF, k1, knn)
     n_frames = len(JAX_PSNR_SDF)
     check(blk_launches["kth_distance"] == n_frames
           and blk_launches["knn_blend_blocked"] >= n_frames
@@ -1545,6 +1603,13 @@ def main():
     frame_points = phase_blocked_vs_flat(eng_blk, full_item_sdf, sdf_frame,
                                          knn, common)
     del eng_blk, eng
+
+    # ---- phase 7b: NeRF-PDF and NeuS-PDF evaluate and full frame, their
+    # point filter held to phase 6's
+    fam = {family: phase_pdf_family(family, jax_psnr, full_item_sdf,
+                                    sdf_path, k1, knn)
+           for family, jax_psnr in (("nerf_pdf", JAX_PSNR_NERF_PDF),
+                                    ("neus_pdf", JAX_PSNR_NEUS_PDF))}
 
     # ---- phase 8: training of AniNeRF (K1 with its gradient)
     phase_k1_grad(k1)
@@ -1586,12 +1651,25 @@ def main():
             **call,
         }
 
-    k2_entry = knn_entry(k2_row, 55, sdf_launches, sdf_frame_launches, "k2")
+    def family_paths(entry, name):
+        """The NeRF-PDF and NeuS-PDF paths' launches of K2 or K3 (phase
+        7b), added to an entry of the SDF-PDF path."""
+        entry["launches"] += sum(ev[name] for ev, _ in fam.values())
+        entry["launches_by_path"] = {
+            "evaluate_sdf_pdf": sdf_launches[name],
+            **{f"evaluate_{f}": ev[name] for f, (ev, _) in fam.items()}}
+        entry["launches_full_frame_by_path"] = {
+            "full_frame_sdf_pdf": sdf_frame_launches[name],
+            **{f"full_frame_{f}": fr[name] for f, (_, fr) in fam.items()}}
+        return entry
+
+    k2_entry = family_paths(
+        knn_entry(k2_row, 55, sdf_launches, sdf_frame_launches, "k2"),
+        "knn_blend")
     # K2 also runs once a step on SDF-PDF training's dense points
     k2_entry["launches"] += sdf_train_launches["knn_blend"]
+    k2_entry["launches_by_path"]["train_sdf_pdf"] = sdf_train_launches["knn_blend"]
     k2_entry.update(
-        launches_by_path={"evaluate_sdf_pdf": sdf_launches["knn_blend"],
-                          "train_sdf_pdf": sdf_train_launches["knn_blend"]},
         launches_per_train_step={"train": train_launches["knn_blend"] / 50,
                                  "train_sdf_pdf":
                                  sdf_train_launches["knn_blend"] / 50},
@@ -1605,14 +1683,17 @@ def main():
             "route": "cuda",
             "source": "animatable_nerf_tpu_torch/csrc/skip_mlp.cu",
             "replaces": "animatable_nerf_tpu/ops/mlp_pallas.py:108",
-            # both evaluate paths (AniNeRF, SDF-PDF) and the 50 steps of
-            # each training (the forward; the backward and its derivative
-            # are plain PyTorch)
+            # the evaluate paths (AniNeRF, SDF-PDF, NeRF-PDF, NeuS-PDF)
+            # and the 50 steps of each training (the forward; the
+            # backward and its derivative are plain PyTorch)
             "launches": eval_launches["skip_mlp"] + sdf_launches["skip_mlp"]
+            + sum(ev["skip_mlp"] for ev, _ in fam.values())
             + train_launches["skip_mlp"] + sdf_train_launches["skip_mlp"],
             "launches_by_path": {
                 "evaluate": eval_launches["skip_mlp"],
                 "evaluate_sdf_pdf": sdf_launches["skip_mlp"],
+                **{f"evaluate_{f}": ev["skip_mlp"]
+                   for f, (ev, _) in fam.items()},
                 "train": train_launches["skip_mlp"],
                 "train_sdf_pdf": sdf_train_launches["skip_mlp"]},
             "launches_per_train_step": {
@@ -1620,7 +1701,9 @@ def main():
                 "train_sdf_pdf": sdf_train_launches["skip_mlp"] / 50},
             "launches_full_frame": {
                 "full_frame": frame_launches["skip_mlp"],
-                "full_frame_sdf_pdf": sdf_frame_launches["skip_mlp"]},
+                "full_frame_sdf_pdf": sdf_frame_launches["skip_mlp"],
+                **{f"full_frame_{f}": fr["skip_mlp"]
+                   for f, (_, fr) in fam.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
             # one call of each wiring (bw field, NeRF trunk, resd field)
             # at K1_ROWS rows
@@ -1637,7 +1720,8 @@ def main():
             "library_ms": k1_sum("library_ms"),
         },
         k2_entry,
-        knn_entry(k3_row, 129, sdf_launches, sdf_frame_launches),
+        family_paths(knn_entry(k3_row, 129, sdf_launches, sdf_frame_launches),
+                     "min_dist"),
         knn_entry(k4_row, 240, blk_launches, blk_frame_launches),
         knn_entry(k5_row, 460, blk_launches, blk_frame_launches, "k5"),
         knn_entry(k6_row, 760, blk_launches, blk_frame_launches),

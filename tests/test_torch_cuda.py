@@ -690,3 +690,55 @@ def test_cuda_grid_dist_counts_take_k_1_or_5(cuda_device):
     assert (knn.min_dist.launches, knn.kth_distance.launches) == before
     with pytest.raises(ValueError, match="k = 1 or 5"):
         knn.grid_dist_counts(src, ref, 3)
+
+
+def pdf_family_item(family, device):
+    """Test item 0 of configs/synthetic_<family>.yaml rendered by the
+    port's engine on `device` (eval tiles of 1024 rays, a 24^3 distance
+    grid) from the tracked weights: the maps, the candidate and survivor
+    counts, and the launches of K1, K2 and K3 in the render."""
+    from animatable_nerf_tpu_torch import engine
+    from animatable_nerf_tpu_torch.config import load_config
+
+    cfg = load_config(f"configs/synthetic_{family}.yaml",
+                      ["eval_tile", "1024", "knn_grid_res", "24"],
+                      run_type="evaluate")
+    cfg.eval = True
+    eng = engine.Engine(cfg, device)
+    eng.load_params()
+    before = (k1.skip_mlp.launches, knn.knn_blend.launches,
+              knn.min_dist.launches)
+    out, _ = eng.render_item(engine.make_dataset(cfg, "test")[0])
+    launches = tuple(n - b for n, b in zip(
+        (k1.skip_mlp.launches, knn.knn_blend.launches, knn.min_dist.launches),
+        before))
+    return out, dict(eng.stats), launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["nerf_pdf", "neus_pdf"])
+def test_cuda_pdf_family_item_matches_cpu(cuda_device, family, monkeypatch):
+    """A NeRF-PDF and a NeuS-PDF eval item on the card against the CPU:
+    the same candidates and survivors (K2 and K3 are bit-equal to their
+    plain versions), the maps within 1e-4 (K1's 3xTF32 and cuBLAS against
+    the CPU's float32), K1 and K2 launched once a tile and K3 once for
+    the frame on the card, none on the CPU, and no plain KNN version
+    reached by a CUDA tensor."""
+    cpu_out, cpu_stats, cpu_n = pdf_family_item(family, "cpu")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("knn_blend_plain", "min_dist_plain", "kth_distance_plain",
+                 "knn_blend_blocked_plain", "knn_blend_celled_plain",
+                 "_select_blend"):
+        monkeypatch.setattr(knn, name, refuse)
+    out, stats, n = pdf_family_item(family, cuda_device)
+    tiles = stats["tiles"]
+    assert cpu_n == (0, 0, 0) and n == (tiles, tiles, 1) and tiles > 1
+    assert stats == cpu_stats
+    for k in ("rgb_map", "acc_map", "depth_map"):
+        assert np.isfinite(out[k]).all(), k
+        np.testing.assert_allclose(out[k], cpu_out[k], rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
+    assert out["acc_map"].max() > 0.5
