@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from .numerics import clip
+
 
 def volsdf_sigma(sdf, beta):
     """Laplace-CDF density with scale beta; with x = -sdf:
@@ -30,8 +32,9 @@ def neus_alpha(sdf, inv_variance):
     holding a large positive value (+10, whose cdf ~= 1 is the
     reference's `full_cdf = 1` fill) -> alpha (R, S).
     cdf = sigmoid(sdf * inv_variance), p_i = cdf_i - cdf_{i+1} with the
-    last residual repeated, alpha = clip((p + 1e-5) / (cdf + 1e-5), 0, 1)."""
+    last residual repeated, alpha = clip((p + 1e-5) / (cdf + 1e-5), 0, 1),
+    the clip differentiated as JAX's (`numerics.clip`)."""
     cdf = 1.0 / (1.0 + torch.exp(-sdf * inv_variance))
     residual = cdf[..., :-1] - cdf[..., 1:]
     p = torch.cat([residual, residual[..., -1:]], dim=-1)
-    return torch.clamp((p + 1e-5) / (cdf + 1e-5), 0.0, 1.0)
+    return clip((p + 1e-5) / (cdf + 1e-5), 0.0, 1.0)

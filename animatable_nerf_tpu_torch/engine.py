@@ -4,9 +4,9 @@ run types.
 JAX counterpart: animatable_nerf_tpu/engine.py (`_bucket_pad` :139,
 `interleave_rays` :164, the per-frame grids and vertex blocks :259-287
 and :315-326, `Engine.render_item` :547-603, `run_evaluate` :749-830,
-`run_train` :1158-1352, stage 1 of AniNeRF and SDF-PDF with `init_sdf`
-:1229-1242; the models from the config as `models/registry.py`
-`make_model` :99-126 builds them). The
+`run_train` :1158-1352, stage 1 of AniNeRF and the displacement-field
+families with `init_sdf` :1229-1242; the models from the config as
+`models/registry.py` `make_model` :99-126 builds them). The
 eval rays are padded and tiled exactly as in JAX, since the point
 filter's argmin forcing acts per tile. The JAX capacity ladder
 (engine.py:204-236, 465-545) sizes static survivor buffers for the TPU;
@@ -293,22 +293,26 @@ def load_init_sdf(cfg, model):
 
 
 def run_train(cfg, device=None):
-    """Train AniNeRF or SDF-PDF (JAX engine.py:1158-1352, stage 1 on one
-    device): the train split in epochs of `ep_iter` steps, one frame a
-    step; `latest.flax` every `save_latest_ep` epochs and after the last,
-    `<epoch>.flax` every `save_ep`; with `resume` (the default) it goes
-    on from the checkpoint in `trained_model_dir`, otherwise it wipes
-    that directory. A fresh SDF-PDF run with `init_sdf` takes its SDF
-    network from that checkpoint first (a resume then overrides it, as
-    in JAX). `fix_random` seeds the ray draw (RandomState(0), as JAX)
-    and the z jitter. Returns (trainer, recorder)."""
+    """Train AniNeRF or a displacement-field family, NeRF-PDF, SDF-PDF or
+    NeuS-PDF (JAX engine.py:1158-1352, stage 1 on one device): the train
+    split in epochs of `ep_iter` steps, one frame a step; `latest.flax`
+    every `save_latest_ep` epochs and after the last, `<epoch>.flax`
+    every `save_ep`; with `resume` (the default) it goes on from the
+    checkpoint in `trained_model_dir`, otherwise it wipes that
+    directory. A fresh SDF-PDF or NeuS-PDF run with `init_sdf` takes its
+    SDF network from that checkpoint first (a resume then overrides it,
+    as in JAX). `init_sdf` on a family without an SDF network raises,
+    where JAX's non-strict partial load reads nothing. `fix_random`
+    seeds the ray draw (RandomState(0), as JAX) and the z jitter.
+    Returns (trainer, recorder)."""
     family = _PDF_MODULES.get(cfg.network_module, AniNeRF)
     if not hasattr(family, "train_forward"):
         raise NotImplementedError(
             f"network_module {cfg.network_module!r}: {family.__name__} "
             "training is not ported yet")
-    if cfg.get("init_sdf") and family is not SDFPDF:
-        raise NotImplementedError("init_sdf is an SDF-PDF option")
+    if cfg.get("init_sdf") and family not in (SDFPDF, NeuSPDF):
+        raise NotImplementedError(
+            f"init_sdf loads an SDF network; {family.__name__} has none")
     dev = select_device(device)
     # the initial weights do not depend on the caller's random state
     # (JAX initializes from PRNGKey(42))

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from ..core.encoding import encoding_dim, positional_encoding
+from ..core.numerics import clip
 from .mlp import (
     WNLinear,
     dense_init_,
@@ -227,11 +228,12 @@ class BetaNetwork(nn.Module):
 class SingleVarianceNetwork(nn.Module):
     """NeuS's learnable inverse variance, exp(10 s) clipped to [1e-6,
     1e6] (JAX fields.py:266; reference anisdf_neus_pdf_network.py:
-    373-383), with s the parameter `variance`."""
+    373-383), with s the parameter `variance`; the clip has JAX's
+    gradient at its bounds (`numerics.clip`)."""
 
     def __init__(self):
         super().__init__()
         self.variance = nn.Parameter(torch.tensor(0.2))
 
     def forward(self):
-        return torch.clamp(torch.exp(10.0 * self.variance), 1e-6, 1e6)
+        return clip(torch.exp(10.0 * self.variance), 1e-6, 1e6)

@@ -1,8 +1,7 @@
 """Shared helpers of the model layer.
 
 JAX counterpart: animatable_nerf_tpu/models/common.py (the subset the
-AniNeRF and displacement-field eval paths and the AniNeRF and SDF-PDF
-train paths use).
+AniNeRF and displacement-field eval and train paths use).
 """
 
 from __future__ import annotations

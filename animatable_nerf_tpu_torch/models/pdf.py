@@ -1,15 +1,15 @@
 """The displacement-field (PDF) families: NeRF-PDF, SDF-PDF and
-NeuS-PDF, their eval paths, and SDF-PDF's train path.
+NeuS-PDF, their eval paths and their dense train paths.
 
 JAX counterpart: animatable_nerf_tpu/models/pdf.py (`_PDFBase._warp`
 :103, `_filter` :131, `_compact_inputs` :138 conservative branch,
-`_eval_compacted` :282; `NeRFPDF` :353 with its `_eval_head` :379;
-`SDFPDF` :470 with `_sdf_and_grad` :492, `_observed_grad` :509,
-`_eval_head` :542 and the dense train branch of `__call__` :635-700;
-`NeuSPDF` :701 with `_eval_compacted_neus` :718; reference
-aligned_aninerf_pdf_network.py, anisdf_pdf_network.py,
-anisdf_neus_pdf_network.py). The training of NeRF-PDF and NeuS-PDF is
-not ported yet.
+`_eval_compacted` :282; `NeRFPDF` :353 with its `_eval_head` :379 and
+the dense train branch of `__call__` :447-468; `SDFPDF` :470 with
+`_sdf_and_grad` :492, `_observed_grad` :509, `_eval_head` :542 and the
+dense train branch of `__call__` :658-700; `NeuSPDF` :701 with
+`_eval_compacted_neus` :718 and the dense train branch of `__call__`
+:953-990; reference aligned_aninerf_pdf_network.py,
+anisdf_pdf_network.py, anisdf_neus_pdf_network.py).
 
 The eval path (`_PDFBase.forward`) is the families' shared part and
 keeps the JAX semantics:
@@ -40,15 +40,20 @@ pdf.py:851-865; tiles hold whole rays). A survivor outside the box
 keeps its true sdf in its neighbours' CDF and loses only its own alpha
 and rgb.
 
-The train path (`SDFPDF.train_forward`) is JAX's default dense masked
-one (`train_keep_frac` 0): every sampled point is filtered by one K2
+The train path is JAX's default dense masked one (`train_keep_frac` 0),
+shared by the three families up to the canonical points
+(`_PDFBase._dense_warp`): every sampled point is filtered by one K2
 launch (argmin forced over the whole step), masked points are moved
-onto the first posed vertex, and the displacement field (K1), the SDF
-network with its normals kept on the graph, and the color network run
-on all of them. The observed-space eikonal term differentiates
-sdf(x + resd(x)) with respect to x with a graph, so the loss reaches
-the displacement field through K1's gradient of a gradient
-(ops/skip_mlp.py).
+onto the first posed vertex, and the displacement field (K1) runs on
+all of them. Then each family's `train_forward` adds its head on every
+point: NeRF-PDF's softplus NeRF with alpha over the real (perturbed)
+sample spacing; the SDF families (`_SDFFamily.train_forward`) the SDF
+network with its normals kept on the graph, the color network, the
+family's opacity (VolSDF per point; NeuS on the step's own (R, S) grid
+of sdf, +10 on masked points) and the observed-space eikonal term,
+which differentiates sdf(x + resd(x)) with respect to x with a graph,
+so the loss reaches the displacement field through K1's gradient of a
+gradient (ops/skip_mlp.py).
 """
 
 from __future__ import annotations
@@ -118,6 +123,9 @@ class _PDFBase(ResidualField):
     # the per-frame tensors the engine moves to the device
     frame_keys = ("A", "big_A", "poses", "weights", "pvertices", "tbounds",
                   "R", "Th")
+    # training reads the same frame tensors (no distance grid: the dense
+    # path filters every point with K2)
+    train_frame_keys = frame_keys
 
     def __init__(self, num_latents: int, tpose_viewdir: bool = True,
                  xyz_res: int = 10):
@@ -148,6 +156,43 @@ class _PDFBase(ResidualField):
         dirs (N, 3), their flat sample indices sidx (N,) and the tile's
         z_vals (R, S) -> rgb (N, 3), alpha (N,)."""
         raise NotImplementedError
+
+    def _dense_warp(self, wpts, viewdir, z_vals, frame):
+        """The families' shared part of the dense masked train forward
+        (JAX pdf.py:447-454, :658-664, :953-958): wpts (R, S, 3),
+        viewdir (R, 3), z_vals (R, S) -> per point (N = R*S rows) the
+        filter mask pind, init_bigpose, the displacement resd, the
+        canonical points tpose = init_bigpose + resd, the head's view
+        directions and the canonical box mask `inside`.
+
+        One K2 launch serves the filter and the warp: JAX runs the KNN
+        again on the substituted points, whose blend at a kept point is
+        the filter's and at a masked one that of the first vertex, the
+        launch's extra last query."""
+        n_rays, n_samples = z_vals.shape
+        pose_pts = world_points_to_pose_points(
+            wpts.reshape(-1, 3), frame["R"], frame["Th"])
+        vd = viewdir[:, None, :].expand(n_rays, n_samples, 3).reshape(-1, 3)
+        pose_dirs = world_dirs_to_pose_dirs(vd, frame["R"])
+
+        # the KNN filter (:131-136), data only, its argmin forced over
+        # the step's points; masked points onto pvertices[0] (:664-666)
+        safe = frame["pvertices"][0]
+        pbw, pnorm = sample_blend_closest_points(
+            torch.cat([pose_pts, safe[None]]), frame["pvertices"],
+            frame["weights"])
+        pind = keep_mask_with_argmin(pnorm[:-1, 0], NORM_TH)
+        pose_pts = substitute_masked(pose_pts, pind, safe)
+        pbw = torch.where(pind[:, None], pbw[:-1], pbw[-1])
+
+        # the warp (:103-129), its parts kept for the loss
+        init_bigpose, tpose_dirs = self._to_bigpose(pose_pts, pose_dirs, pbw,
+                                                    frame)
+        resd = self.residual(init_bigpose, frame["poses"])
+        tpose = init_bigpose + resd
+        dirs = tpose_dirs if self.tpose_viewdir else vd
+        inside = inside_bounds(tpose, frame["tbounds"], pad=TBOUNDS_PAD)
+        return pind, init_bigpose, resd, tpose, dirs, inside
 
     @torch.no_grad()
     def forward(self, wpts, viewdir, z_vals, frame):
@@ -201,7 +246,8 @@ class NeRFPDF(_PDFBase):
 
     def _eval_head(self, tpose, dirs, latent_index: int, sidx, z_vals):
         """rgb and alpha = 1 - exp(-relu(sigma) * dist) over the real
-        sample spacing, the last interval repeated (JAX pdf.py:379)."""
+        sample spacing, the last interval repeated (JAX pdf.py:379);
+        sidx may be slice(None), every sample of the grid (training)."""
         out = self.tpose_human.nerf_network(tpose)
         dists = z_vals_to_dists(z_vals).reshape(-1)[sidx]
         alpha = raw_alpha_from_sigma(out[:, 0], dists)
@@ -209,9 +255,27 @@ class NeRFPDF(_PDFBase):
                                              latent_index)
         return rgb, alpha
 
+    def train_forward(self, wpts, viewdir, z_vals, frame):
+        """Dense masked train forward (JAX pdf.py:447-468): wpts (R, S,
+        3), viewdir (R, 3), z_vals (R, S) -> raw (R, S, 4), rgb and the
+        alpha over the sample spacing (`_eval_head` on every point)
+        zeroed outside the filter and the box, and per point resd and
+        its mask; the loss is then the offset and the image terms."""
+        pind, _, resd, tpose, dirs, inside = self._dense_warp(
+            wpts, viewdir, z_vals, frame)
+        rgb, alpha = self._eval_head(tpose, dirs, int(frame["latent_index"]),
+                                     slice(None), z_vals)
+        raw = torch.cat([rgb, alpha[:, None]], dim=-1)
+        raw = torch.where((pind & inside)[:, None], raw, 0.0)
+        return {"raw": raw.reshape(*z_vals.shape, 4), "resd": resd,
+                "resd_mask": pind}
+
 
 class _SDFFamily(_PDFBase):
-    """The families with an SDF network (`tpose_human.sdf_network`)."""
+    """The families with an SDF network (`tpose_human.sdf_network`):
+    its normals, the observed-space normal and the dense train forward,
+    which differ between the families only in the opacity
+    (`_train_alpha`)."""
 
     def _sdf_and_grad(self, tpose, create_graph: bool = False):
         """sdf (N, 1), feature (N, 256) and d sdf / d point (N, 3) (JAX
@@ -235,24 +299,6 @@ class _SDFFamily(_PDFBase):
         out = out.detach()
         return out[:, :1], out[:, 1:], grad
 
-
-class SDFPDF(_SDFFamily):
-    """Displacement field + VolSDF canonical surface (JAX pdf.py:470;
-    reference anisdf_pdf_network.py): `tpose_human.sdf_network`,
-    `beta_network` and `color_network` with normals."""
-
-    # training reads the same frame tensors as eval (no distance grid:
-    # the dense path filters every point with K2)
-    train_frame_keys = _PDFBase.frame_keys
-
-    @staticmethod
-    def _canonical(num_latents: int) -> Canonical:
-        return Canonical(
-            sdf_network=GeometricFieldNetwork(),
-            beta_network=BetaNetwork(),
-            color_network=ColorNetwork(num_latents),
-        )
-
     def _observed_grad(self, init_bigpose, frame):
         """d/dx [sdf(x + resd(x))] at the detached big-pose points (JAX
         pdf.py:509; reference anisdf_pdf_network.py:140-154): the
@@ -265,6 +311,54 @@ class SDFPDF(_SDFFamily):
         (grad,) = torch.autograd.grad(sdf.sum(), x, create_graph=True)
         return grad
 
+    def _train_alpha(self, sdf_grid):
+        """The family's opacity of the dense train points: the step's
+        (R, S) grid of sdf, SDF_FILL on masked points (whose alpha the
+        caller zeroes) -> alpha (R, S)."""
+        raise NotImplementedError
+
+    def train_forward(self, wpts, viewdir, z_vals, frame):
+        """Dense masked train forward (JAX pdf.py:658-700, :953-990):
+        wpts (R, S, 3), viewdir (R, 3), z_vals (R, S) -> raw (R, S, 4)
+        zeroed outside the filter and the box, sdf (R, S) with SDF_FILL
+        on masked points, and per point (R*S rows) resd and its mask,
+        the canonical normals `gradients` and their mask, and the
+        observed-space normals `observed_gradients` with their mask
+        (filtered points whose |sdf| < OBSERVED_GRAD_BAND)."""
+        n_rays, n_samples = z_vals.shape
+        pind, init_bigpose, resd, tpose, dirs, inside = self._dense_warp(
+            wpts, viewdir, z_vals, frame)
+        sdf, feat, gradients = self._sdf_and_grad(tpose, create_graph=True)
+        sdf = sdf[:, 0]
+        sdf_grid = torch.where(pind, sdf, SDF_FILL).reshape(n_rays, n_samples)
+        alpha = self._train_alpha(sdf_grid).reshape(-1)
+        rgb = self.tpose_human.color_network(tpose, gradients, dirs, feat,
+                                             int(frame["latent_index"]))
+        raw = torch.cat([rgb, alpha[:, None]], dim=-1)
+        raw = torch.where((pind & inside)[:, None], raw, 0.0)
+        og_mask = pind & (torch.abs(sdf.detach()) < OBSERVED_GRAD_BAND)
+        return {
+            "raw": raw.reshape(n_rays, n_samples, 4), "sdf": sdf_grid,
+            "resd": resd, "resd_mask": pind,
+            "gradients": gradients, "grad_mask": pind,
+            "observed_gradients": self._observed_grad(init_bigpose, frame),
+            "observed_grad_mask": og_mask,
+        }
+
+
+class SDFPDF(_SDFFamily):
+    """Displacement field + VolSDF canonical surface (JAX pdf.py:470;
+    reference anisdf_pdf_network.py): `tpose_human.sdf_network`,
+    `beta_network` and `color_network` with normals."""
+
+    @staticmethod
+    def _canonical(num_latents: int) -> Canonical:
+        return Canonical(
+            sdf_network=GeometricFieldNetwork(),
+            beta_network=BetaNetwork(),
+            color_network=ColorNetwork(num_latents),
+        )
+
     def _eval_head(self, tpose, dirs, latent_index: int, sidx=None,
                    z_vals=None):
         """rgb (N, 3) and VolSDF alpha (N,) (JAX pdf.py:542); pointwise,
@@ -275,57 +369,10 @@ class SDFPDF(_SDFFamily):
                                              latent_index)
         return rgb, sigma_to_alpha(sigma)
 
-    def train_forward(self, wpts, viewdir, z_vals, frame):
-        """Dense masked train forward (JAX pdf.py:658-700): wpts (R, S,
-        3), viewdir (R, 3), z_vals (R, S) -> raw (R, S, 4), sdf (R, S)
-        with SDF_FILL on masked points, and per point (R*S rows) resd and
-        its mask, the canonical normals `gradients` and their mask, and
-        the observed-space normals `observed_gradients` with their mask
-        (filtered points whose |sdf| < OBSERVED_GRAD_BAND).
-
-        One K2 launch serves the filter and the warp: JAX runs the KNN
-        again on the substituted points, whose blend at a kept point is
-        the filter's and at a masked one that of the first vertex, the
-        launch's extra last query."""
-        n_rays, n_samples = z_vals.shape
-        pose_pts = world_points_to_pose_points(
-            wpts.reshape(-1, 3), frame["R"], frame["Th"])
-        vd = viewdir[:, None, :].expand(n_rays, n_samples, 3).reshape(-1, 3)
-        pose_dirs = world_dirs_to_pose_dirs(vd, frame["R"])
-
-        # the KNN filter (:131-136), data only, its argmin forced over
-        # the step's points; masked points onto pvertices[0] (:664-666)
-        safe = frame["pvertices"][0]
-        pbw, pnorm = sample_blend_closest_points(
-            torch.cat([pose_pts, safe[None]]), frame["pvertices"],
-            frame["weights"])
-        pind = keep_mask_with_argmin(pnorm[:-1, 0], NORM_TH)
-        pose_pts = substitute_masked(pose_pts, pind, safe)
-        pbw = torch.where(pind[:, None], pbw[:-1], pbw[-1])
-
-        # the warp (:103-129), its parts kept for the loss
-        init_bigpose, tpose_dirs = self._to_bigpose(pose_pts, pose_dirs, pbw,
-                                                    frame)
-        resd = self.residual(init_bigpose, frame["poses"])
-        tpose = init_bigpose + resd
-        dirs = tpose_dirs if self.tpose_viewdir else vd
-        sdf, feat, gradients = self._sdf_and_grad(tpose, create_graph=True)
-        sigma = volsdf_sigma(sdf[:, 0], self.tpose_human.beta_network())
-        rgb = self.tpose_human.color_network(tpose, gradients, dirs, feat,
-                                             int(frame["latent_index"]))
-        raw = torch.cat([rgb, sigma_to_alpha(sigma)[:, None]], dim=-1)
-        inside = inside_bounds(tpose, frame["tbounds"], pad=TBOUNDS_PAD)
-        raw = torch.where((pind & inside)[:, None], raw, 0.0)
-        og_mask = pind & (torch.abs(sdf[:, 0].detach()) < OBSERVED_GRAD_BAND)
-        return {
-            "raw": raw.reshape(n_rays, n_samples, 4),
-            "sdf": torch.where(pind, sdf[:, 0], SDF_FILL).reshape(
-                n_rays, n_samples),
-            "resd": resd, "resd_mask": pind,
-            "gradients": gradients, "grad_mask": pind,
-            "observed_gradients": self._observed_grad(init_bigpose, frame),
-            "observed_grad_mask": og_mask,
-        }
+    def _train_alpha(self, sdf_grid):
+        """VolSDF's pointwise alpha at the fixed step (JAX pdf.py:668-671)."""
+        return sigma_to_alpha(volsdf_sigma(sdf_grid,
+                                           self.tpose_human.beta_network()))
 
 
 class NeuSPDF(_SDFFamily):
@@ -359,3 +406,11 @@ class NeuSPDF(_SDFFamily):
         alpha = neus_alpha(grid.reshape(n_rays, n_samples),
                            self.tpose_human.variance_network())
         return rgb, alpha.reshape(-1)[sidx]
+
+    def _train_alpha(self, sdf_grid):
+        """NeuS's alpha on the step's own (R, S) grid (JAX pdf.py:962-966):
+        every point of a ray is in it, so a sample's CDF neighbour is the
+        next sample of its ray with no scatter; the gradient reaches the
+        SDF network, the displacement field and the variance through the
+        kept points' sdf."""
+        return neus_alpha(sdf_grid, self.tpose_human.variance_network())

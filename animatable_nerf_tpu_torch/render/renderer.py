@@ -104,8 +104,9 @@ def render_rays_train(model, rays: dict, frame: dict,
     :159-230 with :282-305): z values jittered by `generator` when
     `settings.perturb`, the model's dense train forward, `raw2outputs`
     with `white_bkgd`, and the maps zeroed on pad rays (`mask`). Returns
-    the model's dict (AniNeRF: raw, pbw, tbw, bw_mask; SDF-PDF: raw,
-    sdf, resd, gradients, observed_gradients and their masks) plus
+    the model's dict (AniNeRF: raw, pbw, tbw, bw_mask; NeRF-PDF: raw,
+    resd, resd_mask; SDF-PDF and NeuS-PDF: raw, sdf, resd, gradients,
+    observed_gradients and their masks) plus
     rgb_map, acc_map, depth_map, weights and z_vals; for a model that
     returns `sdf`, with the rays' `occupancy`, also the silhouette
     tensors: msk_sdf, each ray's least sdf; msk_free, the real rays

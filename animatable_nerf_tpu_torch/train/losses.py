@@ -3,9 +3,12 @@
 JAX counterpart: animatable_nerf_tpu/train/losses.py (`masked_mean`
 :17, `smooth_l1` :35, `bce_with_logits` :41, `sdf_mask_alpha` :50,
 `compute_losses` :70; reference lib/train/trainers/tpose_trainer.py:
-21-73 and crit.py:5-19). Ported are the terms the AniNeRF and SDF-PDF
-renders emit: the displacement offset, the two eikonal terms, the
-blend-weight consistency, the SDF silhouette BCE and the image MSE.
+21-73 and crit.py:5-19). Ported are the terms the AniNeRF and
+displacement-field renders emit: the displacement offset, the two
+eikonal terms, the blend-weight consistency, the SDF silhouette BCE and
+the image MSE (NeRF-PDF's render emits only the offset's inputs; the
+two SDF families', SDF-PDF's and NeuS-PDF's, all but the blend
+weights').
 """
 
 from __future__ import annotations

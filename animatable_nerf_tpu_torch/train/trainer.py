@@ -7,12 +7,14 @@ tpose_trainer.py). One step: the render of one frame's rays, the loss,
 its gradient, the value clip at 40 and an Adam update at the schedule's
 rate for the update count. The step counter counts the frames trained
 on, as in JAX; the loss reads it (the SDF silhouette alpha's schedule).
-The model is AniNeRF or SDF-PDF; its `train_frame_keys` name the frame
-tensors the trainer moves to the device. JAX's fused multi-step dispatch (`steps_per_dispatch`),
-packed stats, device frame store and shard_map data parallelism serve
-its TPU and its remote relay; the port has none of them and raises on a
-config that asks for more than one step a dispatch, more than one frame
-a step, or train-time compaction (`train_keep_frac`).
+The model is AniNeRF or a displacement-field family (NeRF-PDF, SDF-PDF,
+NeuS-PDF); its `train_frame_keys` name the frame tensors the trainer
+moves to the device. JAX's fused multi-step dispatch
+(`steps_per_dispatch`), packed stats, device frame store and shard_map
+data parallelism serve its TPU and its remote relay; the port has none
+of them and raises on a config that asks for more than one step a
+dispatch, more than one frame a step, or train-time compaction
+(`train_keep_frac`).
 """
 
 from __future__ import annotations
@@ -96,7 +98,8 @@ def check_train_config(cfg):
 
 
 class Trainer:
-    """Train steps of `model` (AniNeRF or SDF-PDF) on `device`."""
+    """Train steps of `model` (AniNeRF or a displacement-field family)
+    on `device`."""
 
     def __init__(self, cfg, model, device):
         check_train_config(cfg)

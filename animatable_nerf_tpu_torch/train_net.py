@@ -5,10 +5,13 @@
     python -m animatable_nerf_tpu_torch.train_net \\
         --cfg_file configs/synthetic_sdf_pdf.yaml [--device cpu] [key value ...]
 
-Trains AniNeRF or SDF-PDF, stage 1 (engine.py `run_train`), on `cuda`
+and the same with configs/synthetic_nerf_pdf.yaml (NeRF-PDF) or
+configs/synthetic_neus_pdf.yaml (NeuS-PDF). Trains AniNeRF or a
+displacement-field family, stage 1 (engine.py `run_train`), on `cuda`
 unless `--device cpu` is given; without a GPU and without
-`--device cpu` it raises. SDF-PDF's `init_sdf <exp>` starts a fresh run
-from the SDF network of data/trained_model/<task>/<exp>.
+`--device cpu` it raises. For SDF-PDF and NeuS-PDF, `init_sdf <exp>`
+starts a fresh run from the SDF network of
+data/trained_model/<task>/<exp>.
 Checkpoints go to data/trained_model/<task>/<exp_name>/ in the JAX
 package's flax format, so `python run.py --type evaluate` (JAX) and
 `python -m animatable_nerf_tpu_torch.run --type evaluate` (the port)

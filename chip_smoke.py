@@ -70,6 +70,14 @@ Phases, one JSON line each:
      CPU; a profile of 5 steps (K1's and K2's shares, the backward with
      its double backward by events); and K2 on one step's dense points
      (timed, its bound, the cdist chain);
+ 10. training of NeRF-PDF and NeuS-PDF (configs/synthetic_nerf_pdf.yaml,
+     configs/synthetic_neus_pdf.yaml) on SDF-PDF's dense train path: for
+     each, one train step on the card against the CPU (NeRF-PDF K1 once
+     and K2 once, NeuS-PDF K1 twice and K2 once on the card), then
+     `run_train` for one epoch of 50 steps as in phase 8 with every
+     kernel's launches counted, the evaluate of its checkpoint held to
+     the JAX package's PSNR for the same run on the CPU, and a profile
+     of 5 steps (K1's and K2's shares, forward and backward by events);
 then the kernel table line, the card line and {"ok": true, ...} last.
 Kernel launch counts are set to 0 just before each path and read just
 after it. Any failed phase raises and exits non-zero. Imports nothing of
@@ -134,6 +142,18 @@ JAX_PSNR_NERF_PDF = [19.595280411095594, 22.00581491525693, 22.569217838586276,
                      23.556801078276198]
 JAX_PSNR_NEUS_PDF = [21.087645831516657, 23.324572879268064, 24.59723973769971,
                      25.410040919281137]
+# The same for NeRF-PDF and NeuS-PDF: one epoch of 50 steps of
+# configs/synthetic_nerf_pdf.yaml and configs/synthetic_neus_pdf.yaml
+# from their tracked weights, fresh Adam, perturb 0 and the ray draw
+# seeded, computed on the CPU with (<f> is nerf, then neus):
+#   python -c "from animatable_nerf_tpu_torch.train.checkpoints import write_fresh_start as w; w('data/trained_model/deform/synthetic_<f>_pdf/latest.flax', 'data/trained_model/deform/train50_<f>_jax')"
+#   JAX_PLATFORMS=cpu python train_net.py --cfg_file configs/synthetic_<f>_pdf.yaml exp_name train50_<f>_jax train.epoch 1 perturb 0 fix_random True train.num_workers 2 resume True
+#   JAX_PLATFORMS=cpu python run.py --type evaluate --cfg_file configs/synthetic_<f>_pdf.yaml exp_name train50_<f>_jax
+#   python -c "import numpy as np; print(np.load('data/result/deform/train50_<f>_jax/metrics.npy', allow_pickle=True).item()['psnr'])"
+JAX_PSNR_TRAIN_NERF_PDF = [16.894390662515747, 20.012868710307224,
+                           20.305442278667034, 22.350231658445075]
+JAX_PSNR_TRAIN_NEUS_PDF = [19.528702528923024, 22.199117244717034,
+                           23.002480195160604, 24.149925234993855]
 PSNR_TOL_DB = 0.1
 TRAIN_EXP = "chip_smoke_train"  # exp_name of the train phase's run
 TRAIN_OPTS = ["exp_name", TRAIN_EXP, "train.epoch", "1", "perturb", "0",
@@ -1503,6 +1523,45 @@ def phase_train_sdf_pdf(k1, knn):
     return launches, k2_points
 
 
+def phase_train_pdf_family(family, jax_psnr, per_step, k1, knn):
+    """The training path of NeRF-PDF or NeuS-PDF (SDF-PDF's dense path
+    with the family's head): one step on the card against the CPU, one
+    epoch of run_train with `per_step` launches a step, the evaluate of
+    its checkpoint against the JAX PSNR, and a profile of train steps.
+    Returns the kernels' launches in the run."""
+    from animatable_nerf_tpu_torch.compat.flax_msgpack import read_checkpoint
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.engine import make_dataset, make_model
+    from animatable_nerf_tpu_torch.train.checkpoints import param_codec
+    from animatable_nerf_tpu_torch.train.trainer import collate_rays, stack_batch
+
+    cfg_file = f"configs/synthetic_{family}.yaml"
+    exp = f"chip_smoke_train_{family}"
+    opts = ["exp_name", exp] + TRAIN_OPTS[2:]
+    cfg = load_config(cfg_file, opts)
+    state_dict = param_codec(make_model(cfg))[0](read_checkpoint(
+        f"data/trained_model/deform/synthetic_{family}/latest.flax")["params"])
+    ds = make_dataset(cfg, "train")
+    ds._rng = np.random.RandomState(0)
+    batch = stack_batch([collate_rays(ds[0], int(cfg.N_rand))])
+    phase_train_step_vs_cpu(f"train_{family}_step_vs_cpu", cfg, state_dict,
+                            batch, k1, knn, per_step)
+
+    run = train_and_evaluate(cfg_file, opts, exp, jax_psnr, k1, knn)
+    cfg, trainer, _, launches, _, _, _ = run
+    summary = train_summary(*run, jax_psnr)
+    steps = trainer.step
+    prof = steps_profile(trainer, batch, ["skip_mlp_kernel",
+                                          "knn_blend_kernel"])
+    emit({"phase": f"train_{family}", "config": cfg_file, "opts": opts,
+          **summary,
+          "launches_per_step": {k: v / steps for k, v in launches.items()},
+          "profile_per_step": prof,
+          "events_per_step": step_parts_ms(trainer, batch)})
+    check_train(f"train_{family}", summary, per_step)
+    return launches
+
+
 def main():
     import torch
 
@@ -1619,6 +1678,18 @@ def main():
     # twice; K2 once a step on the dense points)
     sdf_train_launches, k2_train = phase_train_sdf_pdf(k1, knn)
 
+    # ---- phase 10: training of NeRF-PDF (K1 and K2 once a step) and
+    # NeuS-PDF (K1 twice, K2 once) on SDF-PDF's dense path
+    fam_train = {
+        family: phase_train_pdf_family(family, jax_psnr, per_step, k1, knn)
+        for family, jax_psnr, per_step in (
+            ("nerf_pdf", JAX_PSNR_TRAIN_NERF_PDF,
+             {"skip_mlp": 1, "knn_blend": 1}),
+            ("neus_pdf", JAX_PSNR_TRAIN_NEUS_PDF,
+             {"skip_mlp": 2, "knn_blend": 1}))}
+    train_paths = {"train": train_launches, "train_sdf_pdf": sdf_train_launches,
+                   **{f"train_{f}": n for f, n in fam_train.items()}}
+
     # ---- kernel table
     def k1_sum(key):
         return sum(r[key] for r in k1_rows)
@@ -1666,13 +1737,14 @@ def main():
     k2_entry = family_paths(
         knn_entry(k2_row, 55, sdf_launches, sdf_frame_launches, "k2"),
         "knn_blend")
-    # K2 also runs once a step on SDF-PDF training's dense points
-    k2_entry["launches"] += sdf_train_launches["knn_blend"]
-    k2_entry["launches_by_path"]["train_sdf_pdf"] = sdf_train_launches["knn_blend"]
+    # K2 also runs once a step on the PDF families' dense train points
+    for path, launches in train_paths.items():
+        if path != "train":
+            k2_entry["launches"] += launches["knn_blend"]
+            k2_entry["launches_by_path"][path] = launches["knn_blend"]
     k2_entry.update(
-        launches_per_train_step={"train": train_launches["knn_blend"] / 50,
-                                 "train_sdf_pdf":
-                                 sdf_train_launches["knn_blend"] / 50},
+        launches_per_train_step={path: launches["knn_blend"] / 50
+                                 for path, launches in train_paths.items()},
         train_points={k: k2_train[k] for k in (
             "queries", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "share_of_bound", "pairs_band_per_query",
@@ -1688,17 +1760,15 @@ def main():
             # backward and its derivative are plain PyTorch)
             "launches": eval_launches["skip_mlp"] + sdf_launches["skip_mlp"]
             + sum(ev["skip_mlp"] for ev, _ in fam.values())
-            + train_launches["skip_mlp"] + sdf_train_launches["skip_mlp"],
+            + sum(n["skip_mlp"] for n in train_paths.values()),
             "launches_by_path": {
                 "evaluate": eval_launches["skip_mlp"],
                 "evaluate_sdf_pdf": sdf_launches["skip_mlp"],
                 **{f"evaluate_{f}": ev["skip_mlp"]
                    for f, (ev, _) in fam.items()},
-                "train": train_launches["skip_mlp"],
-                "train_sdf_pdf": sdf_train_launches["skip_mlp"]},
+                **{path: n["skip_mlp"] for path, n in train_paths.items()}},
             "launches_per_train_step": {
-                "train": train_launches["skip_mlp"] / 50,
-                "train_sdf_pdf": sdf_train_launches["skip_mlp"] / 50},
+                path: n["skip_mlp"] / 50 for path, n in train_paths.items()},
             "launches_full_frame": {
                 "full_frame": frame_launches["skip_mlp"],
                 "full_frame_sdf_pdf": sdf_frame_launches["skip_mlp"],

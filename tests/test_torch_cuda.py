@@ -13,7 +13,8 @@ against the same step on the CPU (loss rtol 1e-4, each gradient leaf
 within 1e-2 of its largest entry: rounding in the canonical points is
 multiplied by the positional encoding, as between the JAX and port CPU
 steps, tests/test_torch_train.py, which measured 2.3e-3); the same for
-an SDF-PDF train step, and K1's gradient of a gradient within 1e-5 of
+a train step of SDF-PDF, NeRF-PDF and NeuS-PDF, and K1's gradient of a
+gradient within 1e-5 of
 each tensor's scale (the backward and its derivative are the plain
 version's on both sides). K2-K6
 round every operation as their plain versions do (no FMA, the same
@@ -254,26 +255,26 @@ def test_cuda_k1_gradient_of_gradient_matches_autograd_of_plain(cuda_device):
         assert err <= 1e-5 * max(1.0, b.abs().max().item()), err
 
 
-def sdf_pdf_step_inputs(n_rays=64, n_samples=16):
-    """configs/synthetic_sdf_pdf.yaml at n_rays x n_samples (perturb 0),
+def pdf_step_inputs(family="sdf_pdf", n_rays=64, n_samples=16):
+    """configs/synthetic_<family>.yaml at n_rays x n_samples (perturb 0),
     the tracked weights and one seeded train batch."""
     from animatable_nerf_tpu_torch import engine
     from animatable_nerf_tpu_torch.compat.flax_msgpack import read_checkpoint
-    from animatable_nerf_tpu_torch.compat.jax_params import sdf_pdf_state_dict
     from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.train.checkpoints import param_codec
     from animatable_nerf_tpu_torch.train.trainer import collate_rays, stack_batch
 
-    cfg = load_config("configs/synthetic_sdf_pdf.yaml",
+    cfg = load_config(f"configs/synthetic_{family}.yaml",
                       ["N_rand", str(n_rays), "N_samples", str(n_samples),
                        "perturb", "0"])
-    state = sdf_pdf_state_dict(read_checkpoint(
-        "data/trained_model/deform/synthetic_sdf_pdf/latest.flax")["params"])
+    state = param_codec(engine.make_model(cfg))[0](read_checkpoint(
+        f"data/trained_model/deform/synthetic_{family}/latest.flax")["params"])
     ds = engine.make_dataset(cfg, "train")
     ds._rng = np.random.RandomState(0)
     return cfg, state, stack_batch([collate_rays(ds[4], n_rays)])
 
 
-def sdf_pdf_trainer(cfg, state, device):
+def pdf_trainer(cfg, state, device):
     from animatable_nerf_tpu_torch import engine
     from animatable_nerf_tpu_torch.train.trainer import Trainer
 
@@ -287,10 +288,10 @@ def test_cuda_sdf_pdf_train_step_matches_cpu(cuda_device):
     """One SDF-PDF train step (64 rays of 16 samples, the tracked
     weights) on the card and on the CPU: loss and stats, each gradient
     leaf, K1 launched twice and K2 once on the card, neither on the CPU."""
-    cfg, state, batch = sdf_pdf_step_inputs()
+    cfg, state, batch = pdf_step_inputs()
     results = []
     for device in ("cpu", cuda_device):
-        trainer = sdf_pdf_trainer(cfg, state, device)
+        trainer = pdf_trainer(cfg, state, device)
         before = (k1.skip_mlp.launches, knn.knn_blend.launches)
         loss, stats, _ = trainer.loss({k: v[0] for k, v in batch.items()})
         loss.backward()
@@ -328,8 +329,8 @@ def test_cuda_sdf_pdf_train_forward_takes_no_plain_version(cuda_device,
     plain = k1.skip_mlp_plain
     monkeypatch.setattr(k1, "skip_mlp_plain",
                         lambda *a, **k: plain_calls.append(1) or plain(*a, **k))
-    cfg, state, batch = sdf_pdf_step_inputs()
-    trainer = sdf_pdf_trainer(cfg, state, cuda_device)
+    cfg, state, batch = pdf_step_inputs()
+    trainer = pdf_trainer(cfg, state, cuda_device)
     before = (k1.skip_mlp.launches, knn.knn_blend.launches)
     loss, _, ret = trainer.loss({k: v[0] for k, v in batch.items()})
     assert (k1.skip_mlp.launches - before[0],
@@ -339,6 +340,80 @@ def test_cuda_sdf_pdf_train_forward_takes_no_plain_version(cuda_device,
     loss.backward()
     # the backward recomputes each of the two K1 calls once more
     assert k1.skip_mlp.launches - before[0] == 2 and len(plain_calls) >= 2
+    assert all(torch.isfinite(p.grad).all()
+               for p in trainer.model.parameters() if p.grad is not None)
+
+
+# per train step of NeRF-PDF and NeuS-PDF on the card: (K1, K2)
+# launches in the forward, and the plain skip-MLP's calls in it (K1's
+# backward recomputed inside NeuS's observed-space normal)
+FAMILY_TRAIN = {"nerf_pdf": ((1, 1), 0), "neus_pdf": ((2, 1), 1)}
+FAMILY_STATS = {
+    "nerf_pdf": {"offset_loss", "img_loss", "loss"},
+    "neus_pdf": {"offset_loss", "grad_loss", "ograd_loss", "mask_loss",
+                 "img_loss", "loss"}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(FAMILY_TRAIN))
+def test_cuda_pdf_family_train_step_matches_cpu(cuda_device, family):
+    """One NeRF-PDF or NeuS-PDF train step (64 rays of 16 samples, the
+    tracked weights) on the card and on the CPU: loss and stats, each
+    gradient leaf, and K1 and K2 launched FAMILY_TRAIN's times on the
+    card, never on the CPU."""
+    cfg, state, batch = pdf_step_inputs(family=family)
+    results = []
+    for device in ("cpu", cuda_device):
+        trainer = pdf_trainer(cfg, state, device)
+        before = (k1.skip_mlp.launches, knn.knn_blend.launches)
+        loss, stats, _ = trainer.loss({k: v[0] for k, v in batch.items()})
+        loss.backward()
+        results.append((
+            {k: float(v.detach()) for k, v in stats.items()},
+            {n: p.grad.cpu() for n, p in trainer.model.named_parameters()},
+            (k1.skip_mlp.launches - before[0], knn.knn_blend.launches - before[1])))
+    (cpu_s, cpu_g, cpu_n), (gpu_s, gpu_g, gpu_n) = results
+    assert cpu_n == (0, 0) and gpu_n == FAMILY_TRAIN[family][0]
+    assert set(cpu_s) == FAMILY_STATS[family]
+    for k, v in cpu_s.items():
+        np.testing.assert_allclose(gpu_s[k], v, rtol=1e-4, err_msg=k)
+    for name, want in cpu_g.items():
+        err = (gpu_g[name] - want).abs().max().item()
+        assert torch.isfinite(gpu_g[name]).all(), name
+        assert err <= 1e-2 * want.abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(FAMILY_TRAIN))
+def test_cuda_pdf_family_train_forward_takes_no_plain_version(
+        cuda_device, family, monkeypatch):
+    """NeRFPDF and NeuSPDF `train_forward` on the card launch K1 and K2
+    FAMILY_TRAIN's times; no KNN plain version runs, and the plain
+    skip-MLP runs only as the recompute of K1's backward: in the forward
+    once for NeuS-PDF (inside the observed-space normal), never for
+    NeRF-PDF, and once more a K1 call in the backward."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("knn_blend_plain", "min_dist_plain", "kth_distance_plain",
+                 "knn_blend_blocked_plain", "knn_blend_celled_plain",
+                 "_select_blend"):
+        monkeypatch.setattr(knn, name, refuse)
+    plain_calls = []
+    plain = k1.skip_mlp_plain
+    monkeypatch.setattr(k1, "skip_mlp_plain",
+                        lambda *a, **k: plain_calls.append(1) or plain(*a, **k))
+    cfg, state, batch = pdf_step_inputs(family=family)
+    trainer = pdf_trainer(cfg, state, cuda_device)
+    (n_k1, n_k2), n_plain = FAMILY_TRAIN[family]
+    before = (k1.skip_mlp.launches, knn.knn_blend.launches)
+    loss, _, _ = trainer.loss({k: v[0] for k, v in batch.items()})
+    assert (k1.skip_mlp.launches - before[0],
+            knn.knn_blend.launches - before[1]) == (n_k1, n_k2)
+    assert len(plain_calls) == n_plain
+    loss.backward()
+    assert k1.skip_mlp.launches - before[0] == n_k1
+    assert len(plain_calls) == n_plain + n_k1
     assert all(torch.isfinite(p.grad).all()
                for p in trainer.model.parameters() if p.grad is not None)
 

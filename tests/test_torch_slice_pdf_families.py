@@ -49,6 +49,16 @@ PSNR_TOL_DB = 0.01
 FAMILIES = {"nerf_pdf": NeRFPDF, "neus_pdf": NeuSPDF}
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Beside the suite's other workers, torch's intra-op threads would
+    oversubscribe the cores, so this file runs on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def cfg_file(family):
     return f"configs/synthetic_{family}.yaml"
 
@@ -201,12 +211,13 @@ def test_cli_evaluates_on_cpu(rendered):
 
 @pytest.mark.parametrize("cfg_path,opts,match", [
     ("configs/synthetic.yaml", ["init_sdf", "synthetic_sdf_pdf"],
-     "init_sdf is an SDF-PDF option"),
-    (cfg_file("neus_pdf"), ["init_sdf", "synthetic_sdf_pdf"],
-     "NeuSPDF training is not ported yet")])
+     "init_sdf loads an SDF network; AniNeRF has none"),
+    (cfg_file("nerf_pdf"), ["init_sdf", "synthetic_sdf_pdf"],
+     "init_sdf loads an SDF network; NeRFPDF has none")])
 def test_run_train_refuses_before_any_work(cfg_path, opts, match, tmp_path):
-    """`run_train` refuses a family without `train_forward` and an
-    `init_sdf` outside SDF-PDF before it builds a model or a directory."""
+    """`run_train` refuses an `init_sdf` on a family without an SDF
+    network (where JAX's non-strict partial load reads nothing) before
+    it builds a model or a directory."""
     cfg = load_config(
         cfg_path, opts + ["trained_model_dir", str(tmp_path / "m"),
                           "record_dir", str(tmp_path / "r")],

@@ -130,14 +130,14 @@ def test_cli_evaluates_sdf_pdf_on_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("run_type,opts", [
-    ("train", ["network_module", "nerf_pdf"]),
-    ("train", ["network_module", "neus_pdf"]),
+    ("train", ["network_module", "nerf_pdf", "aninerf_animation", "True"]),
+    ("train", ["network_module", "neus_pdf", "aninerf_animation", "True"]),
     ("evaluate", ["knn_grid_res", "0"]),
     ("evaluate", ["seg_filter", "True"])])
 def test_options_not_ported_yet_raise(run_type, opts, tmp_path):
-    """Evaluation options the port lacks, and the training of the
-    NeRF-PDF and NeuS-PDF families (their evaluation is ported), raise
-    before any work."""
+    """Evaluation options the port lacks, and the stage-2 (novel-pose)
+    training of the NeRF-PDF and NeuS-PDF families (their stage 1 is
+    ported), raise before any work."""
     cfg = load_config(CFG, opts + ["trained_model_dir", str(tmp_path / "m"),
                                    "record_dir", str(tmp_path / "r")],
                       run_type=run_type)

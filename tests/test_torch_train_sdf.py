@@ -119,6 +119,16 @@ LR = 5e-4
 RESD_LEAF = "['params']['resd_field']"
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Beside the suite's other workers, torch's intra-op threads would
+    oversubscribe the cores, so this file runs on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def leaves(tree):
     return {jax.tree_util.keystr(p): np.asarray(v)
             for p, v in jax.tree_util.tree_leaves_with_path(tree)}
