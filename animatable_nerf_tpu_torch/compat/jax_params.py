@@ -6,7 +6,9 @@ animatable_nerf_tpu/compat/torch_export.py writes:
   * AniNeRF (:90-109): `bw_latent`, `bw_linears.{i}`, `bw_fc`,
     `tpose_human.pts_linears.{i}`,
     `tpose_human.{alpha,feature,latent,view,rgb}_fc` and
-    `tpose_human.nf_latent`;
+    `tpose_human.nf_latent`, and with a stage-2 field (:107-108;
+    torch_import.py:126-127) `novel_pose_bw.{bw_latent,bw_linears.{i},
+    bw_fc}`;
   * the displacement-field families: `resd_linears.{i}`, `resd_fc`,
     `tpose_human.color_network.color_latent`,
     `tpose_human.color_network.lin{l}`, and NeRF-PDF's (:112
@@ -85,6 +87,8 @@ def aninerf_state_dict(params: dict) -> dict:
     p = params["params"] if "params" in params else params
     out = bw_field_state_dict(p["bw_field"])
     out.update(tpose_nerf_state_dict(p["tpose_human"], "tpose_human."))
+    if "novel_pose_bw" in p:
+        out.update(bw_field_state_dict(p["novel_pose_bw"], "novel_pose_bw."))
     return to_tensors(out)
 
 
@@ -172,22 +176,30 @@ def _checked(tree: dict, named: dict, state_dict, family: str) -> dict:
     return tree
 
 
+def _bw_field_tree(named: dict, prefix: str = "") -> dict:
+    """The inverse of `bw_field_state_dict`: {latent, mlp}."""
+    bw = {"latent": {"embedding": _numpy(named[f"{prefix}bw_latent.weight"])},
+          "mlp": {f"lin{i}": _kernel(named, f"{prefix}bw_linears.{i}")
+                  for i in range(8)}}
+    bw["mlp"]["out"] = _kernel(named, f"{prefix}bw_fc")
+    return bw
+
+
 def aninerf_param_tree(named: dict) -> dict:
     """{reference name: tensor} of AniNeRF -> the JAX param tree
     {"params": {"bw_field": ..., "tpose_human": ...}} of numpy float32
-    arrays (the inverse of `aninerf_state_dict`). Every name must be
-    used: a stray one raises."""
-    bw = {"latent": {"embedding": _numpy(named["bw_latent.weight"])},
-          "mlp": {f"lin{i}": _kernel(named, f"bw_linears.{i}")
-                  for i in range(8)}}
-    bw["mlp"]["out"] = _kernel(named, "bw_fc")
+    arrays, with "novel_pose_bw" where the names hold it (the inverse of
+    `aninerf_state_dict`). Every name must be used: a stray one
+    raises."""
     th = {f"lin{i}": _kernel(named, f"tpose_human.pts_linears.{i}")
           for i in range(8)}
     for head in _HEADS:
         th[head] = _kernel(named, f"tpose_human.{head}")
     th["nf_latent"] = {"embedding": _numpy(named["tpose_human.nf_latent.weight"])}
-    return _checked({"params": {"bw_field": bw, "tpose_human": th}}, named,
-                    aninerf_state_dict, "aninerf")
+    tree = {"bw_field": _bw_field_tree(named), "tpose_human": th}
+    if any(k.startswith("novel_pose_bw.") for k in named):
+        tree["novel_pose_bw"] = _bw_field_tree(named, "novel_pose_bw.")
+    return _checked({"params": tree}, named, aninerf_state_dict, "aninerf")
 
 
 def _wn_tree(named: dict, name: str) -> dict:

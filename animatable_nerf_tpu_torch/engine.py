@@ -5,8 +5,9 @@ JAX counterpart: animatable_nerf_tpu/engine.py (`_bucket_pad` :139,
 `interleave_rays` :164, the per-frame grids and vertex blocks :259-287
 and :315-326, `Engine.render_item` :547-603, `run_evaluate` :749-830,
 `run_train` :1158-1352, stage 1 of AniNeRF and the displacement-field
-families with `init_sdf` :1229-1242; the models from the config as
-`models/registry.py` `make_model` :99-126 builds them). The
+families with `init_sdf` :1229-1242, AniNeRF's stage 2 with
+`init_aninerf` :1165-1168, :1212-1227; the models from the config as
+`models/registry.py` `make_model` :74-126 builds them). The
 eval rays are padded and tiled exactly as in JAX, since the point
 filter's argmin forcing acts per tile. The JAX capacity ladder
 (engine.py:204-236, 465-545) sizes static survivor buffers for the TPU;
@@ -33,11 +34,14 @@ from .models.aninerf import AniNeRF
 from .models.pdf import NeRFPDF, NeuSPDF, SDFPDF
 from .ops.knn import build_d5_payload, build_knn_blocks, build_pdist_payload
 from .render.renderer import RenderSettings, pad_rays, render_image
+from .train.animation import AnimationTrainer
 from .train.checkpoints import (
     checkpoint_file,
     load_checkpoint,
+    load_params_partial,
     param_codec,
     save_checkpoint,
+    write_start,
 )
 from .train.recorder import Recorder
 from .train.trainer import Trainer
@@ -65,12 +69,22 @@ def make_model(cfg):
     """The config's model: AniNeRF or a displacement-field family
     (NeRF-PDF, SDF-PDF, NeuS-PDF). The PDF families' `stage2_ratio`
     sizes a JAX survivor capacity and has no counterpart in the port's
-    exact compaction."""
+    exact compaction. With `aninerf_animation` or `test_novel_pose`,
+    AniNeRF gets its novel-pose field (`num_eval_frame` latents); the
+    PDF families raise there, since the JAX package's own novel-pose
+    paths fail for them (engine.py:409 and train/animation.py:102 pass
+    `novel_pose=True`, which models/pdf.py:386, :635, :935 do not
+    take)."""
     name = cfg.network_module
     if name not in _ANINERF_MODULES and name not in _PDF_MODULES:
         raise NotImplementedError(f"network_module {name!r} is not ported yet")
-    if cfg.aninerf_animation or cfg.test_novel_pose:
-        raise NotImplementedError("novel-pose evaluation is not ported yet")
+    novel_pose = bool(cfg.aninerf_animation or cfg.test_novel_pose)
+    if novel_pose and name in _PDF_MODULES:
+        raise NotImplementedError(
+            f"novel-pose training and evaluation (aninerf_animation, "
+            f"test_novel_pose) of {_PDF_MODULES[name].__name__} are not "
+            "ported yet: the JAX package has no working path for the "
+            "displacement-field families")
     for key in ("slab_filter", "seg_filter"):
         if int(cfg.get(key, 0)):
             raise NotImplementedError(f"the {key} eval option is not ported yet")
@@ -83,6 +97,7 @@ def make_model(cfg):
     return AniNeRF(
         num_train_frames=cfg.num_train_frame, norm_th=cfg.norm_th,
         xyz_res=cfg.xyz_res, view_res=cfg.view_res, train_th=cfg.train_th,
+        num_eval_frames=cfg.num_eval_frame if novel_pose else 0,
     )
 
 
@@ -171,6 +186,8 @@ class Engine:
                     "pass 1 without the distance grid (knn_grid_res <= 1) "
                     "is not ported yet")
             self.knn_blocked = bool(cfg.get("knn_blocked", False))
+        # `test_novel_pose`: warp through the novel-pose field
+        self.novel_pose = bool(cfg.test_novel_pose)
         self._frame_cache = {}
         # candidate/survivor/tile counts of the last render_item
         self.stats = {}
@@ -184,19 +201,23 @@ class Engine:
         self.model.load_state_dict(state, strict=True)
 
     def _device_frame(self, item):
-        """The item's per-frame tensors on the device, cached for the
-        frame (eval walks all views of a frame in a row). For the KNN
-        models it also holds the frame's distance grid, built once by
-        kernel K3, and with `knn_blocked` the d5 grid (K4) and the
-        Morton-sorted vertex blocks (JAX engine.py:315-326)."""
-        key = (int(item["frame_index"]), int(np.asarray(item["latent_index"])))
+        """The item's per-frame tensors on the device and its latent
+        indices, cached for the frame (eval walks all views of a frame
+        in a row); with `test_novel_pose` the frame is marked
+        `novel_pose`, so the model warps by its `bw_latent_index`. For
+        the KNN models it also holds the frame's distance grid, built
+        once by kernel K3, and with `knn_blocked` the d5 grid (K4) and
+        the Morton-sorted vertex blocks (JAX engine.py:315-326)."""
+        key = (int(item["frame_index"]), int(np.asarray(item["latent_index"])),
+               int(np.asarray(item["bw_latent_index"])))
         if self._frame_cache.get("key") != key:
             frame = {
                 k: torch.as_tensor(np.asarray(item[k], np.float32),
                                    device=self.device)
                 for k in self.model.frame_keys
             }
-            frame["latent_index"] = key[1]
+            frame.update(latent_index=key[1], bw_latent_index=key[2],
+                         novel_pose=self.novel_pose)
             if self.pdist_res:
                 packed, _, bounds = build_pdist_payload(
                     frame["pvertices"], res=self.pdist_res)
@@ -292,9 +313,56 @@ def load_init_sdf(cfg, model):
     model.load_state_dict(state, strict=False)
 
 
+def init_aninerf_dir(cfg) -> str:
+    """Stage 2's `init_aninerf` checkpoint directory: beside
+    `trained_model_dir`, else data/trained_model/deform/<name>; a
+    missing one raises (JAX engine.py:1212-1227)."""
+    init_dir = os.path.join(os.path.dirname(cfg.trained_model_dir),
+                            cfg.init_aninerf)
+    if not os.path.isdir(init_dir):
+        init_dir = os.path.join("data/trained_model/deform", cfg.init_aninerf)
+    if not os.path.isdir(init_dir):
+        raise FileNotFoundError(
+            f"init_aninerf checkpoint dir not found: {init_dir} (train "
+            "stage 1 first, or pass init_aninerf no_pretrain)")
+    return init_dir
+
+
+def initial_model(cfg):
+    """The model a fresh `run_train` starts from, on the CPU: the
+    family's init under torch seed 42 (JAX initializes from
+    PRNGKey(42)), then `init_sdf`'s SDF network or, in stage 2, the
+    `init_aninerf` checkpoint's weights (a partial load: the novel-pose
+    field keeps its init). Touches no directory."""
+    family = _PDF_MODULES.get(cfg.network_module, AniNeRF)
+    if cfg.get("init_sdf") and family not in (SDFPDF, NeuSPDF):
+        raise NotImplementedError(
+            f"init_sdf loads an SDF network; {family.__name__} has none")
+    # the initial weights do not depend on the caller's random state
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(42)
+        model = make_model(cfg)
+    if cfg.get("init_sdf"):
+        load_init_sdf(cfg, model)
+    if cfg.aninerf_animation and cfg.init_aninerf != "no_pretrain":
+        load_params_partial(init_aninerf_dir(cfg), model)
+    return model
+
+
+def write_initial_start(cfg):
+    """`write_start` of `initial_model(cfg)` into cfg.trained_model_dir:
+    a start that either package's trainer, with `resume True`, trains
+    from (the common start of a stage-2 run held to the JAX package)."""
+    model = initial_model(cfg)
+    write_start(cfg.trained_model_dir,
+                param_codec(model)[1](dict(model.named_parameters())))
+
+
 def run_train(cfg, device=None):
     """Train AniNeRF or a displacement-field family, NeRF-PDF, SDF-PDF or
-    NeuS-PDF (JAX engine.py:1158-1352, stage 1 on one device): the train
+    NeuS-PDF (JAX engine.py:1158-1352 on one device), stage 1, or with
+    `aninerf_animation` AniNeRF's stage 2 (`AnimationTrainer`, from the
+    `init_aninerf` checkpoint): the train
     split in epochs of `ep_iter` steps, one frame a step; `latest.flax`
     every `save_latest_ep` epochs and after the last, `<epoch>.flax`
     every `save_ep`; with `resume` (the default) it goes on from the
@@ -303,26 +371,18 @@ def run_train(cfg, device=None):
     SDF network from that checkpoint first (a resume then overrides it,
     as in JAX). `init_sdf` on a family without an SDF network raises,
     where JAX's non-strict partial load reads nothing. `fix_random`
-    seeds the ray draw (RandomState(0), as JAX) and the z jitter.
-    Returns (trainer, recorder)."""
+    seeds the ray draw (RandomState(0), as JAX) and the z jitter (stage
+    2: the points). Returns (trainer, recorder)."""
     family = _PDF_MODULES.get(cfg.network_module, AniNeRF)
     if not hasattr(family, "train_forward"):
         raise NotImplementedError(
             f"network_module {cfg.network_module!r}: {family.__name__} "
             "training is not ported yet")
-    if cfg.get("init_sdf") and family not in (SDFPDF, NeuSPDF):
-        raise NotImplementedError(
-            f"init_sdf loads an SDF network; {family.__name__} has none")
     dev = select_device(device)
-    # the initial weights do not depend on the caller's random state
-    # (JAX initializes from PRNGKey(42))
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(42)
-        model = make_model(cfg)
-    if cfg.get("init_sdf"):
-        load_init_sdf(cfg, model)
+    model = initial_model(cfg)
     model.to(dev).train()
-    trainer = Trainer(cfg, model, dev)
+    trainer = (AnimationTrainer if cfg.aninerf_animation else Trainer)(
+        cfg, model, dev)
     n_epochs = int(cfg.train.epoch)
     ds = make_dataset(cfg, "train")
     loader = Loader(ds, shuffle=True,

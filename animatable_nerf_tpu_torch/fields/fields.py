@@ -92,6 +92,12 @@ class TPoseNeRF(nn.Module):
         return run_skip_mlp(self, pe, self.pts_linears, _SKIPS,
                             act_last=True)
 
+    def density(self, pts):
+        """The density alone, trunk plus `alpha_fc` (JAX fields.py:131-134;
+        reference tpose_nerf_network.py:241-250 `calculate_alpha`): pts
+        (N, 3) -> sigma (N,)."""
+        return self.alpha_fc(self.trunk(pts))[..., 0]
+
     def forward(self, pts, viewdir, latent_index: int):
         """pts (N, 3), viewdir (N, 3) -> (sigma (N,), rgb_logits (N, 3))."""
         h = self.trunk(pts)

@@ -26,6 +26,18 @@ The train path (`train_forward`) is JAX's default dense masked one
 and the canonical NeRF, masked points on a substituted safe point, and
 the filter's argmin and the consistency selection's argmax are forced
 over the whole step's points.
+
+Stage 2 (novel pose; JAX `novel_pose_bw` :151-155, `pose_to_canonical`
+:157-167, `_bw_consistency_select` :189, `animation_from_pose` :197,
+`animation_from_canonical` :215): with `num_eval_frames` > 0 the model
+holds a third blend-weight field, `novel_pose_bw`, one latent per
+novel-pose frame. Its consistency pairs (`animation_from_pose`,
+`animation_from_canonical`) are what stage-2 training fits
+(train/animation.py); the frozen stage-1 field and the density trunk
+take part only through their inputs, and the density only in the
+selection, so it runs without a graph. A frame with `novel_pose` set
+(the engine's `test_novel_pose`) warps through `novel_pose_bw` at its
+`bw_latent_index` instead of the stage-1 field at `latent_index + 1`.
 """
 
 from __future__ import annotations
@@ -34,7 +46,11 @@ import torch
 
 from ..core.composite import composite_compacted
 from ..core.grid import pts_sample_blend_weights
-from ..core.lbs import pose_points_to_tpose_points, world_points_to_pose_points
+from ..core.lbs import (
+    pose_points_to_tpose_points,
+    tpose_points_to_pose_points,
+    world_points_to_pose_points,
+)
 from ..core.sampling import z_vals_to_dists
 from ..fields.fields import BlendWeightField, TPoseNeRF
 from .common import (
@@ -56,21 +72,38 @@ class AniNeRF(BlendWeightField):
     num_train_frames: rows of the appearance latent table; the bw latent
     table has num_train_frames + 1 rows (row 0 canonical, row i+1 frame
     i — tpose_nerf_network.py:17,96,173).
+    num_eval_frames: rows of the novel-pose field's latent table; 0 (no
+    `novel_pose_bw`) unless the run trains or evaluates novel poses
+    (JAX models/registry.py:87).
     """
 
     # the per-frame tensors the engine moves to the device (training
-    # also reads the canonical volume `tbw`)
+    # also reads the canonical volume `tbw`, and stage 2 the world box
+    # `wbounds`)
     frame_keys = ("A", "pbw", "pbounds", "tbounds", "R", "Th")
-    train_frame_keys = frame_keys + ("tbw",)
+    train_frame_keys = frame_keys + ("tbw", "wbounds")
     knn_pass1 = False
 
     def __init__(self, num_train_frames: int, norm_th: float = 0.05,
                  xyz_res: int = 10, view_res: int = 4,
-                 train_th: float = 0.0):
+                 train_th: float = 0.0, num_eval_frames: int = 0):
         super().__init__(num_latents=num_train_frames + 1, xyz_res=xyz_res)
         self.tpose_human = TPoseNeRF(num_train_frames, xyz_res, view_res)
+        if num_eval_frames > 0:
+            self.novel_pose_bw = BlendWeightField(num_eval_frames, xyz_res)
         self.norm_th = float(norm_th)
         self.train_th = float(train_th)
+
+    def pose_blend_weights(self, pose_pts, smpl_bw, frame):
+        """The neural blend weights at posed points (JAX
+        `pose_to_canonical` :157-167): with the frame's `novel_pose`,
+        `novel_pose_bw` at its `bw_latent_index`; otherwise the stage-1
+        field at `latent_index + 1`."""
+        if frame.get("novel_pose"):
+            return self.novel_pose_bw.blend_weights(
+                pose_pts, smpl_bw, int(frame["bw_latent_index"]))
+        return self.blend_weights(pose_pts, smpl_bw,
+                                  int(frame["latent_index"]) + 1)
 
     def _conservative_dist_rows(self, frame):
         """bf16-rounded distance volume (D, H, W, 1) and the widened
@@ -105,11 +138,10 @@ class AniNeRF(BlendWeightField):
         exact = keep_mask_with_argmin(c_init[:, 24], self.norm_th)
         sidx = cand[exact]
         s_pose = c_pose[exact]
-        latent_index = int(frame["latent_index"])
-        pbw = self.blend_weights(s_pose, c_init[exact, :24], latent_index + 1)
+        pbw = self.pose_blend_weights(s_pose, c_init[exact, :24], frame)
         tpose = pose_points_to_tpose_points(s_pose, pbw, frame["A"])
         sigma, rgb_logits = self.tpose_human(
-            tpose, viewdir[sidx // n_samples], latent_index
+            tpose, viewdir[sidx // n_samples], int(frame["latent_index"])
         )
         sigma = torch.where(inside_bounds(tpose, frame["tbounds"]), sigma, 0.0)
         alpha = raw_alpha_from_sigma(sigma, dists[sidx])
@@ -161,7 +193,7 @@ class AniNeRF(BlendWeightField):
         init_pbw = torch.where(pind[:, None], init_pbw, safe_bw[0])
 
         latent_index = int(frame["latent_index"])
-        pbw = self.blend_weights(pose_pts, init_pbw[:, :24], latent_index + 1)
+        pbw = self.pose_blend_weights(pose_pts, init_pbw[:, :24], frame)
         tpose = pose_points_to_tpose_points(pose_pts, pbw, frame["A"])
         # the consistency target: the field at latent 0 on the canonical
         # points, over the canonical volume's prior (:835-845)
@@ -181,3 +213,55 @@ class AniNeRF(BlendWeightField):
         bw_mask[torch.argmax(d_sel)] = True
         return {"raw": raw.reshape(n_rays, n_samples, 4), "pbw": pbw,
                 "tbw": tbw, "bw_mask": bw_mask}
+
+    # ------------------------------------------------------- stage 2
+    def _bw_consistency_select(self, sigma, keep):
+        """The points the stage-2 loss reads: density above train_th
+        among `keep`, the argmax of that masked density forced on over
+        the call's points (JAX :189-195; reference
+        aninerf_animation_trainer.py:85-90). sigma carries no graph."""
+        d = torch.where(keep, sigma, float("-inf"))
+        select = d > self.train_th
+        select[torch.argmax(d)] = True
+        return select
+
+    def animation_from_pose(self, pose_pts, frame):
+        """The stage-2 consistency pair at posed points (JAX :197-213;
+        reference aninerf_animation_trainer.py:58-93 `ppts_to_tpose`):
+        `novel_pose_bw` at the frame's bw_latent_index, the LBS warp to
+        the canonical points, and there the frozen stage-1 field at
+        latent 0 over the canonical volume's prior, its gradient taken
+        through its input. Returns (pbw (N, 24), tbw (N, 24), select
+        (N,))."""
+        pbw25 = pts_sample_blend_weights(pose_pts, frame["pbw"],
+                                         frame["pbounds"])
+        pbw = self.novel_pose_bw.blend_weights(
+            pose_pts, pbw25[:, :24], int(frame["bw_latent_index"]))
+        tpose = pose_points_to_tpose_points(pose_pts, pbw, frame["A"])
+        tbw25 = pts_sample_blend_weights(tpose, frame["tbw"], frame["tbounds"])
+        tbw = self.blend_weights(tpose, tbw25[:, :24], 0)
+        keep = (inside_bounds(tpose, frame["tbounds"])
+                & (pbw25[:, 24] < self.norm_th))
+        with torch.no_grad():
+            sigma = torch.where(keep, self.tpose_human.density(tpose), 0.0)
+        return pbw, tbw, self._bw_consistency_select(sigma, keep)
+
+    def animation_from_canonical(self, tpts, frame):
+        """The stage-2 pair at canonical points (JAX :215-229; reference
+        aninerf_animation_trainer.py:96-122 `tpose_to_ppts`): the frozen
+        stage-1 field at latent 0, the forward LBS warp to the posed
+        points, and there `novel_pose_bw`. Only `novel_pose_bw` sees a
+        trained input, so the rest runs without a graph. Returns (pbw,
+        tbw, select) as `animation_from_pose`, every point kept."""
+        with torch.no_grad():
+            tbw25 = pts_sample_blend_weights(tpts, frame["tbw"],
+                                             frame["tbounds"])
+            tbw = self.blend_weights(tpts, tbw25[:, :24], 0)
+            sigma = self.tpose_human.density(tpts)
+            pose_pts = tpose_points_to_pose_points(tpts, tbw, frame["A"])
+            pbw25 = pts_sample_blend_weights(pose_pts, frame["pbw"],
+                                             frame["pbounds"])
+        pbw = self.novel_pose_bw.blend_weights(
+            pose_pts, pbw25[:, :24], int(frame["bw_latent_index"]))
+        keep = torch.ones_like(sigma, dtype=torch.bool)
+        return pbw, tbw, self._bw_consistency_select(sigma, keep)

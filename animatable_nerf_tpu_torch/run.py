@@ -6,6 +6,11 @@ reference run.py):
 
 (or configs/synthetic_nerf_pdf.yaml, configs/synthetic_sdf_pdf.yaml,
 configs/synthetic_neus_pdf.yaml for the displacement-field families).
+AniNeRF's novel poses, from a stage-2 checkpoint:
+
+    python -m animatable_nerf_tpu_torch.run --type evaluate \
+        --cfg_file configs/synthetic_novel_pose.yaml test_novel_pose True \
+        exp_name synthetic_2f_anim [--device cpu]
 
 Runs on `cuda` unless `--device cpu` is given; without a GPU and
 without `--device cpu` it raises.

@@ -9,10 +9,16 @@ kept) or `latest.flax`, of {params, opt_state, epoch, step, recorder}:
 the state dict of JAX's optimizer, optax.chain(clip(40), adam(schedule)):
 {"0": {} (the clip), "1": {"0": {count, mu, nu} (Adam's update count
 and moments, as param trees), "1": {count} (the schedule's count)}}.
+Stage 2 (a model with `novel_pose_bw`, which alone trains) has JAX's
+optax.multi_transform layout (train/optim.py:83-95): that chain's state
+under {"inner_states": {"train": {"inner_state": ...}}}, beside
+{"freeze": {"inner_state": {}}}, with every leaf of mu and nu outside
+`novel_pose_bw` an empty node (optax's MaskedNode).
 So the JAX package's `load_checkpoint` and `run.py --type evaluate`
 read what the port writes, and the port resumes from what JAX writes.
 Every ported family is handled (`param_codec`): AniNeRF, NeRF-PDF,
-SDF-PDF and NeuS-PDF.
+SDF-PDF and NeuS-PDF. `load_params_partial` is the weights-only,
+non-strict load of `init_aninerf` (JAX :167-204).
 """
 
 from __future__ import annotations
@@ -63,13 +69,51 @@ def adam_moments(model, optimizer):
     return count, mu, nu
 
 
-def opt_state_tree(count: int, mu_tree: dict, nu_tree: dict) -> dict:
+# the only subtree stage 2 trains (JAX train/animation.py:34-44)
+TRAINED_IN_STAGE2 = "novel_pose_bw"
+
+
+def _outside_masked(tree, inside: bool = False):
+    """`tree` with every leaf outside the TRAINED_IN_STAGE2 subtree an
+    empty node, as optax masks a frozen leaf."""
+    if isinstance(tree, dict):
+        return {k: _outside_masked(v, inside or k == TRAINED_IN_STAGE2)
+                for k, v in tree.items()}
+    return tree if inside else {}
+
+
+def _unmasked(tree, params):
+    """The inverse for reading: each empty node where `params` has a
+    leaf becomes zeros of that leaf's shape."""
+    if isinstance(params, dict):
+        return {k: _unmasked(tree.get(k, {}), v) for k, v in params.items()}
+    if isinstance(tree, dict):
+        return np.zeros(np.shape(params), np.float32)
+    return tree
+
+
+def opt_state_tree(count: int, mu_tree: dict, nu_tree: dict,
+                   stage2: bool = False) -> dict:
     """The state dict of JAX's optax.chain(clip(40), adam(schedule)),
-    from Adam's moments as JAX param trees."""
+    from Adam's moments as JAX param trees; with `stage2`, inside the
+    multi_transform layout, the moments of the frozen leaves masked."""
     c = np.asarray(count, np.int32)
-    return {"0": {}, "1": {
+    if stage2:
+        mu_tree, nu_tree = _outside_masked(mu_tree), _outside_masked(nu_tree)
+    chain = {"0": {}, "1": {
         "0": {"count": c, "mu": mu_tree, "nu": nu_tree},
         "1": {"count": c.copy()}}}
+    if not stage2:
+        return chain
+    return {"inner_states": {"freeze": {"inner_state": {}},
+                             "train": {"inner_state": chain}}}
+
+
+def _adam_node(opt_state: dict) -> dict | None:
+    """{count, mu, nu} of a checkpoint's opt_state in either layout."""
+    if "inner_states" in opt_state:
+        opt_state = opt_state["inner_states"]["train"]["inner_state"]
+    return opt_state.get("1", {}).get("0")
 
 
 def save_checkpoint(model_dir: str, model, optimizer, epoch: int, step: int,
@@ -82,7 +126,8 @@ def save_checkpoint(model_dir: str, model, optimizer, epoch: int, step: int,
     count, mu, nu = adam_moments(model, optimizer)
     tree = {
         "params": to_tree(dict(model.named_parameters())),
-        "opt_state": opt_state_tree(count, to_tree(mu), to_tree(nu)),
+        "opt_state": opt_state_tree(count, to_tree(mu), to_tree(nu),
+                                    hasattr(model, TRAINED_IN_STAGE2)),
         "epoch": np.asarray(epoch, np.int64),
         "step": np.asarray(step, np.int64),
         "recorder": recorder_state or {},
@@ -114,8 +159,12 @@ def checkpoint_file(model_dir: str) -> str | None:
 
 
 def set_adam_state(model, optimizer, count: int, mu: dict, nu: dict):
-    """Give a torch Adam the update count and moments of a checkpoint."""
+    """Give a torch Adam the update count and moments of a checkpoint,
+    for each parameter it optimizes."""
+    owned = {id(p) for group in optimizer.param_groups for p in group["params"]}
     for name, p in model.named_parameters():
+        if id(p) not in owned:
+            continue
         optimizer.state[p] = {
             "step": torch.tensor(float(count), dtype=torch.float32),
             "exp_avg": mu[name].to(p.device).reshape(p.shape).clone(),
@@ -136,12 +185,13 @@ def load_checkpoint(model_dir: str, model, optimizer=None):
     raw = read_checkpoint(path)
     to_state = param_codec(model)[0]
     model.load_state_dict(to_state(raw["params"]), strict=True)
-    adam = raw.get("opt_state", {}).get("1", {}).get("0")
+    adam = _adam_node(raw.get("opt_state", {}))
     updates = 0
     if optimizer is not None and adam:
         updates = int(adam["count"])
-        set_adam_state(model, optimizer, updates, to_state(adam["mu"]),
-                       to_state(adam["nu"]))
+        set_adam_state(model, optimizer, updates,
+                       to_state(_unmasked(adam["mu"], raw["params"])),
+                       to_state(_unmasked(adam["nu"], raw["params"])))
     return int(raw["epoch"]), int(raw["step"]), updates, raw.get("recorder", {})
 
 
@@ -151,16 +201,52 @@ def _zeros_like_tree(tree):
     return np.zeros_like(np.asarray(tree, np.float32))
 
 
-def write_fresh_start(src_path: str, model_dir: str):
+def write_start(model_dir: str, params: dict):
     """A `latest.flax` in `model_dir` that resumes as a fresh run from
-    the params of checkpoint `src_path` (of either family): zero Adam
-    moments, update count 0, step 0, epoch -1 (so training starts at
-    epoch 0). Either package's trainer, with `resume True`, then trains
-    from those weights."""
-    params = read_checkpoint(src_path)["params"]
+    the JAX param tree `params` (of any family, stage 1 or, with
+    `novel_pose_bw`, stage 2): zero Adam moments, update count 0, step
+    0, epoch -1 (so training starts at epoch 0). Either package's
+    trainer, with `resume True`, then trains from those weights."""
     os.makedirs(model_dir, exist_ok=True)
     write_checkpoint(os.path.join(model_dir, "latest.flax"), {
         "params": params, "opt_state": opt_state_tree(
-            0, _zeros_like_tree(params), _zeros_like_tree(params)),
+            0, _zeros_like_tree(params), _zeros_like_tree(params),
+            TRAINED_IN_STAGE2 in params.get("params", params)),
         "epoch": np.asarray(-1, np.int64), "step": np.asarray(0, np.int64),
         "recorder": {"step": 0}})
+
+
+def write_fresh_start(src_path: str, model_dir: str):
+    """`write_start` from the params of checkpoint `src_path`."""
+    write_start(model_dir, read_checkpoint(src_path)["params"])
+
+
+def _merged(template, src):
+    """JAX load_params_partial's merge at strict=False: each leaf of
+    `template` that `src` has, reshaped to the template's shape; the
+    others as they are."""
+    out = {}
+    for k, v in template.items():
+        if k not in src:
+            out[k] = v
+        elif isinstance(v, dict):
+            out[k] = _merged(v, src[k])
+        else:
+            out[k] = np.asarray(src[k]).reshape(np.shape(v))
+    return out
+
+
+def load_params_partial(model_dir: str, model):
+    """The weights of the checkpoint `checkpoint_file` picks in
+    `model_dir` loaded into `model` where it has them; the parameters
+    the file lacks keep their values (JAX load_params_partial at
+    strict=False, only=None; reference net_utils.py:357-396). Raises
+    FileNotFoundError when there is no checkpoint."""
+    path = checkpoint_file(model_dir)
+    if path is None:
+        raise FileNotFoundError(f"no checkpoint in {model_dir}")
+    raw = read_checkpoint(path)
+    to_state, to_tree = param_codec(model)
+    template = to_tree(dict(model.named_parameters()))
+    merged = _merged(template, raw["params"] if "params" in raw else raw)
+    model.load_state_dict(to_state(merged), strict=True)

@@ -8,7 +8,9 @@ the schedule evaluated at the optimizer's update count; here
 `clip_grad_value_(40)` and `torch.optim.Adam(eps=1e-8)`, whose learning
 rate the trainer sets from the schedule before every update. Only Adam
 without weight decay is ported; `radam`, `sgd` and `weight_decay` > 0
-raise.
+raise. Stage 2 gives the optimizer only the trainable set
+(`novel_pose_bw`), the rest frozen: JAX's optax.multi_transform of the
+chain and set_to_zero (:83-95) leaves those exactly as they are too.
 """
 
 from __future__ import annotations

@@ -9,7 +9,9 @@ rate for the update count. The step counter counts the frames trained
 on, as in JAX; the loss reads it (the SDF silhouette alpha's schedule).
 The model is AniNeRF or a displacement-field family (NeRF-PDF, SDF-PDF,
 NeuS-PDF); its `train_frame_keys` name the frame tensors the trainer
-moves to the device. JAX's fused multi-step dispatch
+moves to the device. The optimizer takes the parameters that require a
+gradient; stage 2 (train/animation.py `AnimationTrainer`) freezes all
+but the novel-pose field before it is made. JAX's fused multi-step dispatch
 (`steps_per_dispatch`), packed stats, device frame store and shard_map
 data parallelism serve its TPU and its remote relay; the port has none
 of them and raises on a config that asks for more than one step a
@@ -92,9 +94,6 @@ def check_train_config(cfg):
     if float(cfg.get("train_keep_frac", 0.0)) > 0:
         raise NotImplementedError("train-time compaction (train_keep_frac) is "
                                   "not ported; the port trains the dense path")
-    if cfg.aninerf_animation:
-        raise NotImplementedError("stage-2 (aninerf_animation) training is "
-                                  "not ported yet")
 
 
 class Trainer:
@@ -110,7 +109,8 @@ class Trainer:
             n_samples=int(cfg.N_samples), white_bkgd=bool(cfg.white_bkgd),
             perturb=cfg.perturb > 0,
         )
-        self.optimizer = make_optimizer(cfg, model.parameters())
+        self.params = [p for p in model.parameters() if p.requires_grad]
+        self.optimizer = make_optimizer(cfg, self.params)
         self.sched = make_schedule(cfg)
         self.mask_alpha_max = float(cfg.get("sdf_mask_alpha_max", 0.0))
         self.step = 0  # frames trained on
@@ -120,15 +120,16 @@ class Trainer:
         self._frames = OrderedDict()
 
     def _frame(self, batch) -> dict:
-        """The frame's tensors on the device, kept for the last
-        _FRAME_CACHE frames uploaded."""
+        """The frame's tensors on the device, and its latent indices,
+        kept for the last _FRAME_CACHE frames uploaded."""
         key = int(batch["frame_index"])
         frame = self._frames.get(key)
         if frame is None:
             frame = {k: torch.as_tensor(np.asarray(batch[k], np.float32),
                                         device=self.device)
                      for k in self.model.train_frame_keys}
-            frame["latent_index"] = int(batch["latent_index"])
+            for k in ("latent_index", "bw_latent_index"):
+                frame[k] = int(batch[k])
             self._frames[key] = frame
             if len(self._frames) > _FRAME_CACHE:
                 self._frames.popitem(last=False)
@@ -152,7 +153,7 @@ class Trainer:
         """The update from the parameters' .grad: the value clip at 40,
         then Adam at the schedule's rate for the update count (JAX
         optax.chain(clip(40), adam(sched)))."""
-        torch.nn.utils.clip_grad_value_(self.model.parameters(), CLIP_VALUE)
+        torch.nn.utils.clip_grad_value_(self.params, CLIP_VALUE)
         for group in self.optimizer.param_groups:
             group["lr"] = self.sched(self.updates)
         self.optimizer.step()

@@ -11,7 +11,13 @@ displacement-field family, stage 1 (engine.py `run_train`), on `cuda`
 unless `--device cpu` is given; without a GPU and without
 `--device cpu` it raises. For SDF-PDF and NeuS-PDF, `init_sdf <exp>`
 starts a fresh run from the SDF network of
-data/trained_model/<task>/<exp>.
+data/trained_model/<task>/<exp>. AniNeRF's stage 2, the novel-pose
+blend-weight field on the frames after the training ones, from the
+stage-1 run `init_aninerf` names:
+
+    python -m animatable_nerf_tpu_torch.train_net \
+        --cfg_file configs/synthetic_novel_pose.yaml aninerf_animation True \
+        exp_name synthetic_2f_anim [--device cpu]
 Checkpoints go to data/trained_model/<task>/<exp_name>/ in the JAX
 package's flax format, so `python run.py --type evaluate` (JAX) and
 `python -m animatable_nerf_tpu_torch.run --type evaluate` (the port)

@@ -78,6 +78,19 @@ Phases, one JSON line each:
      kernel's launches counted, the evaluate of its checkpoint held to
      the JAX package's PSNR for the same run on the CPU, and a profile
      of 5 steps (K1's and K2's shares, forward and backward by events);
+ 11. AniNeRF stage 2 (configs/synthetic_novel_pose.yaml): the
+     `test_novel_pose` evaluate of the tracked stage-2 checkpoint
+     (frames 2-3, view 3) held to the JAX package's PSNR, with K1's
+     launches and the candidate and survivor counts; frame 2 at
+     1000x1002 timed and profiled (K1 twice a tile); K1 against its
+     plain version at a stage-2 step's 65,536 rows of the blend-weight
+     and density-trunk wirings; one stage-2 step on the card against
+     the CPU on the same points (K1 six times, a gradient for
+     `novel_pose_bw` alone); `run_train` for one epoch of 50 stage-2
+     steps from the common start (`write_initial_start`), every frozen
+     leaf bit-identical to the start after it and the novel-pose
+     evaluate of its checkpoint held to the JAX CPU run of the same 50
+     steps; and a profile of 5 steps;
 then the kernel table line, the card line and {"ok": true, ...} last.
 Kernel launch counts are set to 0 just before each path and read just
 after it. Any failed phase raises and exits non-zero. Imports nothing of
@@ -154,7 +167,31 @@ JAX_PSNR_TRAIN_NERF_PDF = [16.894390662515747, 20.012868710307224,
                            20.305442278667034, 22.350231658445075]
 JAX_PSNR_TRAIN_NEUS_PDF = [19.528702528923024, 22.199117244717034,
                            23.002480195160604, 24.149925234993855]
+# AniNeRF stage 2 (configs/synthetic_novel_pose.yaml: stage 1 on frames
+# 0-1, the novel-pose window on frames 2-3; the configs' header gives the
+# commands that made its two tracked checkpoints). Per-view PSNR (frames
+# 2-3, view 3) of the JAX package's novel-pose evaluate of the tracked
+# stage-2 checkpoint, computed on the CPU with:
+#   JAX_PLATFORMS=cpu python run.py --type evaluate --cfg_file configs/synthetic_novel_pose.yaml test_novel_pose True exp_name synthetic_2f_anim
+#   python -c "import numpy as np; print(np.load('data/result/deform/synthetic_2f_anim/metrics.npy', allow_pickle=True).item()['psnr'])"
+JAX_PSNR_NOVEL_POSE = [19.44497446793018, 20.48112558264862]
+# The same after one epoch of 50 stage-2 steps (65,536 points a branch)
+# from the common start the port writes (the stage-1 weights and the
+# port's seeded init of novel_pose_bw, a fresh Adam), computed on the CPU
+# with:
+#   python -c "from animatable_nerf_tpu_torch.config import load_config as c; from animatable_nerf_tpu_torch.engine import write_initial_start as w; w(c('configs/synthetic_novel_pose.yaml', ['aninerf_animation', 'True', 'exp_name', 'anim50_jax']))"
+#   JAX_PLATFORMS=cpu python train_net.py --cfg_file configs/synthetic_novel_pose.yaml aninerf_animation True exp_name anim50_jax train.epoch 1 fix_random True train.num_workers 2 resume True
+#   JAX_PLATFORMS=cpu python run.py --type evaluate --cfg_file configs/synthetic_novel_pose.yaml test_novel_pose True exp_name anim50_jax
+#   python -c "import numpy as np; print(np.load('data/result/deform/anim50_jax/metrics.npy', allow_pickle=True).item()['psnr'])"
+# The two packages draw their points from their own generators, so the
+# runs agree in distribution, not point for point.
+JAX_PSNR_TRAIN_ANIMATION = [19.41772006377906, 20.455082227639465]
 PSNR_TOL_DB = 0.1
+NOVEL_POSE_CFG = "configs/synthetic_novel_pose.yaml"
+ANIM_EXP = "chip_smoke_train_anim"
+ANIM_OPTS = ["aninerf_animation", "True", "exp_name", ANIM_EXP, "train.epoch",
+             "1", "fix_random", "True", "resume", "True", "log_interval", "10"]
+ANIM_ROWS = 65536  # n_anim_samples: each branch's points a stage-2 step
 TRAIN_EXP = "chip_smoke_train"  # exp_name of the train phase's run
 TRAIN_OPTS = ["exp_name", TRAIN_EXP, "train.epoch", "1", "perturb", "0",
               "fix_random", "True", "resume", "True", "log_interval", "10"]
@@ -372,13 +409,19 @@ def sass_counts(lib_path):
     return {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HGMMA", "HMMA")}
 
 
-def phase_k1(skip_mlp, skip_mlp_plain, pack_layers):
+def phase_k1(skip_mlp, skip_mlp_plain, pack_layers, n_rows=K1_ROWS,
+             wirings=None, phase="k1_vs_plain"):
+    """K1 against its plain version at `n_rows` rows of each wiring (all
+    three, or those named in `wirings`), timed with its bound; returns
+    one row per wiring."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for name, din, dims, skips, act_last in k1_wirings():
-        x = torch.rand(K1_ROWS, din, device="cuda", generator=gen) * 2 - 1
+        if wirings is not None and name not in wirings:
+            continue
+        x = torch.rand(n_rows, din, device="cuda", generator=gen) * 2 - 1
         layers = [
             (torch.randn(i, o, device="cuda", generator=gen) / math.sqrt(i),
              torch.randn(o, device="cuda", generator=gen) * 0.1)
@@ -408,13 +451,13 @@ def phase_k1(skip_mlp, skip_mlp_plain, pack_layers):
         times = timed_pair(lambda: skip_mlp(x, layers, packed=packed, **kwargs),
                            lambda: skip_mlp_plain(x, layers, **kwargs),
                            library, plain_iters=10)
-        flops = 2 * K1_ROWS * sum(i * o for i, o in dims)
-        nbytes = 4 * (K1_ROWS * (din + dims[-1][1])
+        flops = 2 * n_rows * sum(i * o for i, o in dims)
+        nbytes = 4 * (n_rows * (din + dims[-1][1])
                       + sum(i * o + o for i, o in dims))
         bound_ms, bound_by = bound(K1_TF32_PASSES * flops, nbytes,
                                    PEAK_TF32_FLOPS)
         rows.append({
-            "wiring": name, "rows": K1_ROWS, "din": din,
+            "wiring": name, "rows": n_rows, "din": din,
             "dout": dims[-1][1], "layers": len(dims),
             "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30),
             "tol_abs": K1_REL_TOL * max(scale, 1.0), **times,
@@ -425,7 +468,7 @@ def phase_k1(skip_mlp, skip_mlp_plain, pack_layers):
             # the float32 work counted once, not the three TF32 passes
             "kernel_tflops": flops / (times["kernel_ms"] * 1e-3) / 1e12,
         })
-    emit({"phase": "k1_vs_plain", "tolerance": (
+    emit({"phase": phase, "tolerance": (
         f"max abs err <= {K1_REL_TOL} x max(1, max |plain|): 3xTF32 tensor "
         "cores vs FP32 (TF32 off), different summation order"),
           "bound": "max(3 x FLOP / 495 TFLOP/s (TF32), bytes / 3.35 TB/s); "
@@ -1126,20 +1169,24 @@ def phase_k1_grad(k1):
 
 
 def train_step_grads(trainer, batch):
-    """(loss, stats, {name: grad on the CPU}) of one train step's loss."""
+    """(loss, stats, {name: grad on the CPU}) of one train step's loss,
+    for the parameters that received a gradient."""
     trainer.optimizer.zero_grad(set_to_none=True)
     loss, stats, _ = trainer.loss({k: v[0] for k, v in batch.items()})
     loss.backward()
     return (float(loss.detach()), {k: float(v.detach()) for k, v in stats.items()},
             {n: p.grad.detach().cpu() for n, p in
-             trainer.model.named_parameters()})
+             trainer.model.named_parameters() if p.grad is not None})
 
 
-def phase_train_step_vs_cpu(name, cfg, state_dict, batch, k1, knn, expect):
+def phase_train_step_vs_cpu(name, cfg, state_dict, batch, k1, knn, expect,
+                            trainer_cls=None):
     """One train step's loss and gradients on the card against the same
     step with the port on this machine's CPU (the plain versions), from
     the same weights and batch, with each stat's difference reported;
-    `expect` the kernels' launches on the card (none on the CPU)."""
+    `expect` the kernels' launches on the card (none on the CPU).
+    `trainer_cls` defaults to the stage-1 Trainer. Returns the names of
+    the parameters that received a gradient (the same on both)."""
     from animatable_nerf_tpu_torch.engine import make_model
     from animatable_nerf_tpu_torch.train.trainer import Trainer
 
@@ -1147,7 +1194,7 @@ def phase_train_step_vs_cpu(name, cfg, state_dict, batch, k1, knn, expect):
     for device in ("cpu", "cuda"):
         model = make_model(cfg)
         model.load_state_dict(state_dict)
-        trainer = Trainer(cfg, model.to(device), device)
+        trainer = (trainer_cls or Trainer)(cfg, model.to(device), device)
         before = launch_counts(k1, knn)
         t0 = time.time()
         loss, stats, grads = train_step_grads(trainer, batch)
@@ -1158,6 +1205,8 @@ def phase_train_step_vs_cpu(name, cfg, state_dict, batch, k1, knn, expect):
     (cpu_loss, cpu_s, cpu_g, cpu_n, cpu_t), (gpu_loss, gpu_s, gpu_g, gpu_n,
                                              gpu_t) = (results["cpu"],
                                                        results["cuda"])
+    check(set(gpu_g) == set(cpu_g), f"{name}: gradients of {sorted(gpu_g)} "
+          f"on the card, of {sorted(cpu_g)} on the CPU")
     rel = {n: (gpu_g[n] - g).abs().max().item()
            / max(g.abs().max().item(), 1e-30) for n, g in cpu_g.items()}
     worst = max(rel, key=rel.get)
@@ -1168,6 +1217,7 @@ def phase_train_step_vs_cpu(name, cfg, state_dict, batch, k1, knn, expect):
           "loss_cpu": cpu_loss, "loss_rel_err": abs(gpu_loss / cpu_loss - 1),
           "stats_cuda": gpu_s, "stats_rel_err": stats_rel,
           "grad_max_rel_err": rel[worst], "grad_worst_leaf": worst,
+          "grad_leaves": len(cpu_g),
           "launches": {"cuda": gpu_n, "cpu": cpu_n},
           "first_step_s": {"cuda": gpu_t, "cpu": cpu_t},
           "tolerance": f"loss rtol {TRAIN_LOSS_RTOL} (the stats reported); "
@@ -1182,6 +1232,7 @@ def phase_train_step_vs_cpu(name, cfg, state_dict, batch, k1, knn, expect):
     check(all(bool(g.isfinite().all()) for g in gpu_g.values())
           and rel[worst] <= TRAIN_GRAD_REL,
           f"{name}: gradient {worst}: {rel[worst]} of its scale")
+    return set(cpu_g)
 
 
 def repack_ms(model, iters=10):
@@ -1562,6 +1613,162 @@ def phase_train_pdf_family(family, jax_psnr, per_step, k1, knn):
     return launches
 
 
+class fixed_box_points:
+    """Within the block, stage 2's `uniform_box_points` returns seeded
+    points: the k-th call takes the (k mod 2)-th of two unit draws,
+    scaled into its bounds on their device, so a step on the CPU and the
+    same step on the card see the same points."""
+
+    def __init__(self, n, seed=0):
+        self.units = np.random.RandomState(seed).rand(2, n, 3).astype(
+            np.float32)
+        self.calls = 0
+
+    def __call__(self, generator, bounds, n):
+        import torch
+
+        u = torch.as_tensor(self.units[self.calls % 2], device=bounds.device)
+        self.calls += 1
+        return bounds[0] + (bounds[1] - bounds[0]) * u
+
+    def __enter__(self):
+        from animatable_nerf_tpu_torch.train import animation
+
+        self.real = animation.uniform_box_points
+        animation.uniform_box_points = self
+        return self
+
+    def __exit__(self, *exc):
+        from animatable_nerf_tpu_torch.train import animation
+
+        animation.uniform_box_points = self.real
+
+
+def flat_leaves(tree, prefix=""):
+    """{path: array} of a nested dict of arrays."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in flat_leaves(sub, f"{prefix}/{key}").items()}
+    return {prefix: np.asarray(tree)}
+
+
+def phase_novel_pose(k1, knn):
+    """Phase 11a: the novel-pose evaluate of the tracked stage-2
+    checkpoint (frames 2-3, view 3) held to the JAX PSNR, then frame 2 at
+    1000x1002 timed and profiled. Returns (eval launches, frame
+    launches)."""
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.engine import Engine, make_dataset
+
+    cfg = load_config(NOVEL_POSE_CFG, ["test_novel_pose", "True", "exp_name",
+                                       "synthetic_2f_anim"],
+                      run_type="evaluate")
+    launches, _ = phase_evaluate("evaluate_novel_pose", cfg,
+                                 JAX_PSNR_NOVEL_POSE, k1, knn)
+    check(launches["skip_mlp"] > 0
+          and all(launches[k] == 0 for k in KNN_WRAPPERS),
+          f"evaluate_novel_pose launched {launches}")
+    cfg.eval = True
+    ds = make_dataset(cfg, "test")
+    eng = Engine(cfg, "cuda")
+    eng.load_params()
+    item = ds[0]
+    check(int(item["frame_index"]) == 2 and eng.novel_pose,
+          "full_frame_novel_pose: not the novel-pose frame 2")
+    frame_launches, _ = phase_full_frame("full_frame_novel_pose", eng,
+                                         full_frame_item(ds, item), k1, knn)
+    check(frame_launches["skip_mlp"] == 2 * eng.stats["tiles"],
+          f"full_frame_novel_pose: K1 launched {frame_launches['skip_mlp']} "
+          f"times over {eng.stats['tiles']} tiles")
+    return launches, frame_launches
+
+
+def phase_train_animation(k1, knn):
+    """Phase 11b: AniNeRF stage 2. K1 against its plain version at a
+    step's 65,536 rows of the two wirings stage 2 adds (the blend-weight
+    fields, the density trunk); one stage-2 step on the card against the
+    CPU on the same points (K1 six times on the card, a gradient for
+    `novel_pose_bw` alone); `run_train` for 50 steps from the common
+    start `write_initial_start` writes, every frozen leaf bit-identical
+    to the start after them; the novel-pose evaluate of the checkpoint
+    written, each view held to the JAX CPU run of the same 50 steps; and
+    a profile of steps. Returns (the kernels' launches in the run, K1's
+    rows at the step's shape)."""
+    import torch
+
+    from animatable_nerf_tpu_torch.compat.flax_msgpack import read_checkpoint
+    from animatable_nerf_tpu_torch.compat.jax_params import aninerf_state_dict
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.engine import (
+        make_dataset, run_evaluate, run_train, write_initial_start)
+    from animatable_nerf_tpu_torch.ops import skip_mlp as ops_k1
+    from animatable_nerf_tpu_torch.train.animation import AnimationTrainer
+    from animatable_nerf_tpu_torch.train.checkpoints import param_codec
+    from animatable_nerf_tpu_torch.train.trainer import collate_rays, stack_batch
+
+    k1_rows = phase_k1(ops_k1.skip_mlp, ops_k1.skip_mlp_plain,
+                       ops_k1.pack_layers, n_rows=ANIM_ROWS,
+                       wirings=("bw_field", "tpose_trunk"),
+                       phase="k1_vs_plain_stage2")
+    cfg = load_config(NOVEL_POSE_CFG, ANIM_OPTS)
+    check(int(cfg.n_anim_samples) == ANIM_ROWS,
+          f"n_anim_samples is {cfg.n_anim_samples}")
+    per_step = {"skip_mlp": 6}
+    start_dir = cfg.trained_model_dir
+    write_initial_start(cfg)
+    start = read_checkpoint(os.path.join(start_dir, "latest.flax"))["params"]
+    ds = make_dataset(cfg, "train")
+    ds._rng = np.random.RandomState(0)
+    batch = stack_batch([collate_rays(ds[0], int(cfg.N_rand))])
+    with fixed_box_points(ANIM_ROWS):
+        trained = phase_train_step_vs_cpu(
+            "train_animation_step_vs_cpu", cfg, aninerf_state_dict(start),
+            batch, k1, knn, per_step, trainer_cls=AnimationTrainer)
+    check(len(trained) == 19
+          and all(n.startswith("novel_pose_bw.") for n in trained),
+          f"train_animation_step_vs_cpu: gradients of {sorted(trained)}")
+
+    reset_counts(k1, knn)
+    t0 = time.time()
+    trainer, recorder = run_train(cfg, "cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = launch_counts(k1, knn)
+    res = run_evaluate(load_config(NOVEL_POSE_CFG, [
+        "test_novel_pose", "True", "exp_name", ANIM_EXP],
+        run_type="evaluate"), "cuda")
+    items = res["items"]
+    dpsnr = [it["psnr"] - ref for it, ref in
+             zip(items, JAX_PSNR_TRAIN_ANIMATION)]
+    summary = train_summary(cfg, trainer, recorder, launches, wall, items,
+                            dpsnr, JAX_PSNR_TRAIN_ANIMATION)
+    after = flat_leaves(param_codec(trainer.model)[1](
+        dict(trainer.model.named_parameters())))
+    before = flat_leaves(start)
+    frozen = [k for k in before if "/novel_pose_bw/" not in k]
+    moved = [k for k in frozen if not np.array_equal(after[k], before[k])]
+    trained_moved = sum(not np.array_equal(after[k], before[k])
+                        for k in before if "/novel_pose_bw/" in k)
+    samples = 2 * ANIM_ROWS
+    steps = trainer.step
+    prof = steps_profile(trainer, batch, ["skip_mlp_kernel"])
+    prof["k1_ms"], prof["k1_share"] = (prof.pop("skip_mlp_kernel_ms"),
+                                       prof.pop("skip_mlp_kernel_share"))
+    emit({"phase": "train_animation", "config": NOVEL_POSE_CFG,
+          "opts": ANIM_OPTS, **summary, "samples_per_step": samples,
+          "samples_per_s": samples / recorder.batch_time.median,
+          "frozen_leaves": len(frozen), "frozen_leaves_changed": moved,
+          "trained_leaves_changed": trained_moved,
+          "launches_per_step": {k: v / steps for k, v in launches.items()},
+          "profile_per_step": prof,
+          "events_per_step": step_parts_ms(trainer, batch)})
+    check(not moved and len(frozen) == 46 and trained_moved == 19,
+          f"train_animation: frozen leaves changed: {moved}; "
+          f"{trained_moved} trained leaves moved")
+    check_train("train_animation", summary, per_step)
+    return launches, k1_rows
+
+
 def main():
     import torch
 
@@ -1687,8 +1894,14 @@ def main():
              {"skip_mlp": 1, "knn_blend": 1}),
             ("neus_pdf", JAX_PSNR_TRAIN_NEUS_PDF,
              {"skip_mlp": 2, "knn_blend": 1}))}
+
+    # ---- phase 11: AniNeRF stage 2, the novel-pose evaluate and full
+    # frame, then stage-2 training (K1 six times a step)
+    novel_launches, novel_frame_launches = phase_novel_pose(k1, knn)
+    anim_launches, k1_anim_rows = phase_train_animation(k1, knn)
     train_paths = {"train": train_launches, "train_sdf_pdf": sdf_train_launches,
-                   **{f"train_{f}": n for f, n in fam_train.items()}}
+                   **{f"train_{f}": n for f, n in fam_train.items()},
+                   "train_animation": anim_launches}
 
     # ---- kernel table
     def k1_sum(key):
@@ -1755,17 +1968,19 @@ def main():
             "route": "cuda",
             "source": "animatable_nerf_tpu_torch/csrc/skip_mlp.cu",
             "replaces": "animatable_nerf_tpu/ops/mlp_pallas.py:108",
-            # the evaluate paths (AniNeRF, SDF-PDF, NeRF-PDF, NeuS-PDF)
-            # and the 50 steps of each training (the forward; the
-            # backward and its derivative are plain PyTorch)
+            # the evaluate paths (AniNeRF, SDF-PDF, NeRF-PDF, NeuS-PDF,
+            # AniNeRF's novel pose) and the 50 steps of each training (the
+            # forward; the backward and its derivative are plain PyTorch)
             "launches": eval_launches["skip_mlp"] + sdf_launches["skip_mlp"]
             + sum(ev["skip_mlp"] for ev, _ in fam.values())
+            + novel_launches["skip_mlp"]
             + sum(n["skip_mlp"] for n in train_paths.values()),
             "launches_by_path": {
                 "evaluate": eval_launches["skip_mlp"],
                 "evaluate_sdf_pdf": sdf_launches["skip_mlp"],
                 **{f"evaluate_{f}": ev["skip_mlp"]
                    for f, (ev, _) in fam.items()},
+                "evaluate_novel_pose": novel_launches["skip_mlp"],
                 **{path: n["skip_mlp"] for path, n in train_paths.items()}},
             "launches_per_train_step": {
                 path: n["skip_mlp"] / 50 for path, n in train_paths.items()},
@@ -1773,7 +1988,14 @@ def main():
                 "full_frame": frame_launches["skip_mlp"],
                 "full_frame_sdf_pdf": sdf_frame_launches["skip_mlp"],
                 **{f"full_frame_{f}": fr["skip_mlp"]
-                   for f, (_, fr) in fam.items()}},
+                   for f, (_, fr) in fam.items()},
+                "full_frame_novel_pose": novel_frame_launches["skip_mlp"]},
+            # the two wirings of a stage-2 step at its 65,536 rows
+            "stage2_step_rows": [
+                {k: r[k] for k in ("wiring", "rows", "max_abs_err",
+                                   "kernel_ms", "plain_ms", "library_ms",
+                                   "bound_ms", "share_of_bound")}
+                for r in k1_anim_rows],
             "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
             # one call of each wiring (bw field, NeRF trunk, resd field)
             # at K1_ROWS rows

@@ -13,8 +13,8 @@ against the same step on the CPU (loss rtol 1e-4, each gradient leaf
 within 1e-2 of its largest entry: rounding in the canonical points is
 multiplied by the positional encoding, as between the JAX and port CPU
 steps, tests/test_torch_train.py, which measured 2.3e-3); the same for
-a train step of SDF-PDF, NeRF-PDF and NeuS-PDF, and K1's gradient of a
-gradient within 1e-5 of
+a train step of SDF-PDF, NeRF-PDF and NeuS-PDF and a stage-2 step of
+AniNeRF (novel pose), and K1's gradient of a gradient within 1e-5 of
 each tensor's scale (the backward and its derivative are the plain
 version's on both sides). K2-K6
 round every operation as their plain versions do (no FMA, the same
@@ -811,6 +811,100 @@ def test_cuda_pdf_family_item_matches_cpu(cuda_device, family, monkeypatch):
     out, stats, n = pdf_family_item(family, cuda_device)
     tiles = stats["tiles"]
     assert cpu_n == (0, 0, 0) and n == (tiles, tiles, 1) and tiles > 1
+    assert stats == cpu_stats
+    for k in ("rgb_map", "acc_map", "depth_map"):
+        assert np.isfinite(out[k]).all(), k
+        np.testing.assert_allclose(out[k], cpu_out[k], rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
+    assert out["acc_map"].max() > 0.5
+
+
+ANIM_CFG = "configs/synthetic_novel_pose.yaml"
+ANIM_CKPT = "data/trained_model/deform/synthetic_2f_anim/latest.flax"
+
+
+@pytest.mark.cuda
+def test_cuda_animation_step_matches_cpu(cuda_device, monkeypatch):
+    """One AniNeRF stage-2 step (train/animation.py, 4096 seeded points
+    a branch, the tracked stage-2 weights) on the card and on the CPU,
+    on the same points: loss and stats, `novel_pose_bw`'s gradient leaf
+    by leaf, no gradient elsewhere, and K1 launched six times on the
+    card (the novel-pose field, the frozen field and the density trunk
+    in each branch), none on the CPU."""
+    from animatable_nerf_tpu_torch import engine
+    from animatable_nerf_tpu_torch.compat.flax_msgpack import read_checkpoint
+    from animatable_nerf_tpu_torch.compat.jax_params import aninerf_state_dict
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.train import animation
+    from animatable_nerf_tpu_torch.train.trainer import collate_rays, stack_batch
+
+    n = 4096
+    units = np.random.RandomState(0).rand(2, n, 3).astype(np.float32)
+    calls = []
+
+    def fixed(gen, bounds, count):
+        u = torch.tensor(units[len(calls) % 2], device=bounds.device)
+        calls.append(count)
+        return bounds[0] + (bounds[1] - bounds[0]) * u
+
+    monkeypatch.setattr(animation, "uniform_box_points", fixed)
+    cfg = load_config(ANIM_CFG, ["aninerf_animation", "True",
+                                 "n_anim_samples", str(n), "N_rand", "64"])
+    state = aninerf_state_dict(read_checkpoint(ANIM_CKPT)["params"])
+    ds = engine.make_dataset(cfg, "train")
+    ds._rng = np.random.RandomState(0)
+    batch = stack_batch([collate_rays(ds[4], 64)])
+    results = []
+    for device in ("cpu", cuda_device):
+        model = engine.make_model(cfg)
+        model.load_state_dict(state)
+        trainer = animation.AnimationTrainer(cfg, model.to(device), device)
+        before = k1.skip_mlp.launches
+        loss, stats, _ = trainer.loss({k: v[0] for k, v in batch.items()})
+        loss.backward()
+        results.append(({k: float(v.detach()) for k, v in stats.items()},
+                        {name: None if p.grad is None else p.grad.cpu()
+                         for name, p in model.named_parameters()},
+                        k1.skip_mlp.launches - before))
+    (cpu_s, cpu_g, cpu_n), (gpu_s, gpu_g, gpu_n) = results
+    assert cpu_n == 0 and gpu_n == 6 and calls == [n] * 4
+    for k, v in cpu_s.items():
+        np.testing.assert_allclose(gpu_s[k], v, rtol=1e-4, err_msg=k)
+    for name, want in cpu_g.items():
+        assert (want is None) == (gpu_g[name] is None), name
+        assert (want is None) != name.startswith("novel_pose_bw."), name
+        if want is not None:
+            err = (gpu_g[name] - want).abs().max().item()
+            assert err <= 1e-2 * want.abs().max().item(), (name, err)
+
+
+def novel_pose_item(device):
+    """Test item 0 of the novel-pose split (frame 2, view 3) rendered
+    from the tracked stage-2 weights with `test_novel_pose` on `device`
+    (eval tiles of 1024 rays): the maps, the counts and K1's launches."""
+    from animatable_nerf_tpu_torch import engine
+    from animatable_nerf_tpu_torch.config import load_config
+
+    cfg = load_config(ANIM_CFG, ["test_novel_pose", "True", "exp_name",
+                                 "synthetic_2f_anim", "eval_tile", "1024"],
+                      run_type="evaluate")
+    cfg.eval = True
+    eng = engine.Engine(cfg, device)
+    eng.load_params()
+    before = k1.skip_mlp.launches
+    out, _ = eng.render_item(engine.make_dataset(cfg, "test")[0])
+    return out, dict(eng.stats), k1.skip_mlp.launches - before
+
+
+@pytest.mark.cuda
+def test_cuda_novel_pose_item_matches_cpu(cuda_device):
+    """A novel-pose eval item on the card against the CPU: the same
+    candidates and survivors, the maps within 1e-4 (K1's 3xTF32 against
+    the CPU's float32), and K1 twice a tile on the card (the novel-pose
+    field and the NeRF trunk), never on the CPU."""
+    cpu_out, cpu_stats, cpu_n = novel_pose_item("cpu")
+    out, stats, n = novel_pose_item(cuda_device)
+    assert cpu_n == 0 and n == 2 * stats["tiles"] and stats["tiles"] > 1
     assert stats == cpu_stats
     for k in ("rgb_map", "acc_map", "depth_map"):
         assert np.isfinite(out[k]).all(), k
