@@ -8,9 +8,10 @@ lib/datasets/tpose_dataset.py, tpose_pdf_dataset.py).
 Differences forced by the machines the port runs on, which lack OpenCV:
   * images come from the root's `decoded.npz` (data/decode_cache.py),
     decoded as cv2.imread decodes them;
-  * cv2.undistort and cv2.resize (JAX dataset.py:136-152) are identities
-    for zero distortion and ratio 1, which is all this port accepts; any
-    other camera raises;
+  * cv2.undistort and cv2.resize (JAX dataset.py:136-152) are
+    data/camera.py's numpy versions, equal to OpenCV's; a step that is an
+    identity (masks of the image's size, a camera without distortion,
+    ratio 1) is skipped;
   * cv2.Rodrigues is core/skeleton.py `rodrigues_np`.
 Per-frame volumes are edge-padded to the dataset-wide max shape, as in
 JAX, so every frame samples identically.
@@ -23,6 +24,7 @@ import os
 import numpy as np
 
 from ..core.skeleton import big_pose_A, rigid_transforms_host, rodrigues_np
+from . import camera
 from .decode_cache import DecodedImages
 from .utils import (
     crop_mask_edge,
@@ -72,6 +74,9 @@ class _BaseDataset:
             [np.arange(len(f["ims"]))[view] for f in frames]
         ).ravel()
         self.num_cams = len(view)
+        for cam in np.unique(self.cam_inds):
+            # undistort reads k1 k2 p1 p2 k3; any other count raises here
+            camera.is_identity(self.cams["D"][cam])
 
         self.lbs_root = os.path.join(self.data_root, "lbs")
         self.joints = np.load(os.path.join(self.lbs_root, "joints.npy")).astype(
@@ -114,27 +119,38 @@ class _BaseDataset:
         return msk, orig_msk
 
     def load_image(self, index):
+        """JAX dataset.py:131-158: the masks resized to the image
+        (INTER_NEAREST), the image and both masks undistorted with the
+        item's K and D, all resized by `ratio` (INTER_AREA for the image,
+        INTER_NEAREST for the masks), the background masked, and K[:2]
+        scaled on a copy."""
         img_path = os.path.join(self.data_root, self.ims[index])
         img = self._imread_rgb(img_path).astype(np.float32) / 255.0
         msk, orig_msk = self.get_mask(index)
-        if msk.shape != img.shape[:2]:
-            raise NotImplementedError(
-                "masks of another size than their image need cv2.resize"
-            )
         cam_ind = self.cam_inds[index]
         K = np.array(self.cams["K"][cam_ind])
         D = np.array(self.cams["D"][cam_ind])
-        if np.any(D != 0):
-            raise NotImplementedError(
-                "cameras with lens distortion need cv2.undistort"
-            )
-        if self.cfg.ratio != 1.0:
-            raise NotImplementedError("image ratio != 1 needs cv2.resize")
+        H, W = img.shape[:2]
+        if msk.shape[:2] != (H, W):
+            msk = camera.resize_nearest(msk, H, W)
+            orig_msk = camera.resize_nearest(orig_msk, H, W)
+        if not camera.is_identity(D):
+            img = camera.undistort(img, K, D)
+            msk = camera.undistort(msk, K, D)
+            orig_msk = camera.undistort(orig_msk, K, D)
+        ratio = self.cfg.ratio
+        H, W = int(H * ratio), int(W * ratio)
+        if (H, W) != img.shape[:2]:
+            img = camera.resize_area(img, H, W)
+            msk = camera.resize_nearest(msk, H, W)
+            orig_msk = camera.resize_nearest(orig_msk, H, W)
         R = np.array(self.cams["R"][cam_ind])
         T = np.array(self.cams["T"][cam_ind]) / 1000.0
         if self.cfg.mask_bkgd:
             img[msk == 0] = 0
-        return img, msk, orig_msk, K.copy(), R, T, cam_ind, img_path
+        K = K.copy()
+        K[:2] = K[:2] * ratio
+        return img, msk, orig_msk, K, R, T, cam_ind, img_path
 
     def frame_index_of(self, img_path):
         if self.human in ["CoreView_313", "CoreView_315"]:

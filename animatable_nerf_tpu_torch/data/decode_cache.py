@@ -43,6 +43,11 @@ class DecodedImages:
     def __contains__(self, path: str) -> bool:
         return self.key(path) in self._arrays
 
+    def items(self):
+        """(key, array) of every image, keyed by its path relative to
+        the root."""
+        return self._arrays.items()
+
     def imread(self, path: str) -> np.ndarray:
         """The array cv2.imread(path, cv2.IMREAD_UNCHANGED) returns."""
         try:

@@ -14,7 +14,8 @@ within 1e-2 of its largest entry: rounding in the canonical points is
 multiplied by the positional encoding, as between the JAX and port CPU
 steps, tests/test_torch_train.py, which measured 2.3e-3); the same for
 a train step of SDF-PDF, NeRF-PDF and NeuS-PDF and a stage-2 step of
-AniNeRF (novel pose), and K1's gradient of a gradient within 1e-5 of
+AniNeRF (novel pose), for the eval items (the novel-pose item, a
+distorted camera at ratio 0.5: maps within 1e-4), and K1's gradient of a gradient within 1e-5 of
 each tensor's scale (the backward and its derivative are the plain
 version's on both sides). K2-K6
 round every operation as their plain versions do (no FMA, the same
@@ -904,6 +905,48 @@ def test_cuda_novel_pose_item_matches_cpu(cuda_device):
     field and the NeRF trunk), never on the CPU."""
     cpu_out, cpu_stats, cpu_n = novel_pose_item("cpu")
     out, stats, n = novel_pose_item(cuda_device)
+    assert cpu_n == 0 and n == 2 * stats["tiles"] and stats["tiles"] > 1
+    assert stats == cpu_stats
+    for k in ("rgb_map", "acc_map", "depth_map"):
+        assert np.isfinite(out[k]).all(), k
+        np.testing.assert_allclose(out[k], cpu_out[k], rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
+    assert out["acc_map"].max() > 0.5
+
+
+def camera_item(root, device):
+    """Test item 0 (frame 0, view 3) of a distorted copy of the synthetic
+    human (data/distorted_copy.py: lens distortion, half-size masks) read
+    at ratio 0.5, rendered from the synthetic_2f weights on `device`
+    (eval tiles of 1024 rays): the maps, the counts and K1's launches."""
+    from animatable_nerf_tpu_torch import engine
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.data.distorted_copy import config_opts
+
+    cfg = load_config(ANIM_CFG, config_opts(root) + ["eval_tile", "1024"],
+                      run_type="evaluate")
+    cfg.eval = True
+    eng = engine.Engine(cfg, device)
+    eng.load_params()
+    item = engine.make_dataset(cfg, "test")[0]
+    assert (int(item["H"]), int(item["W"])) == (64, 64)
+    before = k1.skip_mlp.launches
+    out, _ = eng.render_item(item)
+    return out, dict(eng.stats), k1.skip_mlp.launches - before
+
+
+@pytest.mark.cuda
+def test_cuda_camera_item_matches_cpu(cuda_device, tmp_path):
+    """An AniNeRF eval item of the distorted copy at ratio 0.5 on the card
+    against the CPU: the same candidates and survivors, the maps within
+    1e-4 (K1's 3xTF32 against the CPU's float32), and K1 twice a tile on
+    the card (the blend-weight field and the NeRF trunk), never on the
+    CPU."""
+    from animatable_nerf_tpu_torch.data.distorted_copy import write_distorted_copy
+
+    root = write_distorted_copy("data/synthetic/human", str(tmp_path / "copy"))
+    cpu_out, cpu_stats, cpu_n = camera_item(root, "cpu")
+    out, stats, n = camera_item(root, cuda_device)
     assert cpu_n == 0 and n == 2 * stats["tiles"] and stats["tiles"] > 1
     assert stats == cpu_stats
     for k in ("rgb_map", "acc_map", "depth_map"):

@@ -176,3 +176,21 @@ def test_port_imports_nothing_of_jax():
         if name.split(".")[0] in _FORBIDDEN
     ]
     assert not bad, bad
+
+
+def test_port_imports_no_cv2_outside_the_archive_writer():
+    """AST scan: the port and chip_smoke.py import no cv2, which the
+    card's machine lacks (data/camera.py does its undistort and resizes).
+    Only data/decode_cache.py's `write_archive`, run once on a machine
+    with OpenCV, decodes the image files with it."""
+    files = glob.glob(os.path.join(ROOT, "animatable_nerf_tpu_torch", "**", "*.py"),
+                      recursive=True)
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    writer = os.path.join("animatable_nerf_tpu_torch", "data", "decode_cache.py")
+    bad = [
+        (os.path.relpath(f, ROOT), name)
+        for f in files for name in _imports(f)
+        if name.split(".")[0] == "cv2" and os.path.relpath(f, ROOT) != writer
+    ]
+    assert not bad, bad
+    assert any(name == "cv2" for name in _imports(os.path.join(ROOT, writer)))
