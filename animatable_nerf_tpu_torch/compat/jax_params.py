@@ -16,7 +16,10 @@ animatable_nerf_tpu/compat/torch_export.py writes:
     (:166 `export_sdf_pdf`) `tpose_human.sdf_network.lin{l}` and
     `tpose_human.beta_network.beta`, NeuS-PDF's (:177
     `export_neus_pdf`) `tpose_human.sdf_network.lin{l}` and
-    `tpose_human.variance_network.variance`.
+    `tpose_human.variance_network.variance`;
+  * the aligned families (:122-163 `export_aligned_*`): the blend-weight
+    field as AniNeRF's (PBW's without a latent it reads), NeRF-PDF's
+    head, and LBWPDF's displacement field.
 Dense kernels (in, out) become nn.Linear weights (out, in); a
 weight-normalized {v (in, out), g (out,), b} becomes `weight_v` (out,
 in), `weight_g` (out, 1), `bias`. Load the result with
@@ -110,22 +113,34 @@ def sdf_network_state_dict(params: dict) -> dict:
     return to_tensors(_wn_layers_arrays(sdf, "sdf_network")) if sdf else {}
 
 
-def _pdf_arrays(p: dict, net: str) -> dict:
-    """The parts every displacement-field family has: the displacement
-    field, its canonical GeometricFieldNetwork `net` and the color
-    network."""
+def _mlp_arrays(mlp: dict, linears: str, fc: str) -> dict:
+    """A JAX SkipMLP's params (lin0..lin7, out) -> numpy arrays under
+    `<linears>.{i}` and `<fc>`."""
     out = {}
-    mlp = p["resd_field"]["mlp"]
     for i in range(8):
-        _linear(mlp[f"lin{i}"], f"resd_linears.{i}", out)
-    _linear(mlp["out"], "resd_fc", out)
-    out.update(_wn_layers_arrays(p[net], net))
+        _linear(mlp[f"lin{i}"], f"{linears}.{i}", out)
+    _linear(mlp["out"], fc, out)
+    return out
+
+
+def _head_arrays(p: dict, net: str) -> dict:
+    """The canonical GeometricFieldNetwork `net` and the color network."""
+    out = _wn_layers_arrays(p[net], net)
     color = p["color_network"]
     th = "tpose_human.color_network."
     out[f"{th}color_latent.weight"] = np.asarray(
         color["color_latent"]["embedding"])
     for l in range(5):
         _wn(color[f"lin{l}"]["wn"], f"{th}lin{l}", out)
+    return out
+
+
+def _pdf_arrays(p: dict, net: str) -> dict:
+    """The parts every displacement-field family has: the displacement
+    field, its canonical GeometricFieldNetwork `net` and the color
+    network."""
+    out = _mlp_arrays(p["resd_field"]["mlp"], "resd_linears", "resd_fc")
+    out.update(_head_arrays(p, net))
     return out
 
 
@@ -208,12 +223,17 @@ def _wn_tree(named: dict, name: str) -> dict:
             "v": np.ascontiguousarray(_numpy(named[f"{name}.weight_v"]).T)}
 
 
-def _pdf_tree(named: dict, net: str) -> dict:
-    """The inverse of `_pdf_arrays`: {"resd_field", net,
-    "color_network"}. The GeometricFieldNetwork's layer list is written
-    as flax writes a list, a dict keyed "0", "1", ..."""
-    mlp = {f"lin{i}": _kernel(named, f"resd_linears.{i}") for i in range(8)}
-    mlp["out"] = _kernel(named, "resd_fc")
+def _mlp_tree(named: dict, linears: str, fc: str) -> dict:
+    """The inverse of `_mlp_arrays`: {lin0..lin7, out}."""
+    mlp = {f"lin{i}": _kernel(named, f"{linears}.{i}") for i in range(8)}
+    mlp["out"] = _kernel(named, fc)
+    return mlp
+
+
+def _head_tree(named: dict, net: str) -> dict:
+    """The inverse of `_head_arrays`: {net, "color_network"}. The
+    GeometricFieldNetwork's layer list is written as flax writes a list,
+    a dict keyed "0", "1", ..."""
     th = "tpose_human."
     n_layers = sum(1 for k in named
                    if k.startswith(f"{th}{net}.lin") and k.endswith(".bias"))
@@ -222,11 +242,17 @@ def _pdf_tree(named: dict, net: str) -> dict:
     color["color_latent"] = {"embedding": _numpy(
         named[f"{th}color_network.color_latent.weight"])}
     return {
-        "resd_field": {"mlp": mlp},
         net: {"layers": {str(l): _wn_tree(named, f"{th}{net}.lin{l}")
                          for l in range(n_layers)}},
         "color_network": color,
     }
+
+
+def _pdf_tree(named: dict, net: str) -> dict:
+    """The inverse of `_pdf_arrays`: {"resd_field", net,
+    "color_network"}."""
+    return {"resd_field": {"mlp": _mlp_tree(named, "resd_linears", "resd_fc")},
+            **_head_tree(named, net)}
 
 
 def nerf_pdf_param_tree(named: dict) -> dict:
@@ -257,3 +283,90 @@ def neus_pdf_param_tree(named: dict) -> dict:
     tree["params"]["variance_network"] = {
         "variance": _numpy(named["tpose_human.variance_network.variance"])}
     return _checked(tree, named, neus_pdf_state_dict, "neus_pdf")
+
+
+# ------------------------------------------------------ aligned families
+# (animatable_nerf_tpu/compat/torch_export.py:122-163): the blend-weight
+# field at the top level, NeRF-PDF's head under `tpose_human.`, LBWPDF's
+# displacement field as the PDF families'
+
+# the reference PBW module's frame-latent table, which its forward never
+# reads (torch_export.py:250-262); the port keeps it as a buffer of zeros
+_PBW_UNREAD = "bw_latent.weight"
+
+
+def _aligned_arrays(p: dict) -> dict:
+    out = _head_arrays(p, "nerf_network")
+    if "bw_field" in p:
+        bw = p["bw_field"]
+        if "latent" in bw:
+            out.update(bw_field_state_dict(bw))
+        else:  # PBW: the frame-latent table has one row a frame and one
+            out.update(_mlp_arrays(bw["mlp"], "bw_linears", "bw_fc"))
+            rows = out["tpose_human.color_network.color_latent.weight"].shape[0]
+            out[_PBW_UNREAD] = np.zeros((rows + 1, 128), np.float32)
+    if "resd_field" in p:
+        out.update(_mlp_arrays(p["resd_field"]["mlp"], "resd_linears",
+                               "resd_fc"))
+    return out
+
+
+def aligned_state_dict(params: dict) -> dict:
+    """JAX AlignedLBW, AlignedPBW, AlignedSMPL or AlignedLBWPDF params
+    ({"params": {...}} or the inner dict) -> {reference name:
+    torch.Tensor}: `tpose_human.nerf_network.lin{l}`,
+    `tpose_human.color_network.*`, and as the tree holds them the
+    blend-weight field (`bw_latent`, `bw_linears.{i}`, `bw_fc`; PBW's
+    `bw_latent` zeros of num_train_frame + 1 rows) and the displacement
+    field (`resd_linears.{i}`, `resd_fc`)."""
+    p = params["params"] if "params" in params else params
+    return to_tensors(_aligned_arrays(p))
+
+
+def _aligned_tree(named: dict, bw: str | None, resd: bool) -> dict:
+    """The inverse of `aligned_state_dict` for a family whose
+    blend-weight field is `bw` ("latent", "pose" or None) and that has a
+    displacement field or not. PBW's unread `bw_latent` may be among
+    the names or not. Every other name must be used: a stray one
+    raises."""
+    if bw == "pose":
+        named = {k: v for k, v in named.items() if k != _PBW_UNREAD}
+    tree = _head_tree(named, "nerf_network")
+    if bw == "latent":
+        tree["bw_field"] = _bw_field_tree(named)
+    elif bw == "pose":
+        tree["bw_field"] = {"mlp": _mlp_tree(named, "bw_linears", "bw_fc")}
+    if resd:
+        tree["resd_field"] = {"mlp": _mlp_tree(named, "resd_linears",
+                                               "resd_fc")}
+    tree = {"params": tree}
+    written = aligned_state_dict(tree)
+    if len(written) - (bw == "pose") != len(named):
+        raise KeyError("aligned_param_tree: names that the aligned family "
+                       "does not have")
+    return tree
+
+
+def aligned_lbw_param_tree(named: dict) -> dict:
+    """{reference name: tensor} of AlignedLBW -> the JAX param tree
+    {"params": {"bw_field", "nerf_network", "color_network"}}."""
+    return _aligned_tree(named, "latent", False)
+
+
+def aligned_pbw_param_tree(named: dict) -> dict:
+    """{reference name: tensor} of AlignedPBW -> the JAX param tree
+    {"params": {"bw_field": {"mlp"}, "nerf_network", "color_network"}}."""
+    return _aligned_tree(named, "pose", False)
+
+
+def aligned_smpl_param_tree(named: dict) -> dict:
+    """{reference name: tensor} of AlignedSMPL -> the JAX param tree
+    {"params": {"nerf_network", "color_network"}}."""
+    return _aligned_tree(named, None, False)
+
+
+def aligned_lbw_pdf_param_tree(named: dict) -> dict:
+    """{reference name: tensor} of AlignedLBWPDF -> the JAX param tree
+    {"params": {"bw_field", "resd_field", "nerf_network",
+    "color_network"}}."""
+    return _aligned_tree(named, "latent", True)

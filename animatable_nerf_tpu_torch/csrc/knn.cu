@@ -11,6 +11,8 @@
 //   d_j = sqrt(d2_j),  w_j = 1 / (d_j + eps),
 //   vals = (sum_j w_j * values[idx_j]) / sum_j w_j,
 //   wdist = (sum_j w_j * d_j) / sum_j w_j.
+// On request K2 also writes idx_j, the selection its gradient is taken
+// over (ops/knn.py `KNNBlendFunction`, whose backward is plain PyTorch).
 // K3 replaces :129 `min_dist_pallas` (body `_min_dist_kernel` :113):
 // sqrt of the smallest squared distance.
 // K4 replaces :240 `kth_distance` (body `_kth_dist_kernel` :221): sqrt of
@@ -446,7 +448,7 @@ __global__ void __launch_bounds__(kSweepThreads, 2)
                      const int* __restrict__ axis_of_sort,
                      const float* __restrict__ values, int n, int m, int c,
                      float eps, bool resident, float* __restrict__ out_vals,
-                     float* __restrict__ out_wd,
+                     float* __restrict__ out_wd, int* __restrict__ out_idx,
                      unsigned long long* __restrict__ counts) {
   extern __shared__ float4 sorted_verts[];
   if (resident) {
@@ -486,6 +488,11 @@ __global__ void __launch_bounds__(kSweepThreads, 2)
   if (!live) return;
   blend_write(bd, bi, values, c, eps, nan_query,
               out_vals + static_cast<size_t>(q) * c, out_wd + q);
+  if (out_idx != nullptr) {  // the selection, nearest first; -1 for NaN
+    int* o = out_idx + static_cast<size_t>(q) * K;
+#pragma unroll
+    for (int s = 0; s < K; ++s) o[s] = nan_query ? -1 : bi[s];
+  }
 }
 
 // The query's square gap to a box on each axis, their max: a lower bound,
@@ -1132,12 +1139,14 @@ int knn_kth_dist(const float* src, const float* rows, const float* runs,
 // src (n, 3), the layout of ref (m, 3) from ops/knn.py `sweep_layout`
 // (verts (m, 4), axis (1,) int32), values (m, c) -> out_vals (n, c),
 // out_wd (n,): the IDW blend of the k nearest vertices' values and
-// distances. counts, if given (k = 5 only), gains the vertices reached
-// and those that took the full distance.
+// distances; out_idx (n, k), if given, the k vertices' original
+// indices, nearest first (ties to the lowest index; -1 for a NaN
+// query). counts, if given (k = 5 only), gains the vertices reached and
+// those that took the full distance.
 int knn_blend(const float* src, const float* verts, const int* axis,
               const float* values, int n, int m, int c, int k, float eps,
-              float* out_vals, float* out_wd, unsigned long long* counts,
-              void* stream) {
+              float* out_vals, float* out_wd, int* out_idx,
+              unsigned long long* counts, void* stream) {
   if (n <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Card card = current_card();
@@ -1176,7 +1185,7 @@ int knn_blend(const float* src, const float* verts, const int* axis,
     const int blocks = (n + threads - 1) / threads;
     kernel<<<blocks, threads, smem, s>>>(
         src, reinterpret_cast<const float4*>(verts), axis, values, n, m, c,
-        eps, resident, out_vals, out_wd, counts);
+        eps, resident, out_vals, out_wd, out_idx, counts);
     return last_error();
   });
 }

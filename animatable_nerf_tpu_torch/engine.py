@@ -4,10 +4,11 @@ run types.
 JAX counterpart: animatable_nerf_tpu/engine.py (`_bucket_pad` :139,
 `interleave_rays` :164, the per-frame grids and vertex blocks :259-287
 and :315-326, `Engine.render_item` :547-603, `run_evaluate` :749-830,
-`run_train` :1158-1352, stage 1 of AniNeRF and the displacement-field
-families with `init_sdf` :1229-1242, AniNeRF's stage 2 with
-`init_aninerf` :1165-1168, :1212-1227; the models from the config as
-`models/registry.py` `make_model` :74-126 builds them). The
+`run_train` :1158-1352, stage 1 of AniNeRF, the displacement-field
+families with `init_sdf` :1229-1242 and the aligned families,
+AniNeRF's stage 2 with `init_aninerf` :1165-1168, :1212-1227; the
+models from the config as `models/registry.py` `make_model` :74-126
+builds them). The
 eval rays are padded and tiled exactly as in JAX, since the point
 filter's argmin forcing acts per tile. The JAX capacity ladder
 (engine.py:204-236, 465-545) sizes static survivor buffers for the TPU;
@@ -30,6 +31,7 @@ from .data.dataset import TPoseDataset, TPosePDFDataset
 from .data.loader import Loader, eval_indices
 from .device import select_device
 from .evaluators.image import ImageEvaluator
+from .models.aligned import AlignedLBW, AlignedLBWPDF, AlignedPBW, AlignedSMPL
 from .models.aninerf import AniNeRF
 from .models.pdf import NeRFPDF, NeuSPDF, SDFPDF
 from .ops.knn import build_d5_payload, build_knn_blocks, build_pdist_payload
@@ -56,6 +58,16 @@ _PDF_MODULES = {
     "neus_pdf": NeuSPDF,
     "lib.networks.bw_deform.anisdf_neus_pdf_network": NeuSPDF,
 }
+_ALIGNED_MODULES = {
+    "aligned_lbw": AlignedLBW,
+    "lib.networks.bw_deform.aligned_aninerf_lbw_network": AlignedLBW,
+    "aligned_pbw": AlignedPBW,
+    "lib.networks.bw_deform.aligned_aninerf_pbw_network": AlignedPBW,
+    "aligned_smpl": AlignedSMPL,
+    "lib.networks.bw_deform.aligned_aninerf_smpl_network": AlignedSMPL,
+    "aligned_lbw_pdf": AlignedLBWPDF,
+    "lib.networks.bw_deform.aligned_aninerf_lbw_pdf_network": AlignedLBWPDF,
+}
 _DATASETS = {
     "lib.datasets.tpose_dataset": TPoseDataset,
     "tpose": TPoseDataset,
@@ -65,35 +77,56 @@ _DATASETS = {
 _RAY_KEYS = ("ray_o", "ray_d", "near", "far")
 
 
-def make_model(cfg):
-    """The config's model: AniNeRF or a displacement-field family
-    (NeRF-PDF, SDF-PDF, NeuS-PDF). The PDF families' `stage2_ratio`
-    sizes a JAX survivor capacity and has no counterpart in the port's
-    exact compaction. With `aninerf_animation` or `test_novel_pose`,
-    AniNeRF gets its novel-pose field (`num_eval_frame` latents); the
-    PDF families raise there, since the JAX package's own novel-pose
-    paths fail for them (engine.py:409 and train/animation.py:102 pass
-    `novel_pose=True`, which models/pdf.py:386, :635, :935 do not
-    take)."""
+def model_class(cfg):
+    """The config's model class: AniNeRF, a displacement-field family
+    (NeRF-PDF, SDF-PDF, NeuS-PDF) or an aligned family (LBW, PBW, SMPL,
+    LBWPDF). Raises before any work on what is not ported: an unknown
+    network_module, and novel poses (`aninerf_animation`,
+    `test_novel_pose`) outside AniNeRF. The PDF families' JAX novel-pose
+    paths fail (engine.py:409 and train/animation.py:102 pass
+    `novel_pose=True`, which models/pdf.py:386, :635, :935 do not take);
+    the aligned families' work in JAX (models/aligned.py:169-205,
+    :452-461) and are not ported yet."""
     name = cfg.network_module
-    if name not in _ANINERF_MODULES and name not in _PDF_MODULES:
+    cls = (AniNeRF if name in _ANINERF_MODULES
+           else _PDF_MODULES.get(name, _ALIGNED_MODULES.get(name)))
+    if cls is None:
         raise NotImplementedError(f"network_module {name!r} is not ported yet")
-    novel_pose = bool(cfg.aninerf_animation or cfg.test_novel_pose)
-    if novel_pose and name in _PDF_MODULES:
-        raise NotImplementedError(
-            f"novel-pose training and evaluation (aninerf_animation, "
-            f"test_novel_pose) of {_PDF_MODULES[name].__name__} are not "
-            "ported yet: the JAX package has no working path for the "
-            "displacement-field families")
+    if cfg.aninerf_animation or cfg.test_novel_pose:
+        if cls in _PDF_MODULES.values():
+            raise NotImplementedError(
+                f"novel-pose training and evaluation (aninerf_animation, "
+                f"test_novel_pose) of {cls.__name__} are not ported yet: the "
+                "JAX package has no working path for the displacement-field "
+                "families")
+        if cls is not AniNeRF:
+            raise NotImplementedError(
+                f"novel-pose training and evaluation (aninerf_animation, "
+                f"test_novel_pose) of {cls.__name__} are not ported yet")
+    return cls
+
+
+def make_model(cfg):
+    """The config's model (`model_class`). The PDF families'
+    `stage2_ratio` sizes a JAX survivor capacity and has no counterpart
+    in the port's exact compaction. With `aninerf_animation` or
+    `test_novel_pose`, AniNeRF gets its novel-pose field
+    (`num_eval_frame` latents). The aligned families take
+    num_train_frame color latents (JAX models/registry.py:115-125)."""
+    cls = model_class(cfg)
     for key in ("slab_filter", "seg_filter"):
         if int(cfg.get(key, 0)):
             raise NotImplementedError(f"the {key} eval option is not ported yet")
     if str(cfg.get("compute_dtype", "float32")) != "float32":
         raise NotImplementedError("only float32 compute is ported")
-    if name in _PDF_MODULES:
-        return _PDF_MODULES[name](num_latents=cfg.num_latent_code,
-                                  tpose_viewdir=cfg.tpose_viewdir,
-                                  xyz_res=cfg.xyz_res)
+    if cls in _PDF_MODULES.values():
+        return cls(num_latents=cfg.num_latent_code,
+                   tpose_viewdir=cfg.tpose_viewdir, xyz_res=cfg.xyz_res)
+    if cls in _ALIGNED_MODULES.values():
+        return cls(num_latents=cfg.num_train_frame, norm_th=cfg.norm_th,
+                   train_th=cfg.train_th, tpose_viewdir=cfg.tpose_viewdir,
+                   xyz_res=cfg.xyz_res)
+    novel_pose = bool(cfg.aninerf_animation or cfg.test_novel_pose)
     return AniNeRF(
         num_train_frames=cfg.num_train_frame, norm_th=cfg.norm_th,
         xyz_res=cfg.xyz_res, view_res=cfg.view_res, train_th=cfg.train_th,
@@ -334,7 +367,7 @@ def initial_model(cfg):
     PRNGKey(42)), then `init_sdf`'s SDF network or, in stage 2, the
     `init_aninerf` checkpoint's weights (a partial load: the novel-pose
     field keeps its init). Touches no directory."""
-    family = _PDF_MODULES.get(cfg.network_module, AniNeRF)
+    family = model_class(cfg)
     if cfg.get("init_sdf") and family not in (SDFPDF, NeuSPDF):
         raise NotImplementedError(
             f"init_sdf loads an SDF network; {family.__name__} has none")
@@ -359,8 +392,9 @@ def write_initial_start(cfg):
 
 
 def run_train(cfg, device=None):
-    """Train AniNeRF or a displacement-field family, NeRF-PDF, SDF-PDF or
-    NeuS-PDF (JAX engine.py:1158-1352 on one device), stage 1, or with
+    """Train AniNeRF, a displacement-field family (NeRF-PDF, SDF-PDF,
+    NeuS-PDF) or an aligned family (LBW, PBW, SMPL, LBWPDF) (JAX
+    engine.py:1158-1352 on one device), stage 1, or with
     `aninerf_animation` AniNeRF's stage 2 (`AnimationTrainer`, from the
     `init_aninerf` checkpoint): the train
     split in epochs of `ep_iter` steps, one frame a step; `latest.flax`
@@ -373,7 +407,7 @@ def run_train(cfg, device=None):
     where JAX's non-strict partial load reads nothing. `fix_random`
     seeds the ray draw (RandomState(0), as JAX) and the z jitter (stage
     2: the points). Returns (trainer, recorder)."""
-    family = _PDF_MODULES.get(cfg.network_module, AniNeRF)
+    family = model_class(cfg)
     if not hasattr(family, "train_forward"):
         raise NotImplementedError(
             f"network_module {cfg.network_module!r}: {family.__name__} "

@@ -1,14 +1,15 @@
-"""The field modules of the AniNeRF and displacement-field (PDF)
-families.
+"""The field modules of the AniNeRF, displacement-field (PDF) and
+aligned families.
 
 JAX counterpart: animatable_nerf_tpu/fields/fields.py. Parameter names
 follow the reference's PyTorch modules (tpose_nerf_network.py,
-anisdf_pdf_network.py), as animatable_nerf_tpu/compat/torch_export.py
-writes them, so compat/jax_params.py state dicts and reference
-checkpoints strict-load. The 8x256 trunks (blend-weight field, NeRF
-trunk, displacement field) run through kernel K1 (ops/skip_mlp.py); the
-heads, the weight-normalized SDF/NeRF/color networks and the opacity
-scalars are plain PyTorch, as the JAX package leaves them to XLA.
+anisdf_pdf_network.py, aligned_aninerf_pbw_network.py), as
+animatable_nerf_tpu/compat/torch_export.py writes them, so
+compat/jax_params.py state dicts and reference checkpoints strict-load.
+The 8x256 trunks (the blend-weight fields, NeRF trunk, displacement
+field) run through kernel K1 (ops/skip_mlp.py); the heads, the
+weight-normalized SDF/NeRF/color networks and the opacity scalars are
+plain PyTorch, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -31,6 +32,17 @@ from .mlp import (
 _SKIPS = (4,)
 
 
+def _prior_softmax(owner, linears, pts, smpl_bw, cond, xyz_res: int):
+    """The blend-weight fields' common form: [PE(xyz), cond] through the
+    skip-4 stack `linears` (K1, its packed weights kept on `owner`) ->
+    24 logits, added to log(smpl_bw + 1e-9) and softmaxed. pts (N, 3),
+    smpl_bw (N, 24), cond (C,) -> (N, 24)."""
+    pe = positional_encoding(pts, xyz_res)
+    feat = torch.cat([pe, cond.expand(pe.shape[0], cond.shape[-1])], dim=-1)
+    logits = run_skip_mlp(owner, feat, linears, _SKIPS)
+    return torch.softmax(torch.log(smpl_bw + 1e-9) + logits, dim=-1)
+
+
 class BlendWeightField(nn.Module):
     """Neural blend-weight field (JAX fields.py:20-50; reference
     tpose_nerf_network.py:25-29, 55-77).
@@ -51,17 +63,51 @@ class BlendWeightField(nn.Module):
 
     def blend_weights(self, pts, smpl_bw, latent_index: int):
         """pts (N, 3); smpl_bw (N, 24); latent_index int -> (N, 24)."""
-        pe = positional_encoding(pts, self.xyz_res)
-        latent = self.bw_latent.weight[int(latent_index)]
-        feat = torch.cat(
-            [pe, latent.expand(pe.shape[0], latent.shape[0])], dim=-1
-        )
-        logits = run_skip_mlp(self, feat, [*self.bw_linears, self.bw_fc],
-                              _SKIPS)
-        return torch.softmax(torch.log(smpl_bw + 1e-9) + logits, dim=-1)
+        return _prior_softmax(self, [*self.bw_linears, self.bw_fc], pts,
+                              smpl_bw, self.bw_latent.weight[int(latent_index)],
+                              self.xyz_res)
 
     def forward(self, pts, smpl_bw, latent_index: int):
         return self.blend_weights(pts, smpl_bw, latent_index)
+
+
+class _Unread(nn.Module):
+    """A table the reference declares and its forward never reads, kept
+    as a buffer `weight` of zeros: reference state dicts strict-load,
+    and no optimizer sees it."""
+
+    def __init__(self, rows: int, dim: int):
+        super().__init__()
+        self.register_buffer("weight", torch.zeros(rows, dim))
+
+
+class PoseCondBWField(nn.Module):
+    """Blend-weight field conditioned on the 72-d pose vector in place of
+    a frame latent (JAX models/aligned.py:53-68; reference
+    aligned_aninerf_pbw_network.py:45-60): [PE(xyz) (63), pose (72)] =
+    135 -> 8x256 skip-4 MLP -> 24 logits, added to log(smpl_bw + 1e-9)
+    and softmaxed. The parameters carry the reference's names
+    `bw_linears.{i}`, `bw_fc`. The reference also declares a frame-latent
+    table `bw_latent`, (num_train_frame + 1, 128), that its forward
+    never reads; it is kept as zeros (`_Unread`), as the JAX exporter
+    synthesizes it (compat/torch_export.py:250-262)."""
+
+    def __init__(self, num_latents: int, xyz_res: int = 10,
+                 pose_dim: int = 72, latent_dim: int = 128):
+        super().__init__()
+        self.xyz_res = xyz_res
+        self.bw_latent = _Unread(num_latents, latent_dim)
+        self.bw_linears = skip_linears(encoding_dim(xyz_res, 3) + pose_dim,
+                                       256, 8, _SKIPS)
+        self.bw_fc = nn.Linear(256, 24)
+
+    def blend_weights(self, pts, smpl_bw, pose_vec):
+        """pts (N, 3); smpl_bw (N, 24); pose_vec (72,) -> (N, 24)."""
+        return _prior_softmax(self, [*self.bw_linears, self.bw_fc], pts,
+                              smpl_bw, pose_vec, self.xyz_res)
+
+    def forward(self, pts, smpl_bw, pose_vec):
+        return self.blend_weights(pts, smpl_bw, pose_vec)
 
 
 class TPoseNeRF(nn.Module):
@@ -112,31 +158,46 @@ class TPoseNeRF(nn.Module):
         return sigma, self.rgb_fc(h2)
 
 
+def displacement_layers(xyz_res: int = 10, pose_dim: int = 72):
+    """The displacement field's layers (`resd_linears`, `resd_fc`):
+    [PE(xyz) (63), pose (72)] = 135 -> 8x256 skip-4 MLP -> 3, with JAX's
+    SkipMLP init, lecun_normal kernels and zero biases, so the initial
+    displacement is near 0."""
+    linears = skip_linears(encoding_dim(xyz_res, 3) + pose_dim, 256, 8,
+                           _SKIPS)
+    fc = nn.Linear(256, 3)
+    dense_init_([*linears, fc])
+    return linears, fc
+
+
+def displacement(owner, linears, pts, pose_vec, xyz_res: int):
+    """The displacement 0.05 * tanh(MLP([PE(pts), pose])) of the layers
+    `linears` (K1, its packed weights kept on `owner`): pts (N, 3),
+    pose_vec (72,) -> (N, 3)."""
+    pe = positional_encoding(pts, xyz_res)
+    feat = torch.cat(
+        [pe, pose_vec.expand(pe.shape[0], pose_vec.shape[-1])], dim=-1
+    )
+    return 0.05 * torch.tanh(run_skip_mlp(owner, feat, linears, _SKIPS))
+
+
 class ResidualField(nn.Module):
     """Pose-dependent displacement field (JAX fields.py:53; reference
     anisdf_pdf_network.py:23-32, 49-73): [PE(xyz) (63), pose (72)] = 135
     -> 8x256 skip-4 MLP -> 3, scaled by 0.05 * tanh. The parameters
     carry the reference's names `resd_linears.{i}`, `resd_fc`. Initial
-    weights as JAX's SkipMLP: lecun_normal kernels and zero biases, so
-    the initial displacement is near 0."""
+    weights as JAX's SkipMLP (`displacement_layers`)."""
 
     def __init__(self, xyz_res: int = 10, pose_dim: int = 72):
         super().__init__()
         self.xyz_res = xyz_res
-        din = encoding_dim(xyz_res, 3) + pose_dim
-        self.resd_linears = skip_linears(din, 256, 8, _SKIPS)
-        self.resd_fc = nn.Linear(256, 3)
-        dense_init_([*self.resd_linears, self.resd_fc])
+        self.resd_linears, self.resd_fc = displacement_layers(xyz_res,
+                                                              pose_dim)
 
     def residual(self, pts, pose_vec):
         """pts (N, 3); pose_vec (72,) -> resd (N, 3)."""
-        pe = positional_encoding(pts, self.xyz_res)
-        feat = torch.cat(
-            [pe, pose_vec.expand(pe.shape[0], pose_vec.shape[-1])], dim=-1
-        )
-        out = run_skip_mlp(self, feat, [*self.resd_linears, self.resd_fc],
-                           _SKIPS)
-        return 0.05 * torch.tanh(out)
+        return displacement(self, [*self.resd_linears, self.resd_fc], pts,
+                            pose_vec, self.xyz_res)
 
 
 def _softplus(x):

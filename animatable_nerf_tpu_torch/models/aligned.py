@@ -1,0 +1,224 @@
+"""The aligned families: AlignedLBW, AlignedPBW, AlignedSMPL and
+AlignedLBWPDF, their eval and dense train paths.
+
+JAX counterpart: animatable_nerf_tpu/models/aligned.py (`PoseCondBWField`
+:53, `_AlignedBase` :71 with `_filter_th` :127, `_head` :138, `_bw_mask`
+:206, `_eval_compacted` :271 and the dense train branch of `__call__`
+:402-433; `AlignedLBW` :436, `AlignedPBW` :467, `AlignedSMPL` :491,
+`AlignedLBWPDF` :508; reference aligned_aninerf_{lbw,pbw,smpl,lbw_pdf}
+_network.py).
+
+Every family is a KNN family with NeRF-PDF's canonical head, so its eval
+tile is `KNNFamily.forward` (models/pdf.py): pass 1 on the K3 distance
+grid, exact compaction, K2's prior on the candidates, the exact
+weighted-distance filter with its argmin forced, the family's deform
+(`_warp`), the head, the canonical box grown by 0.05. The families
+differ in the deform and the filter's threshold:
+  * LBW: the learned blend weights over the KNN prior (a
+    BlendWeightField, frame latent `latent_index + 1`), the LBS warp to
+    the big pose; threshold `norm_th`;
+  * PBW: the same with the pose-conditioned field (`PoseCondBWField`,
+    the frame's pose vector); threshold `norm_th`;
+  * SMPL: the KNN prior itself; threshold 0.1;
+  * LBWPDF: LBW's warp plus a displacement field at the big pose;
+    threshold 0.1.
+SMPL and LBWPDF hard-code 0.1 in their reference forwards (JAX
+`_filter_th`).
+
+The train path is JAX's dense masked one (`train_keep_frac` 0): the
+filter and the prior from one K2 launch on the step's posed points
+(`KNNFamily._dense_filter`), the deform and the head on every point,
+rgb and alpha zeroed outside the filter and the box, and for the
+families with a learned field the consistency pair: `pbw` at the posed
+points and `tbw`, the field at latent 0 (PBW: a zero pose) over the KNN
+prior of the canonical points against the canonical vertices. That prior
+is differentiated with respect to the canonical points, as JAX
+differentiates its XLA `sample_blend_closest_points`: K2's
+differentiable form (ops/knn.py `KNNBlendFunction`). `bw_mask` is the
+final alpha above `train_th` with its argmax forced; LBWPDF also returns
+its displacement and mask for the offset loss.
+
+Stage 2 and `test_novel_pose` of LBW and LBWPDF are not ported
+(engine.py `make_model` refuses them).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..core.knn import sample_blend_closest_points
+from ..fields.fields import (
+    BlendWeightField,
+    PoseCondBWField,
+    displacement,
+    displacement_layers,
+)
+from .common import inside_bounds
+from .pdf import NORM_TH, TBOUNDS_PAD, KNNFamily, NeRFHead
+
+
+class _AlignedBase(NeRFHead, KNNFamily):
+    """The families' shared part. The module holds its blend-weight field
+    at the top level (`bw_latent`, `bw_linears`, `bw_fc`, as the
+    reference networks do), `tpose_human` with NeRF-PDF's head, and
+    LBWPDF the displacement field (`resd_linears`, `resd_fc`), so its
+    state dict has the reference's names.
+
+    num_latents: num_train_frame, the color latent table's rows (the
+    frame-latent field has one more, row 0 the canonical one)."""
+
+    # the canonical vertices serve the consistency target's KNN prior
+    train_frame_keys = KNNFamily.frame_keys + ("tvertices",)
+    # whether the filter reads the configured norm_th (LBW, PBW) or the
+    # reference's hard-coded 0.1 (SMPL, LBWPDF; JAX aligned.py:127-136)
+    reads_norm_th = True
+
+    def _aligned_init(self, num_latents: int, norm_th: float,
+                      train_th: float, tpose_viewdir: bool):
+        self.tpose_human = self._canonical(num_latents)
+        self.tpose_viewdir = bool(tpose_viewdir)
+        self.norm_th = float(norm_th) if self.reads_norm_th else NORM_TH
+        self.train_th = float(train_th)
+
+    def _deform(self, pose_pts, pose_dirs, init_pbw, frame):
+        """Posed points, their directions and KNN prior (N, 24) ->
+        (canonical points, their directions, {"pbw": the learned blend
+        weights, "resd": the displacement} where the family has them)."""
+        raise NotImplementedError
+
+    def _canonical_bw(self, tpose, init_tbw, frame):
+        """The learned field at the canonical points, over their prior."""
+        raise NotImplementedError
+
+    def _warp(self, pose_pts, pose_dirs, pbw, frame):
+        return self._deform(pose_pts, pose_dirs, pbw, frame)[:2]
+
+    def train_forward(self, wpts, viewdir, z_vals, frame):
+        """Dense masked train forward (JAX aligned.py:402-433): wpts (R,
+        S, 3), viewdir (R, 3), z_vals (R, S) -> raw (R, S, 4) zeroed
+        outside the filter and the box; with a learned field pbw and tbw
+        (R*S, 24) and bw_mask (R*S,); LBWPDF also resd (R*S, 3) and its
+        mask."""
+        n_rays, n_samples = z_vals.shape
+        pind, pose_pts, pose_dirs, init_pbw, vd = self._dense_filter(
+            wpts, viewdir, z_vals, frame)
+        tpose, tdirs, extras = self._deform(pose_pts, pose_dirs, init_pbw,
+                                            frame)
+        rgb, alpha = self._eval_head(
+            tpose, tdirs if self.tpose_viewdir else vd,
+            int(frame["latent_index"]), slice(None), z_vals)
+        raw = torch.cat([rgb, alpha[:, None]], dim=-1)
+        inside = inside_bounds(tpose, frame["tbounds"], pad=TBOUNDS_PAD)
+        raw = torch.where((pind & inside)[:, None], raw, 0.0)
+        out = {"raw": raw.reshape(n_rays, n_samples, 4)}
+        if "pbw" in extras:
+            # the consistency target (:424-430): the prior at the canonical
+            # points differentiated with respect to them
+            init_tbw, _ = sample_blend_closest_points(
+                tpose, frame["tvertices"], frame["weights"])
+            # the final alpha above train_th, its argmax forced (:206-214)
+            a_sel = torch.where(pind, raw[:, 3].detach(), float("-inf"))
+            bw_mask = a_sel > self.train_th
+            bw_mask[torch.argmax(a_sel)] = True
+            out.update(pbw=extras["pbw"],
+                       tbw=self._canonical_bw(tpose, init_tbw, frame),
+                       bw_mask=bw_mask)
+        if "resd" in extras:
+            out.update(resd=extras["resd"], resd_mask=pind)
+        return out
+
+
+class AlignedLBW(_AlignedBase, BlendWeightField):
+    """Learned blend-weight field with frame latents (JAX aligned.py:436;
+    reference aligned_aninerf_lbw_network.py)."""
+
+    def __init__(self, num_latents: int, norm_th: float = 0.05,
+                 train_th: float = 0.0, tpose_viewdir: bool = True,
+                 xyz_res: int = 10):
+        BlendWeightField.__init__(self, num_latents + 1, xyz_res)
+        self._aligned_init(num_latents, norm_th, train_th, tpose_viewdir)
+
+    def _learned_warp(self, pose_pts, pose_dirs, init_pbw, frame):
+        pbw = self.blend_weights(pose_pts, init_pbw,
+                                 int(frame["latent_index"]) + 1)
+        bigpose, dirs = self._to_bigpose(pose_pts, pose_dirs, pbw, frame)
+        return bigpose, dirs, pbw
+
+    def _deform(self, pose_pts, pose_dirs, init_pbw, frame):
+        tpose, dirs, pbw = self._learned_warp(pose_pts, pose_dirs, init_pbw,
+                                              frame)
+        return tpose, dirs, {"pbw": pbw}
+
+    def _canonical_bw(self, tpose, init_tbw, frame):
+        return self.blend_weights(tpose, init_tbw, 0)
+
+
+class AlignedPBW(_AlignedBase, PoseCondBWField):
+    """Pose-vector-conditioned blend-weight field (ablation; JAX
+    aligned.py:467; reference aligned_aninerf_pbw_network.py). It has no
+    novel-pose field, in the reference nor in JAX."""
+
+    def __init__(self, num_latents: int, norm_th: float = 0.05,
+                 train_th: float = 0.0, tpose_viewdir: bool = True,
+                 xyz_res: int = 10):
+        PoseCondBWField.__init__(self, num_latents + 1, xyz_res)
+        self._aligned_init(num_latents, norm_th, train_th, tpose_viewdir)
+
+    def _deform(self, pose_pts, pose_dirs, init_pbw, frame):
+        pbw = self.blend_weights(pose_pts, init_pbw, frame["poses"])
+        tpose, dirs = self._to_bigpose(pose_pts, pose_dirs, pbw, frame)
+        return tpose, dirs, {"pbw": pbw}
+
+    def _canonical_bw(self, tpose, init_tbw, frame):
+        return self.blend_weights(tpose, init_tbw,
+                                  torch.zeros_like(frame["poses"]))
+
+
+class AlignedSMPL(_AlignedBase, nn.Module):
+    """The KNN prior's SMPL weights alone, no learned deformation
+    (ablation; JAX aligned.py:491; reference
+    aligned_aninerf_smpl_network.py); its filter threshold is 0.1."""
+
+    reads_norm_th = False
+
+    def __init__(self, num_latents: int, norm_th: float = 0.05,
+                 train_th: float = 0.0, tpose_viewdir: bool = True,
+                 xyz_res: int = 10):
+        nn.Module.__init__(self)
+        self.xyz_res = xyz_res
+        self._aligned_init(num_latents, norm_th, train_th, tpose_viewdir)
+
+    def _deform(self, pose_pts, pose_dirs, init_pbw, frame):
+        tpose, dirs = self._to_bigpose(pose_pts, pose_dirs, init_pbw, frame)
+        return tpose, dirs, {}
+
+
+class AlignedLBWPDF(AlignedLBW):
+    """Learned blend weights and a displacement field at the big pose
+    (ablation; JAX aligned.py:508; reference
+    aligned_aninerf_lbw_pdf_network.py:89-121); its filter threshold is
+    0.1, whatever norm_th says."""
+
+    reads_norm_th = False
+
+    def __init__(self, num_latents: int, norm_th: float = 0.05,
+                 train_th: float = 0.0, tpose_viewdir: bool = True,
+                 xyz_res: int = 10):
+        super().__init__(num_latents, norm_th, train_th, tpose_viewdir,
+                         xyz_res)
+        self.resd_linears, self.resd_fc = displacement_layers(xyz_res)
+
+    def residual(self, pts, pose_vec):
+        """The displacement (N, 3). K1's packed weights of this stack are
+        kept on its layer list, apart from the blend-weight field's,
+        which are kept on the model."""
+        return displacement(self.resd_linears,
+                            [*self.resd_linears, self.resd_fc], pts,
+                            pose_vec, self.xyz_res)
+
+    def _deform(self, pose_pts, pose_dirs, init_pbw, frame):
+        bigpose, dirs, pbw = self._learned_warp(pose_pts, pose_dirs,
+                                                init_pbw, frame)
+        resd = self.residual(bigpose, frame["poses"])
+        return bigpose + resd, dirs, {"pbw": pbw, "resd": resd}

@@ -11,18 +11,21 @@ dense train branch of `__call__` :658-700; `NeuSPDF` :701 with
 :953-990; reference aligned_aninerf_pdf_network.py,
 anisdf_pdf_network.py, anisdf_neus_pdf_network.py).
 
-The eval path (`_PDFBase.forward`) is the families' shared part and
-keeps the JAX semantics:
+The eval path (`KNNFamily.forward`) is the families' shared part, also
+the aligned families' (models/aligned.py, which give it their deform
+and threshold), and keeps the JAX semantics:
   * pass 1 reads the per-frame nearest-vertex distance grid (built by
     kernel K3, `grid_pdist_keep`): a certified superset of the
     survivors, with the argmin of the bound forced on;
   * pass 2 runs kernel K2 on the candidates (or, with `knn_blocked`,
     K5 over the vertex blocks within each candidate tile's certified
     5-NN radius): IDW blend weights over the posed vertices and the
-    weighted distance, whose exact filter (< NORM_TH) is re-applied with
-    its argmin over the candidates forced on;
-  * the LBS warp and the displacement field (K1) on the exact
-    survivors, then the family's canonical head (`_eval_head`), and
+    weighted distance, whose exact filter (< norm_th, NORM_TH for these
+    families) is re-applied with its argmin over the candidates forced
+    on;
+  * the family's deform (`_warp`: here the LBS warp and the
+    displacement field, K1) on the exact survivors, then its canonical
+    head (`_eval_head`), and
     rgb and alpha zeroed outside the canonical box grown by
     TBOUNDS_PAD.
 Forcing happens once per call, i.e. once per eval tile. The JAX package
@@ -42,7 +45,8 @@ and rgb.
 
 The train path is JAX's default dense masked one (`train_keep_frac` 0),
 shared by the three families up to the canonical points
-(`_PDFBase._dense_warp`): every sampled point is filtered by one K2
+(`_PDFBase._dense_warp`, on `KNNFamily._dense_filter`, which the aligned
+families share too): every sampled point is filtered by one K2
 launch (argmin forced over the whole step), masked points are moved
 onto the first posed vertex, and the displacement field (K1) runs on
 all of them. Then each family's `train_forward` adds its head on every
@@ -109,13 +113,13 @@ class Canonical(nn.Module):
             self.add_module(name, module)
 
 
-class _PDFBase(ResidualField):
-    """The families' shared part. The module is the displacement field
-    itself (`resd_linears`, `resd_fc` at the top level, as in the
-    reference networks) plus `tpose_human`, the family's `_canonical`
-    networks, so its state dict has the reference's names.
-
-    num_latents: rows of the color latent table (num_latent_code)."""
+class KNNFamily:
+    """The KNN families' shared part, mixed into an nn.Module: the eval
+    tile body (`forward`) and the dense train filter (`_dense_filter`)
+    of the displacement-field families here and of the aligned families
+    (models/aligned.py). A family gives its deform, posed SMPL points to
+    canonical ones (`_warp`), and its canonical head (`_eval_head`);
+    the filter's threshold on K2's weighted distance is `norm_th`."""
 
     # pass 1 needs the per-frame distance grid (ops/knn.py
     # build_pdist_payload), which the engine attaches to the frame
@@ -126,30 +130,13 @@ class _PDFBase(ResidualField):
     # training reads the same frame tensors (no distance grid: the dense
     # path filters every point with K2)
     train_frame_keys = frame_keys
-
-    def __init__(self, num_latents: int, tpose_viewdir: bool = True,
-                 xyz_res: int = 10):
-        super().__init__(xyz_res=xyz_res)
-        self.tpose_human = self._canonical(num_latents)
-        self.tpose_viewdir = bool(tpose_viewdir)
-
-    @staticmethod
-    def _canonical(num_latents: int) -> Canonical:
-        raise NotImplementedError
+    norm_th = NORM_TH
 
     def _warp(self, pose_pts, pose_dirs, pbw, frame):
-        """Posed SMPL -> canonical big pose plus the residual
-        displacement (JAX pdf.py:103). Returns (tpose, bigpose dirs)."""
-        init_bigpose, tpose_dirs = self._to_bigpose(pose_pts, pose_dirs, pbw,
-                                                    frame)
-        tpose = init_bigpose + self.residual(init_bigpose, frame["poses"])
-        return tpose, tpose_dirs
-
-    def _to_bigpose(self, pose_pts, pose_dirs, pbw, frame):
-        """The LBS part of the warp: (init_bigpose, bigpose dirs)."""
-        dirs_in = pose_dirs if self.tpose_viewdir else None
-        return backward_warp_points_dirs(pose_pts, dirs_in, pbw, frame["A"],
-                                         frame["big_A"])
+        """The family's deform of posed points with their KNN prior pbw
+        (N, 24) and view directions: (canonical points, their
+        directions)."""
+        raise NotImplementedError
 
     def _eval_head(self, tpose, dirs, latent_index: int, sidx, z_vals):
         """The family's canonical head on the survivors: tpose (N, 3),
@@ -157,42 +144,38 @@ class _PDFBase(ResidualField):
         z_vals (R, S) -> rgb (N, 3), alpha (N,)."""
         raise NotImplementedError
 
-    def _dense_warp(self, wpts, viewdir, z_vals, frame):
-        """The families' shared part of the dense masked train forward
-        (JAX pdf.py:447-454, :658-664, :953-958): wpts (R, S, 3),
-        viewdir (R, 3), z_vals (R, S) -> per point (N = R*S rows) the
-        filter mask pind, init_bigpose, the displacement resd, the
-        canonical points tpose = init_bigpose + resd, the head's view
-        directions and the canonical box mask `inside`.
+    def _to_bigpose(self, pose_pts, pose_dirs, pbw, frame):
+        """The LBS part of the warp: (init_bigpose, bigpose dirs)."""
+        dirs_in = pose_dirs if self.tpose_viewdir else None
+        return backward_warp_points_dirs(pose_pts, dirs_in, pbw, frame["A"],
+                                         frame["big_A"])
 
-        One K2 launch serves the filter and the warp: JAX runs the KNN
+    def _dense_filter(self, wpts, viewdir, z_vals, frame):
+        """The filter of the dense masked train forward (JAX pdf.py:131-136,
+        :447-454; aligned.py:408-413): wpts (R, S, 3), viewdir (R, 3),
+        z_vals (R, S) -> per point (N = R*S rows) the filter mask pind,
+        the posed points with the masked ones moved onto the first posed
+        vertex (:664-666), their posed view directions, their KNN prior
+        pbw (N, 24) and the world view directions.
+
+        One K2 launch serves the filter and the prior: JAX runs the KNN
         again on the substituted points, whose blend at a kept point is
         the filter's and at a masked one that of the first vertex, the
-        launch's extra last query."""
+        launch's extra last query. Data only; the argmin is forced over
+        the step's points."""
         n_rays, n_samples = z_vals.shape
         pose_pts = world_points_to_pose_points(
             wpts.reshape(-1, 3), frame["R"], frame["Th"])
         vd = viewdir[:, None, :].expand(n_rays, n_samples, 3).reshape(-1, 3)
         pose_dirs = world_dirs_to_pose_dirs(vd, frame["R"])
-
-        # the KNN filter (:131-136), data only, its argmin forced over
-        # the step's points; masked points onto pvertices[0] (:664-666)
         safe = frame["pvertices"][0]
         pbw, pnorm = sample_blend_closest_points(
             torch.cat([pose_pts, safe[None]]), frame["pvertices"],
             frame["weights"])
-        pind = keep_mask_with_argmin(pnorm[:-1, 0], NORM_TH)
+        pind = keep_mask_with_argmin(pnorm[:-1, 0], self.norm_th)
         pose_pts = substitute_masked(pose_pts, pind, safe)
         pbw = torch.where(pind[:, None], pbw[:-1], pbw[-1])
-
-        # the warp (:103-129), its parts kept for the loss
-        init_bigpose, tpose_dirs = self._to_bigpose(pose_pts, pose_dirs, pbw,
-                                                    frame)
-        resd = self.residual(init_bigpose, frame["poses"])
-        tpose = init_bigpose + resd
-        dirs = tpose_dirs if self.tpose_viewdir else vd
-        inside = inside_bounds(tpose, frame["tbounds"], pad=TBOUNDS_PAD)
-        return pind, init_bigpose, resd, tpose, dirs, inside
+        return pind, pose_pts, pose_dirs, pbw, vd
 
     @torch.no_grad()
     def forward(self, wpts, viewdir, z_vals, frame):
@@ -205,10 +188,10 @@ class _PDFBase(ResidualField):
         )
         # pass 1: the conservative candidates, ascending
         cand = torch.nonzero(
-            grid_pdist_keep(pose_pts, frame, NORM_TH)).squeeze(1)
+            grid_pdist_keep(pose_pts, frame, self.norm_th)).squeeze(1)
         c_pose = pose_pts[cand]
         c_pbw, c_pnorm = knn_blend_for_frame(c_pose, frame)
-        exact = keep_mask_with_argmin(c_pnorm[:, 0], NORM_TH)
+        exact = keep_mask_with_argmin(c_pnorm[:, 0], self.norm_th)
         sidx = cand[exact]
         s_dirs = viewdir[sidx // n_samples]
         tpose, tdirs = self._warp(
@@ -231,9 +214,55 @@ class _PDFBase(ResidualField):
         }
 
 
-class NeRFPDF(_PDFBase):
-    """Displacement field + softplus canonical NeRF (JAX pdf.py:353;
-    reference aligned_aninerf_pdf_network.py): `tpose_human.nerf_network`
+class _PDFBase(KNNFamily, ResidualField):
+    """The displacement-field families' shared part. The module is the
+    displacement field itself (`resd_linears`, `resd_fc` at the top
+    level, as in the reference networks) plus `tpose_human`, the
+    family's `_canonical` networks, so its state dict has the
+    reference's names. Their filter threshold is NORM_TH.
+
+    num_latents: rows of the color latent table (num_latent_code)."""
+
+    def __init__(self, num_latents: int, tpose_viewdir: bool = True,
+                 xyz_res: int = 10):
+        super().__init__(xyz_res=xyz_res)
+        self.tpose_human = self._canonical(num_latents)
+        self.tpose_viewdir = bool(tpose_viewdir)
+
+    @staticmethod
+    def _canonical(num_latents: int) -> Canonical:
+        raise NotImplementedError
+
+    def _warp(self, pose_pts, pose_dirs, pbw, frame):
+        """Posed SMPL -> canonical big pose plus the residual
+        displacement (JAX pdf.py:103). Returns (tpose, bigpose dirs)."""
+        init_bigpose, tpose_dirs = self._to_bigpose(pose_pts, pose_dirs, pbw,
+                                                    frame)
+        tpose = init_bigpose + self.residual(init_bigpose, frame["poses"])
+        return tpose, tpose_dirs
+
+    def _dense_warp(self, wpts, viewdir, z_vals, frame):
+        """The families' shared part of the dense masked train forward
+        (JAX pdf.py:447-454, :658-664, :953-958): wpts (R, S, 3),
+        viewdir (R, 3), z_vals (R, S) -> per point (N = R*S rows) the
+        filter mask pind, init_bigpose, the displacement resd, the
+        canonical points tpose = init_bigpose + resd, the head's view
+        directions and the canonical box mask `inside`: `_dense_filter`,
+        then the warp (:103-129), its parts kept for the loss."""
+        pind, pose_pts, pose_dirs, pbw, vd = self._dense_filter(
+            wpts, viewdir, z_vals, frame)
+        init_bigpose, tpose_dirs = self._to_bigpose(pose_pts, pose_dirs, pbw,
+                                                    frame)
+        resd = self.residual(init_bigpose, frame["poses"])
+        tpose = init_bigpose + resd
+        dirs = tpose_dirs if self.tpose_viewdir else vd
+        inside = inside_bounds(tpose, frame["tbounds"], pad=TBOUNDS_PAD)
+        return pind, init_bigpose, resd, tpose, dirs, inside
+
+
+class NeRFHead:
+    """NeRF-PDF's canonical head, shared with the aligned families (JAX
+    pdf.py:379, aligned.py:96-101, :138-145): `tpose_human.nerf_network`
     (channel 0 the pre-activation density, 1: the feature) and
     `tpose_human.color_network` without normals."""
 
@@ -254,6 +283,11 @@ class NeRFPDF(_PDFBase):
         rgb = self.tpose_human.color_network(tpose, None, dirs, out[:, 1:],
                                              latent_index)
         return rgb, alpha
+
+
+class NeRFPDF(NeRFHead, _PDFBase):
+    """Displacement field + softplus canonical NeRF (JAX pdf.py:353;
+    reference aligned_aninerf_pdf_network.py), with `NeRFHead`."""
 
     def train_forward(self, wpts, viewdir, z_vals, frame):
         """Dense masked train forward (JAX pdf.py:447-468): wpts (R, S,

@@ -13,7 +13,10 @@ Replaces the TPU kernels of animatable_nerf_tpu/ops/knn_pallas.py:
 :627. Each wrapper launches its hand-written CUDA kernel of csrc/knn.cu
 for CUDA tensors and takes its `*_plain` version for CPU tensors; there
 is no fallback from one to the other. All are forward-only: their
-outputs are data, no gradient crosses them (JAX models/pdf.py:157-159).
+outputs are data, no gradient crosses them (JAX models/pdf.py:157-159);
+K2 alone also has a differentiable form (`knn_blend_differentiable`),
+for the aligned families' canonical prior, whose backward is plain
+PyTorch on the k vertices its launch selected.
 
 The library is built with nvcc into `build/` at the checkout root at
 first use (ops/build.py; plain C interface, bound with ctypes). K2, K5
@@ -31,6 +34,7 @@ import weakref
 import torch
 
 from ..core.grid import pack_corner_volume
+from ..core.numerics import safe_sqrt
 from .build import build_library
 
 # the Pallas body's knock-out: a selected vertex's d2 + _BIG stays finite
@@ -68,9 +72,11 @@ def _select_blend(cur, values_at, k: int, eps: float):
     accumulated nearest first. torch.min returns the first of equal
     minima, which is the lowest column. values_at(idx) gives the (n, C)
     value rows of columns idx. A NaN query's row stays NaN, as in the
-    Pallas body. Returns (vals (n, C), wdist (n, 1))."""
+    Pallas body. Returns (vals (n, C), wdist (n, 1), the selected
+    columns (n, k) int64, nearest first)."""
     rows = torch.arange(cur.shape[0], device=cur.device)
     acc_vals = acc_disp = acc_wd = 0.0
+    picked = []
     for _ in range(k):
         dmin, idx = torch.min(cur, dim=1, keepdim=True)
         d = torch.sqrt(dmin)
@@ -79,23 +85,33 @@ def _select_blend(cur, values_at, k: int, eps: float):
         acc_disp = acc_disp + disp
         acc_wd = acc_wd + disp * d
         cur[rows, idx[:, 0]] += _BIG
-    return acc_vals / acc_disp, acc_wd / acc_disp
+        picked.append(idx)
+    return acc_vals / acc_disp, acc_wd / acc_disp, torch.cat(picked, dim=1)
 
 
 def knn_blend_plain(src, ref, values, k: int = 5, eps: float = 1e-8,
-                    chunk: int = PLAIN_CHUNK):
+                    chunk: int = PLAIN_CHUNK, indices: bool = False):
     """Plain PyTorch version of K2 (the Pallas `_knn_select_body`).
 
-    src (N, 3), ref (M, 3), values (M, C) -> (vals (N, C), wdist (N, 1)).
-    The query axis is cut into `chunk` rows so the (N, M) matrix never
-    exists whole."""
+    src (N, 3), ref (M, 3), values (M, C) -> (vals (N, C), wdist (N, 1)),
+    and with `indices` also the k selected vertices (N, k) int32, nearest
+    first (ties to the lowest index; -1 for a query with a NaN
+    coordinate). The query axis is cut into `chunk` rows so the (N, M)
+    matrix never exists whole."""
     c = values.shape[1]
     outs = [_select_blend(_sq_dists(src[s:s + chunk], ref.T),
                           lambda idx: values[idx], k, eps)
             for s in range(0, src.shape[0], chunk)]
     if not outs:
-        return src.new_zeros(0, c), src.new_zeros(0, 1)
-    return torch.cat([v for v, _ in outs]), torch.cat([w for _, w in outs])
+        outs = [(src.new_zeros(0, c), src.new_zeros(0, 1),
+                 torch.zeros(0, k, dtype=torch.long, device=src.device))]
+    vals = torch.cat([v for v, _, _ in outs])
+    wdist = torch.cat([w for _, w, _ in outs])
+    if not indices:
+        return vals, wdist
+    idx = torch.cat([i for _, _, i in outs]).to(torch.int32)
+    nan_query = torch.isnan(src).any(dim=1, keepdim=True)
+    return vals, wdist, torch.where(nan_query, -1, idx)
 
 
 def min_dist_plain(src, ref, chunk: int = PLAIN_CHUNK):
@@ -229,7 +245,7 @@ def _library():
     lib.knn_grid_keys.argtypes = [ptr, i32, ptr, ptr]
     lib.knn_grid_runs.argtypes = [ptr, ptr, i32, ptr, ptr, ptr]
     lib.knn_blend.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32,
-                              ptr, ptr, ptr, ptr]
+                              ptr, ptr, ptr, ptr, ptr]
     lib.knn_blocked.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
                                 i32, i32, i32, f32, ptr, ptr, ptr, ptr]
     lib.knn_celled.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32,
@@ -289,21 +305,25 @@ def _launch(name, device, fn, *args):
         raise RuntimeError(f"{name}: kernel launch failed (CUDA error {rc})")
 
 
-def knn_blend(src, ref, values, k: int = 5, eps: float = 1e-8):
+def knn_blend(src, ref, values, k: int = 5, eps: float = 1e-8,
+              indices: bool = False):
     """The K2 contract on `src`'s device: CPU tensors take the plain
     version, CUDA tensors launch the kernel (or raise).
 
     src (N, 3) queries, ref (M, 3) vertices, values (M, C) per-vertex
     values, all float32 -> (vals (N, C), wdist (N, 1)): the IDW blend of
     the k nearest vertices' values and distances (JAX
-    core/knn.py:37 `sample_blend_closest_points`)."""
+    core/knn.py:37 `sample_blend_closest_points`). With `indices`, also
+    the k selected vertices (N, k) int32, nearest first (the kernel's
+    optional output; -1 for a NaN query). Data only: for a gradient, see
+    `knn_blend_differentiable`."""
     _check_blend(src, ref, values, k)
     if src.device.type == "cpu":
-        return knn_blend_plain(src, ref, values, k, eps)
-    vals, wdist = _knn_blend_cuda(src, ref, values, k, eps)
+        return knn_blend_plain(src, ref, values, k, eps, indices=indices)
+    out = _knn_blend_cuda(src, ref, values, k, eps, indices=indices)
     if src.shape[0]:
         knn_blend.launches += 1
-    return vals, wdist
+    return out
 
 
 def _check_blend(src, ref, values, k):
@@ -312,20 +332,83 @@ def _check_blend(src, ref, values, k):
     _check_k("knn_blend", k, ref.shape[0])
 
 
-def _knn_blend_cuda(src, ref, values, k, eps, counts=None):
+def _knn_blend_cuda(src, ref, values, k, eps, counts=None, indices=False):
     """K2's launch on the sorted layout of ref (built once per version of
-    ref); `counts` selects the counting build."""
+    ref); `counts` selects the counting build, `indices` the (N, k)
+    int32 output of the selected vertices."""
     lib = _device_library("knn_blend", k, src, ref, values)
     n, m, c = src.shape[0], ref.shape[0], values.shape[1]
     vals = torch.empty(n, c, device=src.device, dtype=torch.float32)
     wdist = torch.empty(n, 1, device=src.device, dtype=torch.float32)
+    idx = (torch.empty(n, k, device=src.device, dtype=torch.int32)
+           if indices else None)
+    out = (vals, wdist) + ((idx,) if indices else ())
     if n == 0:
-        return vals, wdist
+        return out
     rows, axis = _sweep_layout(ref)
     _launch("knn_blend", src.device, lib.knn_blend, src.data_ptr(),
             rows.data_ptr(), axis.data_ptr(), values.data_ptr(), n, m, c, k,
             eps, vals.data_ptr(), wdist.data_ptr(),
+            None if idx is None else idx.data_ptr(),
             None if counts is None else counts.data_ptr())
+    return out
+
+
+def idw_blend(src, ref, values, idx, eps: float = 1e-8):
+    """K2's blend over given neighbours, differentiable: src (N, 3), the
+    selected vertices idx (N, k) of ref (M, 3), values (M, C) -> (vals
+    (N, C), wdist (N, 1)), as JAX core/knn.py:78-89 forms them from its
+    top_k selection: distances by `safe_sqrt` (a zero gradient at
+    distance 0, where a query lies on a vertex), weights 1/(d + eps)
+    normalized over the k, the blend and the weighted distance. The
+    selection is data: no gradient crosses it."""
+    idx = idx.long()
+    diff = src[:, None, :] - ref[idx]
+    d = safe_sqrt((diff * diff).sum(dim=-1))
+    disp = 1.0 / (d + eps)
+    weights = disp / disp.sum(dim=-1, keepdim=True)
+    wdist = (d * weights).sum(dim=-1, keepdim=True)
+    return (values[idx] * weights[..., None]).sum(dim=-2), wdist
+
+
+class KNNBlendFunction(torch.autograd.Function):
+    """K2 with a gradient. The forward is `knn_blend` with its selected
+    vertices (on the card one launch of the kernel with its index
+    output); the backward recomputes `idw_blend` on those k vertices in
+    plain PyTorch and takes its vjp, as JAX differentiates its XLA
+    `sample_blend_closest_points` (core/knn.py:78-89): the gradient
+    reaches the queries (and the vertices and values, where they need
+    one) through the distances and the blend, never through the
+    selection. No backward kernel: the JAX package has none either."""
+
+    @staticmethod
+    def forward(ctx, src, ref, values, k, eps):
+        vals, wdist, idx = knn_blend(src, ref, values, k, eps, indices=True)
+        ctx.save_for_backward(src, ref, values, idx)
+        ctx.eps = eps
+        ctx.mark_non_differentiable(idx)
+        return vals, wdist, idx
+
+    @staticmethod
+    def backward(ctx, g_vals, g_wdist, _):
+        src, ref, values, idx = ctx.saved_tensors
+        wanted = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip((src, ref, values), wanted)]
+            vals, wdist = idw_blend(*inputs, idx, ctx.eps)
+            grads = torch.autograd.grad(
+                (vals, wdist), [t for t in inputs if t.requires_grad],
+                (g_vals, g_wdist), allow_unused=True)
+        it = iter(grads)
+        return tuple(next(it) if need else None for need in wanted) + (None,
+                                                                       None)
+
+
+def knn_blend_differentiable(src, ref, values, k: int = 5, eps: float = 1e-8):
+    """`knn_blend` with a gradient (`KNNBlendFunction`): (vals, wdist)."""
+    _check_blend(src, ref, values, k)
+    vals, wdist, _ = KNNBlendFunction.apply(src, ref, values, k, eps)
     return vals, wdist
 
 
@@ -584,8 +667,8 @@ def knn_blend_blocked_plain(src, d5ub, verts_sorted, values_sorted, bboxes,
             tile, dim=0).repeat_interleave(block, dim=1)
         cur.masked_fill_(~cols, float("inf"))
         outs.append(_select_blend(cur, lambda idx: values_sorted[idx], k, eps))
-    return _unsort(order, torch.cat([v for v, _ in outs]),
-                   torch.cat([w for _, w in outs]))
+    return _unsort(order, torch.cat([v for v, _, _ in outs]),
+                   torch.cat([w for _, w, _ in outs]))
 
 
 def knn_blend_blocked(src, d5ub, verts_sorted, values_sorted, bboxes,
@@ -789,7 +872,8 @@ def knn_blend_celled_plain(src, cknn_verts, cknn_vals, cknn_lut, cknn_bounds,
                                   lambda idx, sl=sl: cknn_vals[sl, idx], k, eps))
     if not outs:
         return src.new_zeros(0, c), src.new_zeros(0, 1)
-    return torch.cat([v for v, _ in outs]), torch.cat([w for _, w in outs])
+    return (torch.cat([v for v, _, _ in outs]),
+            torch.cat([w for _, w, _ in outs]))
 
 
 def celled_tiles(slot, n_slots: int):

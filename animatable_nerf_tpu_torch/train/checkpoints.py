@@ -17,8 +17,8 @@ under {"inner_states": {"train": {"inner_state": ...}}}, beside
 So the JAX package's `load_checkpoint` and `run.py --type evaluate`
 read what the port writes, and the port resumes from what JAX writes.
 Every ported family is handled (`param_codec`): AniNeRF, NeRF-PDF,
-SDF-PDF and NeuS-PDF. `load_params_partial` is the weights-only,
-non-strict load of `init_aninerf` (JAX :167-204).
+SDF-PDF, NeuS-PDF and the four aligned families. `load_params_partial`
+is the weights-only, non-strict load of `init_aninerf` (JAX :167-204).
 """
 
 from __future__ import annotations
@@ -30,6 +30,11 @@ import torch
 
 from ..compat.flax_msgpack import read_checkpoint, write_checkpoint
 from ..compat.jax_params import (
+    aligned_lbw_param_tree,
+    aligned_lbw_pdf_param_tree,
+    aligned_pbw_param_tree,
+    aligned_smpl_param_tree,
+    aligned_state_dict,
     aninerf_param_tree,
     aninerf_state_dict,
     nerf_pdf_param_tree,
@@ -39,6 +44,7 @@ from ..compat.jax_params import (
     sdf_pdf_param_tree,
     sdf_pdf_state_dict,
 )
+from ..models.aligned import AlignedLBW, AlignedLBWPDF, AlignedPBW, AlignedSMPL
 from ..models.aninerf import AniNeRF
 from ..models.pdf import NeRFPDF, NeuSPDF, SDFPDF
 
@@ -46,7 +52,11 @@ from ..models.pdf import NeRFPDF, NeuSPDF, SDFPDF
 _CODECS = {AniNeRF: (aninerf_state_dict, aninerf_param_tree),
            NeRFPDF: (nerf_pdf_state_dict, nerf_pdf_param_tree),
            SDFPDF: (sdf_pdf_state_dict, sdf_pdf_param_tree),
-           NeuSPDF: (neus_pdf_state_dict, neus_pdf_param_tree)}
+           NeuSPDF: (neus_pdf_state_dict, neus_pdf_param_tree),
+           AlignedLBW: (aligned_state_dict, aligned_lbw_param_tree),
+           AlignedPBW: (aligned_state_dict, aligned_pbw_param_tree),
+           AlignedSMPL: (aligned_state_dict, aligned_smpl_param_tree),
+           AlignedLBWPDF: (aligned_state_dict, aligned_lbw_pdf_param_tree)}
 
 
 def param_codec(model):

@@ -103,6 +103,22 @@ Phases, one JSON line each:
      512x512 AniNeRF frame of the copy at 1024x1024 (device ms, K1
      launches); and the host time of `load_image` at 1024x1024, cold
      (the undistort maps built) and warm, for an eval and a train item;
+ 13. the aligned families (configs/synthetic_aligned_{lbw,pbw,smpl,
+     lbw_pdf}.yaml) on weights composed from the tracked AniNeRF and
+     NeRF-PDF checkpoints (compat/compose.py, written first): for each,
+     the evaluate held to the JAX package's PSNR on the composed file,
+     with K1 1 / 1 / 0 / 2 times a tile, K2 once a tile and K3 once a
+     frame; item 0 on the card against the port's CPU render; one train
+     step (256 rays) on the card against the CPU, held by the whole
+     gradient (LBWPDF's loss to ALIGNED_LOSS_RTOL), and the same step
+     with K1's plain version on the card held to the CPU's (every stat
+     within TRAIN_LOSS_RTOL); one epoch of 50 steps from the composed start (K1 2 / 2 /
+     0 / 3 and K2 2 / 2 / 1 / 2 a step) and the evaluate of its
+     checkpoint held to the JAX CPU run of the same steps; a profile of
+     5 steps; on LBW's step, K2's differentiable form on the canonical
+     points (the launch with and without its index output against the
+     plain version, the backward against the CPU's, their times and the
+     cdist chain's); and one 1000x1002 frame of LBW and of LBWPDF;
 then the kernel table line, the card line and {"ok": true, ...} last.
 Kernel launch counts are set to 0 just before each path and read just
 after it. Any failed phase raises and exits non-zero. Imports nothing of
@@ -1192,7 +1208,8 @@ def train_step_grads(trainer, batch):
 
 
 def phase_train_step_vs_cpu(name, cfg, state_dict, batch, k1, knn, expect,
-                            trainer_cls=None, whole_gradient=False):
+                            trainer_cls=None, whole_gradient=False,
+                            loss_rtol=TRAIN_LOSS_RTOL):
     """One train step's loss and gradients on the card against the same
     step with the port on this machine's CPU (the plain versions), from
     the same weights and batch, with each stat's difference reported;
@@ -1200,8 +1217,9 @@ def phase_train_step_vs_cpu(name, cfg, state_dict, batch, k1, knn, expect,
     `trainer_cls` defaults to the stage-1 Trainer. The gradient is held
     leaf by leaf (each within TRAIN_GRAD_REL of its largest entry), or
     with `whole_gradient` as one vector (its relative L2 error within
-    TRAIN_GRAD_REL; the leaf errors reported). Returns the names of the
-    parameters that received a gradient (the same on both)."""
+    TRAIN_GRAD_REL; the leaf errors reported); the loss within
+    `loss_rtol`. Returns the names of the parameters that received a
+    gradient (the same on both)."""
     from animatable_nerf_tpu_torch.engine import make_model
     from animatable_nerf_tpu_torch.train.trainer import Trainer
 
@@ -1238,7 +1256,7 @@ def phase_train_step_vs_cpu(name, cfg, state_dict, batch, k1, knn, expect,
           "grad_rel_l2": rel_l2, "grad_leaves": len(cpu_g),
           "launches": {"cuda": gpu_n, "cpu": cpu_n},
           "first_step_s": {"cuda": gpu_t, "cpu": cpu_t},
-          "tolerance": f"loss rtol {TRAIN_LOSS_RTOL} (the stats reported); "
+          "tolerance": f"loss rtol {loss_rtol} (the stats reported); "
           + (f"the whole gradient's |d| <= {TRAIN_GRAD_REL} x |g| (L2, CPU)"
              if whole_gradient else
              f"each gradient leaf max |d| <= {TRAIN_GRAD_REL} x its max |g| "
@@ -1247,7 +1265,7 @@ def phase_train_step_vs_cpu(name, cfg, state_dict, batch, k1, knn, expect,
     check(all(v == 0 for v in cpu_n.values()) and gpu_n == want,
           f"{name}: launches {cpu_n} on the CPU, {gpu_n} on the card "
           f"(expected {want})")
-    check(stats_rel["loss"] <= TRAIN_LOSS_RTOL,
+    check(stats_rel["loss"] <= loss_rtol,
           f"{name}: loss {gpu_loss} on the card vs {cpu_loss} on the CPU")
     check(all(bool(g.isfinite().all()) for g in gpu_g.values()),
           f"{name}: the gradient is not finite")
@@ -2002,6 +2020,336 @@ def phase_camera(k1, knn):
     return paths
 
 
+# Phase 13: the aligned families (AlignedLBW, AlignedPBW, AlignedSMPL,
+# AlignedLBWPDF) on weights composed from the tracked AniNeRF and
+# NeRF-PDF checkpoints (animatable_nerf_tpu_torch/compat/compose.py). Per
+# view PSNR (frames 0-3, view 3) of the JAX package's evaluate of each
+# composed file, and of the checkpoint after one epoch of 50 steps from
+# it (fresh Adam, perturb 0, the ray draw seeded), computed on the CPU
+# with (<f> is lbw, pbw, smpl, then lbw_pdf):
+#   python -m animatable_nerf_tpu_torch.compat.compose <f>
+#   JAX_PLATFORMS=cpu python run.py --type evaluate --cfg_file configs/synthetic_aligned_<f>.yaml
+#   python -c "import numpy as np; print(np.load('data/result/deform/synthetic_aligned_<f>/metrics.npy', allow_pickle=True).item()['psnr'])"
+#   python -c "from animatable_nerf_tpu_torch.train.checkpoints import write_fresh_start as w; w('data/trained_model/deform/synthetic_aligned_<f>/latest.flax', 'data/trained_model/deform/train50_aligned_<f>_jax')"
+#   JAX_PLATFORMS=cpu python train_net.py --cfg_file configs/synthetic_aligned_<f>.yaml exp_name train50_aligned_<f>_jax train.epoch 1 perturb 0 fix_random True train.num_workers 2 resume True
+#   JAX_PLATFORMS=cpu python run.py --type evaluate --cfg_file configs/synthetic_aligned_<f>.yaml exp_name train50_aligned_<f>_jax
+#   python -c "import numpy as np; print(np.load('data/result/deform/train50_aligned_<f>_jax/metrics.npy', allow_pickle=True).item()['psnr'])"
+JAX_PSNR_ALIGNED_LBW = [18.825851687156632, 21.3224485453902,
+                        22.174714024660748, 23.299455620661593]
+JAX_PSNR_ALIGNED_PBW = [18.825783762375757, 21.325276535657412,
+                        22.17066338833776, 23.29770448667656]
+JAX_PSNR_ALIGNED_SMPL = [18.826476263800302, 21.322567827932225,
+                         22.16903319359673, 23.297959618780343]
+JAX_PSNR_ALIGNED_LBW_PDF = [19.59346466573363, 22.001358386950656,
+                            22.57077348173854, 23.548182914614774]
+JAX_PSNR_TRAIN_ALIGNED_LBW = [19.514879007663712, 22.95898182816822,
+                              23.243578376529996, 25.204763947963137]
+JAX_PSNR_TRAIN_ALIGNED_PBW = [19.630112570069347, 23.08282858412936,
+                              23.377973353950637, 25.33081743095177]
+JAX_PSNR_TRAIN_ALIGNED_SMPL = [19.60824410403113, 23.060482987923034,
+                               23.348787235299476, 25.30308092652663]
+JAX_PSNR_TRAIN_ALIGNED_LBW_PDF = [16.83894084749308, 19.93892016105859,
+                                  20.243438550640793, 22.265262727674756]
+ALIGNED = {  # family: (JAX evaluate PSNR, JAX PSNR after 50 steps)
+    "lbw": (JAX_PSNR_ALIGNED_LBW, JAX_PSNR_TRAIN_ALIGNED_LBW),
+    "pbw": (JAX_PSNR_ALIGNED_PBW, JAX_PSNR_TRAIN_ALIGNED_PBW),
+    "smpl": (JAX_PSNR_ALIGNED_SMPL, JAX_PSNR_TRAIN_ALIGNED_SMPL),
+    "lbw_pdf": (JAX_PSNR_ALIGNED_LBW_PDF, JAX_PSNR_TRAIN_ALIGNED_LBW_PDF),
+}
+# K1's launches per eval tile (the learned field; LBWPDF's displacement
+# field too), and K1's and K2's per train step (the field at the posed
+# and at the canonical points; K2 the filter and, with a learned field,
+# the canonical prior with its gradient)
+ALIGNED_K1_PER_TILE = {"lbw": 1, "pbw": 1, "smpl": 0, "lbw_pdf": 2}
+ALIGNED_PER_STEP = {"lbw": {"skip_mlp": 2, "knn_blend": 2},
+                    "pbw": {"skip_mlp": 2, "knn_blend": 2},
+                    "smpl": {"knn_blend": 1},
+                    "lbw_pdf": {"skip_mlp": 3, "knn_blend": 2}}
+ALIGNED_FULL_FRAMES = ("lbw", "lbw_pdf")
+# the card's eval item against the CPU's: the maps' largest difference
+# (K1 in 3xTF32 against FP32, through the learned warp and the head)
+ALIGNED_ITEM_TOL = 1e-3
+# rays of the train step held against the CPU (the CPU's step at the
+# config's 512 rays takes seconds a family)
+ALIGNED_STEP_RAYS = 256
+# the card's LBWPDF step against the CPU: the loss within 1e-3, not
+# TRAIN_LOSS_RTOL. Its consistency term compares the blend-weight field
+# at the posed points with the field at the canonical ones, which the
+# displacement field moves: K1's 3xTF32 rounding of that field (within
+# K1_REL_TOL of its scale), through the positional encoding, moves the
+# term by some 5e-4 of itself. The step with K1's plain version on the
+# card (`aligned_step_plain_k1`, held to TRAIN_LOSS_RTOL for every
+# family) shows the rest of the card's step agrees with the CPU's.
+ALIGNED_LOSS_RTOL = {"lbw_pdf": 1e-3}
+# K2's backward on the card against the CPU: both are the same plain
+# PyTorch vjp, in float32 summed in another order
+K2_GRAD_REL = 1e-5
+
+
+def cdist_knn_grad(src, ref, values, k=5, eps=1e-8):
+    """The library chain K2's differentiable form is timed against:
+    torch.cdist, torch.topk and a gather, differentiated by autograd
+    (forward and backward, one call at the train step's size)."""
+    import torch
+
+    s = src.detach().requires_grad_(True)
+    d, idx = torch.topk(torch.cdist(s, ref), k, dim=1, largest=False)
+    w = 1.0 / (d + eps)
+    vals = (values[idx] * w[..., None]).sum(1) / w.sum(1, keepdim=True)
+    wd = (d * w).sum(1, keepdim=True) / w.sum(1, keepdim=True)
+    return torch.autograd.grad((vals.sum() + wd.sum()), s)[0]
+
+
+def k2_grad_on_tpose_points(knn, trainer, batch):
+    """K2's differentiable form on one aligned train step's canonical
+    points (the consistency target's prior, recorded from the model's
+    call): the launch with its selection against the plain version (bit
+    for bit, the indices too) and the launch without it against its
+    plain version (unchanged), the times of both launches, of the
+    backward (the plain vjp over the k selected vertices), of the plain
+    version's forward and of the cdist chain's forward and backward; the
+    backward's gradient against the CPU's."""
+    import torch
+
+    from animatable_nerf_tpu_torch.models import aligned
+
+    real, recorded = aligned.sample_blend_closest_points, []
+
+    def recording(src, ref, values, *args, **kwargs):
+        recorded.append((src.detach(), ref, values))
+        return real(src, ref, values, *args, **kwargs)
+
+    aligned.sample_blend_closest_points = recording
+    try:
+        trainer.loss({k: v[0] for k, v in batch.items()})
+    finally:
+        aligned.sample_blend_closest_points = real
+    check(len(recorded) == 1, f"an aligned step made {len(recorded)} "
+          "differentiable KNN calls")
+    src, ref, values = (t.contiguous() for t in recorded[0])
+    n, m, c = src.shape[0], ref.shape[0], values.shape[1]
+    got = knn.knn_blend(src, ref, values, indices=True)
+    want = knn.knn_blend_plain(src, ref, values, indices=True)
+    same_idx = torch.equal(got[2], want[2])
+    err = max_err(got[0], got[1], want[0], want[1])
+    err_off = max_err(*knn.knn_blend(src, ref, values),
+                      *knn.knn_blend_plain(src, ref, values))
+    check(same_idx and err <= KNN_TOL and err_off <= KNN_TOL,
+          f"K2 on the canonical points: indices equal {same_idx}, "
+          f"{err} with them and {err_off} without them against the plain "
+          "version")
+
+    rng = np.random.RandomState(3)
+    g_vals = torch.tensor(rng.randn(n, c).astype(np.float32), device="cuda")
+    g_wd = torch.tensor(rng.randn(n, 1).astype(np.float32), device="cuda")
+    s = src.clone().requires_grad_(True)
+    vals, wd = knn.knn_blend_differentiable(s, ref, values)
+
+    def backward():
+        return torch.autograd.grad((vals, wd), s, (g_vals, g_wd),
+                                   retain_graph=True)[0]
+
+    grad = backward()
+    s_cpu = src.cpu().requires_grad_(True)
+    v_cpu, d_cpu = knn.knn_blend_differentiable(s_cpu, ref.cpu(), values.cpu())
+    (want_grad,) = torch.autograd.grad((v_cpu, d_cpu), s_cpu,
+                                       (g_vals.cpu(), g_wd.cpu()))
+    grad_err = ((grad.cpu() - want_grad).abs().max()
+                / want_grad.abs().max()).item()
+    check(grad_err <= K2_GRAD_REL and bool(grad.isfinite().all()),
+          f"K2's backward on the card differs from the CPU's by {grad_err}")
+
+    plain_a = cuda_ms(lambda: knn.knn_blend_plain(src, ref, values,
+                                                  indices=True), 1, 3)
+    idx_a = cuda_ms(lambda: knn.knn_blend(src, ref, values, indices=True))
+    off_a = cuda_ms(lambda: knn.knn_blend(src, ref, values))
+    off_b = cuda_ms(lambda: knn.knn_blend(src, ref, values))
+    idx_b = cuda_ms(lambda: knn.knn_blend(src, ref, values, indices=True))
+    plain_b = cuda_ms(lambda: knn.knn_blend_plain(src, ref, values,
+                                                  indices=True), 1, 3)
+    bwd = cuda_ms(backward)
+    library = cuda_ms(lambda: cdist_knn_grad(src, ref, values), 1, 3)
+    kth2 = kth_sq_dist(src, ref)
+    band = int(band_pairs(src, ref, int(knn.sweep_layout(ref)[1]), kth2).sum())
+    fwd_bound, fwd_by = bound(OPS_PER_PAIR * band + blend_ops(n, c),
+                              knn_io_bytes(n, m, c) + 4 * n * 5)
+    # the backward reads the queries, their 5 indices, the vertices, their
+    # values and the two cotangents, and writes the queries' gradient; it
+    # recomputes the blend and takes its vjp, about three times the
+    # blend's operations
+    bwd_bound, bwd_by = bound(3 * blend_ops(n, c),
+                              4 * (n * (3 + 5 + c + 1 + 3) + m * (3 + c)))
+    return {"queries": n, "max_abs_err": err, "max_abs_err_without": err_off,
+            "indices_equal": same_idx, "grad_rel_err_vs_cpu": grad_err,
+            "kernel_ms": (idx_a + idx_b) / 2, "kernel_ms_runs": [idx_a, idx_b],
+            "kernel_without_indices_ms": (off_a + off_b) / 2,
+            "plain_ms": (plain_a + plain_b) / 2,
+            "backward_ms": bwd, "bound_ms": fwd_bound, "bound_by": fwd_by,
+            "backward_bound_ms": bwd_bound, "backward_bound_by": bwd_by,
+            "library_ms": library,
+            "library": "torch.cdist + torch.topk + gather, forward and "
+            "autograd backward", "pairs_band_per_query": band / n}
+
+
+def aligned_step_plain_k1(name, cfg, state_dict, batch, k1):
+    """The control of a train step on the card against the CPU: the same
+    step on the card with K1's plain version in place of the kernel
+    (every other kernel launched as on the main path), its loss and
+    stats against the CPU's within TRAIN_LOSS_RTOL and its whole
+    gradient within TRAIN_GRAD_REL of its L2 norm. These K1 calls are a
+    comparison, not counted as launches."""
+    from animatable_nerf_tpu_torch.engine import make_model
+    from animatable_nerf_tpu_torch.train.trainer import Trainer
+
+    def plain(x, layers, skips, act, act_last, packed=None):
+        return k1.skip_mlp_plain(x, layers, skips, act, act_last)
+
+    results = {}
+    for device in ("cpu", "cuda"):
+        model = make_model(cfg)
+        model.load_state_dict(state_dict)
+        trainer = Trainer(cfg, model.to(device), device)
+        kernel, k1._forward = k1._forward, plain
+        try:
+            results[device] = train_step_grads(trainer, batch)
+        finally:
+            k1._forward = kernel
+    (_, cpu_s, cpu_g), (_, gpu_s, gpu_g) = results["cpu"], results["cuda"]
+    stats_rel = {k: abs(gpu_s[k] / v - 1) if v else abs(gpu_s[k])
+                 for k, v in cpu_s.items()}
+    rel_l2 = math.sqrt(
+        sum(float(((gpu_g[n] - g).double() ** 2).sum()) for n, g in cpu_g.items())
+        / sum(float((g.double() ** 2).sum()) for g in cpu_g.values()))
+    emit({"phase": name, "stats_rel_err": stats_rel, "grad_rel_l2": rel_l2,
+          "tolerance": f"each stat rtol {TRAIN_LOSS_RTOL}, the whole "
+          f"gradient {TRAIN_GRAD_REL} of its L2 norm"})
+    check(max(stats_rel.values()) <= TRAIN_LOSS_RTOL
+          and rel_l2 <= TRAIN_GRAD_REL,
+          f"{name}: the card's step with K1's plain version differs from "
+          f"the CPU's: {stats_rel}, gradient {rel_l2}")
+
+
+def aligned_item_vs_cpu(name, cfg_file, k1, knn):
+    """One eval item (item 0) on the card against the port's CPU render
+    of it, the distance grid at 24^3 on both (the main path's 96^3 grid
+    takes tens of seconds on the CPU): the maps within ALIGNED_ITEM_TOL,
+    and the same candidate and survivor counts."""
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.engine import Engine, make_dataset
+
+    cfg = load_config(cfg_file, ["knn_grid_res", "24"], run_type="evaluate")
+    cfg.eval = True
+    item = make_dataset(cfg, "test")[0]
+    outs, stats = {}, {}
+    for device in ("cuda", "cpu"):
+        eng = Engine(cfg, device)
+        eng.load_params()
+        t0 = time.time()
+        outs[device], _ = eng.render_item(item)
+        stats[device] = dict(eng.stats, seconds=time.time() - t0)
+    err = {k: float(np.abs(outs["cuda"][k] - outs["cpu"][k]).max())
+           for k in outs["cpu"]}
+    emit({"phase": name, "rays": len(item["ray_o"]), "max_abs_err": err,
+          "tol": ALIGNED_ITEM_TOL, "stats": stats})
+    same = all(stats["cuda"][k] == stats["cpu"][k]
+               for k in ("n_candidates", "n_survivors"))
+    check(same and max(err.values()) <= ALIGNED_ITEM_TOL,
+          f"{name}: the card's item differs from the CPU's by {err} "
+          f"(counts equal: {same})")
+
+
+def phase_aligned(full_item, k1, knn):
+    """Phase 13: for each aligned family, the composed weights written
+    (compose.py `write_aligned`); the evaluate held to the JAX PSNR with
+    K1, K2 and K3 launched as ALIGNED_K1_PER_TILE says; one item on the
+    card against the CPU; one train step on the card against the CPU
+    (the whole gradient), and the same step with K1's plain version on
+    the card (`aligned_step_plain_k1`); one epoch of 50 steps from the composed start
+    and the evaluate of its checkpoint held to the JAX CPU run of the
+    same steps; a profile of train steps; K2's differentiable form on
+    one step's canonical points; and for LBW and LBWPDF one 1000x1002
+    frame. Returns the launches of each path and K2's row."""
+    from animatable_nerf_tpu_torch.compat.compose import write_aligned
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.engine import Engine, make_dataset, make_model
+    from animatable_nerf_tpu_torch.compat.flax_msgpack import read_checkpoint
+    from animatable_nerf_tpu_torch.train.checkpoints import param_codec
+    from animatable_nerf_tpu_torch.train.trainer import collate_rays, stack_batch
+
+    paths, k2_grad = {}, None
+    for family, (jax_psnr, jax_psnr_train) in ALIGNED.items():
+        cfg_file = f"configs/synthetic_aligned_{family}.yaml"
+        start = write_aligned(family)
+        cfg = load_config(cfg_file, [], run_type="evaluate")
+        name = f"evaluate_aligned_{family}"
+        launches, _ = phase_evaluate(name, cfg, jax_psnr, k1, knn)
+        # K2 once a tile, K1 as the family's field stacks a tile, K3 once
+        # a frame (each view is another frame)
+        tiles = launches["knn_blend"]
+        want = {"skip_mlp": ALIGNED_K1_PER_TILE[family] * tiles,
+                "knn_blend": tiles, "min_dist": len(jax_psnr)}
+        check(tiles >= len(jax_psnr)
+              and launches == {k: want.get(k, 0) for k in launches},
+              f"{name} launched {launches}, expected {want}")
+        paths[name] = launches
+        aligned_item_vs_cpu(f"aligned_{family}_item_vs_cpu", cfg_file, k1, knn)
+
+        exp = f"chip_smoke_train_aligned_{family}"
+        opts = ["exp_name", exp] + TRAIN_OPTS[2:]
+        step_cfg = load_config(cfg_file, opts + ["N_rand",
+                                                 str(ALIGNED_STEP_RAYS)])
+        state_dict = param_codec(make_model(step_cfg))[0](
+            read_checkpoint(start)["params"])
+        ds = make_dataset(step_cfg, "train")
+        ds._rng = np.random.RandomState(0)
+        batch = stack_batch([collate_rays(ds[0], ALIGNED_STEP_RAYS)])
+        per_step = ALIGNED_PER_STEP[family]
+        phase_train_step_vs_cpu(f"train_aligned_{family}_step_vs_cpu",
+                                step_cfg, state_dict, batch, k1, knn,
+                                per_step, whole_gradient=True,
+                                loss_rtol=ALIGNED_LOSS_RTOL.get(
+                                    family, TRAIN_LOSS_RTOL))
+        aligned_step_plain_k1(f"train_aligned_{family}_step_plain_k1_vs_cpu",
+                              step_cfg, state_dict, batch, k1)
+
+        run = train_and_evaluate(cfg_file, opts, exp, jax_psnr_train, k1, knn)
+        cfg, trainer, _, launches, _, _, _ = run
+        summary = train_summary(*run, jax_psnr_train)
+        steps = trainer.step
+        ds = make_dataset(cfg, "train")
+        ds._rng = np.random.RandomState(0)
+        batch = stack_batch([collate_rays(ds[0], int(cfg.N_rand))])
+        prof = steps_profile(trainer, batch, ["skip_mlp_kernel",
+                                              "knn_blend_kernel"])
+        record = {"phase": f"train_aligned_{family}", "config": cfg_file,
+                  "opts": opts, **summary,
+                  "launches_per_step": {k: v / steps
+                                        for k, v in launches.items()},
+                  "profile_per_step": prof,
+                  "events_per_step": step_parts_ms(trainer, batch)}
+        if family == "lbw":
+            k2_grad = k2_grad_on_tpose_points(knn, trainer, batch)
+            record["k2_differentiable_tpose_points"] = k2_grad
+        emit(record)
+        check_train(f"train_aligned_{family}", summary, per_step)
+        paths[f"train_aligned_{family}"] = launches
+
+        if family in ALIGNED_FULL_FRAMES:
+            eng = Engine(load_config(cfg_file, [], run_type="evaluate"), "cuda")
+            eng.load_params()
+            frame_launches, _ = phase_full_frame(
+                f"full_frame_aligned_{family}", eng, full_item, k1, knn)
+            tiles = eng.stats["tiles"]
+            want = {"skip_mlp": ALIGNED_K1_PER_TILE[family] * tiles,
+                    "knn_blend": tiles, "min_dist": 1}
+            check(frame_launches == {k: want.get(k, 0) for k in frame_launches},
+                  f"full_frame_aligned_{family} launched {frame_launches}, "
+                  f"expected {want}")
+            paths[f"full_frame_aligned_{family}"] = frame_launches
+            del eng
+    return paths, k2_grad
+
+
 def main():
     import torch
 
@@ -2140,6 +2488,11 @@ def main():
     # masks): three evaluates, AniNeRF's train step, a 512x512 frame
     camera_paths = phase_camera(k1, knn)
 
+    # ---- phase 13: the aligned families on composed weights: evaluates,
+    # an item and a train step against the CPU, 50 steps each, K2's
+    # differentiable form, two full frames
+    aligned_paths, k2_grad = phase_aligned(full_item_sdf, k1, knn)
+
     # ---- kernel table
     def k1_sum(key):
         return sum(r[key] for r in k1_rows)
@@ -2188,80 +2541,110 @@ def main():
             **{f"full_frame_{f}": fr[name] for f, (_, fr) in fam.items()}}
         return entry
 
-    k2_entry = family_paths(
+    def aligned_launches(entry, name):
+        """The aligned paths' launches (phase 13): evaluates and train
+        runs into `launches`, each path by name, and the full frames."""
+        for path, n in aligned_paths.items():
+            if path.startswith("full_frame"):
+                entry.setdefault("launches_full_frame_by_path", {})[path] = n[name]
+            else:
+                entry["launches"] += n[name]
+                entry.setdefault("launches_by_path", {})[path] = n[name]
+        return entry
+
+    k2_entry = aligned_launches(family_paths(
         knn_entry(k2_row, 55, sdf_launches, sdf_frame_launches, "k2"),
-        "knn_blend")
+        "knn_blend"), "knn_blend")
     # K2 also runs once a step on the PDF families' dense train points
     for path, launches in train_paths.items():
         if path != "train":
             k2_entry["launches"] += launches["knn_blend"]
             k2_entry["launches_by_path"][path] = launches["knn_blend"]
     k2_entry.update(
-        launches_per_train_step={path: launches["knn_blend"] / 50
-                                 for path, launches in train_paths.items()},
+        launches_per_train_step={
+            path: launches["knn_blend"] / 50
+            for path, launches in (*train_paths.items(),
+                                   *aligned_paths.items())
+            if path.startswith("train")},
+        # the consistency target's prior on LBW's canonical points: the
+        # launch with its selection, and the plain vjp over it
+        differentiable_tpose_points={k: k2_grad[k] for k in (
+            "queries", "max_abs_err", "indices_equal", "kernel_ms",
+            "kernel_without_indices_ms", "plain_ms", "backward_ms",
+            "bound_ms", "bound_by", "backward_bound_ms", "library_ms",
+            "grad_rel_err_vs_cpu")},
         train_points={k: k2_train[k] for k in (
             "queries", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "share_of_bound", "pairs_band_per_query",
             "pairs_tested_per_query", "filter_pass_share")})
+    k1_entry = {
+        "name": "skip_mlp",
+        "route": "cuda",
+        "source": "animatable_nerf_tpu_torch/csrc/skip_mlp.cu",
+        "replaces": "animatable_nerf_tpu/ops/mlp_pallas.py:108",
+        # the evaluate paths (AniNeRF, SDF-PDF, NeRF-PDF, NeuS-PDF,
+        # AniNeRF's novel pose; the real-camera and aligned ones are
+        # added below) and the 50 steps of each training (the forward;
+        # the backward and its derivative are plain PyTorch)
+        "launches": eval_launches["skip_mlp"] + sdf_launches["skip_mlp"]
+        + sum(ev["skip_mlp"] for ev, _ in fam.values())
+        + novel_launches["skip_mlp"]
+        + sum(n["skip_mlp"] for n in train_paths.values())
+        + sum(n["skip_mlp"] for path, n in camera_paths.items()
+              if not path.startswith("frame")),
+        "launches_by_path": {
+            "evaluate": eval_launches["skip_mlp"],
+            "evaluate_sdf_pdf": sdf_launches["skip_mlp"],
+            **{f"evaluate_{f}": ev["skip_mlp"]
+               for f, (ev, _) in fam.items()},
+            "evaluate_novel_pose": novel_launches["skip_mlp"],
+            **{path: n["skip_mlp"] for path, n in train_paths.items()},
+            **{path: n["skip_mlp"] for path, n in camera_paths.items()
+               if not path.startswith("frame")}},
+        "launches_per_train_step": {
+            **{path: n["skip_mlp"] / 50 for path, n in train_paths.items()},
+            "train_camera": camera_paths["train_camera"]["skip_mlp"]
+            / CAMERA_TRAIN_STEPS},
+        "launches_full_frame": {
+            "full_frame": frame_launches["skip_mlp"],
+            "full_frame_sdf_pdf": sdf_frame_launches["skip_mlp"],
+            **{f"full_frame_{f}": fr["skip_mlp"]
+               for f, (_, fr) in fam.items()},
+            "full_frame_novel_pose": novel_frame_launches["skip_mlp"],
+            "frame_camera_512": camera_paths["frame_camera_512"]["skip_mlp"]},
+        # the two wirings of a stage-2 step at its 65,536 rows
+        "stage2_step_rows": [
+            {k: r[k] for k in ("wiring", "rows", "max_abs_err",
+                               "kernel_ms", "plain_ms", "library_ms",
+                               "bound_ms", "share_of_bound")}
+            for r in k1_anim_rows],
+        "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
+        # one call of each wiring (bw field, NeRF trunk, resd field)
+        # at K1_ROWS rows
+        "ms": k1_sum("kernel_ms"),
+        "kernel_ms": k1_sum("kernel_ms"),
+        "plain_ms": k1_sum("plain_ms"),
+        # 3 x FLOP over the TF32 rate (the FP32-accurate tensor-core
+        # bound); the FP32 CUDA-core one beside it
+        "bound_ms": k1_sum("bound_ms"),
+        "bound_by": "operations" if all(
+            r["bound_by"] == "operations" for r in k1_rows) else "bytes",
+        "bound_fp32_ms": k1_sum("bound_fp32_ms"),
+        "share_of_bound": k1_sum("bound_ms") / k1_sum("kernel_ms"),
+        "library_ms": k1_sum("library_ms"),
+    }
+    aligned_launches(k1_entry, "skip_mlp")
+    k1_entry["launches_per_train_step"].update(
+        {path: n["skip_mlp"] / 50 for path, n in aligned_paths.items()
+         if path.startswith("train")})
+    k1_entry["launches_full_frame"].update(
+        k1_entry.pop("launches_full_frame_by_path"))
     emit({"kernels": [
-        {
-            "name": "skip_mlp",
-            "route": "cuda",
-            "source": "animatable_nerf_tpu_torch/csrc/skip_mlp.cu",
-            "replaces": "animatable_nerf_tpu/ops/mlp_pallas.py:108",
-            # the evaluate paths (AniNeRF, SDF-PDF, NeRF-PDF, NeuS-PDF,
-            # AniNeRF's novel pose) and the 50 steps of each training (the
-            # forward; the backward and its derivative are plain PyTorch)
-            "launches": eval_launches["skip_mlp"] + sdf_launches["skip_mlp"]
-            + sum(ev["skip_mlp"] for ev, _ in fam.values())
-            + novel_launches["skip_mlp"]
-            + sum(n["skip_mlp"] for n in train_paths.values())
-            + sum(n["skip_mlp"] for path, n in camera_paths.items()
-                  if not path.startswith("frame")),
-            "launches_by_path": {
-                "evaluate": eval_launches["skip_mlp"],
-                "evaluate_sdf_pdf": sdf_launches["skip_mlp"],
-                **{f"evaluate_{f}": ev["skip_mlp"]
-                   for f, (ev, _) in fam.items()},
-                "evaluate_novel_pose": novel_launches["skip_mlp"],
-                **{path: n["skip_mlp"] for path, n in train_paths.items()},
-                **{path: n["skip_mlp"] for path, n in camera_paths.items()
-                   if not path.startswith("frame")}},
-            "launches_per_train_step": {
-                **{path: n["skip_mlp"] / 50 for path, n in train_paths.items()},
-                "train_camera": camera_paths["train_camera"]["skip_mlp"]
-                / CAMERA_TRAIN_STEPS},
-            "launches_full_frame": {
-                "full_frame": frame_launches["skip_mlp"],
-                "full_frame_sdf_pdf": sdf_frame_launches["skip_mlp"],
-                **{f"full_frame_{f}": fr["skip_mlp"]
-                   for f, (_, fr) in fam.items()},
-                "full_frame_novel_pose": novel_frame_launches["skip_mlp"],
-                "frame_camera_512": camera_paths["frame_camera_512"]["skip_mlp"]},
-            # the two wirings of a stage-2 step at its 65,536 rows
-            "stage2_step_rows": [
-                {k: r[k] for k in ("wiring", "rows", "max_abs_err",
-                                   "kernel_ms", "plain_ms", "library_ms",
-                                   "bound_ms", "share_of_bound")}
-                for r in k1_anim_rows],
-            "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
-            # one call of each wiring (bw field, NeRF trunk, resd field)
-            # at K1_ROWS rows
-            "ms": k1_sum("kernel_ms"),
-            "kernel_ms": k1_sum("kernel_ms"),
-            "plain_ms": k1_sum("plain_ms"),
-            # 3 x FLOP over the TF32 rate (the FP32-accurate tensor-core
-            # bound); the FP32 CUDA-core one beside it
-            "bound_ms": k1_sum("bound_ms"),
-            "bound_by": "operations" if all(
-                r["bound_by"] == "operations" for r in k1_rows) else "bytes",
-            "bound_fp32_ms": k1_sum("bound_fp32_ms"),
-            "share_of_bound": k1_sum("bound_ms") / k1_sum("kernel_ms"),
-            "library_ms": k1_sum("library_ms"),
-        },
+        k1_entry,
         k2_entry,
-        family_paths(knn_entry(k3_row, 129, sdf_launches, sdf_frame_launches),
-                     "min_dist"),
+        aligned_launches(family_paths(
+            knn_entry(k3_row, 129, sdf_launches, sdf_frame_launches),
+            "min_dist"), "min_dist"),
         knn_entry(k4_row, 240, blk_launches, blk_frame_launches),
         knn_entry(k5_row, 460, blk_launches, blk_frame_launches, "k5"),
         knn_entry(k6_row, 760, blk_launches, blk_frame_launches),

@@ -14,10 +14,12 @@ within 1e-2 of its largest entry: rounding in the canonical points is
 multiplied by the positional encoding, as between the JAX and port CPU
 steps, tests/test_torch_train.py, which measured 2.3e-3); the same for
 a train step of SDF-PDF, NeRF-PDF and NeuS-PDF and a stage-2 step of
-AniNeRF (novel pose), for the eval items (the novel-pose item, a
-distorted camera at ratio 0.5: maps within 1e-4), and K1's gradient of a gradient within 1e-5 of
-each tensor's scale (the backward and its derivative are the plain
-version's on both sides). K2-K6
+AniNeRF (novel pose) and of the four aligned families, for the eval
+items (the novel-pose item, a distorted camera at ratio 0.5, the
+aligned families' items: maps within 1e-4), and K1's gradient of a
+gradient within 1e-5 of each tensor's scale (the backward and its
+derivative are the plain version's on both sides), as for K2's gradient
+(the plain vjp over the selected vertices on both sides). K2-K6
 round every operation as their plain versions do (no FMA, the same
 order), so they must agree to the bit: atol = rtol = 0.
 """
@@ -954,3 +956,177 @@ def test_cuda_camera_item_matches_cpu(cuda_device, tmp_path):
         np.testing.assert_allclose(out[k], cpu_out[k], rtol=1e-4, atol=1e-4,
                                    err_msg=k)
     assert out["acc_map"].max() > 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_knn_blend_indices_match_plain(cuda_device, kind, k):
+    """K2 with its index output: the blend, the weighted distance and the
+    k selected vertices bit-equal to the plain version's, one launch;
+    without it, the launch's outputs unchanged (bit-equal too)."""
+    src, ref, vals = (torch.tensor(a, device=cuda_device)
+                      for a in knn_inputs(kind, 1001, 6890, 24, 23))
+    before = knn.knn_blend.launches
+    got = knn.knn_blend(src, ref, vals, k=k, indices=True)
+    torch.cuda.synchronize()
+    assert knn.knn_blend.launches == before + 1
+    assert got[2].dtype == torch.int32 and got[2].shape == (1001, k)
+    assert_bits_equal(got, knn.knn_blend_plain(src, ref, vals, k=k,
+                                               indices=True))
+    assert_bits_equal(knn.knn_blend(src, ref, vals, k=k), got[:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["cloud", "on_vertices", "duplicates"])
+def test_cuda_knn_blend_gradient_matches_cpu(cuda_device, kind):
+    """K2's differentiable form (`knn_blend_differentiable`) on the card
+    against the CPU: values within 1e-6 (the CPU's float32 divisions and
+    square roots may round apart from the card's by an ulp), the
+    gradient with respect to the queries and the values (the plain vjp
+    over the k selected vertices on both) within 1e-5 of each one's
+    scale, finite at queries on a vertex; one launch on the card, none
+    in the backward."""
+    arrays = knn_inputs(kind, 1001, 6890, 24, 24)
+    rng = np.random.RandomState(25)
+    cot = (rng.randn(1001, 24).astype(np.float32),
+           rng.randn(1001, 1).astype(np.float32))
+    results = []
+    for device in ("cpu", cuda_device):
+        src, ref, vals = (torch.tensor(a, device=device) for a in arrays)
+        src.requires_grad_(True)
+        vals.requires_grad_(True)
+        before = knn.knn_blend.launches
+        out = knn.knn_blend_differentiable(src, ref, vals)
+        grads = torch.autograd.grad(
+            out, (src, vals), tuple(torch.tensor(c, device=device)
+                                    for c in cot))
+        results.append(([t.detach().cpu() for t in out],
+                         [g.cpu() for g in grads],
+                         knn.knn_blend.launches - before))
+    (cpu_out, cpu_g, cpu_n), (out, grads, n) = results
+    assert (cpu_n, n) == (0, 1)
+    for got, want in zip(out, cpu_out):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-6)
+    for got, want in zip(grads, cpu_g):
+        finite = torch.isfinite(want)
+        assert torch.equal(torch.isfinite(got), finite)
+        err = (got[finite] - want[finite]).abs().max().item()
+        assert err <= 1e-5 * max(1.0, want[finite].abs().max().item()), err
+
+
+ALIGNED_FAMILIES = ("lbw", "pbw", "smpl", "lbw_pdf")
+# per family on the card: K1's launches an eval tile, and (K1, K2) a
+# train step's forward
+ALIGNED_LAUNCHES = {"lbw": (1, (2, 2)), "pbw": (1, (2, 2)),
+                    "smpl": (0, (0, 1)), "lbw_pdf": (2, (3, 2))}
+
+
+def aligned_model(family, cfg):
+    """configs/synthetic_aligned_<family>.yaml's model on the composed
+    weights (compat/compose.py)."""
+    from animatable_nerf_tpu_torch import engine
+    from animatable_nerf_tpu_torch.compat.compose import compose_aligned
+    from animatable_nerf_tpu_torch.train.checkpoints import param_codec
+
+    model = engine.make_model(cfg)
+    model.load_state_dict(param_codec(model)[0](compose_aligned(family)),
+                          strict=True)
+    return model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ALIGNED_FAMILIES)
+def test_cuda_aligned_item_and_step_match_cpu(cuda_device, family,
+                                              monkeypatch):
+    """An aligned eval item (item 0, eval tiles of 1024 rays, a 24^3
+    distance grid) and a train step (64 rays of 16 samples) on the
+    composed weights, on the card against the CPU: the same candidates
+    and survivors and the maps within 1e-4; the step's loss and stats
+    within 1e-4, the whole gradient within 1e-3 of its L2 norm and each
+    leaf within 1e-2 of its largest entry, or, on a leaf float32 cannot
+    resolve, within twice the move of the CPU's own gradient when the
+    rays' directions move by one ulp (LBW's `bw_linears.0.bias` here,
+    tests/test_torch_train_aligned.py);
+    K1, K2 and K3 launched as ALIGNED_LAUNCHES says on the card, never on
+    the CPU, and no plain KNN version reached by a CUDA tensor."""
+    from animatable_nerf_tpu_torch import engine
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.train.trainer import (
+        Trainer, collate_rays, stack_batch)
+
+    cfg_file = f"configs/synthetic_aligned_{family}.yaml"
+    eval_cfg = load_config(cfg_file, ["eval_tile", "1024", "knn_grid_res",
+                                      "24"], run_type="evaluate")
+    eval_cfg.eval = True
+    item = engine.make_dataset(eval_cfg, "test")[0]
+    cfg = load_config(cfg_file, ["N_rand", "64", "N_samples", "16",
+                                 "perturb", "0"])
+    ds = engine.make_dataset(cfg, "train")
+    ds._rng = np.random.RandomState(0)
+    batch = {k: v[0] for k, v in stack_batch([collate_rays(ds[4], 64)]).items()}
+
+    def counts():
+        return (k1.skip_mlp.launches, knn.knn_blend.launches,
+                knn.min_dist.launches)
+
+    results = []
+    for device in ("cpu", cuda_device):
+        if device != "cpu":
+            def refuse(*args, **kwargs):
+                raise AssertionError("a CUDA tensor reached a plain version")
+
+            for name in ("knn_blend_plain", "min_dist_plain",
+                         "kth_distance_plain", "_select_blend"):
+                monkeypatch.setattr(knn, name, refuse)
+        eng = engine.Engine(eval_cfg, device)
+        eng.model.load_state_dict(aligned_model(family, eval_cfg).state_dict())
+        before = counts()
+        out, _ = eng.render_item(item)
+        eval_n = tuple(a - b for a, b in zip(counts(), before))
+        trainer = Trainer(cfg, aligned_model(family, cfg).to(device), device)
+        before = counts()
+        loss, stats, _ = trainer.loss(batch)
+        step_n = tuple(a - b for a, b in zip(counts(), before))
+        loss.backward()
+        results.append((out, dict(eng.stats), eval_n,
+                        {k: float(v.detach()) for k, v in stats.items()},
+                        {n: p.grad.cpu()
+                         for n, p in trainer.model.named_parameters()
+                         if p.grad is not None}, step_n))
+    monkeypatch.undo()  # the CPU's plain versions again, for `moved`
+    (cpu_out, cpu_stats, cpu_en, cpu_s, cpu_g, cpu_sn), (
+        out, stats, en, s, g, sn) = results
+    tiles = stats["tiles"]
+    per_tile, (step_k1, step_k2) = ALIGNED_LAUNCHES[family]
+    assert cpu_en == (0, 0, 0) and cpu_sn == (0, 0, 0)
+    assert en == (per_tile * tiles, tiles, 1) and tiles > 1
+    assert sn == (step_k1, step_k2, 0)
+    assert stats == cpu_stats
+    for k in ("rgb_map", "acc_map", "depth_map"):
+        assert np.isfinite(out[k]).all(), k
+        np.testing.assert_allclose(out[k], cpu_out[k], rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
+    assert out["acc_map"].max() > 0.5
+    for k, v in cpu_s.items():
+        np.testing.assert_allclose(s[k], v, rtol=1e-4, err_msg=k)
+    assert set(g) == set(cpu_g)
+    moved = None
+    for name, want in cpu_g.items():
+        err = (g[name] - want).abs().max().item()
+        assert torch.isfinite(g[name]).all(), name
+        if err > 1e-2 * want.abs().max().item():
+            # a leaf float32 cannot resolve: the CPU's own gradient of it
+            # moves as far when the rays' directions move by one ulp
+            if moved is None:
+                trainer = Trainer(cfg, aligned_model(family, cfg), "cpu")
+                trainer.loss(dict(batch, ray_d=np.nextafter(
+                    batch["ray_d"], np.float32(np.inf))))[0].backward()
+                moved = {n: p.grad for n, p in
+                         trainer.model.named_parameters() if p.grad is not None}
+            shift = (moved[name] - want).abs().max().item()
+            assert shift >= err / 2, (name, err, shift)
+    l2 = (sum(float(((g[n] - w).double() ** 2).sum()) for n, w in cpu_g.items())
+          / sum(float((w.double() ** 2).sum()) for w in cpu_g.values())) ** 0.5
+    assert l2 <= 1e-3, l2
