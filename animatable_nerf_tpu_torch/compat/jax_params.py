@@ -19,7 +19,8 @@ animatable_nerf_tpu/compat/torch_export.py writes:
     `tpose_human.variance_network.variance`;
   * the aligned families (:122-163 `export_aligned_*`): the blend-weight
     field as AniNeRF's (PBW's without a latent it reads), NeRF-PDF's
-    head, and LBWPDF's displacement field.
+    head, LBWPDF's displacement field, and with a stage-2 field
+    (LBW, LBWPDF) `novel_pose_bw.*` as AniNeRF's.
 Dense kernels (in, out) become nn.Linear weights (out, in); a
 weight-normalized {v (in, out), g (out,), b} becomes `weight_v` (out,
 in), `weight_g` (out, 1), `bias`. Load the result with
@@ -308,6 +309,8 @@ def _aligned_arrays(p: dict) -> dict:
     if "resd_field" in p:
         out.update(_mlp_arrays(p["resd_field"]["mlp"], "resd_linears",
                                "resd_fc"))
+    if "novel_pose_bw" in p:
+        out.update(bw_field_state_dict(p["novel_pose_bw"], "novel_pose_bw."))
     return out
 
 
@@ -317,8 +320,10 @@ def aligned_state_dict(params: dict) -> dict:
     torch.Tensor}: `tpose_human.nerf_network.lin{l}`,
     `tpose_human.color_network.*`, and as the tree holds them the
     blend-weight field (`bw_latent`, `bw_linears.{i}`, `bw_fc`; PBW's
-    `bw_latent` zeros of num_train_frame + 1 rows) and the displacement
-    field (`resd_linears.{i}`, `resd_fc`)."""
+    `bw_latent` zeros of num_train_frame + 1 rows), the displacement
+    field (`resd_linears.{i}`, `resd_fc`) and LBW's and LBWPDF's
+    novel-pose field (`novel_pose_bw.{bw_latent,bw_linears.{i},bw_fc}`,
+    torch_export.py:129-130, :161-162)."""
     p = params["params"] if "params" in params else params
     return to_tensors(_aligned_arrays(p))
 
@@ -326,9 +331,9 @@ def aligned_state_dict(params: dict) -> dict:
 def _aligned_tree(named: dict, bw: str | None, resd: bool) -> dict:
     """The inverse of `aligned_state_dict` for a family whose
     blend-weight field is `bw` ("latent", "pose" or None) and that has a
-    displacement field or not. PBW's unread `bw_latent` may be among
-    the names or not. Every other name must be used: a stray one
-    raises."""
+    displacement field or not; a "latent" family's `novel_pose_bw`
+    where the names hold it. PBW's unread `bw_latent` may be among the
+    names or not. Every other name must be used: a stray one raises."""
     if bw == "pose":
         named = {k: v for k, v in named.items() if k != _PBW_UNREAD}
     tree = _head_tree(named, "nerf_network")
@@ -339,6 +344,8 @@ def _aligned_tree(named: dict, bw: str | None, resd: bool) -> dict:
     if resd:
         tree["resd_field"] = {"mlp": _mlp_tree(named, "resd_linears",
                                                "resd_fc")}
+    if bw == "latent" and any(k.startswith("novel_pose_bw.") for k in named):
+        tree["novel_pose_bw"] = _bw_field_tree(named, "novel_pose_bw.")
     tree = {"params": tree}
     written = aligned_state_dict(tree)
     if len(written) - (bw == "pose") != len(named):
@@ -349,7 +356,8 @@ def _aligned_tree(named: dict, bw: str | None, resd: bool) -> dict:
 
 def aligned_lbw_param_tree(named: dict) -> dict:
     """{reference name: tensor} of AlignedLBW -> the JAX param tree
-    {"params": {"bw_field", "nerf_network", "color_network"}}."""
+    {"params": {"bw_field", "nerf_network", "color_network"}}, with
+    "novel_pose_bw" where the names hold it."""
     return _aligned_tree(named, "latent", False)
 
 
@@ -368,5 +376,5 @@ def aligned_smpl_param_tree(named: dict) -> dict:
 def aligned_lbw_pdf_param_tree(named: dict) -> dict:
     """{reference name: tensor} of AlignedLBWPDF -> the JAX param tree
     {"params": {"bw_field", "resd_field", "nerf_network",
-    "color_network"}}."""
+    "color_network"}}, with "novel_pose_bw" where the names hold it."""
     return _aligned_tree(named, "latent", True)

@@ -302,8 +302,11 @@ class TPosePDFDataset(_BaseDataset):
     vertices and the canonical bounds from the big-pose vertices
     (`use_bigpose`) or the T-pose ones. On the train split the rays are
     drawn as `TPoseDataset`'s (`_image_rays`), with the occupancy of
-    the silhouette loss. The novel-pose latent lookup
-    (`nearest_training_frame`) is not ported."""
+    the silhouette loss. Under `test_novel_pose` an item's appearance
+    latent is that of the training frame whose posed joints lie nearest
+    to its own (`nearest_training_frame`, JAX dataset.py:340-356,
+    :424-427), where the root has lbs/training_joints.npy; without it,
+    `num_train_frame - 1`."""
 
     def __init__(self, cfg, split: str):
         super().__init__(cfg, split)
@@ -314,6 +317,30 @@ class TPosePDFDataset(_BaseDataset):
         self.tpose = np.load(
             os.path.join(self.lbs_root, vert_name)).astype(np.float32)
         self.tbounds = get_bounds(self.tpose, cfg.box_padding)
+        # the training frames' world-space posed joints (F, 24, 3), read
+        # only for novel poses (tpose_pdf_dataset.py:36-38)
+        self.training_joints = None
+        path = os.path.join(self.lbs_root, "training_joints.npy")
+        if (cfg.test_novel_pose or cfg.aninerf_animation) and os.path.exists(path):
+            self.training_joints = np.load(path)
+
+    def nearest_training_frame(self, posed_joints):
+        """The training frame whose joints lie nearest, on average over
+        the joints, to posed_joints (24, 3) in world space
+        (tpose_pdf_dataset.py:176-184); None without training joints."""
+        if self.training_joints is None:
+            return None
+        d = np.linalg.norm(self.training_joints - posed_joints[None],
+                           axis=-1).mean(-1)
+        return int(d.argmin())
+
+    def _posed_joints(self, poses, Th, R):
+        """The joints posed by poses (24, 3), in world space (JAX
+        dataset.py:372-378; training_joints.npy is written in world
+        coordinates)."""
+        _, joints = rigid_transforms_host(poses, self.joints, self.parents,
+                                          return_joints=True)
+        return np.asarray(joints) @ R.T + Th
 
     def __getitem__(self, index):
         # JAX dataset.py:357 prepare_input
@@ -321,6 +348,9 @@ class TPosePDFDataset(_BaseDataset):
             self.frame_file_index(index))
         wbounds = get_bounds(wpts, self.cfg.box_padding)
         item = self._image_rays(index, wbounds)
+        if self.cfg.test_novel_pose and self.training_joints is not None:
+            item["latent_index"] = self.nearest_training_frame(
+                self._posed_joints(poses, Th, Rw))
         item.update({
             "A": A,
             "big_A": self.big_A,

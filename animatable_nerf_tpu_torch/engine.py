@@ -5,8 +5,9 @@ JAX counterpart: animatable_nerf_tpu/engine.py (`_bucket_pad` :139,
 `interleave_rays` :164, the per-frame grids and vertex blocks :259-287
 and :315-326, `Engine.render_item` :547-603, `run_evaluate` :749-830,
 `run_train` :1158-1352, stage 1 of AniNeRF, the displacement-field
-families with `init_sdf` :1229-1242 and the aligned families,
-AniNeRF's stage 2 with `init_aninerf` :1165-1168, :1212-1227; the
+families with `init_sdf` :1229-1242 and the aligned families, the
+stage 2 of AniNeRF, AlignedLBW and AlignedLBWPDF with `init_aninerf`
+:1165-1168, :1212-1227; the
 models from the config as `models/registry.py` `make_model` :74-126
 builds them). The
 eval rays are padded and tiled exactly as in JAX, since the point
@@ -80,29 +81,32 @@ _RAY_KEYS = ("ray_o", "ray_d", "near", "far")
 def model_class(cfg):
     """The config's model class: AniNeRF, a displacement-field family
     (NeRF-PDF, SDF-PDF, NeuS-PDF) or an aligned family (LBW, PBW, SMPL,
-    LBWPDF). Raises before any work on what is not ported: an unknown
-    network_module, and novel poses (`aninerf_animation`,
-    `test_novel_pose`) outside AniNeRF. The PDF families' JAX novel-pose
-    paths fail (engine.py:409 and train/animation.py:102 pass
-    `novel_pose=True`, which models/pdf.py:386, :635, :935 do not take);
-    the aligned families' work in JAX (models/aligned.py:169-205,
-    :452-461) and are not ported yet."""
+    LBWPDF). Raises before any work on what does not exist: an unknown
+    network_module; novel poses (`aninerf_animation`, `test_novel_pose`)
+    of the PDF families, whose JAX paths fail (engine.py:409 and
+    train/animation.py:102 pass `novel_pose=True`, which
+    models/pdf.py:386, :635, :935 do not take); and stage 2
+    (`aninerf_animation`) of AlignedPBW and AlignedSMPL, which have no
+    novel-pose field (JAX's `animation_from_pose`, models/aligned.py:178,
+    raises an AttributeError for them). Their `test_novel_pose` renders
+    through the stage-1 deform, as in JAX."""
     name = cfg.network_module
     cls = (AniNeRF if name in _ANINERF_MODULES
            else _PDF_MODULES.get(name, _ALIGNED_MODULES.get(name)))
     if cls is None:
         raise NotImplementedError(f"network_module {name!r} is not ported yet")
-    if cfg.aninerf_animation or cfg.test_novel_pose:
-        if cls in _PDF_MODULES.values():
-            raise NotImplementedError(
-                f"novel-pose training and evaluation (aninerf_animation, "
-                f"test_novel_pose) of {cls.__name__} are not ported yet: the "
-                "JAX package has no working path for the displacement-field "
-                "families")
-        if cls is not AniNeRF:
-            raise NotImplementedError(
-                f"novel-pose training and evaluation (aninerf_animation, "
-                f"test_novel_pose) of {cls.__name__} are not ported yet")
+    if cls in _PDF_MODULES.values() and (cfg.aninerf_animation
+                                         or cfg.test_novel_pose):
+        raise NotImplementedError(
+            f"novel-pose training and evaluation (aninerf_animation, "
+            f"test_novel_pose) of {cls.__name__} are not ported yet: the "
+            "JAX package has no working path for the displacement-field "
+            "families")
+    if cls in (AlignedPBW, AlignedSMPL) and cfg.aninerf_animation:
+        raise NotImplementedError(
+            f"stage 2 (aninerf_animation) of {cls.__name__} does not exist: "
+            "it has no novel-pose field, and the JAX package's stage 2 "
+            "fails for it")
     return cls
 
 
@@ -111,8 +115,9 @@ def make_model(cfg):
     `stage2_ratio` sizes a JAX survivor capacity and has no counterpart
     in the port's exact compaction. With `aninerf_animation` or
     `test_novel_pose`, AniNeRF gets its novel-pose field
-    (`num_eval_frame` latents). The aligned families take
-    num_train_frame color latents (JAX models/registry.py:115-125)."""
+    (`num_eval_frame` latents), and so do AlignedLBW and AlignedLBWPDF.
+    The aligned families take num_train_frame color latents (JAX
+    models/registry.py:115-125)."""
     cls = model_class(cfg)
     for key in ("slab_filter", "seg_filter"):
         if int(cfg.get(key, 0)):
@@ -122,11 +127,13 @@ def make_model(cfg):
     if cls in _PDF_MODULES.values():
         return cls(num_latents=cfg.num_latent_code,
                    tpose_viewdir=cfg.tpose_viewdir, xyz_res=cfg.xyz_res)
+    novel_pose = bool(cfg.aninerf_animation or cfg.test_novel_pose)
     if cls in _ALIGNED_MODULES.values():
+        field = ({"num_eval_frames": cfg.num_eval_frame if novel_pose else 0}
+                 if issubclass(cls, AlignedLBW) else {})
         return cls(num_latents=cfg.num_train_frame, norm_th=cfg.norm_th,
                    train_th=cfg.train_th, tpose_viewdir=cfg.tpose_viewdir,
-                   xyz_res=cfg.xyz_res)
-    novel_pose = bool(cfg.aninerf_animation or cfg.test_novel_pose)
+                   xyz_res=cfg.xyz_res, **field)
     return AniNeRF(
         num_train_frames=cfg.num_train_frame, norm_th=cfg.norm_th,
         xyz_res=cfg.xyz_res, view_res=cfg.view_res, train_th=cfg.train_th,
@@ -209,16 +216,17 @@ class Engine:
         self.settings = render_settings(cfg)
         # the per-frame nearest-vertex distance grid of the KNN models'
         # pass 1 (JAX engine.py:259-270), and with `knn_blocked` the d5
-        # grid and vertex blocks of pass 2's culled K5 (:281-287)
+        # grid and vertex blocks of pass 2's culled K5 (:281-287). With
+        # knn_grid_res <= 1 there is no grid: pass 1 runs K3 on each
+        # tile's points, and `knn_blocked` has no effect, as in JAX, which
+        # builds the blocks only with a grid
         self.pdist_res = 0
         self.knn_blocked = False
         if self.model.knn_pass1:
-            self.pdist_res = int(cfg.get("knn_grid_res", 96))
-            if self.pdist_res <= 1:
-                raise NotImplementedError(
-                    "pass 1 without the distance grid (knn_grid_res <= 1) "
-                    "is not ported yet")
-            self.knn_blocked = bool(cfg.get("knn_blocked", False))
+            res = int(cfg.get("knn_grid_res", 96))
+            if res > 1:
+                self.pdist_res = res
+                self.knn_blocked = bool(cfg.get("knn_blocked", False))
         # `test_novel_pose`: warp through the novel-pose field
         self.novel_pose = bool(cfg.test_novel_pose)
         self._frame_cache = {}
@@ -239,8 +247,10 @@ class Engine:
         in a row); with `test_novel_pose` the frame is marked
         `novel_pose`, so the model warps by its `bw_latent_index`. For
         the KNN models it also holds the frame's distance grid, built
-        once by kernel K3, and with `knn_blocked` the d5 grid (K4) and
-        the Morton-sorted vertex blocks (JAX engine.py:315-326)."""
+        once by kernel K3 (none with knn_grid_res <= 1: pass 1 then runs
+        K3 on each tile's points), and with `knn_blocked` the d5 grid
+        (K4) and the Morton-sorted vertex blocks (JAX
+        engine.py:315-326)."""
         key = (int(item["frame_index"]), int(np.asarray(item["latent_index"])),
                int(np.asarray(item["bw_latent_index"])))
         if self._frame_cache.get("key") != key:
@@ -395,8 +405,9 @@ def run_train(cfg, device=None):
     """Train AniNeRF, a displacement-field family (NeRF-PDF, SDF-PDF,
     NeuS-PDF) or an aligned family (LBW, PBW, SMPL, LBWPDF) (JAX
     engine.py:1158-1352 on one device), stage 1, or with
-    `aninerf_animation` AniNeRF's stage 2 (`AnimationTrainer`, from the
-    `init_aninerf` checkpoint): the train
+    `aninerf_animation` the stage 2 of AniNeRF, AlignedLBW or
+    AlignedLBWPDF (`AnimationTrainer`, from the `init_aninerf`
+    checkpoint): the train
     split in epochs of `ep_iter` steps, one frame a step; `latest.flax`
     every `save_latest_ep` epochs and after the last, `<epoch>.flax`
     every `save_ep`; with `resume` (the default) it goes on from the

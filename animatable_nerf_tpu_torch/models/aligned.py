@@ -10,7 +10,8 @@ _network.py).
 
 Every family is a KNN family with NeRF-PDF's canonical head, so its eval
 tile is `KNNFamily.forward` (models/pdf.py): pass 1 on the K3 distance
-grid, exact compaction, K2's prior on the candidates, the exact
+grid (or, with knn_grid_res <= 1, K3 on the tile's points), exact
+compaction, K2's prior on the candidates, the exact
 weighted-distance filter with its argmin forced, the family's deform
 (`_warp`), the head, the canonical box grown by 0.05. The families
 differ in the deform and the filter's threshold:
@@ -38,8 +39,29 @@ differentiable form (ops/knn.py `KNNBlendFunction`). `bw_mask` is the
 final alpha above `train_th` with its argmax forced; LBWPDF also returns
 its displacement and mask for the offset loss.
 
-Stage 2 and `test_novel_pose` of LBW and LBWPDF are not ported
-(engine.py `make_model` refuses them).
+Novel poses (JAX `_anim_select` :161, `animation_from_pose` :169,
+`animation_from_canonical` :189, the `novel_pose_bw` fields :446, :524
+and their use in `_deform` :452-461, :531-538): LBW and LBWPDF built
+with `num_eval_frames` > 0 hold a second blend-weight field,
+`novel_pose_bw`, one latent per novel-pose frame. A frame marked
+`novel_pose` (the engine's `test_novel_pose`) warps through it at its
+`bw_latent_index` (models/common.py `FrameBlendWeights`); PBW and SMPL
+render such a frame through their stage-1 deform, as JAX does (their
+`_deform` takes `novel_pose` and ignores it). Stage 2 fits
+`novel_pose_bw` by the consistency pairs `animation_from_pose` and
+`animation_from_canonical` (train/animation.py): the KNN prior of the
+posed points, the novel-pose field, the LBS warp posed -> T-pose -> big
+pose (LBS alone: LBWPDF's displacement field takes no part, as in JAX),
+and there the frozen stage-1 field at latent 0 over the prior of the
+canonical points, that prior differentiated with respect to them (K2's
+differentiable form); the selection is the density above `train_th`
+among the points in the canonical box whose posed (or canonical) KNN
+distance is under the configured norm_th, its argmax forced
+(`consistency_select`). That threshold is `stage2_norm_th`, the
+configured value: LBWPDF's forward filter reads the hard-coded 0.1, its
+stage 2 does not (JAX :186, :202). PBW and SMPL have no novel-pose
+field, so their stage 2 does not exist (engine.py `model_class` refuses
+it; the JAX package's raises an AttributeError).
 """
 
 from __future__ import annotations
@@ -48,13 +70,14 @@ import torch
 from torch import nn
 
 from ..core.knn import sample_blend_closest_points
+from ..core.lbs import pose_points_to_tpose_points, tpose_points_to_pose_points
 from ..fields.fields import (
     BlendWeightField,
     PoseCondBWField,
     displacement,
     displacement_layers,
 )
-from .common import inside_bounds
+from .common import FrameBlendWeights, consistency_select, inside_bounds
 from .pdf import NORM_TH, TBOUNDS_PAD, KNNFamily, NeRFHead
 
 
@@ -68,8 +91,9 @@ class _AlignedBase(NeRFHead, KNNFamily):
     num_latents: num_train_frame, the color latent table's rows (the
     frame-latent field has one more, row 0 the canonical one)."""
 
-    # the canonical vertices serve the consistency target's KNN prior
-    train_frame_keys = KNNFamily.frame_keys + ("tvertices",)
+    # the canonical vertices serve the consistency target's KNN prior,
+    # and stage 2 draws its posed points in the world box
+    train_frame_keys = KNNFamily.frame_keys + ("tvertices", "wbounds")
     # whether the filter reads the configured norm_th (LBW, PBW) or the
     # reference's hard-coded 0.1 (SMPL, LBWPDF; JAX aligned.py:127-136)
     reads_norm_th = True
@@ -79,6 +103,8 @@ class _AlignedBase(NeRFHead, KNNFamily):
         self.tpose_human = self._canonical(num_latents)
         self.tpose_viewdir = bool(tpose_viewdir)
         self.norm_th = float(norm_th) if self.reads_norm_th else NORM_TH
+        # stage 2's selection reads the configured value (JAX :186, :202)
+        self.stage2_norm_th = float(norm_th)
         self.train_th = float(train_th)
 
     def _deform(self, pose_pts, pose_dirs, init_pbw, frame):
@@ -129,19 +155,21 @@ class _AlignedBase(NeRFHead, KNNFamily):
         return out
 
 
-class AlignedLBW(_AlignedBase, BlendWeightField):
+class AlignedLBW(FrameBlendWeights, _AlignedBase, BlendWeightField):
     """Learned blend-weight field with frame latents (JAX aligned.py:436;
-    reference aligned_aninerf_lbw_network.py)."""
+    reference aligned_aninerf_lbw_network.py), and with
+    `num_eval_frames` > 0 the novel-pose field `novel_pose_bw`."""
 
     def __init__(self, num_latents: int, norm_th: float = 0.05,
                  train_th: float = 0.0, tpose_viewdir: bool = True,
-                 xyz_res: int = 10):
+                 xyz_res: int = 10, num_eval_frames: int = 0):
         BlendWeightField.__init__(self, num_latents + 1, xyz_res)
+        if num_eval_frames > 0:
+            self.novel_pose_bw = BlendWeightField(num_eval_frames, xyz_res)
         self._aligned_init(num_latents, norm_th, train_th, tpose_viewdir)
 
     def _learned_warp(self, pose_pts, pose_dirs, init_pbw, frame):
-        pbw = self.blend_weights(pose_pts, init_pbw,
-                                 int(frame["latent_index"]) + 1)
+        pbw = self.pose_blend_weights(pose_pts, init_pbw, frame)
         bigpose, dirs = self._to_bigpose(pose_pts, pose_dirs, pbw, frame)
         return bigpose, dirs, pbw
 
@@ -153,11 +181,61 @@ class AlignedLBW(_AlignedBase, BlendWeightField):
     def _canonical_bw(self, tpose, init_tbw, frame):
         return self.blend_weights(tpose, init_tbw, 0)
 
+    # ------------------------------------------------------- stage 2
+    def _novel_pose_bw(self, pose_pts, init_pbw, frame):
+        return self.novel_pose_bw.blend_weights(
+            pose_pts, init_pbw, int(frame["bw_latent_index"]))
+
+    def animation_from_pose(self, pose_pts, frame):
+        """The stage-2 pair at posed points (JAX aligned.py:169-187;
+        reference aninerf_sample_animation_trainer.py:51-88
+        `ppts_to_tpose`): the KNN prior (K2, data), `novel_pose_bw` (K1),
+        the warp posed -> T-pose -> big pose, and there the frozen
+        stage-1 field at latent 0 (K1) over the prior of the canonical
+        vertices (K2's differentiable form); both take their gradient
+        through their input. Returns (pbw (N, 24), tbw (N, 24), select
+        (N,))."""
+        init_pbw, pnorm = sample_blend_closest_points(
+            pose_pts, frame["pvertices"], frame["weights"])
+        pbw = self._novel_pose_bw(pose_pts, init_pbw, frame)
+        tpose = pose_points_to_tpose_points(pose_pts, pbw, frame["A"])
+        tpose = tpose_points_to_pose_points(tpose, pbw, frame["big_A"])
+        init_tbw, _ = sample_blend_closest_points(
+            tpose, frame["tvertices"], frame["weights"])
+        tbw = self._canonical_bw(tpose, init_tbw, frame)
+        keep = (inside_bounds(tpose, frame["tbounds"])
+                & (pnorm[:, 0] < self.stage2_norm_th))
+        with torch.no_grad():
+            sigma = self.tpose_human.nerf_network(tpose)[:, 0]
+        return pbw, tbw, consistency_select(sigma, keep, self.train_th)
+
+    def animation_from_canonical(self, tpts, frame):
+        """The stage-2 pair at canonical points (JAX aligned.py:189-205;
+        reference aninerf_sample_animation_trainer.py:91-121
+        `tpose_to_ppts`): the frozen stage-1 field at latent 0 over the
+        canonical prior, the forward warp big pose -> T-pose -> posed,
+        and there `novel_pose_bw` over the posed prior. Only
+        `novel_pose_bw` sees a trained input, so the rest runs without a
+        graph. Returns (pbw, tbw, select) as `animation_from_pose`."""
+        with torch.no_grad():
+            init_tbw, tnorm = sample_blend_closest_points(
+                tpts, frame["tvertices"], frame["weights"])
+            tbw = self._canonical_bw(tpts, init_tbw, frame)
+            sigma = self.tpose_human.nerf_network(tpts)[:, 0]
+            t = pose_points_to_tpose_points(tpts, tbw, frame["big_A"])
+            ppts = tpose_points_to_pose_points(t, tbw, frame["A"])
+            init_pbw, _ = sample_blend_closest_points(
+                ppts, frame["pvertices"], frame["weights"])
+        pbw = self._novel_pose_bw(ppts, init_pbw, frame)
+        keep = tnorm[:, 0] < self.stage2_norm_th
+        return pbw, tbw, consistency_select(sigma, keep, self.train_th)
+
 
 class AlignedPBW(_AlignedBase, PoseCondBWField):
     """Pose-vector-conditioned blend-weight field (ablation; JAX
     aligned.py:467; reference aligned_aninerf_pbw_network.py). It has no
-    novel-pose field, in the reference nor in JAX."""
+    novel-pose field, in the reference nor in JAX: a novel-pose frame
+    warps through the stage-1 field, and there is no stage 2."""
 
     def __init__(self, num_latents: int, norm_th: float = 0.05,
                  train_th: float = 0.0, tpose_viewdir: bool = True,
@@ -198,15 +276,16 @@ class AlignedLBWPDF(AlignedLBW):
     """Learned blend weights and a displacement field at the big pose
     (ablation; JAX aligned.py:508; reference
     aligned_aninerf_lbw_pdf_network.py:89-121); its filter threshold is
-    0.1, whatever norm_th says."""
+    0.1, whatever norm_th says (stage 2 reads norm_th). Stage 2 is
+    LBW's: the displacement field takes no part in it."""
 
     reads_norm_th = False
 
     def __init__(self, num_latents: int, norm_th: float = 0.05,
                  train_th: float = 0.0, tpose_viewdir: bool = True,
-                 xyz_res: int = 10):
+                 xyz_res: int = 10, num_eval_frames: int = 0):
         super().__init__(num_latents, norm_th, train_th, tpose_viewdir,
-                         xyz_res)
+                         xyz_res, num_eval_frames)
         self.resd_linears, self.resd_fc = displacement_layers(xyz_res)
 
     def residual(self, pts, pose_vec):

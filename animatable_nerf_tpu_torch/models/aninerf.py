@@ -28,7 +28,9 @@ the filter's argmin and the consistency selection's argmax are forced
 over the whole step's points.
 
 Stage 2 (novel pose; JAX `novel_pose_bw` :151-155, `pose_to_canonical`
-:157-167, `_bw_consistency_select` :189, `animation_from_pose` :197,
+:157-167 and `_bw_consistency_select` :189, shared with the aligned
+families as models/common.py `FrameBlendWeights` and
+`consistency_select`; `animation_from_pose` :197,
 `animation_from_canonical` :215): with `num_eval_frames` > 0 the model
 holds a third blend-weight field, `novel_pose_bw`, one latent per
 novel-pose frame. Its consistency pairs (`animation_from_pose`,
@@ -54,6 +56,8 @@ from ..core.lbs import (
 from ..core.sampling import z_vals_to_dists
 from ..fields.fields import BlendWeightField, TPoseNeRF
 from .common import (
+    FrameBlendWeights,
+    consistency_select,
     inside_bounds,
     keep_mask_with_argmin,
     raw_alpha_from_sigma,
@@ -62,7 +66,7 @@ from .common import (
 )
 
 
-class AniNeRF(BlendWeightField):
+class AniNeRF(FrameBlendWeights, BlendWeightField):
     """Grid-based blend-weight AniNeRF.
 
     The module is the blend-weight field itself plus `tpose_human`, as
@@ -93,17 +97,6 @@ class AniNeRF(BlendWeightField):
             self.novel_pose_bw = BlendWeightField(num_eval_frames, xyz_res)
         self.norm_th = float(norm_th)
         self.train_th = float(train_th)
-
-    def pose_blend_weights(self, pose_pts, smpl_bw, frame):
-        """The neural blend weights at posed points (JAX
-        `pose_to_canonical` :157-167): with the frame's `novel_pose`,
-        `novel_pose_bw` at its `bw_latent_index`; otherwise the stage-1
-        field at `latent_index + 1`."""
-        if frame.get("novel_pose"):
-            return self.novel_pose_bw.blend_weights(
-                pose_pts, smpl_bw, int(frame["bw_latent_index"]))
-        return self.blend_weights(pose_pts, smpl_bw,
-                                  int(frame["latent_index"]) + 1)
 
     def _conservative_dist_rows(self, frame):
         """bf16-rounded distance volume (D, H, W, 1) and the widened
@@ -215,16 +208,6 @@ class AniNeRF(BlendWeightField):
                 "tbw": tbw, "bw_mask": bw_mask}
 
     # ------------------------------------------------------- stage 2
-    def _bw_consistency_select(self, sigma, keep):
-        """The points the stage-2 loss reads: density above train_th
-        among `keep`, the argmax of that masked density forced on over
-        the call's points (JAX :189-195; reference
-        aninerf_animation_trainer.py:85-90). sigma carries no graph."""
-        d = torch.where(keep, sigma, float("-inf"))
-        select = d > self.train_th
-        select[torch.argmax(d)] = True
-        return select
-
     def animation_from_pose(self, pose_pts, frame):
         """The stage-2 consistency pair at posed points (JAX :197-213;
         reference aninerf_animation_trainer.py:58-93 `ppts_to_tpose`):
@@ -244,7 +227,7 @@ class AniNeRF(BlendWeightField):
                 & (pbw25[:, 24] < self.norm_th))
         with torch.no_grad():
             sigma = torch.where(keep, self.tpose_human.density(tpose), 0.0)
-        return pbw, tbw, self._bw_consistency_select(sigma, keep)
+        return pbw, tbw, consistency_select(sigma, keep, self.train_th)
 
     def animation_from_canonical(self, tpts, frame):
         """The stage-2 pair at canonical points (JAX :215-229; reference
@@ -264,4 +247,4 @@ class AniNeRF(BlendWeightField):
         pbw = self.novel_pose_bw.blend_weights(
             pose_pts, pbw25[:, :24], int(frame["bw_latent_index"]))
         keep = torch.ones_like(sigma, dtype=torch.bool)
-        return pbw, tbw, self._bw_consistency_select(sigma, keep)
+        return pbw, tbw, consistency_select(sigma, keep, self.train_th)

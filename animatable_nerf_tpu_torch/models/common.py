@@ -28,6 +28,35 @@ def keep_mask_with_argmin(norm_vals, threshold):
     return mask
 
 
+def consistency_select(sigma, keep, train_th: float):
+    """The points a stage-2 consistency loss reads: the density sigma
+    (N,) above train_th among `keep` (N,), the argmax of that masked
+    density forced on over the call's points (JAX aninerf.py:189-195,
+    aligned.py:161-167; reference aninerf_animation_trainer.py:85-90,
+    aninerf_sample_animation_trainer.py:113-121). sigma carries no
+    graph."""
+    d = torch.where(keep, sigma, float("-inf"))
+    select = d > train_th
+    select[torch.argmax(d)] = True
+    return select
+
+
+class FrameBlendWeights:
+    """The posed points' learned blend weights of a model that is its own
+    stage-1 `BlendWeightField` and, for novel poses, holds a second one,
+    `novel_pose_bw` (AniNeRF, AlignedLBW, AlignedLBWPDF)."""
+
+    def pose_blend_weights(self, pose_pts, smpl_bw, frame):
+        """With the frame's `novel_pose`, `novel_pose_bw` at its
+        `bw_latent_index`; otherwise the stage-1 field at `latent_index +
+        1` (JAX aninerf.py:157-167, aligned.py:452-461, :531-538)."""
+        if frame.get("novel_pose"):
+            return self.novel_pose_bw.blend_weights(
+                pose_pts, smpl_bw, int(frame["bw_latent_index"]))
+        return self.blend_weights(pose_pts, smpl_bw,
+                                  int(frame["latent_index"]) + 1)
+
+
 def substitute_masked(pose_pts, pind, safe_point):
     """Masked-out rows of pose_pts (N, 3) replaced by `safe_point` (3,)
     before the blend-weight field and the LBS warp (JAX common.py:25).

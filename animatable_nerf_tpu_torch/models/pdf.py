@@ -16,7 +16,10 @@ the aligned families' (models/aligned.py, which give it their deform
 and threshold), and keeps the JAX semantics:
   * pass 1 reads the per-frame nearest-vertex distance grid (built by
     kernel K3, `grid_pdist_keep`): a certified superset of the
-    survivors, with the argmin of the bound forced on;
+    survivors, with the argmin of the bound forced on; without a grid
+    (knn_grid_res <= 1) K3 gives every point of the tile its exact
+    nearest-vertex distance, kept under the threshold with the tile's
+    argmin forced (JAX pdf.py:171-178), also a superset;
   * pass 2 runs kernel K2 on the candidates (or, with `knn_blocked`,
     K5 over the vertex blocks within each candidate tile's certified
     5-NN radius): IDW blend weights over the posed vertices and the
@@ -81,6 +84,7 @@ from ..fields.fields import (
     ResidualField,
     SingleVarianceNetwork,
 )
+from ..ops.knn import min_dist
 from .common import (
     grid_pdist_keep,
     inside_bounds,
@@ -121,8 +125,8 @@ class KNNFamily:
     canonical ones (`_warp`), and its canonical head (`_eval_head`);
     the filter's threshold on K2's weighted distance is `norm_th`."""
 
-    # pass 1 needs the per-frame distance grid (ops/knn.py
-    # build_pdist_payload), which the engine attaches to the frame
+    # pass 1 reads the per-frame distance grid (ops/knn.py
+    # build_pdist_payload) where the engine attaches one to the frame
     knn_pass1 = True
     # the per-frame tensors the engine moves to the device
     frame_keys = ("A", "big_A", "poses", "weights", "pvertices", "tbounds",
@@ -177,6 +181,18 @@ class KNNFamily:
         pbw = torch.where(pind[:, None], pbw[:-1], pbw[-1])
         return pind, pose_pts, pose_dirs, pbw, vd
 
+    def _pass1_keep(self, pose_pts, frame):
+        """Pass 1's mask over the tile's posed points (N, 3): from the
+        frame's distance grid where the engine attached one
+        (`grid_pdist_keep`, its bound's argmin forced); otherwise K3's
+        nearest-vertex distance of every point, under norm_th with the
+        tile's argmin forced (JAX pdf.py:171-178, aligned.py:243-255).
+        Either is a superset of the exact filter's survivors."""
+        if "pdist_packed" in frame:
+            return grid_pdist_keep(pose_pts, frame, self.norm_th)
+        return keep_mask_with_argmin(min_dist(pose_pts, frame["pvertices"]),
+                                     self.norm_th)
+
     @torch.no_grad()
     def forward(self, wpts, viewdir, z_vals, frame):
         """Eval render of one tile: wpts (R, S, 3), viewdir (R, 3),
@@ -187,8 +203,7 @@ class KNNFamily:
             wpts.reshape(-1, 3), frame["R"], frame["Th"]
         )
         # pass 1: the conservative candidates, ascending
-        cand = torch.nonzero(
-            grid_pdist_keep(pose_pts, frame, self.norm_th)).squeeze(1)
+        cand = torch.nonzero(self._pass1_keep(pose_pts, frame)).squeeze(1)
         c_pose = pose_pts[cand]
         c_pbw, c_pnorm = knn_blend_for_frame(c_pose, frame)
         exact = keep_mask_with_argmin(c_pnorm[:, 0], self.norm_th)

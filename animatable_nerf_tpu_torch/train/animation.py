@@ -6,8 +6,11 @@ JAX counterpart: animatable_nerf_tpu/train/animation.py
 :71-116; reference lib/train/trainers/aninerf_animation_trainer.py).
 Each step draws `n_anim_samples` uniform points in the frame's world box
 and as many in the canonical box, takes each branch's consistency pair
-(models/aninerf.py `animation_from_pose`, `animation_from_canonical`)
-and sums the smooth-L1 of each pair over its selected points. Only
+(`animation_from_pose`, `animation_from_canonical` of AniNeRF,
+models/aninerf.py, on its blend-weight volumes; of AlignedLBW and
+AlignedLBWPDF, models/aligned.py, on the KNN prior of the frame's posed
+and canonical vertices) and sums the smooth-L1 of each pair over its
+selected points. Only
 `novel_pose_bw` trains: every other parameter is frozen
 (`requires_grad_(False)`) and outside the optimizer, so its update is
 exactly 0, as JAX's optax.multi_transform with set_to_zero makes it
@@ -53,9 +56,10 @@ class AnimationTrainer(Trainer):
     """The stage-2 trainer: `Trainer` with the consistency loss. The
     loader, the dataset's ray draw (unused by the loss, so the numpy
     stream stays JAX's), the epoch loop, the recorder and the
-    checkpoints are shared. `model` needs its `novel_pose_bw`; the rest
-    of it is frozen here, before the optimizer is made over the
-    trainable set."""
+    checkpoints are shared. `model` (AniNeRF, AlignedLBW or
+    AlignedLBWPDF) needs its `novel_pose_bw` and the two
+    `animation_from_*` pairs; the rest of it is frozen here, before the
+    optimizer is made over the trainable set."""
 
     def __init__(self, cfg, model, device):
         model.requires_grad_(False)

@@ -83,13 +83,23 @@ def adam_moments(model, optimizer):
 TRAINED_IN_STAGE2 = "novel_pose_bw"
 
 
+def _is_list(tree) -> bool:
+    """Whether a dict is a flax list as msgpack stores it, keyed "0",
+    "1", ... (the aligned families' `nerf_network/layers`)."""
+    return bool(tree) and sorted(tree) == sorted(map(str, range(len(tree))))
+
+
 def _outside_masked(tree, inside: bool = False):
     """`tree` with every leaf outside the TRAINED_IN_STAGE2 subtree an
-    empty node, as optax masks a frozen leaf."""
+    empty node, as optax masks a frozen leaf. JAX's trainable mask
+    (train/animation.py:34-44) descends dicts only, so a frozen list is
+    one masked node, not a list of them."""
+    if not inside and (not isinstance(tree, dict) or _is_list(tree)):
+        return {}
     if isinstance(tree, dict):
         return {k: _outside_masked(v, inside or k == TRAINED_IN_STAGE2)
                 for k, v in tree.items()}
-    return tree if inside else {}
+    return tree
 
 
 def _unmasked(tree, params):

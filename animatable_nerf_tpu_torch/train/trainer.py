@@ -7,9 +7,10 @@ tpose_trainer.py). One step: the render of one frame's rays, the loss,
 its gradient, the value clip at 40 and an Adam update at the schedule's
 rate for the update count. The step counter counts the frames trained
 on, as in JAX; the loss reads it (the SDF silhouette alpha's schedule).
-The model is AniNeRF or a displacement-field family (NeRF-PDF, SDF-PDF,
-NeuS-PDF); its `train_frame_keys` name the frame tensors the trainer
-moves to the device. The optimizer takes the parameters that require a
+The model is AniNeRF, a displacement-field family (NeRF-PDF, SDF-PDF,
+NeuS-PDF) or an aligned family (LBW, PBW, SMPL, LBWPDF); its
+`train_frame_keys` name the frame tensors the trainer moves to the
+device. The optimizer takes the parameters that require a
 gradient; stage 2 (train/animation.py `AnimationTrainer`) freezes all
 but the novel-pose field before it is made. JAX's fused multi-step dispatch
 (`steps_per_dispatch`), packed stats, device frame store and shard_map
@@ -97,8 +98,8 @@ def check_train_config(cfg):
 
 
 class Trainer:
-    """Train steps of `model` (AniNeRF or a displacement-field family)
-    on `device`."""
+    """Train steps of `model` (any family with a `train_forward`) on
+    `device`."""
 
     def __init__(self, cfg, model, device):
         check_train_config(cfg)

@@ -119,6 +119,28 @@ Phases, one JSON line each:
      points (the launch with and without its index output against the
      plain version, the backward against the CPU's, their times and the
      cdist chain's); and one 1000x1002 frame of LBW and of LBWPDF;
+ 14. the aligned families' novel poses and pass 1 without the distance
+     grid: the four `test_novel_pose` evaluates
+     (configs/synthetic_aligned_<f>_novel_pose.yaml, frames 2-3, view 3,
+     on weights composed by compose.py `write_novel_pose`) held to the
+     JAX package's PSNR, with K1 1 / 1 / 0 / 2 times a tile, K2 once a
+     tile and K3 once a frame; for LBW and LBWPDF one stage-2 step on
+     the card against the CPU on the same points (16,384 a branch; K1
+     and K2 four times each), and with K1's plain version on the card,
+     then one epoch of 50 stage-2 steps from the common start
+     (`write_initial_start`), every frozen leaf unchanged, and the
+     novel-pose evaluate of its checkpoint held to the JAX CPU run of
+     the same steps, a profile of 5 steps, and on LBW K2's
+     differentiable form and its backward at the step's 65,536
+     canonical points; the evaluates of SDF-PDF, NeRF-PDF, NeuS-PDF and
+     AlignedLBW with `knn_grid_res 0` held to the JAX no-grid PSNR and
+     to the grid evaluates of the same call (the same survivors), K3
+     once a tile; one 1000x1002 SDF-PDF frame without the grid (K3 once
+     a tile, its layout built once, the grid frame's survivors and
+     maps, device time against the grid frame), and K3 on 4 of its
+     tiles against its plain version, with its time per tile launch,
+     the bound of the pairs the data needs (`run_pairs`) and the cdist
+     chain's time;
 then the kernel table line, the card line and {"ok": true, ...} last.
 Kernel launch counts are set to 0 just before each path and read just
 after it. Any failed phase raises and exits non-zero. Imports nothing of
@@ -910,6 +932,11 @@ def reset_counts(k1, knn):
         getattr(knn, name).launches = 0
 
 
+# each evaluate's per-view records, by phase name (phase 14 holds its
+# no-grid views to the grid views of the same call)
+EVAL_ITEMS = {}
+
+
 def phase_evaluate(name, cfg, jax_psnr, k1, knn):
     """run_evaluate of `cfg` on the card, each view held to the JAX
     package's PSNR; returns the kernels' launches in this run and each
@@ -922,6 +949,7 @@ def phase_evaluate(name, cfg, jax_psnr, k1, knn):
     wall = time.time() - t0
     launches = launch_counts(k1, knn)
     items = res["items"]
+    EVAL_ITEMS[name] = items
     check(len(items) == len(jax_psnr), f"{name}: expected {len(jax_psnr)} items")
     dpsnr = [it["psnr"] - ref for it, ref in zip(items, jax_psnr)]
     emit({"phase": name, "items": items, "psnr_mean": res["psnr"],
@@ -1209,7 +1237,7 @@ def train_step_grads(trainer, batch):
 
 def phase_train_step_vs_cpu(name, cfg, state_dict, batch, k1, knn, expect,
                             trainer_cls=None, whole_gradient=False,
-                            loss_rtol=TRAIN_LOSS_RTOL):
+                            loss_rtol=TRAIN_LOSS_RTOL, return_cpu=False):
     """One train step's loss and gradients on the card against the same
     step with the port on this machine's CPU (the plain versions), from
     the same weights and batch, with each stat's difference reported;
@@ -1219,7 +1247,8 @@ def phase_train_step_vs_cpu(name, cfg, state_dict, batch, k1, knn, expect,
     with `whole_gradient` as one vector (its relative L2 error within
     TRAIN_GRAD_REL; the leaf errors reported); the loss within
     `loss_rtol`. Returns the names of the parameters that received a
-    gradient (the same on both)."""
+    gradient (the same on both), and with `return_cpu` also the CPU
+    step's (loss, stats, gradients)."""
     from animatable_nerf_tpu_torch.engine import make_model
     from animatable_nerf_tpu_torch.train.trainer import Trainer
 
@@ -1275,6 +1304,8 @@ def phase_train_step_vs_cpu(name, cfg, state_dict, batch, k1, knn, expect,
     else:
         check(rel[worst] <= TRAIN_GRAD_REL,
               f"{name}: gradient {worst}: {rel[worst]} of its scale")
+    if return_cpu:
+        return set(cpu_g), (cpu_loss, cpu_s, cpu_g)
     return set(cpu_g)
 
 
@@ -2102,8 +2133,9 @@ def cdist_knn_grad(src, ref, values, k=5, eps=1e-8):
 
 def k2_grad_on_tpose_points(knn, trainer, batch):
     """K2's differentiable form on one aligned train step's canonical
-    points (the consistency target's prior, recorded from the model's
-    call): the launch with its selection against the plain version (bit
+    points (the consistency target's prior, the step's one KNN call
+    whose points carry a gradient, recorded from the model's call; a
+    stage-2 step's is branch 0's, at n_anim_samples points): the launch with its selection against the plain version (bit
     for bit, the indices too) and the launch without it against its
     plain version (unchanged), the times of both launches, of the
     backward (the plain vjp over the k selected vertices), of the plain
@@ -2116,7 +2148,8 @@ def k2_grad_on_tpose_points(knn, trainer, batch):
     real, recorded = aligned.sample_blend_closest_points, []
 
     def recording(src, ref, values, *args, **kwargs):
-        recorded.append((src.detach(), ref, values))
+        if src.requires_grad:
+            recorded.append((src.detach(), ref, values))
         return real(src, ref, values, *args, **kwargs)
 
     aligned.sample_blend_closest_points = recording
@@ -2191,24 +2224,27 @@ def k2_grad_on_tpose_points(knn, trainer, batch):
             "autograd backward", "pairs_band_per_query": band / n}
 
 
-def aligned_step_plain_k1(name, cfg, state_dict, batch, k1):
+def aligned_step_plain_k1(name, cfg, state_dict, batch, k1, trainer_cls=None,
+                          cpu=None):
     """The control of a train step on the card against the CPU: the same
     step on the card with K1's plain version in place of the kernel
     (every other kernel launched as on the main path), its loss and
     stats against the CPU's within TRAIN_LOSS_RTOL and its whole
     gradient within TRAIN_GRAD_REL of its L2 norm. These K1 calls are a
-    comparison, not counted as launches."""
+    comparison, not counted as launches. `trainer_cls` defaults to the
+    stage-1 Trainer; `cpu`, where given, is the CPU step's (loss, stats,
+    gradients) of the same step, which then is not run again."""
     from animatable_nerf_tpu_torch.engine import make_model
     from animatable_nerf_tpu_torch.train.trainer import Trainer
 
     def plain(x, layers, skips, act, act_last, packed=None):
         return k1.skip_mlp_plain(x, layers, skips, act, act_last)
 
-    results = {}
-    for device in ("cpu", "cuda"):
+    results = {} if cpu is None else {"cpu": cpu}
+    for device in ("cpu", "cuda")[len(results):]:
         model = make_model(cfg)
         model.load_state_dict(state_dict)
-        trainer = Trainer(cfg, model.to(device), device)
+        trainer = (trainer_cls or Trainer)(cfg, model.to(device), device)
         kernel, k1._forward = k1._forward, plain
         try:
             results[device] = train_step_grads(trainer, batch)
@@ -2348,6 +2384,380 @@ def phase_aligned(full_item, k1, knn):
             paths[f"full_frame_aligned_{family}"] = frame_launches
             del eng
     return paths, k2_grad
+
+
+# Phase 14: the aligned families' novel poses and pass 1 without the
+# distance grid. Per-view PSNR (frames 2-3, view 3) of the JAX package's
+# novel-pose evaluate of each family's composed novel-pose weights
+# (compat/compose.py `compose_novel_pose`), computed on the CPU with
+# (<f> is lbw, pbw, smpl, then lbw_pdf):
+#   python -m animatable_nerf_tpu_torch.compat.compose <f>_novel_pose
+#   JAX_PLATFORMS=cpu python run.py --type evaluate --cfg_file configs/synthetic_aligned_<f>_novel_pose.yaml test_novel_pose True
+#   python -c "import numpy as np; print(np.load('data/result/deform/synthetic_aligned_<f>_novel_pose/metrics.npy', allow_pickle=True).item()['psnr'])"
+JAX_PSNR_NOVEL_POSE_ALIGNED = {
+    "lbw": [22.786948238632256, 24.564297875676683],
+    "pbw": [22.759171973359773, 24.564844587327638],
+    "smpl": [22.757334690872167, 24.565164330808347],
+    "lbw_pdf": [23.17494287050747, 24.80649776385785],
+}
+# The same after one epoch of 50 stage-2 steps (65,536 points a branch)
+# of LBW and LBWPDF from the common start the port writes (the composed
+# stage-1 weights of `init_aninerf` and the port's seeded init of
+# novel_pose_bw, a fresh Adam), computed on the CPU with (<f> is lbw,
+# then lbw_pdf; after the compose command above):
+#   python -c "from animatable_nerf_tpu_torch.config import load_config as c; from animatable_nerf_tpu_torch.engine import write_initial_start as w; w(c('configs/synthetic_aligned_<f>_novel_pose.yaml', ['aninerf_animation', 'True', 'exp_name', 'anim50_aligned_<f>_jax']))"
+#   JAX_PLATFORMS=cpu python train_net.py --cfg_file configs/synthetic_aligned_<f>_novel_pose.yaml aninerf_animation True exp_name anim50_aligned_<f>_jax train.epoch 1 fix_random True train.num_workers 2 resume True
+#   JAX_PLATFORMS=cpu python run.py --type evaluate --cfg_file configs/synthetic_aligned_<f>_novel_pose.yaml test_novel_pose True exp_name anim50_aligned_<f>_jax
+#   python -c "import numpy as np; print(np.load('data/result/deform/anim50_aligned_<f>_jax/metrics.npy', allow_pickle=True).item()['psnr'])"
+# The two packages draw their points from their own generators, so the
+# runs agree in distribution, not point for point.
+JAX_PSNR_TRAIN_ANIM_ALIGNED = {
+    "lbw": [22.772742019217276, 24.56048911784169],
+    "lbw_pdf": [23.162568963474175, 24.810800218880672],
+}
+# Per-view PSNR (frames 0-3, view 3) of the JAX package's evaluates
+# without the distance grid (its pass 1 then takes every point's nearest
+# distance, models/pdf.py:171-178, aligned.py:243-255) on the tracked or
+# composed weights, computed on the CPU with (<c> is sdf_pdf, nerf_pdf,
+# neus_pdf, then aligned_lbw):
+#   JAX_PLATFORMS=cpu python run.py --type evaluate --cfg_file configs/synthetic_<c>.yaml knn_grid_res 0
+#   python -c "import numpy as np; print(np.load('data/result/deform/synthetic_<c>/metrics.npy', allow_pickle=True).item()['psnr'])"
+# Each equals the grid evaluate's constant above to the last digit: pass
+# 1 only narrows what pass 2 sees.
+JAX_PSNR_NO_GRID = {
+    "sdf_pdf": [19.918607338172638, 22.15452214101879, 23.829273881602546,
+                25.011918868247466],
+    "nerf_pdf": [19.595280411095594, 22.00581491525693, 22.569217838586276,
+                 23.556801078276198],
+    "neus_pdf": [21.087645831516657, 23.324572879268064, 24.59723973769971,
+                 25.410040919281137],
+    "aligned_lbw": [18.825851687156632, 21.3224485453902, 22.174714024660748,
+                    23.299455620661593],
+}
+NOVEL_POSE_FAMILIES = ("lbw", "pbw", "smpl", "lbw_pdf")
+STAGE2_FAMILIES = ("lbw", "lbw_pdf")
+# K1 and K2 a stage-2 step of LBW and LBWPDF: in the pose branch the
+# posed prior (K2), novel_pose_bw (K1), the canonical prior with its
+# gradient (K2) and the frozen field (K1); in the canonical branch the
+# same four the other way round
+STAGE2_PER_STEP = {"skip_mlp": 4, "knn_blend": 4}
+# points a branch of the stage-2 step held against the CPU: the CPU's
+# step at the run's 65,536 takes about 27 s a family
+STAGE2_STEP_ROWS = 16384
+# the no-grid views against the grid views of the same call: the same
+# survivors, so the same maps but for the order of the compositor's
+# float additions
+NO_GRID_VS_GRID_DB = 1e-3
+NO_GRID_FRAME_TOL = 1e-5
+# evenly spaced tiles of the no-grid full frame on which K3 is timed and
+# bounded (each a whole tile's 524,288 ray-ordered points)
+K3_TILE_SAMPLES = 4
+
+
+class no_plain_knn:
+    """Within the block a KNN plain version raises: on the card's main
+    paths every KNN call must launch its kernel (the CPU steps held
+    against the card run outside such blocks)."""
+
+    NAMES = ("knn_blend_plain", "min_dist_plain", "kth_distance_plain",
+             "knn_blend_blocked_plain", "knn_blend_celled_plain")
+
+    def __init__(self, knn):
+        self.knn = knn
+
+    def __enter__(self):
+        self.real = {n: getattr(self.knn, n) for n in self.NAMES}
+
+        def refuse(*args, **kwargs):
+            raise RuntimeError("a plain KNN version ran on the card's path")
+
+        for n in self.NAMES:
+            setattr(self.knn, n, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.real.items():
+            setattr(self.knn, n, f)
+
+
+def novel_pose_cfg(family):
+    return f"configs/synthetic_aligned_{family}_novel_pose.yaml"
+
+
+def phase_novel_pose_aligned(k1, knn):
+    """Phase 14a: for each aligned family the composed novel-pose weights
+    written (compose.py `write_novel_pose`) and the `test_novel_pose`
+    evaluate (frames 2-3, view 3) held to the JAX PSNR, K1 launched
+    ALIGNED_K1_PER_TILE times a tile, K2 once a tile and K3 once a
+    frame. Returns each path's launches."""
+    from animatable_nerf_tpu_torch.compat.compose import write_novel_pose
+    from animatable_nerf_tpu_torch.config import load_config
+
+    paths = {}
+    for family in NOVEL_POSE_FAMILIES:
+        write_novel_pose(family)
+        jax_psnr = JAX_PSNR_NOVEL_POSE_ALIGNED[family]
+        cfg = load_config(novel_pose_cfg(family), ["test_novel_pose", "True"],
+                          run_type="evaluate")
+        name = f"evaluate_novel_pose_aligned_{family}"
+        with no_plain_knn(knn):
+            launches, _ = phase_evaluate(name, cfg, jax_psnr, k1, knn)
+        tiles = launches["knn_blend"]
+        want = {"skip_mlp": ALIGNED_K1_PER_TILE[family] * tiles,
+                "knn_blend": tiles, "min_dist": len(jax_psnr)}
+        check(tiles >= len(jax_psnr)
+              and launches == {k: want.get(k, 0) for k in launches},
+              f"{name} launched {launches}, expected {want}")
+        paths[name] = launches
+    return paths
+
+
+def phase_train_animation_aligned(family, k1, knn):
+    """Phase 14b: stage 2 of LBW or LBWPDF. One stage-2 step on the card
+    against the CPU on the same points (STAGE2_STEP_ROWS a branch; K1
+    and K2 four times each on the card; a gradient for `novel_pose_bw`
+    alone, held as one vector), and the same step with K1's plain
+    version on the card; `run_train` for one epoch of 50 steps from the common start
+    `write_initial_start` writes, every frozen leaf bit-identical to the
+    start after them; the novel-pose evaluate of its checkpoint held to
+    the JAX CPU run of the same 50 steps; a profile of 5 steps; and on
+    LBW K2's differentiable form at the step's canonical points (its
+    backward at 65,536 points). Returns (the run's launches, K2's
+    record or None)."""
+    import torch
+
+    from animatable_nerf_tpu_torch.compat.flax_msgpack import read_checkpoint
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.engine import (
+        make_dataset, make_model, run_evaluate, run_train, write_initial_start)
+    from animatable_nerf_tpu_torch.train.animation import AnimationTrainer
+    from animatable_nerf_tpu_torch.train.checkpoints import param_codec
+    from animatable_nerf_tpu_torch.train.trainer import collate_rays, stack_batch
+
+    cfg_file = novel_pose_cfg(family)
+    exp = f"chip_smoke_train_anim_aligned_{family}"
+    opts = ["aninerf_animation", "True", "exp_name", exp] + ANIM_OPTS[4:]
+    cfg = load_config(cfg_file, opts)
+    check(int(cfg.n_anim_samples) == ANIM_ROWS,
+          f"n_anim_samples is {cfg.n_anim_samples}")
+    jax_psnr = JAX_PSNR_TRAIN_ANIM_ALIGNED[family]
+    write_initial_start(cfg)
+    start = read_checkpoint(os.path.join(cfg.trained_model_dir,
+                                         "latest.flax"))["params"]
+    state_dict = param_codec(make_model(cfg))[0](start)
+    ds = make_dataset(cfg, "train")
+    ds._rng = np.random.RandomState(0)
+    batch = stack_batch([collate_rays(ds[0], int(cfg.N_rand))])
+    name = f"train_anim_aligned_{family}"
+    step_cfg = load_config(cfg_file, opts + ["n_anim_samples",
+                                             str(STAGE2_STEP_ROWS)])
+    with fixed_box_points(STAGE2_STEP_ROWS):
+        trained, cpu = phase_train_step_vs_cpu(
+            f"{name}_step_vs_cpu", step_cfg, state_dict, batch, k1, knn,
+            STAGE2_PER_STEP, trainer_cls=AnimationTrainer,
+            whole_gradient=True, return_cpu=True)
+        aligned_step_plain_k1(f"{name}_step_plain_k1_vs_cpu", step_cfg,
+                              state_dict, batch, k1,
+                              trainer_cls=AnimationTrainer, cpu=cpu)
+    check(len(trained) == 19
+          and all(n.startswith("novel_pose_bw.") for n in trained),
+          f"{name}_step_vs_cpu: gradients of {sorted(trained)}")
+
+    reset_counts(k1, knn)
+    t0 = time.time()
+    with no_plain_knn(knn):
+        trainer, recorder = run_train(cfg, "cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = launch_counts(k1, knn)
+    res = run_evaluate(load_config(cfg_file, [
+        "test_novel_pose", "True", "exp_name", exp], run_type="evaluate"),
+        "cuda")
+    items = res["items"]
+    dpsnr = [it["psnr"] - ref for it, ref in zip(items, jax_psnr)]
+    summary = train_summary(cfg, trainer, recorder, launches, wall, items,
+                            dpsnr, jax_psnr)
+    after = flat_leaves(param_codec(trainer.model)[1](
+        dict(trainer.model.named_parameters())))
+    before = flat_leaves(start)
+    frozen = [k for k in before if "/novel_pose_bw/" not in k]
+    moved = [k for k in frozen if not np.array_equal(after[k], before[k])]
+    trained_moved = sum(not np.array_equal(after[k], before[k])
+                        for k in before if "/novel_pose_bw/" in k)
+    samples = 2 * ANIM_ROWS
+    prof = steps_profile(trainer, batch, ["skip_mlp_kernel",
+                                          "knn_blend_kernel"])
+    record = {"phase": name, "config": cfg_file, "opts": opts, **summary,
+              "samples_per_step": samples,
+              "samples_per_s": samples / recorder.batch_time.median,
+              "frozen_leaves": len(frozen), "frozen_leaves_changed": moved,
+              "trained_leaves_changed": trained_moved,
+              "launches_per_step": {k: v / summary["steps"]
+                                    for k, v in launches.items()},
+              "profile_per_step": prof,
+              "events_per_step": step_parts_ms(trainer, batch)}
+    k2_grad = None
+    if family == "lbw":
+        with fixed_box_points(ANIM_ROWS):
+            k2_grad = k2_grad_on_tpose_points(knn, trainer, batch)
+        record["k2_differentiable_stage2_points"] = k2_grad
+    emit(record)
+    check(not moved and trained_moved == 19,
+          f"{name}: frozen leaves changed: {moved}; {trained_moved} trained "
+          "leaves moved")
+    check_train(name, summary, STAGE2_PER_STEP)
+    return launches, k2_grad
+
+
+def k3_on_frame_tiles(knn, tiles, pverts):
+    """K3 on whole tiles of the no-grid full frame (their ray-ordered
+    pass-1 points, recorded from the render): bit-equal to its plain
+    version; per tile launch its time, the plain version's and the
+    cdist chain's, and the bound of the pairs the data needs
+    (`run_pairs` over the frame's run layout), means over the tiles."""
+    m = pverts.shape[0]
+    _, runs = knn.grid_layout(pverts)
+    rows = []
+    for src in tiles:
+        n = src.shape[0]
+        got = knn.min_dist(src, pverts)
+        want = knn.min_dist_plain(src, pverts)
+        differ = int((got != want).sum())
+        check(differ == 0, f"K3 on a frame tile differs from its plain "
+              f"version in {differ} values")
+        times = timed_pair(lambda: knn.min_dist(src, pverts),
+                           lambda: knn.min_dist_plain(src, pverts),
+                           lambda: cdist_min(src, pverts), plain_iters=2)
+        kth2 = kth_sq_dist(src, pverts, 1)
+        needed = int(run_pairs(src, runs, m, kth2).sum())
+        b, by = bound(OPS_PER_PAIR * needed, 4 * (n * 3 + m * 3 + n))
+        ranked, swept, tested, full = knn.grid_dist_counts(src, pverts,
+                                                           1).tolist()
+        rows.append({"queries": n, "pairs_needed_per_query": needed / n,
+                     "pairs_tested_per_query": tested / n,
+                     "runs_swept_per_warp": swept / -(-n // 32),
+                     "bound_ms": b, "bound_by": by, **times})
+    mean = {k: sum(r[k] for r in rows) / len(rows) for k in (
+        "queries", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+        "pairs_needed_per_query", "pairs_tested_per_query",
+        "runs_swept_per_warp")}
+    mean.update(bound_by=rows[0]["bound_by"], tiles_timed=len(rows),
+                share_of_bound=mean["bound_ms"] / mean["kernel_ms"],
+                max_abs_err=0.0,
+                library="torch.cdist(...).amin(1), chunks of 16384 queries")
+    return mean
+
+
+def phase_no_grid(k1, knn, full_item, grid_frame, grid_frame_stats):
+    """Phase 14c: pass 1 without the distance grid (knn_grid_res 0). The
+    evaluates of SDF-PDF, NeRF-PDF, NeuS-PDF and AlignedLBW held to the
+    JAX package's no-grid PSNR and, view by view, to the grid evaluate of
+    the same call (the same survivors, fewer candidates), K3 launched
+    once a tile; then the 1000x1002 SDF-PDF frame without the grid: K3
+    once a tile, its vertex layout built once, the survivors of the grid
+    frame and its maps, its device time against the grid frame's, and K3
+    per tile launch (`k3_on_frame_tiles`). Returns (each path's launches,
+    K3's per-tile record)."""
+    import torch
+
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.engine import Engine
+    from animatable_nerf_tpu_torch.models import pdf
+
+    paths = {}
+    for family, grid_phase in (("sdf_pdf", "evaluate_sdf_pdf"),
+                               ("nerf_pdf", "evaluate_nerf_pdf"),
+                               ("neus_pdf", "evaluate_neus_pdf"),
+                               ("aligned_lbw", "evaluate_aligned_lbw")):
+        cfg = load_config(f"configs/synthetic_{family}.yaml",
+                          ["knn_grid_res", "0"], run_type="evaluate")
+        name = f"evaluate_no_grid_{family}"
+        with no_plain_knn(knn):
+            launches, _ = phase_evaluate(name, cfg, JAX_PSNR_NO_GRID[family],
+                                         k1, knn)
+        tiles = launches["knn_blend"]
+        grid = EVAL_ITEMS[grid_phase]
+        views = [{"psnr_minus_grid_db": it["psnr"] - g["psnr"],
+                  "candidates": it["n_candidates"],
+                  "grid_candidates": g["n_candidates"],
+                  "survivors": it["n_survivors"],
+                  "grid_survivors": g["n_survivors"]}
+                 for it, g in zip(EVAL_ITEMS[name], grid)]
+        emit({"phase": f"{name}_vs_grid", "views": views,
+              "tol_db": NO_GRID_VS_GRID_DB})
+        check(launches["min_dist"] == tiles >= len(grid)
+              and launches["kth_distance"] == launches["knn_blend_blocked"]
+              == launches["knn_blend_celled"] == 0,
+              f"{name} launched {launches}")
+        check(all(v["survivors"] == v["grid_survivors"]
+                  and v["candidates"] < v["grid_candidates"]
+                  and abs(v["psnr_minus_grid_db"]) <= NO_GRID_VS_GRID_DB
+                  for v in views), f"{name}: differs from {grid_phase}")
+        paths[name] = launches
+
+    cfg_grid = load_config("configs/synthetic_sdf_pdf.yaml", [],
+                           run_type="evaluate")
+    cfg = load_config("configs/synthetic_sdf_pdf.yaml", ["knn_grid_res", "0"],
+                      run_type="evaluate")
+    eng = Engine(cfg, "cuda")
+    eng.load_params()
+    with no_plain_knn(knn):
+        frame_launches, out = phase_full_frame(
+            "full_frame_no_grid_sdf_pdf", eng, full_item, k1, knn)
+    stats = dict(eng.stats)
+    # the vertex layout K3 walks, built once for the frame's tiles
+    eng.clear_frame_cache()
+    builds0 = knn._grid_layout.builds
+    eng.render_item(full_item)
+    builds = knn._grid_layout.builds - builds0
+    # the frame's pass-1 points, tile by tile
+    real, recorded = pdf.min_dist, []
+
+    def recording(src, ref):
+        recorded.append(src)
+        return real(src, ref)
+
+    pdf.min_dist = recording
+    try:
+        eng.render_item(full_item)
+    finally:
+        pdf.min_dist = real
+    pverts = eng._device_frame(full_item)["pvertices"]
+    step = max(1, len(recorded) // K3_TILE_SAMPLES)
+    k3 = k3_on_frame_tiles(knn, recorded[::step][:K3_TILE_SAMPLES], pverts)
+    k3.update(launches_per_frame=frame_launches["min_dist"],
+              tiles=stats["tiles"], layout_builds_per_frame=builds)
+    del recorded
+    eng_grid = Engine(cfg_grid, "cuda")
+    eng_grid.load_params()
+    eng_grid.render_item(full_item)
+    times = {}
+    for key, e in (("no_grid", eng), ("grid", eng_grid), ("no_grid_again", eng),
+                   ("grid_again", eng_grid)):
+        e.clear_frame_cache()
+        times[key] = device_breakdown(lambda: e.render_item(full_item))
+    err = {k: float(np.abs(out[k] - grid_frame[k]).max()) for k in out}
+    record = {"phase": "no_grid_frame_vs_grid", **stats,
+              "grid_candidates": grid_frame_stats["n_candidates"],
+              "grid_survivors": grid_frame_stats["n_survivors"],
+              "max_abs_err_vs_grid": err, "tol": NO_GRID_FRAME_TOL,
+              "k3_per_tile": k3,
+              "device_ms": {k: v["device_ms"] for k, v in times.items()},
+              "wall_ms": {k: v["wall_ms"] for k, v in times.items()},
+              "idle_share": {k: v["idle_share"] for k, v in times.items()},
+              "own_kernels_ms": {k: v.get("own_kernels_ms")
+                                 for k, v in times.items()}}
+    emit(record)
+    check(frame_launches["min_dist"] == stats["tiles"]
+          == frame_launches["knn_blend"] and builds == 1,
+          f"full_frame_no_grid_sdf_pdf launched {frame_launches} over "
+          f"{stats['tiles']} tiles, {builds} layout builds")
+    check(stats["n_survivors"] == grid_frame_stats["n_survivors"]
+          and stats["n_candidates"] < grid_frame_stats["n_candidates"]
+          and max(err.values()) <= NO_GRID_FRAME_TOL,
+          f"the no-grid frame differs from the grid frame: {stats}, {err}")
+    paths["full_frame_no_grid_sdf_pdf"] = frame_launches
+    return paths, k3
 
 
 def main():
@@ -2493,6 +2903,19 @@ def main():
     # differentiable form, two full frames
     aligned_paths, k2_grad = phase_aligned(full_item_sdf, k1, knn)
 
+    # ---- phase 14: the aligned families' novel poses (four evaluates,
+    # stage 2 of LBW and LBWPDF) and pass 1 without the distance grid
+    # (four evaluates, a full frame, K3 on its tiles)
+    phase14_paths = phase_novel_pose_aligned(k1, knn)
+    k2_stage2 = None
+    for family in STAGE2_FAMILIES:
+        launches, grad = phase_train_animation_aligned(family, k1, knn)
+        phase14_paths[f"train_anim_aligned_{family}"] = launches
+        k2_stage2 = grad or k2_stage2
+    no_grid_paths, k3_tile = phase_no_grid(k1, knn, full_item_sdf, sdf_frame,
+                                           sdf_path["frame_stats"])
+    phase14_paths.update(no_grid_paths)
+
     # ---- kernel table
     def k1_sum(key):
         return sum(r[key] for r in k1_rows)
@@ -2541,10 +2964,11 @@ def main():
             **{f"full_frame_{f}": fr[name] for f, (_, fr) in fam.items()}}
         return entry
 
-    def aligned_launches(entry, name):
-        """The aligned paths' launches (phase 13): evaluates and train
-        runs into `launches`, each path by name, and the full frames."""
-        for path, n in aligned_paths.items():
+    def aligned_launches(entry, name, paths=None):
+        """The aligned paths' launches (phase 13, or `paths`): evaluates
+        and train runs into `launches`, each path by name, and the full
+        frames."""
+        for path, n in (aligned_paths if paths is None else paths).items():
             if path.startswith("full_frame"):
                 entry.setdefault("launches_full_frame_by_path", {})[path] = n[name]
             else:
@@ -2552,9 +2976,9 @@ def main():
                 entry.setdefault("launches_by_path", {})[path] = n[name]
         return entry
 
-    k2_entry = aligned_launches(family_paths(
+    k2_entry = aligned_launches(aligned_launches(family_paths(
         knn_entry(k2_row, 55, sdf_launches, sdf_frame_launches, "k2"),
-        "knn_blend"), "knn_blend")
+        "knn_blend"), "knn_blend"), "knn_blend", phase14_paths)
     # K2 also runs once a step on the PDF families' dense train points
     for path, launches in train_paths.items():
         if path != "train":
@@ -2564,11 +2988,18 @@ def main():
         launches_per_train_step={
             path: launches["knn_blend"] / 50
             for path, launches in (*train_paths.items(),
-                                   *aligned_paths.items())
+                                   *aligned_paths.items(),
+                                   *phase14_paths.items())
             if path.startswith("train")},
         # the consistency target's prior on LBW's canonical points: the
         # launch with its selection, and the plain vjp over it
         differentiable_tpose_points={k: k2_grad[k] for k in (
+            "queries", "max_abs_err", "indices_equal", "kernel_ms",
+            "kernel_without_indices_ms", "plain_ms", "backward_ms",
+            "bound_ms", "bound_by", "backward_bound_ms", "library_ms",
+            "grad_rel_err_vs_cpu")},
+        # the same at a stage-2 step's canonical points (LBW, 65,536)
+        differentiable_stage2_points={k: k2_stage2[k] for k in (
             "queries", "max_abs_err", "indices_equal", "kernel_ms",
             "kernel_without_indices_ms", "plain_ms", "backward_ms",
             "bound_ms", "bound_by", "backward_bound_ms", "library_ms",
@@ -2634,17 +3065,21 @@ def main():
         "library_ms": k1_sum("library_ms"),
     }
     aligned_launches(k1_entry, "skip_mlp")
+    aligned_launches(k1_entry, "skip_mlp", phase14_paths)
     k1_entry["launches_per_train_step"].update(
-        {path: n["skip_mlp"] / 50 for path, n in aligned_paths.items()
+        {path: n["skip_mlp"] / 50
+         for path, n in (*aligned_paths.items(), *phase14_paths.items())
          if path.startswith("train")})
     k1_entry["launches_full_frame"].update(
         k1_entry.pop("launches_full_frame_by_path"))
     emit({"kernels": [
         k1_entry,
         k2_entry,
-        aligned_launches(family_paths(
+        dict(aligned_launches(aligned_launches(family_paths(
             knn_entry(k3_row, 129, sdf_launches, sdf_frame_launches),
-            "min_dist"), "min_dist"),
+            "min_dist"), "min_dist"), "min_dist", phase14_paths),
+            # without the distance grid: once a tile on the tile's points
+            per_tile_no_grid=k3_tile),
         knn_entry(k4_row, 240, blk_launches, blk_frame_launches),
         knn_entry(k5_row, 460, blk_launches, blk_frame_launches, "k5"),
         knn_entry(k6_row, 760, blk_launches, blk_frame_launches),

@@ -14,9 +14,12 @@ within 1e-2 of its largest entry: rounding in the canonical points is
 multiplied by the positional encoding, as between the JAX and port CPU
 steps, tests/test_torch_train.py, which measured 2.3e-3); the same for
 a train step of SDF-PDF, NeRF-PDF and NeuS-PDF and a stage-2 step of
-AniNeRF (novel pose) and of the four aligned families, for the eval
-items (the novel-pose item, a distorted camera at ratio 0.5, the
-aligned families' items: maps within 1e-4), and K1's gradient of a
+AniNeRF (novel pose) and of the four aligned families, and a stage-2
+step of AlignedLBW and AlignedLBWPDF, for the eval items (the
+novel-pose item, a distorted camera at ratio 0.5, the aligned
+families' items and novel-pose items: maps within 1e-4; without the
+distance grid, within 1e-5 of the grid render, whose survivors it
+keeps), and K1's gradient of a
 gradient within 1e-5 of each tensor's scale (the backward and its
 derivative are the plain version's on both sides), as for K2's gradient
 (the plain vjp over the selected vertices on both sides). K2-K6
@@ -1128,5 +1131,153 @@ def test_cuda_aligned_item_and_step_match_cpu(cuda_device, family,
             shift = (moved[name] - want).abs().max().item()
             assert shift >= err / 2, (name, err, shift)
     l2 = (sum(float(((g[n] - w).double() ** 2).sum()) for n, w in cpu_g.items())
+          / sum(float((w.double() ** 2).sum()) for w in cpu_g.values())) ** 0.5
+    assert l2 <= 1e-3, l2
+
+
+@pytest.mark.cuda
+def test_cuda_min_dist_on_a_tile_without_the_grid(cuda_device, monkeypatch):
+    """Pass 1 without the distance grid (SDF-PDF, knn_grid_res 0, eval
+    tiles of 1024 rays): K3 on one tile's posed points, 64 samples of
+    each ray in ray order, most far outside the body shell, bit-equal to
+    its plain version; the engine's render of the item launches K3 once
+    a tile, builds its vertex layout once for the frame, reaches no
+    plain KNN version, and keeps the survivors of the grid render."""
+    from animatable_nerf_tpu_torch import engine
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.core.lbs import world_points_to_pose_points
+    from animatable_nerf_tpu_torch.core.sampling import (
+        stratified_z_vals, z_vals_to_pts)
+
+    opts = ["eval_tile", "1024"]
+    cfg = load_config("configs/synthetic_sdf_pdf.yaml",
+                      opts + ["knn_grid_res", "0"], run_type="evaluate")
+    cfg.eval = True
+    eng = engine.Engine(cfg, cuda_device)
+    eng.load_params()
+    item = engine.make_dataset(cfg, "test")[0]
+    frame = eng._device_frame(item)
+    assert "pdist_packed" not in frame
+    rays = {k: torch.as_tensor(np.asarray(item[k])[:1024], device=cuda_device)
+            for k in ("ray_o", "ray_d", "near", "far")}
+    z = stratified_z_vals(rays["near"], rays["far"], 64)
+    pose = world_points_to_pose_points(
+        z_vals_to_pts(rays["ray_o"], rays["ray_d"], z).reshape(-1, 3),
+        frame["R"], frame["Th"]).contiguous()
+    np.testing.assert_array_equal(
+        knn.min_dist(pose, frame["pvertices"]).cpu().numpy(),
+        knn.min_dist_plain(pose, frame["pvertices"]).cpu().numpy())
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    eng.clear_frame_cache()
+    launches, builds = knn.min_dist.launches, knn._grid_layout.builds
+    with monkeypatch.context() as m:
+        for name in ("knn_blend_plain", "min_dist_plain", "_select_blend"):
+            m.setattr(knn, name, refuse)
+        out, _ = eng.render_item(item)
+    tiles = eng.stats["tiles"]
+    assert knn.min_dist.launches - launches == tiles > 1
+    assert knn._grid_layout.builds - builds == 1
+    grid = engine.Engine(load_config("configs/synthetic_sdf_pdf.yaml",
+                                     opts + ["knn_grid_res", "24"],
+                                     run_type="evaluate"), cuda_device)
+    grid.load_params()
+    want, _ = grid.render_item(item)
+    assert eng.stats["n_survivors"] == grid.stats["n_survivors"]
+    assert eng.stats["n_candidates"] < grid.stats["n_candidates"]
+    for k in ("rgb_map", "acc_map", "depth_map"):
+        np.testing.assert_allclose(out[k], want[k], rtol=0, atol=1e-5,
+                                   err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["lbw", "lbw_pdf"])
+def test_cuda_aligned_novel_pose_item_and_stage2_step_match_cpu(
+        cuda_device, family, monkeypatch):
+    """An aligned family's novel-pose item (item 0 of
+    configs/synthetic_aligned_<f>_novel_pose.yaml, eval tiles of 1024
+    rays, a 24^3 distance grid) and a stage-2 step (4096 seeded points a
+    branch) on the composed novel-pose weights, on the card against the
+    CPU: the same candidates and survivors and the maps within 1e-4;
+    the step's loss and stats within 1e-4, a gradient for
+    `novel_pose_bw` alone, the whole of it within 1e-3 of its L2 norm
+    and each leaf within 1e-2 of its largest entry; on the card K1 once
+    (LBW) or twice (LBWPDF) a tile, K2 once a tile, K3 once, and K1 and
+    K2 four times a step; none on the CPU."""
+    from animatable_nerf_tpu_torch import engine
+    from animatable_nerf_tpu_torch.compat.compose import compose_novel_pose
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.train import animation
+    from animatable_nerf_tpu_torch.train.checkpoints import param_codec
+    from animatable_nerf_tpu_torch.train.trainer import collate_rays, stack_batch
+
+    n = 4096
+    units = np.random.RandomState(0).rand(2, n, 3).astype(np.float32)
+    calls = []
+
+    def fixed(gen, bounds, count):
+        u = torch.tensor(units[len(calls) % 2], device=bounds.device)
+        calls.append(count)
+        return bounds[0] + (bounds[1] - bounds[0]) * u
+
+    monkeypatch.setattr(animation, "uniform_box_points", fixed)
+    cfg_file = f"configs/synthetic_aligned_{family}_novel_pose.yaml"
+    eval_cfg = load_config(cfg_file, ["test_novel_pose", "True", "eval_tile",
+                                      "1024", "knn_grid_res", "24"],
+                           run_type="evaluate")
+    eval_cfg.eval = True
+    item = engine.make_dataset(eval_cfg, "test")[0]
+    cfg = load_config(cfg_file, ["aninerf_animation", "True",
+                                 "n_anim_samples", str(n), "N_rand", "64"])
+    ds = engine.make_dataset(cfg, "train")
+    ds._rng = np.random.RandomState(0)
+    batch = {k: v[0] for k, v in stack_batch([collate_rays(ds[4], 64)]).items()}
+    params = compose_novel_pose(family)
+
+    def counts():
+        return (k1.skip_mlp.launches, knn.knn_blend.launches,
+                knn.min_dist.launches)
+
+    results = []
+    for device in ("cpu", cuda_device):
+        eng = engine.Engine(eval_cfg, device)
+        eng.load_params(params)
+        before = counts()
+        out, _ = eng.render_item(item)
+        eval_n = tuple(a - b for a, b in zip(counts(), before))
+        model = engine.make_model(cfg)
+        model.load_state_dict(param_codec(model)[0](params), strict=True)
+        trainer = animation.AnimationTrainer(cfg, model.to(device), device)
+        before = counts()
+        loss, stats, _ = trainer.loss(batch)
+        step_n = tuple(a - b for a, b in zip(counts(), before))
+        loss.backward()
+        results.append((out, dict(eng.stats), eval_n,
+                        {k: float(v.detach()) for k, v in stats.items()},
+                        {name: p.grad.cpu() for name, p in
+                         model.named_parameters() if p.grad is not None},
+                        step_n))
+    (cpu_out, cpu_stats, cpu_en, cpu_s, cpu_g, cpu_sn), (
+        out, stats, en, s, g, sn) = results
+    tiles = stats["tiles"]
+    assert cpu_en == cpu_sn == (0, 0, 0) and calls == [n] * 4
+    assert en == ({"lbw": 1, "lbw_pdf": 2}[family] * tiles, tiles, 1)
+    assert sn == (4, 4, 0) and tiles > 1 and stats == cpu_stats
+    for k in ("rgb_map", "acc_map", "depth_map"):
+        assert np.isfinite(out[k]).all(), k
+        np.testing.assert_allclose(out[k], cpu_out[k], rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
+    assert out["acc_map"].max() > 0.5
+    for k, v in cpu_s.items():
+        np.testing.assert_allclose(s[k], v, rtol=1e-4, err_msg=k)
+    assert set(g) == set(cpu_g) and len(g) == 19
+    assert all(name.startswith("novel_pose_bw.") for name in g)
+    for name, want in cpu_g.items():
+        assert torch.isfinite(g[name]).all(), name
+        err = (g[name] - want).abs().max().item()
+        assert err <= 1e-2 * want.abs().max().item(), (name, err)
+    l2 = (sum(float(((g[k] - w).double() ** 2).sum()) for k, w in cpu_g.items())
           / sum(float((w.double() ** 2).sum()) for w in cpu_g.values())) ** 0.5
     assert l2 <= 1e-3, l2

@@ -132,7 +132,7 @@ def test_cli_evaluates_sdf_pdf_on_cpu(tmp_path, monkeypatch):
 @pytest.mark.parametrize("run_type,opts", [
     ("train", ["network_module", "nerf_pdf", "aninerf_animation", "True"]),
     ("train", ["network_module", "neus_pdf", "aninerf_animation", "True"]),
-    ("evaluate", ["knn_grid_res", "0"]),
+    ("evaluate", ["use_importance", "True"]),
     ("evaluate", ["seg_filter", "True"])])
 def test_options_not_ported_yet_raise(run_type, opts, tmp_path):
     """Evaluation options the port lacks, and the stage-2 (novel-pose)

@@ -484,22 +484,18 @@ def test_checkpoints_both_ways(tmp_path, side):
         np.isfinite(v).all() for v in side.port_params(trainer.model).values())
 
 
-@pytest.mark.parametrize("family", ["lbw", "lbw_pdf"])
-@pytest.mark.parametrize("run_type,opts", [
-    ("train", ["aninerf_animation", "True"]),
-    ("evaluate", ["test_novel_pose", "True"]),
-])
-def test_novel_pose_refused_before_any_work(family, run_type, opts, tmp_path):
-    """The aligned families' stage 2 and test_novel_pose (working JAX
-    paths, the next slice of the port) raise before anything is read or
-    written."""
+@pytest.mark.parametrize("family", ["pbw", "smpl"])
+def test_novel_pose_refused_before_any_work(family, tmp_path):
+    """Stage 2 of PBW and SMPL, which have no novel-pose field (JAX's
+    stage 2 raises an AttributeError for them), raises before anything
+    is read or written; their test_novel_pose renders through the
+    stage-1 deform (tests/test_torch_aligned_novel_pose.py)."""
     cfg = load_config(cfg_file(family),
-                      opts + ["trained_model_dir", str(tmp_path / "m"),
-                              "record_dir", str(tmp_path / "r")],
-                      run_type=run_type)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        if run_type == "train":
-            t_engine.run_train(cfg, "cpu")
-        else:
-            t_engine.run_evaluate(cfg, "cpu")
+                      ["aninerf_animation", "True",
+                       "trained_model_dir", str(tmp_path / "m"),
+                       "record_dir", str(tmp_path / "r")])
+    with pytest.raises(NotImplementedError, match="has no novel-pose field"):
+        t_engine.run_train(cfg, "cpu")
+    with pytest.raises(NotImplementedError, match="has no novel-pose field"):
+        t_engine.initial_model(cfg)
     assert not (tmp_path / "m").exists() and not (tmp_path / "r").exists()
