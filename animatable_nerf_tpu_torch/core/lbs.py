@@ -19,6 +19,11 @@ def world_points_to_pose_points(wpts, Rh, Th):
     return (wpts - Th) @ Rh
 
 
+def pose_points_to_world_points(ppts, Rh, Th):
+    """ppts @ Rh^T + Th — SMPL to world coordinates (JAX lbs.py:36)."""
+    return ppts @ Rh.transpose(-1, -2) + Th
+
+
 def world_dirs_to_pose_dirs(wdirs, Rh):
     """wdirs @ Rh (JAX lbs.py:31)."""
     return wdirs @ Rh

@@ -19,7 +19,11 @@ its arithmetic:
   * `resize_area`: INTER_AREA, the mean of the blocks at an integer
     factor (summed in OpenCV's order), OpenCV's fractional-area rule
     otherwise (in float64; OpenCV sums it in float32);
-  * `resize_nearest`: INTER_NEAREST's index rule.
+  * `resize_nearest`: INTER_NEAREST's index rule;
+  * `dilate`: cv2.dilate with a square kernel of ones, its default
+    anchor and border (pixels outside the image take no part), which
+    the mesh datasets apply to the training views' masks (JAX
+    data/novel_view.py:57-98).
 
 tests/test_torch_camera.py holds each against cv2.
 """
@@ -186,6 +190,24 @@ def resize_nearest(img: np.ndarray, H: int, W: int) -> np.ndarray:
     if (h, w) == (H, W):
         return img.copy()
     return img[_nearest_index(h, H)[:, None], _nearest_index(w, W)[None, :]]
+
+
+def dilate(img: np.ndarray, size: int = 5) -> np.ndarray:
+    """cv2.dilate(img, np.ones((size, size), np.uint8)) of an integer
+    image (H, W): the maximum over the size x size window centred on
+    each pixel (anchor size // 2), over the pixels inside the image."""
+    if img.ndim != 2 or img.dtype.kind not in "ub":
+        raise TypeError(f"dilate takes (H, W) integer images, not {img.dtype} {img.shape}")
+    H, W = img.shape
+    r = size // 2
+    low = np.iinfo(img.dtype).min if img.dtype.kind != "b" else False
+    padded = np.full((H + size - 1, W + size - 1), low, img.dtype)
+    padded[r:r + H, r:r + W] = img
+    out = img.copy()
+    for dy in range(size):
+        for dx in range(size):
+            np.maximum(out, padded[dy:dy + H, dx:dx + W], out=out)
+    return out
 
 
 def _area_weights(src: int, dst: int) -> np.ndarray:

@@ -49,6 +49,7 @@ class _BaseDataset:
         self.human = dcfg["human"]
         annots = np.load(dcfg["ann_file"], allow_pickle=True).item()
         self.cams = annots["cams"]
+        self.annots_ims = annots["ims"]  # every frame's image table
         self.images = DecodedImages(self.data_root)
 
         num_cams = len(self.cams["K"])

@@ -28,15 +28,30 @@ import torch
 
 from .compat.flax_msgpack import read_checkpoint
 from .compat.jax_params import sdf_network_state_dict
+from .core.knn import sample_blend_closest_points
+from .core.lbs import (
+    pose_points_to_tpose_points,
+    pose_points_to_world_points,
+    tpose_points_to_pose_points,
+)
 from .data.dataset import TPoseDataset, TPosePDFDataset
 from .data.loader import Loader, eval_indices
+from .data.mesh_dataset import MeshDataset, PDFMeshDataset, SDFMeshDataset
 from .device import select_device
 from .evaluators.image import ImageEvaluator
+from .evaluators.mesh import MeshEvaluator
 from .models.aligned import AlignedLBW, AlignedLBWPDF, AlignedPBW, AlignedSMPL
-from .models.aninerf import AniNeRF
-from .models.pdf import NeRFPDF, NeuSPDF, SDFPDF
+from .models.aninerf import MESH_NORM_TH, AniNeRF
+from .models.pdf import SDF_FILL, NeRFPDF, NeuSPDF, SDFPDF
 from .ops.knn import build_d5_payload, build_knn_blocks, build_pdist_payload
+from .render.mesh import (
+    SWEEP_TILE,
+    density_grid_sweep,
+    largest_component,
+    marching_cubes,
+)
 from .render.renderer import RenderSettings, pad_rays, render_image
+from .render.visibility import prepare_inside_mask
 from .train.animation import AnimationTrainer
 from .train.checkpoints import (
     checkpoint_file,
@@ -48,6 +63,7 @@ from .train.checkpoints import (
 )
 from .train.recorder import Recorder
 from .train.trainer import Trainer
+from .visualizers.mesh import MeshVisualizer
 
 # network_module names (the JAX registry's, models/registry.py:14-33)
 _ANINERF_MODULES = ("aninerf", "lib.networks.bw_deform.tpose_nerf_network")
@@ -74,7 +90,13 @@ _DATASETS = {
     "tpose": TPoseDataset,
     "lib.datasets.tpose_pdf_dataset": TPosePDFDataset,
     "tpose_pdf": TPosePDFDataset,
+    "lib.datasets.aninerf_mesh_dataset": MeshDataset,
+    "lib.datasets.anisdf_mesh_dataset": SDFMeshDataset,
+    "lib.datasets.aninerf_pdf_mesh_dataset": PDFMeshDataset,
 }
+_MESH_DATASETS = (MeshDataset, SDFMeshDataset, PDFMeshDataset)
+# the mesh sweeps' padding of the grid (JAX engine.py:621, :685)
+MESH_PAD = 10
 _RAY_KEYS = ("ray_o", "ray_d", "near", "far")
 
 
@@ -232,6 +254,8 @@ class Engine:
         self._frame_cache = {}
         # candidate/survivor/tile counts of the last render_item
         self.stats = {}
+        # grid size, host times and mesh size of the last extract_mesh
+        self.mesh_stats = {}
 
     def load_params(self, params=None):
         """Load JAX-package params (a flax param tree); by default from
@@ -303,6 +327,149 @@ class Engine:
             out = {k: v[inv] for k, v in out.items()}
         return {k: v[:n_valid] for k, v in out.items()}, n_valid
 
+    # -------------------------------------------------- mesh extraction
+    def _mesh_frame(self, item):
+        """The item's frame tensors for the mesh sweeps and the re-pose:
+        the model's frame keys and the canonical vertices where the item
+        has them; no distance grid (the sweeps filter with K2, as JAX's
+        do) and the stage-1 deform (JAX's density takes no novel pose)."""
+        keys = dict.fromkeys(self.model.frame_keys + ("tvertices",))
+        frame = {k: torch.as_tensor(np.asarray(item[k], np.float32),
+                                    device=self.device)
+                 for k in keys if k in item}
+        frame.update(latent_index=int(np.asarray(item["latent_index"])),
+                     bw_latent_index=int(np.asarray(item["bw_latent_index"])),
+                     novel_pose=False)
+        return frame
+
+    def sweep_field(self, item):
+        """The family's field over the item's grid, in tiles of
+        SWEEP_TILE points on the device (JAX engine.py:344-362; the
+        density filters force their argmin once a tile): the
+        SDF families' canonical sdf where the nearest canonical vertex
+        blend (K2) is within MESH_NORM_TH, SDF_FILL elsewhere, no argmin
+        forcing; the others' density (`model.density`). Returns (values
+        (N,) and the flat grid (N, 3), both on the device); counts the
+        grid's points and tiles into `mesh_stats`."""
+        frame = self._mesh_frame(item)
+        model = self.model
+        if isinstance(model, (SDFPDF, NeuSPDF)):
+            def field(p):
+                _, tnorm = sample_blend_closest_points(p, frame["tvertices"],
+                                                       frame["weights"])
+                idx = torch.nonzero(tnorm[:, 0] < MESH_NORM_TH).squeeze(1)
+                sdf = torch.full_like(p[:, 0], SDF_FILL)
+                sdf[idx] = model.canonical_sdf(p[idx])
+                return sdf
+        else:
+            def field(p):
+                return model.density(p, frame)
+        flat = torch.as_tensor(np.asarray(item["pts"]).reshape(-1, 3),
+                               device=self.device)
+        self.mesh_stats.update(points=len(flat),
+                               tiles=-(-len(flat) // SWEEP_TILE))
+        return density_grid_sweep(field, flat, SWEEP_TILE), flat
+
+    def _isosurface(self, cube, level, origin, voxel, keep_largest: bool):
+        """Marching tetrahedra on the grid padded by MESH_PAD (host), the
+        largest component where asked; vertices to world or canonical
+        units: (v - MESH_PAD) * voxel + origin."""
+        t0 = time.perf_counter()
+        verts, tris = marching_cubes(cube, level)
+        t1 = time.perf_counter()
+        if keep_largest:
+            verts, tris = largest_component(verts, tris)
+        self.mesh_stats.update(marching_cubes_s=t1 - t0,
+                               largest_component_s=time.perf_counter() - t1)
+        if len(verts):
+            verts = (verts - MESH_PAD) * voxel + np.asarray(origin)
+        return verts, tris
+
+    def canonical_sdf_mesh(self, item):
+        """The SDF families' canonical mesh (JAX engine.py:606-624;
+        sdf_mesh_renderer.py:51-81): the negated sdf grid (`sweep_field`)
+        padded by MESH_PAD with -10, marching tetrahedra at 0, the
+        largest component. Returns (verts, tris) in canonical
+        coordinates."""
+        t0 = time.perf_counter()
+        sdf, _ = self.sweep_field(item)
+        cube = (-sdf.cpu().numpy()).reshape(np.shape(item["pts"])[:3])
+        self.mesh_stats["sweep_s"] = time.perf_counter() - t0
+        cube = np.pad(cube, MESH_PAD, mode="constant", constant_values=-10)
+        return self._isosurface(cube, 0.0, np.asarray(item["tbounds"])[0],
+                                _voxel(item), keep_largest=True)
+
+    def repose_canonical_mesh(self, verts, item):
+        """Canonical SDF-mesh vertices posed into the item's frame (JAX
+        engine.py:626-649; sdf_mesh_renderer.py:83-102): K2's blend
+        weights over the canonical vertices, the inverse-displacement
+        correction -normal * sdf(v + resd(v)) with normal the gradient of
+        that sdf (the displacement field by K1, its vjp plain), the LBS
+        warp big pose -> T-pose -> posed, then to world. In SWEEP_TILE
+        chunks, to bound the gradient's memory. Returns world vertices
+        (V, 3) numpy."""
+        frame = self._mesh_frame(item)
+        model = self.model
+        t0 = time.perf_counter()
+        v_all = torch.as_tensor(np.asarray(verts, np.float32), device=self.device)
+        world = torch.empty_like(v_all)
+        for s in range(0, len(v_all), SWEEP_TILE):
+            v = v_all[s:s + SWEEP_TILE]
+            tbw, _ = sample_blend_closest_points(v, frame["tvertices"],
+                                                 frame["weights"])
+            normal = model._observed_grad(v, frame, create_graph=False)
+            with torch.no_grad():
+                sdf = model.canonical_sdf(v + model.canonical_resd(v, frame))
+                deformed = v + (-normal * sdf[:, None])
+                tpose = pose_points_to_tpose_points(deformed, tbw,
+                                                    frame["big_A"])
+                pose = tpose_points_to_pose_points(tpose, tbw, frame["A"])
+                world[s:s + SWEEP_TILE] = pose_points_to_world_points(
+                    pose, frame["R"], frame["Th"])
+        out = world.cpu().numpy()
+        self.mesh_stats["repose_s"] = time.perf_counter() - t0
+        return out
+
+    def extract_mesh(self, item):
+        """The item's mesh (JAX engine.py:651-692): {vertex, posed_vertex,
+        triangle}. The SDF families (aninerf/sdf_mesh_renderer.py:51-111)
+        extract the canonical mesh and re-pose it. The others
+        (aninerf_mesh_renderer.py:26-64) sweep the model's density over
+        the world grid, zero it where a node projects outside a training
+        view's dilated mask, pad the grid by MESH_PAD with 0 and take the
+        isosurface at cfg.mesh_th. `mesh_stats` holds the grid's points
+        and tiles, the times of the sweep (device work and the copy
+        back), marching cubes, the largest component and the re-pose,
+        and the mesh's size."""
+        self.mesh_stats = {}
+        if isinstance(self.model, (SDFPDF, NeuSPDF)):
+            verts, tris = self.canonical_sdf_mesh(item)
+            posed = (self.repose_canonical_mesh(verts, item) if len(verts)
+                     else verts)
+            mesh = {"vertex": verts, "posed_vertex": posed, "triangle": tris}
+        else:
+            t0 = time.perf_counter()
+            sigma, flat = self.sweep_field(item)
+            if "msks" in item:
+                vis = prepare_inside_mask(flat, *(
+                    torch.as_tensor(np.asarray(item[k]), device=self.device)
+                    for k in ("Ks", "RT", "msks")))
+                sigma = torch.where(vis, sigma, 0.0)
+            cube = sigma.cpu().numpy().reshape(np.shape(item["pts"])[:3])
+            self.mesh_stats["sweep_s"] = time.perf_counter() - t0
+            cube = np.pad(cube, MESH_PAD, mode="constant")
+            verts, tris = self._isosurface(
+                cube, float(self.cfg.mesh_th), np.asarray(item["wbounds"])[0],
+                _voxel(item), keep_largest=False)
+            mesh = {"vertex": verts, "posed_vertex": verts, "triangle": tris}
+        self.mesh_stats.update(vertices=len(mesh["vertex"]),
+                               faces=len(mesh["triangle"]))
+        return mesh
+
+
+def _voxel(item) -> float:
+    return float(np.asarray(item["voxel_size"]).ravel()[0])
+
 
 def run_evaluate(cfg, device=None, max_items: int = -1):
     """PSNR/SSIM evaluation of the test split (JAX engine.py:749-830).
@@ -336,6 +503,103 @@ def run_evaluate(cfg, device=None, max_items: int = -1):
     wall = time.time() - t_start
     print(f"eval: {len(items)} items in {wall:.2f}s on {eng.device}")
     return {**evaluator.summarize(), "items": items}
+
+
+# what the next slice of the port brings (--type visualize without a
+# mesh flag, and --type raster)
+NEXT_VIS_SLICE = ("the next visualization slice of the port (novel views, "
+                  "pose sequences, mesh rasters and their PNG writer)")
+
+
+def _mesh_engine(cfg, device, run_type: str):
+    """The engine with its weights and the test split's mesh dataset;
+    raises before any work unless the config selects a mesh dataset
+    (the mesh overlay: vis_posed_mesh or vis_tpose_mesh, and for the KNN
+    families a test_dataset_module of lib.datasets.anisdf_mesh_dataset
+    or lib.datasets.aninerf_pdf_mesh_dataset)."""
+    if _DATASETS.get(cfg.test_dataset_module) not in _MESH_DATASETS:
+        raise ValueError(
+            f"--type {run_type} needs a mesh dataset (vis_posed_mesh True "
+            "or vis_tpose_mesh True merges the mesh overlay); "
+            f"test_dataset_module is {cfg.test_dataset_module!r}")
+    eng = Engine(cfg, device)
+    eng.load_params()
+    return eng, make_dataset(cfg, "test")
+
+
+def run_visualize(cfg, device=None, max_items: int = -1):
+    """Mesh visualization (JAX engine.py:946-985; reference run.py:73-102):
+    with `vis_posed_mesh` or `vis_tpose_mesh`, each sampled test frame's
+    mesh (`Engine.extract_mesh`) written by MeshVisualizer (the posed
+    vertices, or with `vis_tpose_mesh` the canonical ones) and scored by
+    MeshEvaluator against the root's object/<frame:06d>.obj where it
+    exists (mesh_metrics.npy under result_dir). Returns the evaluator's
+    records, None for a frame without a ground truth. Novel views and
+    pose sequences (the other flags) raise before any work."""
+    if not (cfg.vis_posed_mesh or cfg.vis_tpose_mesh):
+        what = ("vis_novel_view" if cfg.vis_novel_view
+                else "vis_pose_sequence (--type visualize without a mesh flag)")
+        raise NotImplementedError(f"{what} is not ported yet: it comes with "
+                                  f"{NEXT_VIS_SLICE}")
+    eng, ds = _mesh_engine(cfg, device, "visualize")
+    vis = MeshVisualizer(cfg.exp_name)
+    evaluator = MeshEvaluator(cfg.result_dir,
+                              data_root=cfg.test_dataset["data_root"],
+                              human=cfg.test_dataset["human"],
+                              exp_name=cfg.exp_name)
+    results = []
+    for n, idx in enumerate(eval_indices(cfg, ds)):
+        if 0 <= max_items <= n:
+            break
+        item = ds[idx]
+        mesh = eng.extract_mesh(item)
+        frame_index = int(item["frame_index"])
+        verts = mesh["posed_vertex"] if cfg.vis_posed_mesh else mesh["vertex"]
+        vis.visualize(verts, mesh["triangle"], frame_index,
+                      posed=bool(cfg.vis_posed_mesh))
+        results.append(evaluator.evaluate(mesh["posed_vertex"],
+                                          mesh["triangle"], frame_index))
+        print(f"mesh frame {frame_index}: {eng.mesh_stats}")
+    if evaluator.chamfers:
+        evaluator.summarize()
+    return results
+
+
+def run_animation(cfg, device=None, max_items: int = -1):
+    """Posed meshes over the sampled test frames (JAX engine.py:1025-1051),
+    written as data/animation/<exp>/posed_mesh/<frame:04d>.{ply,npy}. Run
+    with the mesh overlay (vis_posed_mesh True). Returns each frame's
+    vertex count."""
+    eng, ds = _mesh_engine(cfg, device, "animation")
+    vis = MeshVisualizer(cfg.exp_name)
+    counts = []
+    for item, posed, tris in _posed_mesh_frames(eng, ds, cfg, max_items):
+        vis.visualize(posed, tris, int(item["frame_index"]), posed=True)
+        counts.append(len(posed))
+    return counts
+
+
+def _posed_mesh_frames(eng, ds, cfg, max_items: int = -1):
+    """(item, posed vertices, faces) of each sampled test frame (JAX
+    engine.py:1053-1073): the SDF families extract the canonical mesh
+    once, from the first frame, and re-pose it into every frame, so all
+    frames share one topology; the others extract every frame."""
+    canonical = None
+    for n, idx in enumerate(eval_indices(cfg, ds)):
+        if 0 <= max_items <= n:
+            break
+        item = ds[idx]
+        if isinstance(eng.model, (SDFPDF, NeuSPDF)):
+            if canonical is None:
+                eng.mesh_stats = {}
+                canonical = eng.canonical_sdf_mesh(item)
+            verts, tris = canonical
+            posed = (eng.repose_canonical_mesh(verts, item) if len(verts)
+                     else verts)
+        else:
+            mesh = eng.extract_mesh(item)
+            posed, tris = mesh["posed_vertex"], mesh["triangle"]
+        yield item, posed, tris
 
 
 def load_init_sdf(cfg, model):

@@ -65,6 +65,10 @@ from .common import (
     volume_lipschitz_bound,
 )
 
+# the mesh sweep's filter threshold, fixed whatever norm_th says
+# (tpose_nerf_network.py:113-115)
+MESH_NORM_TH = 0.1
+
 
 class AniNeRF(FrameBlendWeights, BlendWeightField):
     """Grid-based blend-weight AniNeRF.
@@ -206,6 +210,27 @@ class AniNeRF(FrameBlendWeights, BlendWeightField):
         bw_mask[torch.argmax(d_sel)] = True
         return {"raw": raw.reshape(n_rays, n_samples, 4), "pbw": pbw,
                 "tbw": tbw, "bw_mask": bw_mask}
+
+    @torch.no_grad()
+    def density(self, wpts, frame):
+        """The canonical density at world points, the mesh sweep's field
+        (JAX aninerf.py:169-186; reference tpose_nerf_network.py:105-137):
+        wpts (N, 3) -> sigma (N,), 0 outside the posed volume's distance
+        filter at MESH_NORM_TH with its argmin forced. The survivors
+        alone go through the blend-weight field at `latent_index + 1`
+        (K1), the LBS warp and the density trunk (K1); JAX evaluates
+        every point and zeroes after, to the same values."""
+        pose_pts = world_points_to_pose_points(wpts, frame["R"], frame["Th"])
+        init_pbw = pts_sample_blend_weights(pose_pts, frame["pbw"],
+                                            frame["pbounds"])
+        keep = keep_mask_with_argmin(init_pbw[:, 24], MESH_NORM_TH)
+        idx = torch.nonzero(keep).squeeze(1)
+        pbw = self.blend_weights(pose_pts[idx], init_pbw[idx, :24],
+                                 int(frame["latent_index"]) + 1)
+        tpose = pose_points_to_tpose_points(pose_pts[idx], pbw, frame["A"])
+        sigma = torch.zeros_like(wpts[:, 0])
+        sigma[idx] = self.tpose_human.density(tpose)
+        return sigma
 
     # ------------------------------------------------------- stage 2
     def animation_from_pose(self, pose_pts, frame):

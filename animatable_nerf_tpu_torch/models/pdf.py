@@ -8,8 +8,10 @@ the dense train branch of `__call__` :447-468; `SDFPDF` :470 with
 `_sdf_and_grad` :492, `_observed_grad` :509, `_eval_head` :542 and the
 dense train branch of `__call__` :658-700; `NeuSPDF` :701 with
 `_eval_compacted_neus` :718 and the dense train branch of `__call__`
-:953-990; reference aligned_aninerf_pdf_network.py,
-anisdf_pdf_network.py, anisdf_neus_pdf_network.py).
+:953-990; the mesh sweeps' fields, `density` :370-377 with
+aligned.py:147-153, `canonical_sdf` and `canonical_resd` :519-533;
+reference aligned_aninerf_pdf_network.py, anisdf_pdf_network.py,
+anisdf_neus_pdf_network.py).
 
 The eval path (`KNNFamily.forward`) is the families' shared part, also
 the aligned families' (models/aligned.py, which give it their deform
@@ -194,6 +196,27 @@ class KNNFamily:
                                      self.norm_th)
 
     @torch.no_grad()
+    def density(self, wpts, frame):
+        """The canonical density at world points, the mesh sweep's field
+        of NeRF-PDF and the aligned families (JAX pdf.py:370-377,
+        aligned.py:147-153): wpts (N, 3) -> sigma (N,), the NeRF
+        network's channel 0, 0 outside the KNN filter at NORM_TH (every
+        family, whatever its norm_th) with its argmin forced. One K2
+        launch gives the filter and the survivors' prior (JAX runs the
+        KNN twice, to the same values); the survivors alone go through
+        the family's stage-1 deform (`_warp`: K1 for a learned
+        blend-weight or displacement field) and the NeRF network."""
+        pose_pts = world_points_to_pose_points(wpts, frame["R"], frame["Th"])
+        pbw, pnorm = sample_blend_closest_points(
+            pose_pts, frame["pvertices"], frame["weights"])
+        idx = torch.nonzero(keep_mask_with_argmin(pnorm[:, 0], NORM_TH)).squeeze(1)
+        tpose, _ = self._warp(pose_pts[idx], None, pbw[idx],
+                              {**frame, "novel_pose": False})
+        sigma = torch.zeros_like(wpts[:, 0])
+        sigma[idx] = self.tpose_human.nerf_network(tpose)[:, 0]
+        return sigma
+
+    @torch.no_grad()
     def forward(self, wpts, viewdir, z_vals, frame):
         """Eval render of one tile: wpts (R, S, 3), viewdir (R, 3),
         z_vals (R, S) -> rgb_map (R, 3), acc_map (R,), depth_map (R,)
@@ -348,17 +371,33 @@ class _SDFFamily(_PDFBase):
         out = out.detach()
         return out[:, :1], out[:, 1:], grad
 
-    def _observed_grad(self, init_bigpose, frame):
+    def _observed_grad(self, init_bigpose, frame, create_graph: bool = True):
         """d/dx [sdf(x + resd(x))] at the detached big-pose points (JAX
         pdf.py:509; reference anisdf_pdf_network.py:140-154): the
         displacement field's second K1 launch of a step, differentiated
         with a graph, so the eikonal loss on it reaches the displacement
-        field through the gradient of K1's gradient."""
-        x = init_bigpose.detach().requires_grad_(True)
-        sdf = self.tpose_human.sdf_network(
-            x + self.residual(x, frame["poses"]))[:, 0]
-        (grad,) = torch.autograd.grad(sdf.sum(), x, create_graph=True)
+        field through the gradient of K1's gradient. Without
+        `create_graph` (the mesh re-pose) it returns a detached value and
+        may run inside no_grad."""
+        with torch.enable_grad():
+            x = init_bigpose.detach().requires_grad_(True)
+            sdf = self.tpose_human.sdf_network(
+                x + self.residual(x, frame["poses"]))[:, 0]
+            (grad,) = torch.autograd.grad(sdf.sum(), x,
+                                          create_graph=create_graph)
         return grad
+
+    # ------------------------------------------------ mesh extraction
+    @torch.no_grad()
+    def canonical_sdf(self, tpose):
+        """The sdf at canonical points (N, 3) -> (N,) (JAX pdf.py:519;
+        sdf_mesh_renderer.py:51-81)."""
+        return self.tpose_human.sdf_network(tpose)[:, 0]
+
+    @torch.no_grad()
+    def canonical_resd(self, tpose, frame):
+        """The displacement field at canonical points (JAX pdf.py:523)."""
+        return self.residual(tpose, frame["poses"])
 
     def _train_alpha(self, sdf_grid):
         """The family's opacity of the dense train points: the step's

@@ -12,6 +12,22 @@ AniNeRF's novel poses, from a stage-2 checkpoint:
         --cfg_file configs/synthetic_novel_pose.yaml test_novel_pose True \
         exp_name synthetic_2f_anim [--device cpu]
 
+Meshes (the mesh overlay; the KNN families name their mesh dataset,
+lib.datasets.anisdf_mesh_dataset for SDF-PDF and NeuS-PDF,
+lib.datasets.aninerf_pdf_mesh_dataset for NeRF-PDF and the aligned
+families):
+
+    python -m animatable_nerf_tpu_torch.run --type visualize \
+        --cfg_file configs/synthetic.yaml vis_posed_mesh True [--device cpu]
+    python -m animatable_nerf_tpu_torch.run --type visualize \
+        --cfg_file configs/synthetic_sdf_pdf.yaml vis_tpose_mesh True \
+        test_dataset_module lib.datasets.anisdf_mesh_dataset
+    python -m animatable_nerf_tpu_torch.run --type animation \
+        --cfg_file configs/synthetic_sdf_pdf.yaml vis_posed_mesh True \
+        test_dataset_module lib.datasets.anisdf_mesh_dataset
+
+write data/animation/<exp_name>/{posed_mesh,tpose_mesh}/<frame>.{ply,npy}.
+
 Runs on `cuda` unless `--device cpu` is given; without a GPU and
 without `--device cpu` it raises.
 """
@@ -22,11 +38,19 @@ from . import engine
 from .config import parse_cli
 
 
+# the run types, each engine.run_<type>
+RUN_TYPES = ("evaluate", "visualize", "animation")
+
+
 def main(argv=None):
     args, cfg = parse_cli(argv)
-    if args.type != "evaluate":
-        raise SystemExit(f"unknown --type {args.type!r}; ported: evaluate")
-    engine.run_evaluate(cfg, args.device)
+    if args.type == "raster":
+        raise NotImplementedError(
+            f"--type raster is not ported yet: it comes with {engine.NEXT_VIS_SLICE}")
+    if args.type not in RUN_TYPES:
+        raise SystemExit(f"unknown --type {args.type!r}; ported: "
+                         + ", ".join(RUN_TYPES))
+    return getattr(engine, f"run_{args.type}")(cfg, args.device)
 
 
 if __name__ == "__main__":

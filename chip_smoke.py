@@ -141,6 +141,20 @@ Phases, one JSON line each:
      tiles against its plain version, with its time per tile launch,
      the bound of the pairs the data needs (`run_pairs`) and the cdist
      chain's time;
+ 15. meshes (`--type visualize` with vis_posed_mesh, `--type animation`):
+     for each of the eight families, `run_visualize` of frame 0 at
+     voxel 0.02 (configs/synthetic.yaml's; the mesh datasets of
+     MESH_FAMILIES), its posed mesh held to the JAX package's
+     (JAX_MESH: counts, centroid, bounding box, area), K1 and K2 counted
+     a sweep tile; `run_animation` of SDF-PDF over the four test frames
+     with one vertex count; then full size, voxel 0.005, AniNeRF (the
+     human subject) and SDF-PDF (the capsule): one `extract_mesh` of
+     frame 0 profiled (its grid points and tiles, K1's and K2's
+     launches by the wrappers and by the profiler, the sweep's device
+     and wall time, the host's marching cubes and largest component,
+     the SDF re-pose), and the sweep held to the same sweep with K1's and
+     K2's plain versions on the card (MESH_FIELD_REL_TOL, the filter's
+     flips counted);
 then the kernel table line, the card line and {"ok": true, ...} last.
 Kernel launch counts are set to 0 just before each path and read just
 after it. Any failed phase raises and exits non-zero. Imports nothing of
@@ -335,23 +349,25 @@ OWN_KERNELS = ("skip_mlp_kernel", "knn_blend_kernel", "min_dist_kernel",
                "kth_dist_kernel", "knn_blocked_kernel", "knn_celled_kernel")
 
 
-def device_breakdown(fn, top=8):
+def device_breakdown(fn, top=8, host=True):
     """Device time of one fn() run by kernel, from torch.profiler: the
     wall time, the summed kernel time (one stream, so kernels do not
-    overlap), the idle share, the `top` kernels by time and the time of
-    each of the port's own kernels. Times in ms; the kernel numbers are
-    None where the profiler recorded no device time."""
+    overlap), the idle share, the `top` kernels by time and the time and
+    launches of each of the port's own kernels. Times in ms; the kernel
+    numbers are None where the profiler recorded no device time. Without
+    `host` the profiler records the device alone (a long run's host
+    events take it many seconds to aggregate)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    by_kernel = {}
+    by_kernel, launches = {}, {}
     for e in prof.key_averages():
         # device-side events only: an operator's own entry repeats the
         # time of the kernels it launched, and so does a range recorded
@@ -365,6 +381,7 @@ def device_breakdown(fn, top=8):
             us = e.cuda_time_total
         if us > 0:
             by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e3
+            launches[e.key] = launches.get(e.key, 0) + e.count
     busy_ms = sum(by_kernel.values())
     if busy_ms == 0:
         return {"wall_ms": wall_ms, "device_ms": None, "idle_share": None,
@@ -376,7 +393,10 @@ def device_breakdown(fn, top=8):
             "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
             "kernels": [{"name": k[:80], "ms": v, "share": v / busy_ms}
                         for k, v in ranked],
-            "own_kernels_ms": own}
+            "own_kernels_ms": own,
+            "own_kernels_launches": {name: sum(
+                n for k, n in launches.items() if name in k)
+                for name in OWN_KERNELS}}
 
 
 def wrapper_split(fn, kernel, iters=10):
@@ -2760,6 +2780,301 @@ def phase_no_grid(k1, knn, full_item, grid_frame, grid_frame_stats):
     return paths, k3
 
 
+# ---------------------------------------------------------------- phase 15
+# The posed mesh of frame 0 of each family at configs/synthetic.yaml's
+# voxel_size of 0.02 (`mesh_summary`: vertices, faces, the centroid, the
+# bounding box's min and max corners in metres and the total area in
+# m^2), from the JAX package on the CPU. The aligned families read the
+# composed weights, written first by
+#   python -m animatable_nerf_tpu_torch.compat.compose
+# then, for each family with its config and mesh dataset opts of
+# MESH_FAMILIES:
+#   JAX_PLATFORMS=cpu python run.py --type visualize --cfg_file <config> vis_posed_mesh True test.num_sampler_ind 1 <opts>
+#   python -c "import numpy as np, chip_smoke as c; m = np.load('data/animation/<exp_name>/posed_mesh/0000.npy', allow_pickle=True).item(); print(c.mesh_summary(m['vertex'], m['triangle']))"
+# (about 45 s a family on the CPU).
+JAX_MESH = {
+    "aninerf": [48456, 97040, -0.05174681082163704, -0.08029483773142705,
+                -0.013659514538299207, -0.707118809223175, -1.0789086818695068,
+                -0.23331284523010254, 0.8558607697486877, 0.7585856914520264,
+                0.3069174289703369, 5.130843240654749],
+    "nerf_pdf": [3409, 6810, 0.005637097704896622, -0.03947952238476217,
+                 0.013922553812174127, -0.6262914538383484, -0.4539731740951538,
+                 -0.05996263027191162, 0.16963422298431396, 0.5953516960144043,
+                 0.0794655829668045, 0.3088013282209488],
+    "sdf_pdf": [12180, 24356, -0.0013015728014280823, -0.1130066749240862,
+                -0.02215909160946401, -0.23492655158042908, -0.7788168787956238,
+                -0.19434724748134613, 0.22849240899085999, 0.5879079103469849,
+                0.16828487813472748, 1.4815175638229539],
+    "neus_pdf": [15452, 30900, 0.06417320299553918, -0.1510550288981845,
+                 -0.02087129097166596, -0.19542117416858673, -0.9972540140151978,
+                 -0.13600794970989227, 0.49663352966308594, 0.6433131694793701,
+                 0.16826428472995758, 1.5612858305713249],
+    "aligned_lbw": [3156, 6300, 0.009892427007206191, -0.04937698371963356,
+                    0.015899629963630355, -0.6103987097740173,
+                    -0.4602084755897522, -0.04865136742591858,
+                    0.15963220596313477, 0.5966198444366455,
+                    0.07831121981143951, 0.28005813429390153],
+    "aligned_pbw": [3160, 6308, 0.009744554361965084, -0.049070184404336956,
+                    0.016061527942177616, -0.6103273034095764,
+                    -0.46025246381759644, -0.04866582155227661,
+                    0.16233456134796143, 0.5966199636459351,
+                    0.07831121981143951, 0.28089343367855635],
+    "aligned_smpl": [3170, 6328, 0.009508753744209602, -0.04869180630058144,
+                     0.016054123005468386, -0.6104569435119629,
+                     -0.4602472186088562, -0.04866780340671539,
+                     0.16244781017303467, 0.5966199636459351,
+                     0.07831121981143951, 0.28076055120809273],
+    "aligned_lbw_pdf": [3394, 6776, 0.006454861086821233, -0.03943510089260589,
+                        0.013889643405912621, -0.6262885332107544,
+                        -0.4539487957954407, -0.05995674431324005,
+                        0.16892898082733154, 0.5953516960144043,
+                        0.0794655829668045, 0.3075910948961457],
+}
+SDF_MESH = ["test_dataset_module", "lib.datasets.anisdf_mesh_dataset"]
+PDF_MESH = ["test_dataset_module", "lib.datasets.aninerf_pdf_mesh_dataset"]
+MESH_FAMILIES = {  # family: (config, the opts that select its mesh dataset)
+    "aninerf": ("configs/synthetic.yaml", []),
+    "nerf_pdf": ("configs/synthetic_nerf_pdf.yaml", PDF_MESH),
+    "sdf_pdf": ("configs/synthetic_sdf_pdf.yaml", SDF_MESH),
+    "neus_pdf": ("configs/synthetic_neus_pdf.yaml", SDF_MESH),
+    **{f"aligned_{f}": (f"configs/synthetic_aligned_{f}.yaml", PDF_MESH)
+       for f in ("lbw", "pbw", "smpl", "lbw_pdf")},
+}
+# K1 launches a sweep tile: AniNeRF's blend-weight field and density
+# trunk; the aligned families' learned blend-weight field, NeRF-PDF's
+# and LBWPDF's displacement field (their NeRF network and the SDF
+# network are weight-normalized softplus stacks in plain PyTorch, as in
+# every earlier phase). K2 once a tile but for AniNeRF, whose filter
+# reads its posed volume. The SDF re-pose adds, a chunk of 65,536
+# vertices, K2 once and the displacement field twice (under the
+# gradient, then for the sdf at v + resd(v)).
+MESH_K1_PER_TILE = {"aninerf": 2, "nerf_pdf": 1, "sdf_pdf": 0, "neus_pdf": 0,
+                    "aligned_lbw": 1, "aligned_pbw": 1, "aligned_smpl": 0,
+                    "aligned_lbw_pdf": 2}
+REPOSE_K1_PER_CHUNK = 2
+# The limits of the posed mesh against JAX's, stated before the first
+# run on the card. The card's K1 (3xTF32) differs from the CPU's float32
+# by about 1e-6 of the field's scale, which moves a vertex along its
+# grid edge by far less than a voxel, but may push a node near the
+# level set across it and change the triangles of its cubes; the CPU
+# port matches JAX's counts exactly at voxel 0.1 and 0.05
+# (tests/test_torch_mesh.py).
+MESH_COUNT_RTOL = 0.01  # vertices and faces, relative
+MESH_CENTROID_TOL = 1e-3  # metres
+MESH_BBOX_TOL = 0.02  # metres: one voxel
+MESH_AREA_RTOL = 0.01
+# full size: the shipped configs' voxel (configs/aninerf_s9p.yaml:64)
+FULL_VOXEL = 0.005
+MESH_FULL_FAMILIES = ("aninerf", "sdf_pdf")
+# the full-size sweep against the same sweep with K1's and K2's plain
+# versions on the card: the field at every node within MESH_FIELD_REL_TOL
+# of max(1, max |plain|) (two 8x256 stacks of 3xTF32 against float32,
+# AniNeRF's with the LBS warp between them), and no node whose filter
+# flips: the filters read the posed volume (AniNeRF) or K2, which is
+# bit-equal to its plain version (phase 3)
+MESH_FIELD_REL_TOL = 1e-3
+MESH_MAX_FLIPS = 0
+
+
+def mesh_summary(verts, faces):
+    """[vertices, faces, centroid x y z, bbox min x y z, bbox max x y z,
+    total area] of a mesh, in float64."""
+    v = np.asarray(verts, np.float64)
+    f = np.asarray(faces, np.int64)
+    area = 0.5 * np.linalg.norm(np.cross(v[f[:, 1]] - v[f[:, 0]],
+                                         v[f[:, 2]] - v[f[:, 0]]), axis=1).sum()
+    return [len(v), len(f), *v.mean(0).tolist(), *v.min(0).tolist(),
+            *v.max(0).tolist(), float(area)]
+
+
+def mesh_cfg(family, opts=()):
+    from animatable_nerf_tpu_torch.config import load_config
+
+    config, select = MESH_FAMILIES[family]
+    return load_config(config, ["vis_posed_mesh", "True", *select, *opts],
+                       run_type="visualize")
+
+
+def sweep_tiles(cfg):
+    """The tiles of frame 0's grid (65,536 points each)."""
+    from animatable_nerf_tpu_torch.engine import make_dataset
+    from animatable_nerf_tpu_torch.render.mesh import SWEEP_TILE
+
+    n = int(np.prod(np.shape(make_dataset(cfg, "test")[0]["pts"])[:3]))
+    return n, -(-n // SWEEP_TILE)
+
+
+def phase_mesh_parity(k1, knn):
+    """Phase 15a: for each family, `run_visualize` with vis_posed_mesh on
+    frame 0 at voxel 0.02 (composed weights for the aligned families,
+    written first), its posed mesh held to the JAX package's
+    (`JAX_MESH`: counts within MESH_COUNT_RTOL, centroid within
+    MESH_CENTROID_TOL, bounding box within MESH_BBOX_TOL, area within
+    MESH_AREA_RTOL), K1 MESH_K1_PER_TILE times a tile and K2 once a tile;
+    then `run_animation` of SDF-PDF over the four test frames, one vertex
+    count for all. Returns each path's launches."""
+    from animatable_nerf_tpu_torch.compat.compose import write_aligned
+    from animatable_nerf_tpu_torch.engine import run_animation, run_visualize
+
+    paths = {}
+    for family, want in JAX_MESH.items():
+        if family.startswith("aligned_"):
+            write_aligned(family[len("aligned_"):])
+        cfg = mesh_cfg(family, ["test.num_sampler_ind", "1"])
+        points, tiles = sweep_tiles(cfg)
+        reset_counts(k1, knn)
+        t0 = time.time()
+        with no_plain_knn(knn):
+            records = run_visualize(cfg, "cuda")
+        wall = time.time() - t0
+        launches = launch_counts(k1, knn)
+        mesh = np.load(os.path.join("data/animation", cfg.exp_name,
+                                    "posed_mesh", "0000.npy"),
+                       allow_pickle=True).item()
+        got = mesh_summary(mesh["vertex"], mesh["triangle"])
+        dev = {"count_rel": max(abs(got[i] / want[i] - 1) for i in (0, 1)),
+               "centroid_m": max(abs(got[i] - want[i]) for i in range(2, 5)),
+               "bbox_m": max(abs(got[i] - want[i]) for i in range(5, 11)),
+               "area_rel": abs(got[11] / want[11] - 1)}
+        sdf = family in ("sdf_pdf", "neus_pdf")
+        k1_sweep = launches["skip_mlp"] - (REPOSE_K1_PER_CHUNK if sdf else 0)
+        k2_want = (0 if family == "aninerf" else tiles) + (1 if sdf else 0)
+        emit({"phase": f"mesh_{family}", "voxel": 0.02, "points": points,
+              "tiles": tiles, "summary": got, "jax_summary": want,
+              "deviation": dev, "records": records, "launches": launches,
+              "wall_s": wall})
+        check(len(records) == 1 and dev["count_rel"] <= MESH_COUNT_RTOL
+              and dev["centroid_m"] <= MESH_CENTROID_TOL
+              and dev["bbox_m"] <= MESH_BBOX_TOL
+              and dev["area_rel"] <= MESH_AREA_RTOL,
+              f"mesh_{family}: the posed mesh differs from JAX's: {dev}")
+        # the density filters force a point on in every tile, so every
+        # tile launches its K1 stacks
+        check(k1_sweep == MESH_K1_PER_TILE[family] * tiles
+              and launches["knn_blend"] == k2_want
+              and all(launches[k] == 0 for k in KNN_WRAPPERS[1:]),
+              f"mesh_{family} launched {launches}")
+        paths[f"mesh_{family}"] = launches
+    cfg = mesh_cfg("sdf_pdf", ["test.frame_sampler_interval", "1"])
+    reset_counts(k1, knn)
+    t0 = time.time()
+    with no_plain_knn(knn):
+        counts = run_animation(cfg, "cuda")
+    launches = launch_counts(k1, knn)
+    emit({"phase": "mesh_animation_sdf_pdf", "frames": len(counts),
+          "vertices": counts, "launches": launches,
+          "wall_s": time.time() - t0})
+    check(len(counts) == 4 and len(set(counts)) == 1
+          and launches["knn_blend"] >= 4,
+          f"mesh_animation_sdf_pdf: {counts} vertices, {launches}")
+    paths["animation_sdf_pdf"] = launches
+    return paths
+
+
+class plain_k1_k2:
+    """Within the block K1 and K2 on the card run their plain versions
+    (a comparison, not the main path)."""
+
+    def __init__(self, k1, knn):
+        self.k1, self.knn = k1, knn
+
+    def __enter__(self):
+        k1, knn = self.k1, self.knn
+        self.real = (k1._forward, knn._knn_blend_cuda)
+
+        def k1_plain(x, layers, skips, act, act_last, packed=None):
+            return k1.skip_mlp_plain(x, layers, skips, act, act_last)
+
+        def k2_plain(src, ref, values, k, eps, counts=None, indices=False):
+            return knn.knn_blend_plain(src, ref, values, k, eps, indices=indices)
+
+        k1._forward, knn._knn_blend_cuda = k1_plain, k2_plain
+        return self
+
+    def __exit__(self, *exc):
+        self.k1._forward, self.knn._knn_blend_cuda = self.real
+
+
+def phase_mesh_full(family, k1, knn):
+    """Phase 15b: one full-size extraction at FULL_VOXEL of frame 0
+    (`Engine.extract_mesh`, profiled: K1's and K2's launches from the
+    profiler and from the wrappers, device and wall time, the host's
+    marching cubes and largest component, the re-pose), then the sweep
+    alone with the kernels (profiled) and with K1's and K2's plain
+    versions, the field held within MESH_FIELD_REL_TOL and its filter's
+    flips counted. Returns the launches of the extraction."""
+    import torch
+
+    from animatable_nerf_tpu_torch.engine import Engine, make_dataset
+    from animatable_nerf_tpu_torch.models.pdf import SDF_FILL
+
+    cfg = mesh_cfg(family, ["voxel_size", f"[{FULL_VOXEL}, {FULL_VOXEL}, {FULL_VOXEL}]"])
+    eng = Engine(cfg, "cuda")
+    eng.load_params()
+    t0 = time.time()
+    item = make_dataset(cfg, "test")[0]
+    item_s = time.time() - t0
+    out = {}
+    reset_counts(k1, knn)
+    with no_plain_knn(knn):
+        prof = device_breakdown(lambda: out.update(mesh=eng.extract_mesh(item)),
+                                host=False)
+    launches = launch_counts(k1, knn)
+    stats = dict(eng.mesh_stats)
+    with no_plain_knn(knn):
+        sweep_prof = device_breakdown(
+            lambda: out.update(kernel=eng.sweep_field(item)[0]), host=False)
+    t0 = time.time()
+    with plain_k1_k2(k1, knn):
+        plain = eng.sweep_field(item)[0]
+        torch.cuda.synchronize()
+    plain_s = time.time() - t0
+    fill = SDF_FILL if family in ("sdf_pdf", "neus_pdf") else 0.0
+    got = out["kernel"]
+    flips = int(((got == fill) != (plain == fill)).sum())
+    both = (got != fill) & (plain != fill)
+    err = float((got - plain)[both].abs().max())
+    scale = max(1.0, float(plain[both].abs().max()))
+    emit({"phase": f"mesh_full_{family}", "voxel": FULL_VOXEL,
+          "grid": list(np.shape(item["pts"])[:3]), "points": stats["points"],
+          "tiles": stats["tiles"], "vertices": stats["vertices"],
+          "faces": stats["faces"], "launches": launches,
+          "profiler_launches": prof.get("own_kernels_launches"),
+          "extract_wall_ms": prof["wall_ms"],
+          "extract_device_ms": prof["device_ms"],
+          "extract_idle_share": prof["idle_share"],
+          "sweep_wall_ms": stats["sweep_s"] * 1e3,
+          "sweep_device_ms": sweep_prof["device_ms"],
+          "sweep_alone_wall_ms": sweep_prof["wall_ms"],
+          "sweep_kernels": sweep_prof["kernels"],
+          "marching_cubes_ms": stats["marching_cubes_s"] * 1e3,
+          "largest_component_ms": stats["largest_component_s"] * 1e3,
+          "repose_ms": stats.get("repose_s", 0.0) * 1e3,
+          "item_host_ms": item_s * 1e3, "plain_sweep_wall_ms": plain_s * 1e3,
+          "max_abs_err_vs_plain": err, "scale": scale,
+          "tol_abs": MESH_FIELD_REL_TOL * scale, "filter_flips": flips,
+          "max_flips": MESH_MAX_FLIPS})
+    check(stats["faces"] > 0 and math.isfinite(err)
+          and err <= MESH_FIELD_REL_TOL * scale and flips <= MESH_MAX_FLIPS,
+          f"mesh_full_{family}: the sweep differs from its plain versions' "
+          f"by {err} (scale {scale}), {flips} flipped nodes")
+    # the profiler's counts are printed beside the wrappers'; in a whole
+    # run of this script it has missed one of 103 K2 launches, so only
+    # its sighting of each kernel is held
+    by_profiler = prof.get("own_kernels_launches")
+    check(launches["skip_mlp"] > 0
+          and (family == "aninerf" or launches["knn_blend"] >= stats["tiles"])
+          and (by_profiler is None or (
+              by_profiler["skip_mlp_kernel"] > 0
+              and (by_profiler["knn_blend_kernel"] > 0) == (
+                  launches["knn_blend"] > 0))),
+          f"mesh_full_{family} launched {launches}, the profiler saw "
+          f"{by_profiler}")
+    del eng, item, out, plain, got
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -2916,6 +3231,13 @@ def main():
                                            sdf_path["frame_stats"])
     phase14_paths.update(no_grid_paths)
 
+    # ---- phase 15: meshes, every family's posed mesh at voxel 0.02 held
+    # to the JAX package's, the SDF animation, and the full-size sweeps
+    # at voxel 0.005 held to K1's and K2's plain versions
+    phase15_paths = phase_mesh_parity(k1, knn)
+    for family in MESH_FULL_FAMILIES:
+        phase15_paths[f"mesh_full_{family}"] = phase_mesh_full(family, k1, knn)
+
     # ---- kernel table
     def k1_sum(key):
         return sum(r[key] for r in k1_rows)
@@ -2976,9 +3298,10 @@ def main():
                 entry.setdefault("launches_by_path", {})[path] = n[name]
         return entry
 
-    k2_entry = aligned_launches(aligned_launches(family_paths(
+    k2_entry = aligned_launches(aligned_launches(aligned_launches(family_paths(
         knn_entry(k2_row, 55, sdf_launches, sdf_frame_launches, "k2"),
-        "knn_blend"), "knn_blend"), "knn_blend", phase14_paths)
+        "knn_blend"), "knn_blend"), "knn_blend", phase14_paths),
+        "knn_blend", phase15_paths)
     # K2 also runs once a step on the PDF families' dense train points
     for path, launches in train_paths.items():
         if path != "train":
@@ -3066,6 +3389,7 @@ def main():
     }
     aligned_launches(k1_entry, "skip_mlp")
     aligned_launches(k1_entry, "skip_mlp", phase14_paths)
+    aligned_launches(k1_entry, "skip_mlp", phase15_paths)
     k1_entry["launches_per_train_step"].update(
         {path: n["skip_mlp"] / 50
          for path, n in (*aligned_paths.items(), *phase14_paths.items())

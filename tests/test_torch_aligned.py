@@ -45,7 +45,7 @@ from animatable_nerf_tpu_torch.models.aligned import (
     AlignedPBW,
     AlignedSMPL,
 )
-from animatable_nerf_tpu_torch.train.checkpoints import param_codec
+from animatable_nerf_tpu_torch.train.checkpoints import param_codec, write_start
 
 FIELD_TOL = dict(rtol=1e-5, atol=1e-5)
 MAP_TOL = 1e-4
@@ -89,14 +89,19 @@ def as_flax(tree):
 
 
 @pytest.fixture(scope="module", params=FAMILIES)
-def setup(request):
+def setup(request, tmp_path_factory):
     """One family's engines on item 0 (JAX's with every point within its
     compaction capacity), the flax model's parameter shapes, the composed
-    weights and those moved by noise, and a tile of that item's rays."""
+    weights and those moved by noise, and a tile of that item's rays.
+    The composed tree is written (`write_start`) to a temporary
+    directory, which both configs take as their `trained_model_dir`."""
     family = request.param
+    model_dir = str(tmp_path_factory.mktemp(f"aligned_{family}"))
+    write_start(model_dir, compose_aligned(family))
     jc = j_load_config(cfg_file(family), GRID_OPTS, run_type="evaluate")
     tc = load_config(cfg_file(family), GRID_OPTS, run_type="evaluate")
     jc.eval = tc.eval = True
+    jc.trained_model_dir = tc.trained_model_dir = model_dir
     j_eng = j_engine.Engine(jc)
     j_ds = j_engine.make_dataset(jc, "test")
     j_frame = j_eng._device_frame(j_ds[0])

@@ -19,7 +19,9 @@ step of AlignedLBW and AlignedLBWPDF, for the eval items (the
 novel-pose item, a distorted camera at ratio 0.5, the aligned
 families' items and novel-pose items: maps within 1e-4; without the
 distance grid, within 1e-5 of the grid render, whose survivors it
-keeps), and K1's gradient of a
+keeps; a mesh's vertices within 2% of the voxel, the same faces),
+and K1's
+gradient of a
 gradient within 1e-5 of each tensor's scale (the backward and its
 derivative are the plain version's on both sides), as for K2's gradient
 (the plain vjp over the selected vertices on both sides). K2-K6
@@ -1281,3 +1283,62 @@ def test_cuda_aligned_novel_pose_item_and_stage2_step_match_cpu(
     l2 = (sum(float(((g[k] - w).double() ** 2).sum()) for k, w in cpu_g.items())
           / sum(float((w.double() ** 2).sum()) for w in cpu_g.values())) ** 0.5
     assert l2 <= 1e-3, l2
+
+
+# family: (config, mesh dataset opts, K1 launches a sweep tile, K2 a tile)
+MESH_CASES = {
+    "aninerf": ("configs/synthetic.yaml", [], 2, 0),
+    "sdf_pdf": ("configs/synthetic_sdf_pdf.yaml",
+                ["test_dataset_module", "lib.datasets.anisdf_mesh_dataset"], 0, 1),
+}
+
+
+# a vertex's move between the card and the CPU, as a share of the voxel
+MESH_VERTEX_TOL = 0.02
+
+
+def mesh_of(family, device, monkeypatch):
+    """Frame 0's mesh at voxel 0.05, swept in tiles of 2048 points, on
+    `device`: (the mesh, its stats, K1's and K2's launches)."""
+    from animatable_nerf_tpu_torch import engine
+    from animatable_nerf_tpu_torch.config import load_config
+
+    cfg_file, opts, _, _ = MESH_CASES[family]
+    cfg = load_config(cfg_file, ["vis_posed_mesh", "True", "voxel_size",
+                                 "[0.05, 0.05, 0.05]", *opts],
+                      run_type="visualize")
+    monkeypatch.setattr(engine, "SWEEP_TILE", 2048)
+    eng = engine.Engine(cfg, device)
+    eng.load_params()
+    item = engine.make_dataset(cfg, "test")[0]
+    before = (k1.skip_mlp.launches, knn.knn_blend.launches)
+    mesh = eng.extract_mesh(item)
+    return mesh, dict(eng.mesh_stats), (k1.skip_mlp.launches - before[0],
+                                        knn.knn_blend.launches - before[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(MESH_CASES))
+def test_cuda_mesh_matches_cpu(cuda_device, family, monkeypatch):
+    """`Engine.extract_mesh` on the card against the CPU: the same
+    vertex and face counts and faces, the canonical and posed vertices
+    within MESH_VERTEX_TOL of a grid edge (K1's 3xTF32 against the CPU's
+    float32 moves a vertex along its edge by the field's error over the
+    field's change along the edge, which is small where the level set
+    grazes the edge: 3 of AniNeRF's 17,634 vertices moved by 2.3e-4 m,
+    0.46% of the voxel, on the H100); K1 and K2 launched a sweep
+    tile as MESH_CASES says (and by the SDF re-pose: K1 twice, K2 once),
+    never on the CPU."""
+    cpu_mesh, cpu_stats, cpu_n = mesh_of(family, "cpu", monkeypatch)
+    mesh, stats, n = mesh_of(family, cuda_device, monkeypatch)
+    _, _, k1_tile, k2_tile = MESH_CASES[family]
+    repose = (2, 1) if family == "sdf_pdf" else (0, 0)
+    assert cpu_n == (0, 0) and stats["tiles"] > 1
+    assert n == (k1_tile * stats["tiles"] + repose[0],
+                 k2_tile * stats["tiles"] + repose[1])
+    assert stats["vertices"] == cpu_stats["vertices"] > 100
+    assert stats["faces"] == cpu_stats["faces"]
+    np.testing.assert_array_equal(mesh["triangle"], cpu_mesh["triangle"])
+    for k in ("vertex", "posed_vertex"):
+        np.testing.assert_allclose(mesh[k], cpu_mesh[k], rtol=0,
+                                   atol=MESH_VERTEX_TOL * 0.05, err_msg=k)
