@@ -11,8 +11,6 @@ SDFMeshDataset (SDF-PDF, NeuS-PDF) the canonical ones.
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 
 from .novel_view import _GridFrameMixin, _PDFFrameMixin, _VisMixin
@@ -58,9 +56,7 @@ def _make_mesh_dataset(base_cls, canonical: bool):
             bounds = item["tbounds"] if canonical else item["wbounds"]
             item["pts"] = grid_points(bounds, self.cfg.voxel_size)
             item["frame_index"] = i
-            img0 = self._imread_rgb(os.path.join(self.data_root, self.ims[0]))
-            H = int(img0.shape[0] * self.cfg.ratio)
-            W = int(img0.shape[1] * self.cfg.ratio)
+            H, W = self._image_size()
             item["msks"] = self._train_view_masks(annot_pos, H, W)
             item["Ks"], item["RT"] = self._vis_cams(H, W)
             item["voxel_size"] = np.asarray(self.cfg.voxel_size, np.float32)

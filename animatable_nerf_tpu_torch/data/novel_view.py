@@ -1,13 +1,16 @@
-"""Per-frame metadata and the training views' carve masks of the
-visualization datasets (the mesh datasets, data/mesh_dataset.py, so far).
+"""The visualization datasets: a novel-view spiral around one frame and
+a pose sequence seen from one camera, each item with the training views'
+carve masks; and the per-frame metadata and masks the mesh datasets
+(data/mesh_dataset.py) share with them.
 
-JAX counterpart: animatable_nerf_tpu/data/novel_view.py (`_VisMixin`
-:44-111, `_GridFrameMixin` :220-241, `_PDFFrameMixin` :244-272;
-reference tpose_novel_view_dataset.py:85-122). The novel-view and
-pose-sequence datasets of that module are not ported yet. The masks come
+JAX counterpart: animatable_nerf_tpu/data/novel_view.py
+(`get_rays_within_bounds` :28-41, `_VisMixin` :44-111, the novel view
+:114-163, the pose sequence :166-217, `_GridFrameMixin` :220-241,
+`_PDFFrameMixin` :244-272; reference tpose_novel_view_dataset.py,
+tpose_pose_sequence_dataset.py and their pdf variants). The masks come
 from the root's decoded archive (`DecodedImages`), through
 data/camera.py's undistort, dilate and INTER_NEAREST, as OpenCV computes
-them.
+them; the image size (H, W) from the archive's first image of the split.
 """
 
 from __future__ import annotations
@@ -16,9 +19,22 @@ import os
 
 import numpy as np
 
+from ..core.rays import get_near_far_np, get_rays_np
 from . import camera
+from .camera_path import gen_path, load_cams
 from .dataset import TPoseDataset, TPosePDFDataset
 from .utils import get_bounds
+
+
+def get_rays_within_bounds(H, W, K, R, T, bounds):
+    """The rays of every pixel whose slab test against `bounds` passes,
+    their near and far, and the (H, W) hit mask
+    (if_nerf_data_utils.py:310-339)."""
+    ray_o, ray_d = get_rays_np(H, W, K, R, T)
+    ray_o = ray_o.reshape(-1, 3)
+    ray_d = ray_d.reshape(-1, 3)
+    near, far, mask = get_near_far_np(bounds, ray_o, ray_d)
+    return ray_o[mask], ray_d[mask], near, far, mask.reshape(H, W)
 
 
 class _VisMixin:
@@ -26,6 +42,31 @@ class _VisMixin:
     cameras. `annot_pos` indexes the annots.npy image table by position;
     the frame's file id is the number in its file names (they differ
     for CoreView_313/315, whose file ids are 1-based)."""
+
+    def _file_id_at(self, annot_pos: int) -> int:
+        """The file id of the frame at position annot_pos of annots.npy."""
+        return self.frame_index_of(self.annots_ims[annot_pos]["ims"][0])[1]
+
+    def _image_size(self):
+        """(H, W) of the split's first image scaled by `ratio`, the size
+        the visualization items render at."""
+        img0 = self._imread_rgb(os.path.join(self.data_root, self.ims[0]))
+        return (int(img0.shape[0] * self.cfg.ratio),
+                int(img0.shape[1] * self.cfg.ratio))
+
+    def _vis_item(self, item, annot_pos, frame_index, K, R, T, view_index):
+        """`item` with the rays of camera (K, R, T) through the frame's
+        world box and the training views' carve masks and cameras."""
+        H, W = self._image_size()
+        ray_o, ray_d, near, far, mask_at_box = get_rays_within_bounds(
+            H, W, K, R, T, item["wbounds"])
+        Ks, RTs = self._vis_cams(H, W)
+        item.update(ray_o=ray_o, ray_d=ray_d, near=near, far=far,
+                    mask_at_box=mask_at_box,
+                    msks=self._train_view_masks(annot_pos, H, W),
+                    Ks=Ks, RT=RTs, H=H, W=W, view_index=view_index,
+                    frame_index=frame_index)
+        return item
 
     def _train_view_masks(self, annot_pos, H, W):
         """(V, H, W) uint8: each training view's mask of the frame
@@ -134,3 +175,79 @@ class _PDFFrameMixin(TPosePDFDataset):
             "latent_index": latent_index,
             "bw_latent_index": 0,
         }
+
+
+def _make_novel_view(base_cls):
+    class _NovelView(base_cls, _VisMixin):
+        """One frame (`begin_ith_frame`) seen from `render_views` cameras
+        on the spiral of camera_path.gen_path around the split's cameras,
+        all with the first camera's K (float64, scaled by `ratio`); R
+        and T go to the rays in float32, as in JAX. The appearance latent
+        is min(begin_ith_frame, num_train_frame - 1) whatever the frame
+        mixin chose (JAX novel_view.py:156-158)."""
+
+        def __init__(self, cfg, split="test"):
+            super().__init__(cfg, split)
+            dcfg = cfg.test_dataset if split == "test" else cfg.train_dataset
+            Ks, RTs = load_cams(dcfg["ann_file"], ratio=cfg.ratio)
+            self.render_w2c = gen_path(RTs, cfg.render_views)
+            self.K_render = np.array(Ks[0])
+
+        def __len__(self):
+            return len(self.render_w2c)
+
+        def __getitem__(self, index):
+            annot_pos = self.cfg.begin_ith_frame * self.cfg.frame_interval
+            frame_index = self._file_id_at(annot_pos)
+            item = self._frame_item(frame_index, annot_pos)
+            RT = self.render_w2c[index]
+            item = self._vis_item(item, annot_pos, frame_index, self.K_render,
+                                  RT[:3, :3].astype(np.float32),
+                                  RT[:3, 3].astype(np.float32), index)
+            item["latent_index"] = min(self.cfg.begin_ith_frame,
+                                       self.cfg.num_train_frame - 1)
+            return item
+
+    return _NovelView
+
+
+def _make_pose_sequence(base_cls):
+    class _PoseSequence(base_cls, _VisMixin):
+        """The frames of the training window (or with `test_novel_pose`
+        or `aninerf_animation` the novel-pose window) seen from the
+        split's first camera (JAX novel_view.py:166-217); the latent is
+        the frame mixin's."""
+
+        def __init__(self, cfg, split="test"):
+            super().__init__(cfg, split)
+            self.fixed_cam = self.cam_inds[0]
+
+        def _novel(self):
+            return bool(self.cfg.test_novel_pose or self.cfg.aninerf_animation)
+
+        def __len__(self):
+            return (self.cfg.num_eval_frame if self._novel()
+                    else self.cfg.num_train_frame)
+
+        def __getitem__(self, index):
+            i0 = self.cfg.begin_ith_frame
+            if self._novel():
+                i0 += self.cfg.num_train_frame
+            annot_pos = (i0 + index) * self.cfg.frame_interval
+            frame_index = self._file_id_at(annot_pos)
+            item = self._frame_item(frame_index, annot_pos)
+            cam = self.fixed_cam
+            K = np.array(self.cams["K"][cam]).copy()
+            K[:2] = K[:2] * self.cfg.ratio
+            R = np.array(self.cams["R"][cam]).astype(np.float32)
+            T = (np.array(self.cams["T"][cam]) / 1000.0).astype(
+                np.float32).reshape(3)
+            return self._vis_item(item, annot_pos, frame_index, K, R, T, cam)
+
+    return _PoseSequence
+
+
+NovelViewDataset = _make_novel_view(_GridFrameMixin)
+NovelViewPDFDataset = _make_novel_view(_PDFFrameMixin)
+PoseSequenceDataset = _make_pose_sequence(_GridFrameMixin)
+PoseSequencePDFDataset = _make_pose_sequence(_PDFFrameMixin)

@@ -3,7 +3,9 @@ run types.
 
 JAX counterpart: animatable_nerf_tpu/engine.py (`_bucket_pad` :139,
 `interleave_rays` :164, the per-frame grids and vertex blocks :259-287
-and :315-326, `Engine.render_item` :547-603, `run_evaluate` :749-830,
+and :315-326, `Engine.render_item` :547-603 with the visibility carve,
+`run_evaluate` :749-830, `run_visualize` :946-1022, `run_animation` and
+`run_raster` :1025-1130,
 `run_train` :1158-1352, stage 1 of AniNeRF, the displacement-field
 families with `init_sdf` :1229-1242 and the aligned families, the
 stage 2 of AniNeRF, AlignedLBW and AlignedLBWPDF with `init_aninerf`
@@ -37,18 +39,26 @@ from .core.lbs import (
 from .data.dataset import TPoseDataset, TPosePDFDataset
 from .data.loader import Loader, eval_indices
 from .data.mesh_dataset import MeshDataset, PDFMeshDataset, SDFMeshDataset
+from .data.novel_view import (
+    NovelViewDataset,
+    NovelViewPDFDataset,
+    PoseSequenceDataset,
+    PoseSequencePDFDataset,
+)
 from .device import select_device
 from .evaluators.image import ImageEvaluator
 from .evaluators.mesh import MeshEvaluator
 from .models.aligned import AlignedLBW, AlignedLBWPDF, AlignedPBW, AlignedSMPL
 from .models.aninerf import MESH_NORM_TH, AniNeRF
 from .models.pdf import SDF_FILL, NeRFPDF, NeuSPDF, SDFPDF
+from .native import rasterize_mesh
 from .ops.knn import build_d5_payload, build_knn_blocks, build_pdist_payload
 from .render.mesh import (
     SWEEP_TILE,
     density_grid_sweep,
     largest_component,
     marching_cubes,
+    vertex_normals,
 )
 from .render.renderer import RenderSettings, pad_rays, render_image
 from .render.visibility import prepare_inside_mask
@@ -63,6 +73,11 @@ from .train.checkpoints import (
 )
 from .train.recorder import Recorder
 from .train.trainer import Trainer
+from .visualizers.image import (
+    NovelViewVisualizer,
+    PoseSequenceVisualizer,
+    write_image,
+)
 from .visualizers.mesh import MeshVisualizer
 
 # network_module names (the JAX registry's, models/registry.py:14-33)
@@ -90,6 +105,10 @@ _DATASETS = {
     "tpose": TPoseDataset,
     "lib.datasets.tpose_pdf_dataset": TPosePDFDataset,
     "tpose_pdf": TPosePDFDataset,
+    "lib.datasets.tpose_novel_view_dataset": NovelViewDataset,
+    "lib.datasets.tpose_pdf_novel_view_dataset": NovelViewPDFDataset,
+    "lib.datasets.tpose_pose_sequence_dataset": PoseSequenceDataset,
+    "lib.datasets.tpose_pdf_pose_sequence_dataset": PoseSequencePDFDataset,
     "lib.datasets.aninerf_mesh_dataset": MeshDataset,
     "lib.datasets.anisdf_mesh_dataset": SDFMeshDataset,
     "lib.datasets.aninerf_pdf_mesh_dataset": PDFMeshDataset,
@@ -252,7 +271,7 @@ class Engine:
         # `test_novel_pose`: warp through the novel-pose field
         self.novel_pose = bool(cfg.test_novel_pose)
         self._frame_cache = {}
-        # candidate/survivor/tile counts of the last render_item
+        # candidate/survivor/carved/tile counts of the last render_item
         self.stats = {}
         # grid size, host times and mesh size of the last extract_mesh
         self.mesh_stats = {}
@@ -268,7 +287,8 @@ class Engine:
     def _device_frame(self, item):
         """The item's per-frame tensors on the device and its latent
         indices, cached for the frame (eval walks all views of a frame
-        in a row); with `test_novel_pose` the frame is marked
+        in a row; the cache also keeps the frame's carve, `_carve`); with
+        `test_novel_pose` the frame is marked
         `novel_pose`, so the model warps by its `bw_latent_index`. For
         the KNN models it also holds the frame's distance grid, built
         once by kernel K3 (none with knn_grid_res <= 1: pass 1 then runs
@@ -299,14 +319,35 @@ class Engine:
             self._frame_cache = {"key": key, "frame": frame}
         return self._frame_cache["frame"]
 
+    def _carve(self, item):
+        """The item's multi-view carve, points (N, 3) on the device ->
+        whether each projects into the foreground of every training
+        view's mask (`prepare_inside_mask` over the item's Ks, RT and
+        msks, uploaded once a frame as JAX's `_device_frame(with_vis=True)`
+        keeps them, engine.py:339-344)."""
+        self._device_frame(item)
+        cache = self._frame_cache
+        if "vis" not in cache:
+            cache["vis"] = tuple(
+                torch.as_tensor(np.asarray(item[k]), device=self.device)
+                for k in ("Ks", "RT", "msks"))
+        vis = cache["vis"]
+        return lambda pts: prepare_inside_mask(pts, *vis)
+
     def clear_frame_cache(self):
         """Drop the cached frame, so the next render_item uploads its
         frame anew (and rebuilds its grids)."""
         self._frame_cache = {}
 
-    def render_item(self, item):
+    def render_item(self, item, visibility: bool = False):
         """Render an eval item's rays; returns ({rgb_map, acc_map,
-        depth_map} numpy arrays over the item's rays, n_valid)."""
+        depth_map} numpy arrays over the item's rays, n_valid). With
+        `visibility`, an item that carries the training views' masks
+        (`msks`, the visualization datasets') is carved by them: the
+        model drops the survivors some training view does not see (JAX
+        engine.py:547-603). `stats` counts the tiles, the candidates,
+        the exact survivors and those the carve removed."""
+        carve = self._carve(item) if visibility and "msks" in item else None
         frame = self._device_frame(item)
         tile = self.settings.eval_tile
         rays = {k: np.asarray(item[k]) for k in _RAY_KEYS}
@@ -319,8 +360,9 @@ class Engine:
             k: torch.as_tensor(np.ascontiguousarray(v), device=self.device)
             for k, v in rays.items()
         }
-        out = render_image(self.model, rays_t, frame, self.settings)
-        self.stats = {k: int(out.pop(k)) for k in ("n_candidates", "n_survivors")}
+        out = render_image(self.model, rays_t, frame, self.settings, carve)
+        self.stats = {k: int(out.pop(k))
+                      for k in ("n_candidates", "n_survivors", "n_carved")}
         self.stats["tiles"] = len(rays["ray_o"]) // tile
         out = {k: v.cpu().numpy() for k, v in out.items()}
         if inv is not None:
@@ -472,8 +514,10 @@ def _voxel(item) -> float:
 
 
 def run_evaluate(cfg, device=None, max_items: int = -1):
-    """PSNR/SSIM evaluation of the test split (JAX engine.py:749-830).
-    Returns the mean metrics plus `items`, one record per scored item."""
+    """PSNR/SSIM evaluation of the test split (JAX engine.py:749-830),
+    each scored view's prediction and ground truth written under
+    <result_dir>/comparison/ as JAX's evaluator writes them. Returns the
+    mean metrics plus `items`, one record per scored item."""
     cfg.eval = True
     eng = Engine(cfg, device)
     eng.load_params()
@@ -491,6 +535,8 @@ def run_evaluate(cfg, device=None, max_items: int = -1):
         m = evaluator.evaluate(
             out["rgb_map"], np.asarray(item["rgb"]),
             np.asarray(item["mask_at_box"]), int(item["H"]), int(item["W"]),
+            frame_index=int(item["frame_index"]),
+            view_index=int(item.get("cam_ind", 0)),
         )
         items.append({
             "frame_index": int(item["frame_index"]),
@@ -503,12 +549,6 @@ def run_evaluate(cfg, device=None, max_items: int = -1):
     wall = time.time() - t_start
     print(f"eval: {len(items)} items in {wall:.2f}s on {eng.device}")
     return {**evaluator.summarize(), "items": items}
-
-
-# what the next slice of the port brings (--type visualize without a
-# mesh flag, and --type raster)
-NEXT_VIS_SLICE = ("the next visualization slice of the port (novel views, "
-                  "pose sequences, mesh rasters and their PNG writer)")
 
 
 def _mesh_engine(cfg, device, run_type: str):
@@ -528,19 +568,57 @@ def _mesh_engine(cfg, device, run_type: str):
 
 
 def run_visualize(cfg, device=None, max_items: int = -1):
-    """Mesh visualization (JAX engine.py:946-985; reference run.py:73-102):
-    with `vis_posed_mesh` or `vis_tpose_mesh`, each sampled test frame's
-    mesh (`Engine.extract_mesh`) written by MeshVisualizer (the posed
+    """Visualization of the test split (JAX engine.py:946-1022; reference
+    run.py:73-102).
+
+    With `vis_posed_mesh` or `vis_tpose_mesh`: each sampled frame's mesh
+    (`Engine.extract_mesh`) written by MeshVisualizer (the posed
     vertices, or with `vis_tpose_mesh` the canonical ones) and scored by
     MeshEvaluator against the root's object/<frame:06d>.obj where it
     exists (mesh_metrics.npy under result_dir). Returns the evaluator's
-    records, None for a frame without a ground truth. Novel views and
-    pose sequences (the other flags) raise before any work."""
-    if not (cfg.vis_posed_mesh or cfg.vis_tpose_mesh):
-        what = ("vis_novel_view" if cfg.vis_novel_view
-                else "vis_pose_sequence (--type visualize without a mesh flag)")
-        raise NotImplementedError(f"{what} is not ported yet: it comes with "
-                                  f"{NEXT_VIS_SLICE}")
+    records, None for a frame without a ground truth.
+
+    Otherwise each item of the test dataset (`vis_novel_view`: the
+    spiral of views around one frame; `vis_pose_sequence`: the frames
+    from one camera; the KNN families name the pdf datasets) rendered
+    with the training views' carve (`render_item(visibility=True)`) and
+    written by NovelViewVisualizer (data/novel_view/<exp>/frame_<f>/<v>.png,
+    with `vis_depth` also <v>_depth.npy and <v>_acc.npy) or, without
+    `vis_novel_view`, PoseSequenceVisualizer
+    (data/perform/<exp>/frame<f>_view<v>.png). JAX overlaps the writes
+    with the next render on a thread; the port writes in order. Returns
+    one record per item: its indices, the file written, the render's
+    seconds and the engine's counts."""
+    if cfg.vis_posed_mesh or cfg.vis_tpose_mesh:
+        return _visualize_meshes(cfg, device, max_items)
+    eng = Engine(cfg, device)
+    eng.load_params()
+    ds = make_dataset(cfg, "test")
+    vis = (NovelViewVisualizer(cfg.exp_name) if cfg.vis_novel_view
+           else PoseSequenceVisualizer(cfg.exp_name))
+    dump_depth = bool(cfg.vis_novel_view and cfg.get("vis_depth", False))
+    records = []
+    for n, idx in enumerate(eval_indices(cfg, ds)):
+        if 0 <= max_items <= n:
+            break
+        item = ds[idx]
+        t0 = time.time()
+        out, _ = eng.render_item(item, visibility=True)
+        seconds = time.time() - t0
+        maps = ({"depth": out["depth_map"], "acc": out["acc_map"]}
+                if dump_depth else {})
+        frame_index = int(item["frame_index"])
+        view_index = int(item.get("view_index", 0))
+        path = vis.visualize(out["rgb_map"], np.asarray(item["mask_at_box"]),
+                             int(item["H"]), int(item["W"]), frame_index,
+                             view_index, **maps)
+        records.append({"frame_index": frame_index, "view_index": view_index,
+                        "path": path, "rays": len(item["ray_o"]),
+                        "seconds": seconds, **eng.stats})
+    return records
+
+
+def _visualize_meshes(cfg, device=None, max_items: int = -1):
     eng, ds = _mesh_engine(cfg, device, "visualize")
     vis = MeshVisualizer(cfg.exp_name)
     evaluator = MeshEvaluator(cfg.result_dir,
@@ -600,6 +678,41 @@ def _posed_mesh_frames(eng, ds, cfg, max_items: int = -1):
             mesh = eng.extract_mesh(item)
             posed, tris = mesh["posed_vertex"], mesh["triangle"]
         yield item, posed, tris
+
+
+def run_raster(cfg, device=None, max_items: int = -1):
+    """Mesh previews (JAX engine.py:1075-1130): each sampled frame's posed
+    mesh (`_posed_mesh_frames`, as `run_animation` makes it) rasterized
+    on the host (native.py `rasterize_mesh`) into the training view
+    `raster_view` (default 0) at the size of its carve mask, shaded by
+    the headlight |n_cam . z| of its area-weighted vertex normals; an
+    empty mesh gives a zero image and depth. Writes
+    data/raster/<exp>/frame<f:04d>_view<v:04d>.png and _depth.npy. Run
+    with the mesh overlay (vis_posed_mesh True). Returns the frames
+    written."""
+    eng, ds = _mesh_engine(cfg, device, "raster")
+    view = int(cfg.get("raster_view", 0))
+    out_dir = os.path.join("data", "raster", cfg.exp_name)
+    written = []
+    for item, posed, tris in _posed_mesh_frames(eng, ds, cfg, max_items):
+        K = np.asarray(item["Ks"][view], np.float32)
+        RT = np.asarray(item["RT"][view], np.float32)
+        R, T = RT[:3, :3], RT[:3, 3]
+        H, W = (int(n) for n in np.asarray(item["msks"]).shape[1:3])
+        if len(posed) == 0 or len(tris) == 0:
+            img = np.zeros((H, W, 3), np.float32)
+            depth = np.zeros((H, W), np.float32)
+        else:
+            n_cam = vertex_normals(np.asarray(posed), np.asarray(tris)) @ R.T
+            shade = np.abs(n_cam[:, 2:3]) * np.ones((1, 3), np.float32)
+            out = rasterize_mesh(posed, tris, shade, K, R, T, H, W)
+            img, depth = out["attr"], out["depth"]
+        fi = int(item["frame_index"])
+        base = os.path.join(out_dir, f"frame{fi:04d}_view{view:04d}")
+        write_image(f"{base}.png", img)
+        np.save(f"{base}_depth.npy", depth)
+        written.append(fi)
+    return written
 
 
 def load_init_sdf(cfg, model):

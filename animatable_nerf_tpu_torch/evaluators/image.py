@@ -4,8 +4,12 @@ JAX counterpart: animatable_nerf_tpu/evaluators/image.py:26-155
 (reference lib/evaluators/if_nerf.py): PSNR over the rays inside the
 projected box, SSIM on the bounding-rect crop of the scattered image
 with skimage's float defaults (7x7 uniform window, K1=0.01, K2=0.03,
-data_range=2.0). Saving the comparison PNGs (JAX :111-126, cv2) is not
-ported yet.
+data_range=2.0); and each view's prediction and ground truth written
+as PNGs under <result_dir>/comparison/ (JAX :111-122) by the port's own
+writer (visualizers/image.py `write_png`), with JAX's pixels: its
+conversion here is np.clip(img * 255, 0, 255).astype(np.uint8) on the
+float64 images, not the visualizers' (which clip to [0, 1] in float32
+first).
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ import os
 
 import numpy as np
 from scipy.ndimage import uniform_filter
+
+from ..visualizers.image import write_png
 
 
 def psnr_metric(img_pred, img_gt):
@@ -74,10 +80,13 @@ class ImageEvaluator:
         self.psnr = []
         self.ssim = []
 
-    def evaluate(self, rgb_pred, rgb_gt, mask_at_box, H, W):
+    def evaluate(self, rgb_pred, rgb_gt, mask_at_box, H, W, frame_index=0,
+                 view_index=0):
         """rgb_pred/rgb_gt: (n_rays, 3) for the True entries of
-        mask_at_box (flattened H*W bools). Returns the item's metrics,
-        or None for an all-black ground truth (skipped, as in JAX)."""
+        mask_at_box (flattened H*W bools). Writes
+        comparison/frame<f:04d>_view<v:04d>.png and its _gt.png. Returns
+        the item's metrics, or None for an all-black ground truth
+        (skipped, as in JAX, before any write)."""
         if rgb_gt.sum() == 0:
             return None
         mse = float(np.mean((rgb_pred - rgb_gt) ** 2))
@@ -88,6 +97,12 @@ class ImageEvaluator:
         img_pred[mab] = rgb_pred
         img_gt = np.zeros((H, W, 3))
         img_gt[mab] = rgb_gt
+
+        comp = os.path.join(self.result_dir, "comparison")
+        os.makedirs(comp, exist_ok=True)
+        base = f"{comp}/frame{frame_index:04d}_view{view_index:04d}"
+        for path, img in ((f"{base}.png", img_pred), (f"{base}_gt.png", img_gt)):
+            write_png(path, np.clip(img * 255, 0, 255).astype(np.uint8))
 
         # bbox crop before SSIM (if_nerf.py:51-56)
         ys, xs = np.where(mab)

@@ -19,7 +19,8 @@ compacts into fixed capacities and escalates a capacity ladder until
 nothing overflows; PyTorch has dynamic shapes, so both passes compact
 exactly with torch.nonzero, and the MLPs run on the exact survivors only
 (the JAX code runs them on every candidate and zeroes alpha after; the
-composited maps are the same).
+composited maps are the same). The multi-view carve of the
+visualizations drops survivors the same way, after the exact filter.
 
 The train path (`train_forward`) is JAX's default dense masked one
 (`train_keep_frac` 0): every sampled point runs both blend-weight passes
@@ -126,44 +127,54 @@ class AniNeRF(FrameBlendWeights, BlendWeightField):
         return torch.nonzero(keep).squeeze(1)
 
     def _eval_finish(self, cand, pose_pts, viewdir, dists, frame,
-                     n_samples: int):
+                     n_samples: int, wpts=None, carve=None):
         """Pass 2 on the candidates: exact filter, then the blend-weight
-        warp and the canonical NeRF on the survivors. Returns (sidx
-        flat sample indices, rgb (K, 3), alpha (K,))."""
+        warp and the canonical NeRF on the survivors. With `carve`, the
+        survivors whose world points (`wpts`, flat) a training view does
+        not see are dropped after the filter's argmin forcing: JAX zeroes
+        their rgb and alpha there (aninerf.py:654-656), and an alpha of
+        0 adds nothing to the composite. Returns (sidx flat sample
+        indices, rgb (K, 3), alpha (K,), the exact survivors' count)."""
         c_pose = pose_pts[cand]
         c_init = pts_sample_blend_weights(c_pose, frame["pbw"], frame["pbounds"])
-        exact = keep_mask_with_argmin(c_init[:, 24], self.norm_th)
-        sidx = cand[exact]
-        s_pose = c_pose[exact]
-        pbw = self.pose_blend_weights(s_pose, c_init[exact, :24], frame)
+        sel = torch.nonzero(
+            keep_mask_with_argmin(c_init[:, 24], self.norm_th)).squeeze(1)
+        n_exact = sel.numel()
+        if carve is not None:
+            sel = sel[carve(wpts[cand[sel]])]
+        sidx = cand[sel]
+        s_pose = c_pose[sel]
+        pbw = self.pose_blend_weights(s_pose, c_init[sel, :24], frame)
         tpose = pose_points_to_tpose_points(s_pose, pbw, frame["A"])
         sigma, rgb_logits = self.tpose_human(
             tpose, viewdir[sidx // n_samples], int(frame["latent_index"])
         )
         sigma = torch.where(inside_bounds(tpose, frame["tbounds"]), sigma, 0.0)
         alpha = raw_alpha_from_sigma(sigma, dists[sidx])
-        return sidx, torch.sigmoid(rgb_logits), alpha
+        return sidx, torch.sigmoid(rgb_logits), alpha, n_exact
 
     @torch.no_grad()
-    def forward(self, wpts, viewdir, z_vals, frame):
+    def forward(self, wpts, viewdir, z_vals, frame, carve=None):
         """Eval render of one tile: wpts (R, S, 3), viewdir (R, 3),
         z_vals (R, S) -> rgb_map (R, 3), acc_map (R,), depth_map (R,)
-        plus the tile's candidate and survivor counts."""
+        plus the tile's candidate and survivor counts and the survivors
+        the optional `carve` (world points -> seen by every training
+        view) removed."""
         n_rays, n_samples = z_vals.shape
-        pose_pts = world_points_to_pose_points(
-            wpts.reshape(-1, 3), frame["R"], frame["Th"]
-        )
+        wpts = wpts.reshape(-1, 3)
+        pose_pts = world_points_to_pose_points(wpts, frame["R"], frame["Th"])
         cand = self._compact_inputs(pose_pts, frame)
-        sidx, rgb, alpha = self._eval_finish(
+        sidx, rgb, alpha, n_exact = self._eval_finish(
             cand, pose_pts, viewdir, z_vals_to_dists(z_vals).reshape(-1),
-            frame, n_samples,
+            frame, n_samples, wpts, carve,
         )
         rgb_map, acc_map, depth_map = composite_compacted(
             sidx, rgb, alpha, z_vals, n_rays, n_samples
         )
         return {
             "rgb_map": rgb_map, "acc_map": acc_map, "depth_map": depth_map,
-            "n_candidates": cand.numel(), "n_survivors": sidx.numel(),
+            "n_candidates": cand.numel(), "n_survivors": n_exact,
+            "n_carved": n_exact - sidx.numel(),
         }
 
     def train_forward(self, wpts, viewdir, z_vals, frame):

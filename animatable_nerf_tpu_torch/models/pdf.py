@@ -32,7 +32,10 @@ and threshold), and keeps the JAX semantics:
     displacement field, K1) on the exact survivors, then its canonical
     head (`_eval_head`), and
     rgb and alpha zeroed outside the canonical box grown by
-    TBOUNDS_PAD.
+    TBOUNDS_PAD;
+  * the visualizations' multi-view carve (`carve`) on the exact
+    survivors' world points: it drops survivors from the filter, or,
+    for NeuS-PDF, zeroes their rgb and alpha after the head.
 Forcing happens once per call, i.e. once per eval tile. The JAX package
 compacts into fixed capacities twice (pass 1, then the stage-2
 re-compaction to the exact survivors, `stage2_ratio`) and parks dead
@@ -137,6 +140,10 @@ class KNNFamily:
     # path filters every point with K2)
     train_frame_keys = frame_keys
     norm_th = NORM_TH
+    # whether the multi-view carve acts after the head (zeroing rgb and
+    # alpha, the survivor kept in the head's inputs) rather than in the
+    # filter: NeuS-PDF's, whose alpha reads its ray neighbours' sdf
+    carve_in_head = False
 
     def _warp(self, pose_pts, pose_dirs, pbw, frame):
         """The family's deform of posed points with their KNN prior pbw
@@ -217,38 +224,55 @@ class KNNFamily:
         return sigma
 
     @torch.no_grad()
-    def forward(self, wpts, viewdir, z_vals, frame):
+    def forward(self, wpts, viewdir, z_vals, frame, carve=None):
         """Eval render of one tile: wpts (R, S, 3), viewdir (R, 3),
         z_vals (R, S) -> rgb_map (R, 3), acc_map (R,), depth_map (R,)
-        plus the tile's candidate and survivor counts."""
+        plus the tile's candidate and survivor counts. `carve`, where
+        given, maps world points to whether every training view sees
+        them; it joins the exact filter after its argmin forcing, on the
+        survivors' own world points (JAX pdf.py:296-301,
+        aligned.py:295-302), except where the head keeps the carved
+        survivors (`carve_in_head`). `n_carved` counts the survivors it
+        removed."""
         n_rays, n_samples = z_vals.shape
-        pose_pts = world_points_to_pose_points(
-            wpts.reshape(-1, 3), frame["R"], frame["Th"]
-        )
+        wpts = wpts.reshape(-1, 3)
+        pose_pts = world_points_to_pose_points(wpts, frame["R"], frame["Th"])
         # pass 1: the conservative candidates, ascending
         cand = torch.nonzero(self._pass1_keep(pose_pts, frame)).squeeze(1)
         c_pose = pose_pts[cand]
         c_pbw, c_pnorm = knn_blend_for_frame(c_pose, frame)
-        exact = keep_mask_with_argmin(c_pnorm[:, 0], self.norm_th)
-        sidx = cand[exact]
+        sel = torch.nonzero(
+            keep_mask_with_argmin(c_pnorm[:, 0], self.norm_th)).squeeze(1)
+        n_exact = sel.numel()
+        seen = None
+        if carve is not None:
+            seen = carve(wpts[cand[sel]])
+            if not self.carve_in_head:
+                sel, seen = sel[seen], None
+        sidx = cand[sel]
         s_dirs = viewdir[sidx // n_samples]
         tpose, tdirs = self._warp(
-            c_pose[exact], world_dirs_to_pose_dirs(s_dirs, frame["R"]),
-            c_pbw[exact], frame,
+            c_pose[sel], world_dirs_to_pose_dirs(s_dirs, frame["R"]),
+            c_pbw[sel], frame,
         )
         rgb, alpha = self._eval_head(
             tpose, tdirs if self.tpose_viewdir else s_dirs,
             int(frame["latent_index"]), sidx, z_vals,
         )
         keep = inside_bounds(tpose, frame["tbounds"], pad=TBOUNDS_PAD)
+        if seen is not None:
+            keep = keep & seen
         rgb = torch.where(keep[:, None], rgb, 0.0)
         alpha = torch.where(keep, alpha, 0.0)
         rgb_map, acc_map, depth_map = composite_compacted(
             sidx, rgb, alpha, z_vals, n_rays, n_samples
         )
+        n_carved = (n_exact - sidx.numel() if seen is None
+                    else int((~seen).sum()))
         return {
             "rgb_map": rgb_map, "acc_map": acc_map, "depth_map": depth_map,
-            "n_candidates": cand.numel(), "n_survivors": sidx.numel(),
+            "n_candidates": cand.numel(), "n_survivors": n_exact,
+            "n_carved": n_carved,
         }
 
 
@@ -467,7 +491,11 @@ class NeuSPDF(_SDFFamily):
     """Displacement field + NeuS canonical surface (JAX pdf.py:701;
     reference anisdf_neus_pdf_network.py): `tpose_human.sdf_network`,
     `variance_network` (the inverse variance) and `color_network` with
-    normals."""
+    normals. The multi-view carve zeroes a survivor's rgb and alpha but
+    leaves its sdf in the (R, S) grid its neighbours' opacity reads (JAX
+    pdf.py:755-790, the carve beside the sdf fill, not in it)."""
+
+    carve_in_head = True
 
     @staticmethod
     def _canonical(num_latents: int) -> Canonical:

@@ -1,8 +1,9 @@
 """ctypes shim of the port's host C++ (csrc/mesh_native.cpp): marching
-tetrahedra for mesh extraction.
+tetrahedra for mesh extraction and the z-buffered rasterizer of the mesh
+previews.
 
 JAX counterpart: animatable_nerf_tpu/native.py (`mesh_native` :42,
-`marching_cubes_native` :90). The library is built with g++ at first
+`marching_cubes_native` :90, `rasterize_mesh_native` :135-162). The library is built with g++ at first
 use into `build/libmesh_native.so` at the checkout root, beside the CUDA
 libraries of ops/build.py, with the JAX loader's flags. Unlike the JAX
 loader, which returns None when the build fails and lets its callers
@@ -64,6 +65,16 @@ def mesh_native():
                 ctypes.POINTER(ctypes.c_int64),
             ]
             lib.mesh_native_free.argtypes = [ctypes.c_void_p]
+            fp = ctypes.POINTER(ctypes.c_float)
+            lib.rasterize_mesh.restype = None
+            lib.rasterize_mesh.argtypes = [
+                fp, ctypes.c_int64,  # verts, n_verts
+                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,  # faces
+                fp, ctypes.c_int,  # attrs, n_channels
+                fp, fp, fp,  # K R T
+                ctypes.c_int, ctypes.c_int,  # H W
+                fp, fp, ctypes.POINTER(ctypes.c_uint8),  # attr depth mask
+            ]
             _lib = lib
         return _lib
 
@@ -102,3 +113,31 @@ def marching_tets(volume, level, spacing=(1.0, 1.0, 1.0),
             lib.mesh_native_free(pv)
         if nf.value:
             lib.mesh_native_free(pf)
+
+
+def rasterize_mesh(verts, faces, attrs, K, R, T, H: int, W: int):
+    """Z-buffered rasterization of a world-space mesh (verts (V, 3),
+    faces (F, 3)) into the camera K (3, 3), R (3, 3), T (3,), with the
+    per-vertex attributes (V, C) interpolated perspective-correctly:
+    {attr (H, W, C), depth (H, W), mask (H, W) uint8}, zero where no
+    triangle covers a pixel."""
+    lib = mesh_native()
+    verts = np.ascontiguousarray(verts, np.float32)
+    faces = np.ascontiguousarray(faces, np.int64)
+    attrs = np.ascontiguousarray(attrs, np.float32)
+    C = attrs.shape[1]
+    cams = [np.ascontiguousarray(np.asarray(a, np.float32).reshape(shape))
+            for a, shape in ((K, (3, 3)), (R, (3, 3)), (T, (3,)))]
+    out_attr = np.zeros((H, W, C), np.float32)
+    out_depth = np.zeros((H, W), np.float32)
+    out_mask = np.zeros((H, W), np.uint8)
+    fp = ctypes.POINTER(ctypes.c_float)
+    lib.rasterize_mesh(
+        verts.ctypes.data_as(fp), len(verts),
+        faces.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(faces),
+        attrs.ctypes.data_as(fp), C,
+        *(a.ctypes.data_as(fp) for a in cams), H, W,
+        out_attr.ctypes.data_as(fp), out_depth.ctypes.data_as(fp),
+        out_mask.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+    )
+    return {"attr": out_attr, "depth": out_depth, "mask": out_mask}

@@ -3,7 +3,7 @@ device, and the isosurface on the host.
 
 JAX counterpart: animatable_nerf_tpu/render/mesh.py (`density_grid_sweep`
 :21-33, `marching_cubes` :78 through the native extractor,
-`largest_component` :168-190; reference
+`largest_component` :168-190, `vertex_normals` :193-206; reference
 lib/networks/renderer/aninerf_mesh_renderer.py and sdf_mesh_renderer.py).
 """
 
@@ -60,3 +60,18 @@ def largest_component(verts: np.ndarray, faces: np.ndarray):
     remap[vmask] = np.arange(vmask.sum())
     fmask = vmask[faces].all(-1)
     return verts[vmask], remap[faces[fmask]]
+
+
+def vertex_normals(verts: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    """Area-weighted unit vertex normals (V, 3) float32 (the mesh
+    rasters' shading): each face's edge cross product (twice its area)
+    summed into its vertices in float64 by np.add.at, then normalized."""
+    vn = np.zeros_like(verts, dtype=np.float64)
+    if len(faces) == 0:
+        return vn.astype(np.float32)
+    tri = verts[faces]
+    fn = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    for k in range(3):
+        np.add.at(vn, faces[:, k], fn)
+    norm = np.linalg.norm(vn, axis=-1, keepdims=True)
+    return (vn / np.maximum(norm, 1e-12)).astype(np.float32)

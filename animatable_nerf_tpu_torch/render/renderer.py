@@ -1,11 +1,12 @@
 """Volume rendering: eval rays in fixed-size tiles, for every ported
-model (AniNeRF, NeRF-PDF, SDF-PDF, NeuS-PDF), each taking one tile's
-samples and compositing its own maps; and a training ray batch through a model's dense train
-path, with the SDF models' silhouette tensors.
+model (AniNeRF, NeRF-PDF, SDF-PDF, NeuS-PDF, the aligned families), each
+taking one tile's samples and compositing its own maps, optionally
+carved by the training views' masks; and a training ray batch through a
+model's dense train path, with the SDF models' silhouette tensors.
 
 JAX counterpart: animatable_nerf_tpu/render/renderer.py (`pad_rays`
 :63-88, `render_rays` :159-320 with the silhouette tensors :305-319,
-`render_image` :329-384). The JAX
+`render_image` :329-384; the carve `inside_fn` :213-228). The JAX
 `apply_model` row chunking (`dense_chunk_rows`) guards a TPU compiler
 fault and has no counterpart here; on the train path it also forces the
 argmin and argmax per chunk, so the port refuses a train batch above
@@ -23,7 +24,7 @@ from ..core.composite import get_intersection_mask, raw2outputs
 from ..core.sampling import stratified_z_vals, z_vals_to_pts
 
 _IMAGE_OUTPUTS = ("rgb_map", "acc_map", "depth_map")
-_COUNTS = ("n_candidates", "n_survivors")
+_COUNTS = ("n_candidates", "n_survivors", "n_carved")
 
 
 class RenderSettings(NamedTuple):
@@ -60,13 +61,18 @@ def pad_rays(rays: dict, multiple: int):
     return out, n
 
 
-def render_rays(model, rays: dict, frame: dict, settings: RenderSettings):
+def render_rays(model, rays: dict, frame: dict, settings: RenderSettings,
+                carve=None):
     """Render one tile of eval rays: ray_o/ray_d (R, 3), near/far (R,),
-    optional mask (R,). Returns rgb_map/acc_map/depth_map and the
-    model's candidate/survivor counts."""
+    optional mask (R,). `carve`, where given, maps world points (N, 3)
+    to whether every training view sees them (render/visibility.py
+    `prepare_inside_mask`); the model applies it to its survivors' own
+    world points (JAX renderer.py:213-228: on the survivors, not on
+    every sample). Returns rgb_map/acc_map/depth_map and the model's
+    candidate, survivor and carved counts."""
     z_vals = stratified_z_vals(rays["near"], rays["far"], settings.n_samples)
     wpts = z_vals_to_pts(rays["ray_o"], rays["ray_d"], z_vals)
-    ret = model(wpts, rays["ray_d"], z_vals, frame)
+    ret = model(wpts, rays["ray_d"], z_vals, frame, carve=carve)
     rgb_map, acc_map, depth_map = (ret[k] for k in _IMAGE_OUTPUTS)
     if settings.white_bkgd:
         rgb_map = rgb_map + (1.0 - acc_map[..., None])
@@ -79,10 +85,12 @@ def render_rays(model, rays: dict, frame: dict, settings: RenderSettings):
             **{k: ret[k] for k in _COUNTS}}
 
 
-def render_image(model, rays: dict, frame: dict, settings: RenderSettings):
+def render_image(model, rays: dict, frame: dict, settings: RenderSettings,
+                 carve=None):
     """Whole-image render over tiles of `settings.eval_tile` rays; `rays`
     must be padded to a multiple of the tile (see pad_rays). The point
-    filter's argmin forcing acts once per tile, as in JAX."""
+    filter's argmin forcing acts once per tile, as in JAX. `carve`: as
+    in render_rays."""
     tile = settings.eval_tile
     n = rays["ray_o"].shape[0]
     if n % tile:
@@ -90,7 +98,7 @@ def render_image(model, rays: dict, frame: dict, settings: RenderSettings):
     outs = []
     for s in range(0, n, tile):
         chunk = {k: v[s:s + tile] for k, v in rays.items()}
-        outs.append(render_rays(model, chunk, frame, settings))
+        outs.append(render_rays(model, chunk, frame, settings, carve))
     result = {k: torch.cat([o[k] for o in outs]) for k in _IMAGE_OUTPUTS}
     for k in _COUNTS:
         result[k] = sum(o[k] for o in outs)

@@ -28,6 +28,23 @@ families):
 
 write data/animation/<exp_name>/{posed_mesh,tpose_mesh}/<frame>.{ply,npy}.
 
+Rendered visualizations, carved by the training views' masks (the KNN
+families name the pdf datasets, test_dataset_module
+lib.datasets.tpose_pdf_novel_view_dataset or
+lib.datasets.tpose_pdf_pose_sequence_dataset):
+
+    python -m animatable_nerf_tpu_torch.run --type visualize \
+        --cfg_file configs/synthetic.yaml vis_novel_view True [vis_depth True]
+    python -m animatable_nerf_tpu_torch.run --type visualize \
+        --cfg_file configs/synthetic.yaml vis_pose_sequence True \
+        [test_novel_pose True]
+    python -m animatable_nerf_tpu_torch.run --type raster \
+        --cfg_file configs/synthetic.yaml vis_posed_mesh True [raster_view 0]
+
+write data/novel_view/<exp_name>/frame_<f>/<v>.png (with vis_depth also
+<v>_depth.npy and <v>_acc.npy), data/perform/<exp_name>/frame<f>_view<v>.png
+and data/raster/<exp_name>/frame<f>_view<v>.png with _depth.npy.
+
 Runs on `cuda` unless `--device cpu` is given; without a GPU and
 without `--device cpu` it raises.
 """
@@ -39,14 +56,16 @@ from .config import parse_cli
 
 
 # the run types, each engine.run_<type>
-RUN_TYPES = ("evaluate", "visualize", "animation")
+RUN_TYPES = ("evaluate", "visualize", "animation", "raster")
+# the JAX CLI's other run types (run.py), not ported
+UNPORTED_TYPES = ("dataset", "network", "light_stage", "evaluate_nv", "lpips")
 
 
 def main(argv=None):
     args, cfg = parse_cli(argv)
-    if args.type == "raster":
+    if args.type in UNPORTED_TYPES:
         raise NotImplementedError(
-            f"--type raster is not ported yet: it comes with {engine.NEXT_VIS_SLICE}")
+            f"--type {args.type} is not ported; ported: " + ", ".join(RUN_TYPES))
     if args.type not in RUN_TYPES:
         raise SystemExit(f"unknown --type {args.type!r}; ported: "
                          + ", ".join(RUN_TYPES))

@@ -155,7 +155,22 @@ Phases, one JSON line each:
      the SDF re-pose), and the sweep held to the same sweep with K1's and
      K2's plain versions on the card (MESH_FIELD_REL_TOL, the filter's
      flips counted);
-then the kernel table line, the card line and {"ok": true, ...} last.
+ 16. rendered visualizations (`--type visualize` with vis_novel_view or
+     vis_pose_sequence, `--type raster`): `run_visualize` of one view or
+     frame, carved by the training views' masks, for the novel views of
+     AniNeRF, SDF-PDF, NeuS-PDF and AlignedLBW and the pose sequences of
+     AniNeRF's novel poses and NeRF-PDF (VIS_CASES, ratio 0.5, the
+     distance grid at 24^3), each held to the JAX package's summary of
+     the same render (JAX_VIS) and to the port's CPU render of the item,
+     with K1, K2 and K3 counted a tile; `run_raster` of AniNeRF's and
+     SDF-PDF's frame 0 held to JAX's covered pixels and depth
+     (JAX_RASTER); then one 1000x1002 novel view of AniNeRF and of
+     SDF-PDF carved by the masks at that size: its time, the carve's
+     device time, its survivors with and without the carve, and the
+     uncarved render of the same rays within VIS_FRAME_TOL on the rays
+     the carve removed nothing from;
+then the kernel table line, the script's seconds, the card line and
+{"ok": true, ...} last. Each phase's line carries its wall `seconds`.
 Kernel launch counts are set to 0 just before each path and read just
 after it. Any failed phase raises and exits non-zero. Imports nothing of
 JAX.
@@ -310,7 +325,18 @@ PEAK_BYTES_PER_S = 3.35e12
 FULL_H, FULL_W = 1002, 1000  # H36M S9's frame (configs/aninerf_s9p.yaml)
 
 
+# when the last line was printed (main sets it when the script starts)
+_LAST_LINE = [time.time()]
+
+
 def emit(obj):
+    """Print obj as one JSON line. A phase's line gains `seconds`, the
+    wall time since the line before it: the phase's own time (a phase
+    of several lines: each part's)."""
+    now = time.time()
+    if "phase" in obj:
+        obj = {**obj, "seconds": now - _LAST_LINE[0]}
+    _LAST_LINE[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -1001,11 +1027,12 @@ def full_frame_item(ds, item):
 
 
 def phase_full_frame(name, eng, item, k1, knn, size=(FULL_H, FULL_W)):
-    """One full-size frame, timed after a warm-up render, then profiled;
-    returns the kernels' launches in the timed render and its maps. Both
-    the timed
-    and the profiled render start without the frame's cached tensors,
-    so they include the frame's upload and (SDF-PDF) its K3 grid."""
+    """One full-size frame, timed after a warm-up render, then profiled
+    on the device alone (the host's events of 64 tiles took the profiler
+    15-25 s a frame to aggregate); returns the kernels' launches in the
+    timed render and its maps. Both the timed and the profiled render
+    start without the frame's cached tensors, so they include the
+    frame's upload and (SDF-PDF) its K3 grid."""
     import torch
 
     eng.render_item(item)  # first render: allocator warm-up
@@ -1026,7 +1053,7 @@ def phase_full_frame(name, eng, item, k1, knn, size=(FULL_H, FULL_W)):
     check(finite and acc_max > 0, f"{name}: frame is not finite or empty")
     eng.clear_frame_cache()
     emit({"phase": f"{name}_profile",
-          **device_breakdown(lambda: eng.render_item(item))})
+          **device_breakdown(lambda: eng.render_item(item), host=False)})
     return launches, out
 
 
@@ -2755,7 +2782,8 @@ def phase_no_grid(k1, knn, full_item, grid_frame, grid_frame_stats):
     for key, e in (("no_grid", eng), ("grid", eng_grid), ("no_grid_again", eng),
                    ("grid_again", eng_grid)):
         e.clear_frame_cache()
-        times[key] = device_breakdown(lambda: e.render_item(full_item))
+        times[key] = device_breakdown(lambda: e.render_item(full_item),
+                                      host=False)
     err = {k: float(np.abs(out[k] - grid_frame[k]).max()) for k in out}
     record = {"phase": "no_grid_frame_vs_grid", **stats,
               "grid_candidates": grid_frame_stats["n_candidates"],
@@ -3075,9 +3103,334 @@ def phase_mesh_full(family, k1, knn):
     return launches
 
 
+# Phase 16: rendered visualizations (`--type visualize` with
+# vis_novel_view / vis_pose_sequence, `--type raster`). Each case renders
+# item 0 of its dataset (view 0 of the 50-view spiral around frame 0, or
+# the first frame of the pose sequence from the split's first camera) at
+# ratio 0.5 with the distance grid at 24^3 (VIS_SMALL: the port's CPU
+# render of the same item stays within seconds), carved by the training
+# views' masks. JAX_VIS: [mean r, g, b over the item's rays, acc sum,
+# rays with acc > 0.5, mean depth] of the JAX package's
+# `render_item(params, item, visibility=True)`, computed on the CPU with
+# (<name> a key of VIS_CASES; for AlignedLBW first
+# `python -m animatable_nerf_tpu_torch.compat.compose lbw`):
+#   JAX_PLATFORMS=cpu python -c "import jax, chip_smoke as c; from animatable_nerf_tpu import engine as e; from animatable_nerf_tpu.config import load_config as l; n = '<name>'; cfg = l(c.VIS_CASES[n][0], c.vis_opts(n), run_type='visualize'); eng = e.Engine(cfg); ds = e.make_dataset(cfg, 'test'); p = eng.load_params(eng.init_params(jax.random.PRNGKey(0), ds)); print(c.vis_summary(eng.render_item(p, ds[0], visibility=True)[0]))"
+# (about 20 s a case on the CPU).
+NV_PDF = ["test_dataset_module", "lib.datasets.tpose_pdf_novel_view_dataset"]
+PS_PDF = ["test_dataset_module", "lib.datasets.tpose_pdf_pose_sequence_dataset"]
+VIS_CASES = {  # name: (config, the opts that select the visualization)
+    "novel_view_aninerf": ("configs/synthetic.yaml", ["vis_novel_view", "True"]),
+    "novel_view_sdf_pdf": ("configs/synthetic_sdf_pdf.yaml",
+                           ["vis_novel_view", "True", *NV_PDF]),
+    "novel_view_neus_pdf": ("configs/synthetic_neus_pdf.yaml",
+                            ["vis_novel_view", "True", *NV_PDF]),
+    "novel_view_aligned_lbw": ("configs/synthetic_aligned_lbw.yaml",
+                               ["vis_novel_view", "True", *NV_PDF]),
+    "pose_sequence_novel_pose": (NOVEL_POSE_CFG, [
+        "vis_pose_sequence", "True", "test_novel_pose", "True",
+        "exp_name", "synthetic_2f_anim"]),
+    "pose_sequence_nerf_pdf": ("configs/synthetic_nerf_pdf.yaml",
+                               ["vis_pose_sequence", "True", *PS_PDF]),
+}
+VIS_SMALL = ["ratio", "0.5", "knn_grid_res", "24"]
+JAX_VIS = {
+    "novel_view_aninerf": [0.2839642917342055, 0.27063273298397783,
+                           0.016208402074590646, 518.0463975593448, 557,
+                           1.059778192216794],
+    "novel_view_sdf_pdf": [0.03698448831714242, 0.039318713733113415,
+                           0.014424896159697874, 99.30025419220328, 92,
+                           0.23423048327651505],
+    "novel_view_neus_pdf": [0.031239885601464436, 0.034777437255951914,
+                            0.009799556714759966, 65.4055828708224, 0,
+                            0.15297036158821745],
+    "novel_view_aligned_lbw": [0.03460981630081226, 0.03438672570244635,
+                               0.010883523265243649, 71.32544300123118, 27,
+                               0.16838713700584418],
+    "pose_sequence_novel_pose": [0.295392272658158, 0.19715189926307375,
+                                 0.07093753225416753, 1059.6670664910052,
+                                 1104, 1.066579714352275],
+    "pose_sequence_nerf_pdf": [0.10102802553614057, 0.06841834014003015,
+                               0.03892766482959848, 270.67816821450833, 241,
+                               0.4903844459791303],
+}
+# K1 launches a tile: AniNeRF's blend-weight field (or, for novel poses,
+# its novel-pose field) and NeRF trunk; the displacement field of the
+# PDF families; AlignedLBW's blend-weight field. K2 once a tile and K3
+# once a frame (the grid) for the KNN families.
+VIS_K1_PER_TILE = {"novel_view_aninerf": 2, "novel_view_sdf_pdf": 1,
+                   "novel_view_neus_pdf": 1, "novel_view_aligned_lbw": 1,
+                   "pose_sequence_novel_pose": 2, "pose_sequence_nerf_pdf": 1}
+# The limits of a case against JAX's summary and the port's CPU render,
+# stated before the first run on the card: K1's 3xTF32 against float32
+# moves a map by about 1e-6 (phase 13's items: 1.5e-6), so the means
+# within VIS_MEAN_TOL, the acc sum within VIS_ACC_RTOL, at most
+# VIS_ACC_FLIPS rays across acc 0.5, and the CPU's maps within
+# VIS_CPU_TOL, with the same candidates, survivors and carved survivors.
+VIS_MEAN_TOL = 1e-4
+VIS_ACC_RTOL = 1e-4
+VIS_ACC_FLIPS = 2
+VIS_CPU_TOL = 1e-4
+# `run_raster` of frame 0 at voxel 0.02 (the configs' voxel), view 0:
+# the covered pixels and their mean depth (m) in the JAX package's raster,
+# computed on the CPU with (<config> and <opts> of RASTER_CASES):
+#   JAX_PLATFORMS=cpu python run.py --type raster --cfg_file <config> vis_posed_mesh True test.num_sampler_ind 1 <opts>
+#   python -c "import numpy as np; d = np.load('data/raster/<exp_name>/frame0000_view0000_depth.npy'); print([int((d > 0).sum()), float(d[d > 0].mean())])"
+RASTER_CASES = {"aninerf": ("configs/synthetic.yaml", []),
+                "sdf_pdf": ("configs/synthetic_sdf_pdf.yaml", SDF_MESH)}
+JAX_RASTER = {"aninerf": [4818, 2.5025246143341064],
+              "sdf_pdf": [2119, 2.5386552810668945]}
+# a mesh from the card's sweep against JAX's moves the silhouette by
+# less than a pixel along its edge (phase 15: counts within 1%)
+RASTER_COVER_RTOL = 0.01
+RASTER_DEPTH_TOL = 1e-3  # metres
+# the full-size carved view against the uncarved render of the same
+# rays, on the rays whose samples every training view sees: the same
+# survivors there, their MLP rows batched with other rows
+VIS_FRAME_TOL = 1e-5
+VIS_FULL_FAMILIES = ("novel_view_aninerf", "novel_view_sdf_pdf")
+
+
+def vis_opts(name):
+    """The opts of a VIS_CASES case, as the JAX constants were computed."""
+    return [*VIS_CASES[name][1], *VIS_SMALL]
+
+
+def vis_summary(out):
+    """[mean r, g, b, acc sum, rays with acc > 0.5, mean depth] of a
+    render's maps over its rays, in float64."""
+    rgb = np.asarray(out["rgb_map"], np.float64)
+    acc = np.asarray(out["acc_map"], np.float64)
+    depth = np.asarray(out["depth_map"], np.float64)
+    return [*rgb.mean(0).tolist(), float(acc.sum()), int((acc > 0.5).sum()),
+            float(depth.mean())]
+
+
+class recorded_renders:
+    """Within the block every `Engine.render_item` call's item, output
+    and counts are kept in `calls` (the main path's own render, read
+    after it)."""
+
+    def __enter__(self):
+        from animatable_nerf_tpu_torch.engine import Engine
+
+        self.cls, self.real, self.calls = Engine, Engine.render_item, []
+        calls, real = self.calls, self.real
+
+        def render_item(eng, item, visibility=False):
+            out = real(eng, item, visibility=visibility)
+            calls.append((item, out[0], dict(eng.stats)))
+            return out
+
+        Engine.render_item = render_item
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.render_item = self.real
+
+
+def phase_vis_parity(k1, knn):
+    """Phase 16a: for each VIS_CASES case, `run_visualize` of item 0 on
+    the card (composed weights for AlignedLBW, written first), the file
+    in JAX's layout, its render held to the JAX package's summary
+    (JAX_VIS) and to the port's CPU render of the same item, K1
+    VIS_K1_PER_TILE times a tile, K2 once a tile and K3 once (the grid)
+    for the KNN families; then `run_raster` of frame 0 of AniNeRF and
+    SDF-PDF held to JAX's covered pixels and depth (JAX_RASTER). Returns
+    each path's launches."""
+    from animatable_nerf_tpu_torch.compat.compose import write_aligned
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.engine import Engine, run_raster, run_visualize
+
+    paths = {}
+    write_aligned("lbw")
+    for name, want in JAX_VIS.items():
+        cfg = load_config(VIS_CASES[name][0], vis_opts(name),
+                          run_type="visualize")
+        reset_counts(k1, knn)
+        t0 = time.time()
+        with no_plain_knn(knn), recorded_renders() as rec:
+            (record,) = run_visualize(cfg, "cuda", max_items=1)
+        wall = time.time() - t0
+        launches = launch_counts(k1, knn)
+        (item, out, stats), = rec.calls
+        cpu = Engine(cfg, "cpu")
+        cpu.load_params()
+        t0 = time.time()
+        cpu_out, _ = cpu.render_item(item, visibility=True)
+        cpu_s = time.time() - t0
+        got = vis_summary(out)
+        err = {k: float(np.abs(out[k] - cpu_out[k]).max()) for k in cpu_out}
+        dev = {"mean": max(abs(got[i] - want[i]) for i in (0, 1, 2, 5)),
+               "acc_sum_rel": abs(got[3] / want[3] - 1),
+               "acc_flips": abs(got[4] - want[4])}
+        tiles = stats["tiles"]
+        knn_family = name not in ("novel_view_aninerf", "pose_sequence_novel_pose")
+        emit({"phase": f"vis_{name}", "file": record["path"],
+              "rays": record["rays"], "stats": stats, "cpu_stats": dict(cpu.stats),
+              "summary": got, "jax_summary": want, "deviation": dev,
+              "max_abs_err_vs_cpu": err, "launches": launches,
+              "wall_s": wall, "render_s": record["seconds"], "cpu_render_s": cpu_s})
+        check(os.path.exists(record["path"]) and dev["mean"] <= VIS_MEAN_TOL
+              and dev["acc_sum_rel"] <= VIS_ACC_RTOL
+              and dev["acc_flips"] <= VIS_ACC_FLIPS,
+              f"vis_{name}: the render differs from JAX's: {dev}")
+        check(stats == cpu.stats and max(err.values()) <= VIS_CPU_TOL
+              and 0 < stats["n_carved"] < stats["n_survivors"],
+              f"vis_{name}: the card differs from the CPU: {err}, {stats} "
+              f"against {cpu.stats}")
+        check(launches["skip_mlp"] == VIS_K1_PER_TILE[name] * tiles
+              and launches["knn_blend"] == (tiles if knn_family else 0)
+              and launches["min_dist"] == (1 if knn_family else 0)
+              and all(launches[k] == 0 for k in KNN_WRAPPERS[2:]),
+              f"vis_{name} launched {launches} over {tiles} tiles")
+        paths[f"vis_{name}"] = launches
+    for family, want in JAX_RASTER.items():
+        config, select = RASTER_CASES[family]
+        cfg = load_config(config, ["vis_posed_mesh", "True",
+                                   "test.num_sampler_ind", "1", *select],
+                          run_type="raster")
+        reset_counts(k1, knn)
+        t0 = time.time()
+        with no_plain_knn(knn):
+            frames = run_raster(cfg, "cuda")
+        wall = time.time() - t0
+        launches = launch_counts(k1, knn)
+        depth = np.load(os.path.join("data/raster", cfg.exp_name,
+                                     "frame0000_view0000_depth.npy"))
+        got = [int((depth > 0).sum()), float(depth[depth > 0].mean())]
+        dev = {"cover_rel": abs(got[0] / want[0] - 1),
+               "depth_m": abs(got[1] - want[1])}
+        emit({"phase": f"raster_{family}", "frames": frames, "summary": got,
+              "jax_summary": want, "deviation": dev, "launches": launches,
+              "wall_s": wall})
+        check(frames == [0] and dev["cover_rel"] <= RASTER_COVER_RTOL
+              and dev["depth_m"] <= RASTER_DEPTH_TOL
+              and launches["skip_mlp"] > 0
+              and (family == "aninerf" or launches["knn_blend"] > 0),
+              f"raster_{family}: {dev}, launched {launches}")
+        paths[f"raster_{family}"] = launches
+    return paths
+
+
+def full_novel_view_item(ds, item):
+    """The novel view's camera at FULL_H x FULL_W (K's rows scaled to the
+    size), its rays through the frame's box, and the training views'
+    masks resized to that size with their cameras scaled alike."""
+    from animatable_nerf_tpu_torch.data.novel_view import get_rays_within_bounds
+
+    H0, W0 = int(item["H"]), int(item["W"])
+    scale = np.array([[FULL_W / W0], [FULL_H / H0], [1.0]])
+    RT = ds.render_w2c[int(item["view_index"])]
+    ray_o, ray_d, near, far, mab = get_rays_within_bounds(
+        FULL_H, FULL_W, ds.K_render * scale, RT[:3, :3].astype(np.float32),
+        RT[:3, 3].astype(np.float32), item["wbounds"])
+    annot_pos = ds.cfg.begin_ith_frame * ds.cfg.frame_interval
+    return dict(item, ray_o=ray_o, ray_d=ray_d, near=near, far=far,
+                mask_at_box=mab, H=FULL_H, W=FULL_W,
+                msks=ds._train_view_masks(annot_pos, FULL_H, FULL_W),
+                Ks=(item["Ks"] * scale[None]).astype(np.float32),
+                K_render=ds.K_render * scale, RT_render=RT)
+
+
+def carved_rays(pts, item):
+    """The rays (indices into the item's rays) that hold the world points
+    pts (N, 3): each point projected by the item's render camera onto the
+    pixel whose ray it lies on."""
+    import torch
+
+    K, RT = (torch.as_tensor(np.asarray(a, np.float32), device=pts.device)
+             for a in (item["K_render"], item["RT_render"]))
+    pix = (pts @ RT[:3, :3].T + RT[:3, 3]) @ K.T
+    u = torch.round(pix[:, 0] / pix[:, 2]).long().cpu().numpy()
+    v = torch.round(pix[:, 1] / pix[:, 2]).long().cpu().numpy()
+    mab = np.asarray(item["mask_at_box"]).reshape(-1)
+    ray_of_pixel = np.cumsum(mab) - 1
+    pixel = v * int(item["W"]) + u
+    check(bool(mab[pixel].all()), "a carved point projects off the item's rays")
+    return np.unique(ray_of_pixel[pixel])
+
+
+def phase_vis_full(name, k1, knn):
+    """Phase 16b: one FULL_H x FULL_W novel view carved by the training
+    views' masks at that size, timed after a warm-up and profiled on the
+    device; the carve's own device time, profiled over the points the
+    timed render carved (each tile's exact survivors); its survivors with
+    and without the carve; the uncarved render of the same rays within
+    VIS_FRAME_TOL on every ray the carve removed no survivor from (the
+    rays of the carved survivors found by projecting their points onto
+    the view). Returns the launches of the timed carved render."""
+    import torch
+
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.engine import Engine, make_dataset
+
+    cfg = load_config(VIS_CASES[name][0], VIS_CASES[name][1], run_type="visualize")
+    ds = make_dataset(cfg, "test")
+    item = full_novel_view_item(ds, ds[0])
+    eng = Engine(cfg, "cuda")
+    eng.load_params()
+    real_carve, calls = eng._carve, []
+
+    def recorded_carve(it):
+        fn = real_carve(it)
+
+        def run(pts):
+            seen = fn(pts)
+            calls.append((pts, seen))
+            return seen
+        return run
+
+    eng._carve = recorded_carve
+    with no_plain_knn(knn):
+        eng.render_item(item, visibility=True)  # allocator warm-up
+        torch.cuda.synchronize()
+        eng.clear_frame_cache()
+        calls.clear()
+        reset_counts(k1, knn)
+        t0 = time.time()
+        out, n_rays = eng.render_item(item, visibility=True)
+        frame_s = time.time() - t0
+        launches = launch_counts(k1, knn)
+        stats = dict(eng.stats)
+        carved = carved_rays(torch.cat([p[~seen] for p, seen in calls]), item)
+        tiles_pts = [p for p, _ in calls]
+        eng.clear_frame_cache()
+        prof_frame = device_breakdown(lambda: eng.render_item(item, visibility=True),
+                                      host=False)
+        inside = real_carve(item)
+        prof_carve = device_breakdown(lambda: [inside(p) for p in tiles_pts],
+                                      host=False)
+        plain, _ = eng.render_item(item)
+        plain_stats = dict(eng.stats)
+    kept = np.ones(n_rays, bool)
+    kept[carved] = False
+    err = {k: float(np.abs(out[k] - plain[k])[kept].max()) for k in out}
+    emit({"phase": f"vis_full_{name}", "H": FULL_H, "W": FULL_W, "rays": n_rays,
+          "stats": stats, "uncarved_stats": plain_stats, "s_per_frame": frame_s,
+          "device_ms": prof_frame["device_ms"], "idle_share": prof_frame["idle_share"],
+          "kernels": prof_frame["kernels"],
+          "carve_device_ms": prof_carve["device_ms"],
+          "carve_points": int(sum(len(p) for p in tiles_pts)),
+          "launches": launches, "rays_with_carved_survivors": int(len(carved)),
+          "max_abs_err_vs_uncarved_elsewhere": err, "tol": VIS_FRAME_TOL,
+          "acc_mean": float(out["acc_map"].mean()),
+          "uncarved_acc_mean": float(plain["acc_map"].mean())})
+    check(stats["n_survivors"] == plain_stats["n_survivors"]
+          and 0 < stats["n_carved"] < stats["n_survivors"]
+          and 0 < len(carved) < n_rays and max(err.values()) <= VIS_FRAME_TOL
+          and all(np.isfinite(v).all() for v in out.values())
+          and launches["skip_mlp"] > 0,
+          f"vis_full_{name}: {stats} against {plain_stats}, {err} on the "
+          "rays the carve left whole")
+    del eng, item, out, plain, calls, tiles_pts
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
+    t_start = _LAST_LINE[0] = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
@@ -3238,6 +3591,13 @@ def main():
     for family in MESH_FULL_FAMILIES:
         phase15_paths[f"mesh_full_{family}"] = phase_mesh_full(family, k1, knn)
 
+    # ---- phase 16: rendered visualizations, six carved views or frames
+    # held to the JAX package's and to the CPU, two rasters, and two
+    # full-size carved novel views
+    phase16_paths = phase_vis_parity(k1, knn)
+    for name in VIS_FULL_FAMILIES:
+        phase16_paths[f"full_frame_vis_{name}"] = phase_vis_full(name, k1, knn)
+
     # ---- kernel table
     def k1_sum(key):
         return sum(r[key] for r in k1_rows)
@@ -3298,10 +3658,11 @@ def main():
                 entry.setdefault("launches_by_path", {})[path] = n[name]
         return entry
 
-    k2_entry = aligned_launches(aligned_launches(aligned_launches(family_paths(
-        knn_entry(k2_row, 55, sdf_launches, sdf_frame_launches, "k2"),
-        "knn_blend"), "knn_blend"), "knn_blend", phase14_paths),
-        "knn_blend", phase15_paths)
+    k2_entry = aligned_launches(aligned_launches(aligned_launches(
+        aligned_launches(family_paths(
+            knn_entry(k2_row, 55, sdf_launches, sdf_frame_launches, "k2"),
+            "knn_blend"), "knn_blend"), "knn_blend", phase14_paths),
+        "knn_blend", phase15_paths), "knn_blend", phase16_paths)
     # K2 also runs once a step on the PDF families' dense train points
     for path, launches in train_paths.items():
         if path != "train":
@@ -3390,6 +3751,7 @@ def main():
     aligned_launches(k1_entry, "skip_mlp")
     aligned_launches(k1_entry, "skip_mlp", phase14_paths)
     aligned_launches(k1_entry, "skip_mlp", phase15_paths)
+    aligned_launches(k1_entry, "skip_mlp", phase16_paths)
     k1_entry["launches_per_train_step"].update(
         {path: n["skip_mlp"] / 50
          for path, n in (*aligned_paths.items(), *phase14_paths.items())
@@ -3399,15 +3761,17 @@ def main():
     emit({"kernels": [
         k1_entry,
         k2_entry,
-        dict(aligned_launches(aligned_launches(family_paths(
+        dict(aligned_launches(aligned_launches(aligned_launches(family_paths(
             knn_entry(k3_row, 129, sdf_launches, sdf_frame_launches),
             "min_dist"), "min_dist"), "min_dist", phase14_paths),
+            "min_dist", phase16_paths),
             # without the distance grid: once a tile on the tile's points
             per_tile_no_grid=k3_tile),
         knn_entry(k4_row, 240, blk_launches, blk_frame_launches),
         knn_entry(k5_row, 460, blk_launches, blk_frame_launches, "k5"),
         knn_entry(k6_row, 760, blk_launches, blk_frame_launches),
     ]})
+    emit({"script_seconds": time.time() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,8 +19,8 @@ step of AlignedLBW and AlignedLBWPDF, for the eval items (the
 novel-pose item, a distorted camera at ratio 0.5, the aligned
 families' items and novel-pose items: maps within 1e-4; without the
 distance grid, within 1e-5 of the grid render, whose survivors it
-keeps; a mesh's vertices within 2% of the voxel, the same faces),
-and K1's
+keeps; a mesh's vertices within 2% of the voxel, the same faces; a
+carved novel view: the same counts, maps within 1e-4), and K1's
 gradient of a
 gradient within 1e-5 of each tensor's scale (the backward and its
 derivative are the plain version's on both sides), as for K2's gradient
@@ -1342,3 +1342,56 @@ def test_cuda_mesh_matches_cpu(cuda_device, family, monkeypatch):
     for k in ("vertex", "posed_vertex"):
         np.testing.assert_allclose(mesh[k], cpu_mesh[k], rtol=0,
                                    atol=MESH_VERTEX_TOL * 0.05, err_msg=k)
+
+
+# family: (config, the opts that select its novel-view dataset)
+NOVEL_VIEW_CASES = {
+    "aninerf": ("configs/synthetic.yaml", []),
+    "sdf_pdf": ("configs/synthetic_sdf_pdf.yaml",
+                ["test_dataset_module",
+                 "lib.datasets.tpose_pdf_novel_view_dataset"]),
+}
+
+
+def carved_novel_view(family, device):
+    """View 1 of a 4-view spiral at ratio 0.5, rendered with the training
+    views' carve (eval tiles of 1024 rays) on `device`: the maps, the
+    counts, and K1's, K2's and K3's launches."""
+    from animatable_nerf_tpu_torch import engine
+    from animatable_nerf_tpu_torch.config import load_config
+
+    cfg_file, opts = NOVEL_VIEW_CASES[family]
+    cfg = load_config(cfg_file, ["vis_novel_view", "True", "render_views", "4",
+                                 "ratio", "0.5", "eval_tile", "1024", *opts],
+                      run_type="visualize")
+    eng = engine.Engine(cfg, device)
+    eng.load_params()
+    item = engine.make_dataset(cfg, "test")[1]
+    wrappers = (k1.skip_mlp, knn.knn_blend, knn.min_dist)
+    before = [w.launches for w in wrappers]
+    out, _ = eng.render_item(item, visibility=True)
+    return out, dict(eng.stats), tuple(w.launches - b
+                                       for w, b in zip(wrappers, before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(NOVEL_VIEW_CASES))
+def test_cuda_carved_novel_view_matches_cpu(cuda_device, family):
+    """A novel view carved by the training views' masks on the card
+    against the CPU: the same candidates, survivors and carved
+    survivors, the maps within 1e-4 (K1's 3xTF32 against the CPU's
+    float32), and K1 (twice a tile for AniNeRF, once for SDF-PDF's
+    displacement field), K2 once a tile and K3 once a frame (the 96^3
+    grid) on the card for SDF-PDF, none of them on the CPU."""
+    cpu_out, cpu_stats, cpu_n = carved_novel_view(family, "cpu")
+    out, stats, n = carved_novel_view(family, cuda_device)
+    tiles = stats["tiles"]
+    assert cpu_n == (0, 0, 0) and tiles >= 1
+    assert n == ((2 * tiles, 0, 0) if family == "aninerf"
+                 else (tiles, tiles, 1))
+    assert stats == cpu_stats and 0 < stats["n_carved"] < stats["n_survivors"]
+    for k in ("rgb_map", "acc_map", "depth_map"):
+        assert np.isfinite(out[k]).all(), k
+        np.testing.assert_allclose(out[k], cpu_out[k], rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
+    assert out["acc_map"].max() > 0.1

@@ -507,15 +507,16 @@ def test_run_animation_density_family_extracts_every_frame(workdir):
 
 
 @pytest.mark.parametrize("args, match", [
-    (["--type", "visualize", "vis_novel_view", "True"], "vis_novel_view"),
-    (["--type", "visualize", "vis_pose_sequence", "True"], "vis_pose_sequence"),
-    (["--type", "visualize"], "vis_pose_sequence"),
-    (["--type", "raster", "vis_posed_mesh", "True"], "raster"),
+    (["--type", "evaluate_nv"], "evaluate_nv"),
+    (["--type", "lpips"], "lpips"),
+    (["--type", "light_stage"], "light_stage"),
+    (["--type", "network"], "network"),
 ])
 def test_unported_visualizations_raise_before_any_work(args, match, workdir,
                                                        monkeypatch):
-    """Novel views, pose sequences and mesh rasters raise, naming the
-    slice that ports them, before an engine or a dataset is made."""
+    """The JAX CLI's run types that the port lacks (novel views, pose
+    sequences and mesh rasters are ported now) raise, naming the type,
+    before an engine or a dataset is made."""
     def no_work(*_a, **_k):
         raise AssertionError("work started")
 
@@ -523,7 +524,7 @@ def test_unported_visualizations_raise_before_any_work(args, match, workdir,
     monkeypatch.setattr(t_engine, "make_dataset", no_work)
     with pytest.raises(NotImplementedError, match=match) as err:
         cli(*args[:2], "--cfg_file", "configs/synthetic.yaml", *args[2:])
-    assert "next visualization slice" in str(err.value)
+    assert "is not ported" in str(err.value)
 
 
 def test_animation_without_a_mesh_dataset_raises(workdir, monkeypatch):
