@@ -20,7 +20,11 @@ animatable_nerf_tpu/compat/torch_export.py writes:
   * the aligned families (:122-163 `export_aligned_*`): the blend-weight
     field as AniNeRF's (PBW's without a latent it reads), NeRF-PDF's
     head, LBWPDF's displacement field, and with a stage-2 field
-    (LBW, LBWPDF) `novel_pose_bw.*` as AniNeRF's.
+    (LBW, LBWPDF) `novel_pose_bw.*` as AniNeRF's;
+  * the baselines (JAX compat/torch_import.py :348-449, the names the
+    reference's NHR and NT checkpoints carry): NHR's `pointnet.*`,
+    `render.unet.*` and `pcpr_parameters.default_features`, NT's
+    `texture.layer{i}` and `unet.*`.
 Dense kernels (in, out) become nn.Linear weights (out, in); a
 weight-normalized {v (in, out), g (out,), b} becomes `weight_v` (out,
 in), `weight_g` (out, 1), `bias`. Load the result with
@@ -378,3 +382,186 @@ def aligned_lbw_pdf_param_tree(named: dict) -> dict:
     {"params": {"bw_field", "resd_field", "nerf_network",
     "color_network"}}, with "novel_pose_bw" where the names hold it."""
     return _aligned_tree(named, "latent", True)
+
+
+# ------------------------------------------------------------- baselines
+# (animatable_nerf_tpu/compat/torch_import.py `convert_nhr_unet` :348,
+# `convert_nt` :375, `convert_pointnet2` :405, `convert_nhr` :428): a
+# flax Conv kernel (kh, kw, in, out) is a Conv2d weight (out, in, kh, kw);
+# a TorchBatchNorm {scale, bias, mean, var} is {weight, bias,
+# running_mean, running_var}; PointNet++'s Dense kernels (in, out) are
+# 1x1 Conv2d weights (out, in, 1, 1) without bias.
+
+_BN_NAMES = (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"),
+             ("var", "running_var"))
+
+
+def _bn_arrays(p: dict, name: str, out: dict):
+    for flax, ref in _BN_NAMES:
+        out[f"{name}.{ref}"] = np.asarray(p[flax])
+
+
+def _conv_arrays(p: dict, name: str, out: dict):
+    out[f"{name}.weight"] = np.ascontiguousarray(
+        np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
+    out[f"{name}.bias"] = np.asarray(p["bias"])
+
+
+def _double_conv_arrays(p: dict, name: str, out: dict):
+    """DoubleConv {gc0, bn0, gc1, bn1} -> the Sequential's slots 0, 1,
+    3, 4 under `name`."""
+    for i, slot in ((0, 0), (1, 3)):
+        _conv_arrays(p[f"gc{i}"]["conv"], f"{name}.{slot}.conv2", out)
+        _conv_arrays(p[f"gc{i}"]["gate"], f"{name}.{slot}.conv2_gate", out)
+        _bn_arrays(p[f"bn{i}"], f"{name}.{slot + 1}", out)
+
+
+def unet_arrays(p: dict, prefix: str) -> dict:
+    """A JAX UNet's params -> numpy arrays under the reference's names
+    (`<prefix>inc.conv.conv.*`, `down{k}.mpconv.2.conv.*`,
+    `up{k}.conv.conv.*`, `outc.conv`, `outc.conv2`)."""
+    out = {}
+    _double_conv_arrays(p["inc"], f"{prefix}inc.conv.conv", out)
+    for k in range(1, 5):
+        _double_conv_arrays(p[f"down{k}"]["conv"],
+                            f"{prefix}down{k}.mpconv.2.conv", out)
+        _double_conv_arrays(p[f"up{k}"]["conv"], f"{prefix}up{k}.conv.conv", out)
+    _conv_arrays(p["outc"], f"{prefix}outc.conv", out)
+    _conv_arrays(p["outc2"], f"{prefix}outc.conv2", out)
+    return out
+
+
+def _point_mlp_arrays(p: dict, name: str, out: dict):
+    """_PointMLP {lin{i}, bn{i}} -> `name.layer{i}.conv.weight` and
+    `name.layer{i}.bn.bn.*`."""
+    i = 0
+    while f"lin{i}" in p:
+        w = np.asarray(p[f"lin{i}"]["kernel"]).T
+        out[f"{name}.layer{i}.conv.weight"] = np.ascontiguousarray(
+            w[:, :, None, None])
+        _bn_arrays(p[f"bn{i}"], f"{name}.layer{i}.bn.bn", out)
+        i += 1
+
+
+def pointnet2_arrays(p: dict, prefix: str) -> dict:
+    """A JAX PointNet2MSG's params ({sa{k}: {scale{s}}, fp{k}: {mlp}})
+    -> numpy arrays under `<prefix>SA_modules.{k}.mlps.{s}.` and
+    `<prefix>FP_modules.{k}.mlp.`."""
+    out = {}
+    k = 0
+    while f"sa{k}" in p:
+        s = 0
+        while f"scale{s}" in p[f"sa{k}"]:
+            _point_mlp_arrays(p[f"sa{k}"][f"scale{s}"],
+                              f"{prefix}SA_modules.{k}.mlps.{s}", out)
+            s += 1
+        _point_mlp_arrays(p[f"fp{k}"]["mlp"], f"{prefix}FP_modules.{k}.mlp", out)
+        k += 1
+    return out
+
+
+def nhr_state_dict(params: dict) -> dict:
+    """JAX NHR params ({"params": {...}} or the inner dict) -> {reference
+    name: torch.Tensor}: `pointnet.*`, `render.unet.*` and
+    `pcpr_parameters.default_features` (fdim, 1)."""
+    p = params["params"] if "params" in params else params
+    out = pointnet2_arrays(p["pointnet"], "pointnet.")
+    out.update(unet_arrays(p["unet"], "render.unet."))
+    out["pcpr_parameters.default_features"] = np.asarray(
+        p["default_features"]).reshape(-1, 1)
+    return to_tensors(out)
+
+
+def nt_state_dict(params: dict) -> dict:
+    """JAX NT params -> {reference name: torch.Tensor}: `texture.layer{i}`
+    (1, C, A, B) from the flax (A, B, C) level, and `unet.*`."""
+    p = params["params"] if "params" in params else params
+    out = {f"texture.layer{i}": np.ascontiguousarray(np.transpose(
+        np.asarray(p["texture"][f"layer{i}"]), (2, 0, 1))[None])
+        for i in range(1, 5)}
+    out.update(unet_arrays(p["unet"], "unet."))
+    return to_tensors(out)
+
+
+def _bn_tree(named: dict, name: str) -> dict:
+    return {flax: _numpy(named[f"{name}.{ref}"]) for flax, ref in _BN_NAMES}
+
+
+def _conv_tree(named: dict, name: str) -> dict:
+    return {"bias": _numpy(named[f"{name}.bias"]),
+            "kernel": np.ascontiguousarray(np.transpose(
+                _numpy(named[f"{name}.weight"]), (2, 3, 1, 0)))}
+
+
+def _double_conv_tree(named: dict, name: str) -> dict:
+    out = {}
+    for i, slot in ((0, 0), (1, 3)):
+        out[f"gc{i}"] = {"conv": _conv_tree(named, f"{name}.{slot}.conv2"),
+                         "gate": _conv_tree(named, f"{name}.{slot}.conv2_gate")}
+        out[f"bn{i}"] = _bn_tree(named, f"{name}.{slot + 1}")
+    return out
+
+
+def unet_tree(named: dict, prefix: str) -> dict:
+    """The inverse of `unet_arrays`."""
+    out = {"inc": _double_conv_tree(named, f"{prefix}inc.conv.conv")}
+    for k in range(1, 5):
+        out[f"down{k}"] = {"conv": _double_conv_tree(
+            named, f"{prefix}down{k}.mpconv.2.conv")}
+        out[f"up{k}"] = {"conv": _double_conv_tree(
+            named, f"{prefix}up{k}.conv.conv")}
+    out["outc"] = _conv_tree(named, f"{prefix}outc.conv")
+    out["outc2"] = _conv_tree(named, f"{prefix}outc.conv2")
+    return out
+
+
+def _point_mlp_tree(named: dict, name: str) -> dict:
+    out, i = {}, 0
+    while f"{name}.layer{i}.conv.weight" in named:
+        w = _numpy(named[f"{name}.layer{i}.conv.weight"])
+        out[f"lin{i}"] = {"kernel": np.ascontiguousarray(w[:, :, 0, 0].T)}
+        out[f"bn{i}"] = _bn_tree(named, f"{name}.layer{i}.bn.bn")
+        i += 1
+    return out
+
+
+def pointnet2_tree(named: dict, prefix: str) -> dict:
+    """The inverse of `pointnet2_arrays`."""
+    out, k = {}, 0
+    while f"{prefix}FP_modules.{k}.mlp.layer0.conv.weight" in named:
+        sa, s = {}, 0
+        while f"{prefix}SA_modules.{k}.mlps.{s}.layer0.conv.weight" in named:
+            sa[f"scale{s}"] = _point_mlp_tree(
+                named, f"{prefix}SA_modules.{k}.mlps.{s}")
+            s += 1
+        out[f"sa{k}"] = sa
+        out[f"fp{k}"] = {"mlp": _point_mlp_tree(named,
+                                                f"{prefix}FP_modules.{k}.mlp")}
+        k += 1
+    return out
+
+
+def nhr_param_tree(named: dict) -> dict:
+    """{reference name: tensor} of NHR -> the JAX param tree {"params":
+    {"pointnet", "unet", "default_features"}} of numpy float32 arrays
+    (the inverse of `nhr_state_dict`). Every name must be used."""
+    tree = {"params": {
+        "pointnet": pointnet2_tree(named, "pointnet."),
+        "unet": unet_tree(named, "render.unet."),
+        "default_features": _numpy(
+            named["pcpr_parameters.default_features"]).reshape(-1)}}
+    return _checked(tree, named, nhr_state_dict, "nhr")
+
+
+def nt_param_tree(named: dict) -> dict:
+    """{reference name: tensor} of NT -> the JAX param tree {"params":
+    {"texture", "unet"}} (the inverse of `nt_state_dict`)."""
+    tree = {"params": {
+        "texture": {f"layer{i}": np.ascontiguousarray(np.transpose(
+            _numpy(named[f"texture.layer{i}"])[0], (1, 2, 0)))
+            for i in range(1, 5)},
+        "unet": unet_tree(named, "unet.")}}
+    # counted without transposing the 22M texels back
+    if len(unet_arrays(tree["params"]["unet"], "unet.")) + 4 != len(named):
+        raise KeyError("nt_param_tree: names that nt does not have")
+    return tree

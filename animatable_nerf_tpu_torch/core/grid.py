@@ -9,12 +9,15 @@ xyz->zyx flip before grid_sample. The JAX package gathers from a
 corner-packed copy of the volume because TPU gathers cost per row;
 here the 8 corners are gathered directly from the (D, H, W, C) volume,
 with the same cell choice, corner weights and summation order as the
-packed formula, so the values agree.
+packed formula, so the values agree. `grid_bilerp` is the 2-D lookup
+of the NT baseline's texture pyramid.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .numerics import clip
 
 # corner order of the JAX packed layout: dx-major, then dy, dz
 _CORNERS = [(dx, dy, dz) for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
@@ -126,3 +129,33 @@ def grid_corner_distance_upper(packed, pts01, cell):
     for k in range(1, 8):
         ub = torch.minimum(ub, g[:, k] * scale + r[k])
     return ub.reshape(pts01.shape[:-1])
+
+
+def grid_bilerp(img: torch.Tensor, uv01: torch.Tensor) -> torch.Tensor:
+    """Sample `img` (H, W, C) at normalized points (..., 2) in [0, 1]
+    (JAX core/grid.py:226; the NT texture pyramid, which the reference
+    samples with F.grid_sample, align_corners=True, border). uv01[..., 0]
+    indexes the W axis, [..., 1] the H axis. The clamp is jnp.clip's,
+    with its gradient of 0.5 on a bound (`numerics.clip`); the four
+    corners are gathered and blended in JAX's order."""
+    H, W, C = img.shape
+    u = clip(uv01[..., 0], 0.0, 1.0) * (W - 1)
+    v = clip(uv01[..., 1], 0.0, 1.0) * (H - 1)
+    u0f, v0f = torch.floor(u), torch.floor(v)
+    fu = (u - u0f)[..., None]
+    fv = (v - v0f)[..., None]
+    u0, v0 = u0f.long(), v0f.long()
+    u1 = torch.clamp(u0 + 1, max=W - 1)
+    v1 = torch.clamp(v0 + 1, max=H - 1)
+    flat = img.reshape(-1, C)
+
+    def take(vi, ui):
+        # index_select: its backward is a scatter-add (index_add_), where
+        # advanced indexing's sorts the indices first, 300x slower on the
+        # card at a 1024x1024 image
+        return torch.index_select(flat, 0, (vi * W + ui).reshape(-1)).reshape(
+            *vi.shape, C)
+
+    c0 = take(v0, u0) * (1 - fu) + take(v0, u1) * fu
+    c1 = take(v1, u0) * (1 - fu) + take(v1, u1) * fu
+    return c0 * (1 - fv) + c1 * fv

@@ -23,9 +23,11 @@ its arithmetic:
   * `dilate`: cv2.dilate with a square kernel of ones, its default
     anchor and border (pixels outside the image take no part), which
     the mesh datasets apply to the training views' masks (JAX
-    data/novel_view.py:57-98).
+    data/novel_view.py:57-98);
+  * `resize_linear`: INTER_LINEAR, which the NT dataset applies to a uv
+    map of another size than its image (JAX data/baselines.py:104-107).
 
-tests/test_torch_camera.py holds each against cv2.
+tests/test_torch_camera.py and tests/test_torch_baselines.py hold each against cv2.
 """
 
 from __future__ import annotations
@@ -269,3 +271,37 @@ def resize_area(img: np.ndarray, H: int, W: int) -> np.ndarray:
     rows = np.tensordot(ay, img.astype(np.float64), axes=(1, 0))
     out = np.moveaxis(np.tensordot(ax, rows, axes=(1, 1)), 0, 1)
     return out.astype(np.float32)
+
+
+def _linear_taps(src: int, dst: int):
+    """INTER_LINEAR's taps along one axis (resizeGeneric's coefficient
+    table): for output i, source (i + 0.5) * src / dst - 0.5 rounded to
+    float32, its floor s and the weights (1 - f, f) in float32, the
+    borders clamped to the edge pixel with f = 0."""
+    f = ((np.arange(dst) + 0.5) * (src / dst) - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = (f - s.astype(np.float32)).astype(np.float32)
+    edge = (s < 0) | (s >= src - 1)
+    f[edge] = 0.0
+    s = np.clip(s, 0, src - 1)
+    return s, np.minimum(s + 1, src - 1), np.float32(1.0) - f, f
+
+
+def resize_linear(img: np.ndarray, H: int, W: int) -> np.ndarray:
+    """cv2.resize(img, (W, H), interpolation=cv2.INTER_LINEAR) of a
+    float32 image, (h, w) or (h, w, C), to any size: the horizontal pass,
+    then the vertical one, each a two-tap blend in float32 (OpenCV's own
+    loop, which it takes for two-channel maps such as the NT baseline's
+    uv maps: within one float32 rounding of it; where OpenCV hands 1, 3
+    or 4 channels to IPP, within 2.5e-6 on [0, 1] values)."""
+    h, w = img.shape[:2]
+    if img.dtype != np.float32:
+        raise TypeError(f"resize_linear takes float32 images, not {img.dtype}")
+    if (h, w) == (H, W):
+        return img.copy()
+    x0, x1, ax0, ax1 = _linear_taps(w, W)
+    y0, y1, by0, by1 = _linear_taps(h, H)
+    cshape = (1, -1) + (1,) * (img.ndim - 2)
+    rows = img[:, x0] * ax0.reshape(cshape) + img[:, x1] * ax1.reshape(cshape)
+    rshape = (-1,) + (1,) * (img.ndim - 1)
+    return rows[y0] * by0.reshape(rshape) + rows[y1] * by1.reshape(rshape)

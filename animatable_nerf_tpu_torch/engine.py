@@ -9,9 +9,10 @@ and :315-326, `Engine.render_item` :547-603 with the visibility carve,
 `run_train` :1158-1352, stage 1 of AniNeRF, the displacement-field
 families with `init_sdf` :1229-1242 and the aligned families, the
 stage 2 of AniNeRF, AlignedLBW and AlignedLBWPDF with `init_aninerf`
-:1165-1168, :1212-1227; the
-models from the config as `models/registry.py` `make_model` :74-126
-builds them). The
+:1165-1168, :1212-1227; the image-space baselines NHR and NT,
+`_run_train_baseline` :1354-1433 and `_run_evaluate_baseline`
+:1436-1470; the models from the config as `models/registry.py`
+`make_model` :74-126 builds them). The
 eval rays are padded and tiled exactly as in JAX, since the point
 filter's argmin forcing acts per tile. The JAX capacity ladder
 (engine.py:204-236, 465-545) sizes static survivor buffers for the TPU;
@@ -28,6 +29,8 @@ import time
 import numpy as np
 import torch
 
+from .baselines.nhr import NHR
+from .baselines.nt import NT
 from .compat.flax_msgpack import read_checkpoint
 from .compat.jax_params import sdf_network_state_dict
 from .core.knn import sample_blend_closest_points
@@ -36,6 +39,7 @@ from .core.lbs import (
     pose_points_to_world_points,
     tpose_points_to_pose_points,
 )
+from .data.baselines import NHRDataset, NTDataset
 from .data.dataset import TPoseDataset, TPosePDFDataset
 from .data.loader import Loader, eval_indices
 from .data.mesh_dataset import MeshDataset, PDFMeshDataset, SDFMeshDataset
@@ -63,6 +67,7 @@ from .render.mesh import (
 from .render.renderer import RenderSettings, pad_rays, render_image
 from .render.visibility import prepare_inside_mask
 from .train.animation import AnimationTrainer
+from .train.baseline import BaselineTrainer
 from .train.checkpoints import (
     checkpoint_file,
     load_checkpoint,
@@ -100,7 +105,14 @@ _ALIGNED_MODULES = {
     "aligned_lbw_pdf": AlignedLBWPDF,
     "lib.networks.bw_deform.aligned_aninerf_lbw_pdf_network": AlignedLBWPDF,
 }
+# the image-space baselines (JAX models/registry.py:36-50)
+_BASELINE_MODULES = {"nhr": NHR, "lib.networks.nhr.nhr": NHR,
+                     "nt": NT, "lib.networks.nt.nt": NT}
 _DATASETS = {
+    "lib.datasets.h36m.nhr": NHRDataset,
+    "nhr": NHRDataset,
+    "lib.datasets.h36m.nt": NTDataset,
+    "nt": NTDataset,
     "lib.datasets.tpose_dataset": TPoseDataset,
     "tpose": TPoseDataset,
     "lib.datasets.tpose_pdf_dataset": TPosePDFDataset,
@@ -119,10 +131,16 @@ MESH_PAD = 10
 _RAY_KEYS = ("ray_o", "ray_d", "near", "far")
 
 
+def is_image_space(cfg) -> bool:
+    """Whether the config names an image-space baseline, NHR or NT, whose
+    forward renders whole images (JAX models/registry.py:45)."""
+    return cfg.network_module in _BASELINE_MODULES
+
+
 def model_class(cfg):
     """The config's model class: AniNeRF, a displacement-field family
-    (NeRF-PDF, SDF-PDF, NeuS-PDF) or an aligned family (LBW, PBW, SMPL,
-    LBWPDF). Raises before any work on what does not exist: an unknown
+    (NeRF-PDF, SDF-PDF, NeuS-PDF), an aligned family (LBW, PBW, SMPL,
+    LBWPDF) or a baseline (NHR, NT). Raises before any work on what does not exist: an unknown
     network_module; novel poses (`aninerf_animation`, `test_novel_pose`)
     of the PDF families, whose JAX paths fail (engine.py:409 and
     train/animation.py:102 pass `novel_pose=True`, which
@@ -132,6 +150,8 @@ def model_class(cfg):
     raises an AttributeError for them). Their `test_novel_pose` renders
     through the stage-1 deform, as in JAX."""
     name = cfg.network_module
+    if name in _BASELINE_MODULES:
+        return _BASELINE_MODULES[name]
     cls = (AniNeRF if name in _ANINERF_MODULES
            else _PDF_MODULES.get(name, _ALIGNED_MODULES.get(name)))
     if cls is None:
@@ -158,8 +178,14 @@ def make_model(cfg):
     `test_novel_pose`, AniNeRF gets its novel-pose field
     (`num_eval_frame` latents), and so do AlignedLBW and AlignedLBWPDF.
     The aligned families take num_train_frame color latents (JAX
-    models/registry.py:115-125)."""
+    models/registry.py:115-125). NHR renders at the config's H and W
+    times `ratio`; NT has 1024-texel textures (:74-83)."""
     cls = model_class(cfg)
+    if cls is NHR:
+        return NHR(H=int(cfg.H * cfg.ratio), W=int(cfg.W * cfg.ratio),
+                   feature_dim=18)
+    if cls is NT:
+        return NT(size=1024, feature_dim=16)
     for key in ("slab_filter", "seg_filter"):
         if int(cfg.get(key, 0)):
             raise NotImplementedError(f"the {key} eval option is not ported yet")
@@ -517,8 +543,11 @@ def run_evaluate(cfg, device=None, max_items: int = -1):
     """PSNR/SSIM evaluation of the test split (JAX engine.py:749-830),
     each scored view's prediction and ground truth written under
     <result_dir>/comparison/ as JAX's evaluator writes them. Returns the
-    mean metrics plus `items`, one record per scored item."""
+    mean metrics plus `items`, one record per scored item. The baselines
+    take `run_evaluate_baseline`."""
     cfg.eval = True
+    if is_image_space(cfg):
+        return run_evaluate_baseline(cfg, device, max_items)
     eng = Engine(cfg, device)
     eng.load_params()
     ds = make_dataset(cfg, "test")
@@ -551,12 +580,72 @@ def run_evaluate(cfg, device=None, max_items: int = -1):
     return {**evaluator.summarize(), "items": items}
 
 
+def run_evaluate_baseline(cfg, device=None, max_items: int = -1):
+    """PSNR/SSIM of NHR or NT over the test split's whole images (JAX
+    engine.py:1436-1470): each item's rendered image, scored on its
+    `mask_at_box` pixels, the comparison PNGs written as `run_evaluate`
+    writes them. The weights come from the checkpoint a resume reads
+    (`latest.flax`, else the newest snapshot); without one it raises, as
+    JAX does. Returns the mean metrics plus `items`."""
+    dev = select_device(device)
+    model = make_model(cfg).to(dev).eval()
+    model.requires_grad_(False)
+    ds = make_dataset(cfg, "test")
+    path = checkpoint_file(cfg.trained_model_dir)
+    if path is None:
+        raise FileNotFoundError(f"no checkpoint in {cfg.trained_model_dir}")
+    model.load_state_dict(param_codec(model)[0](read_checkpoint(path)["params"]),
+                          strict=True)
+    evaluator = ImageEvaluator(cfg.result_dir)
+    items = []
+    t_start = time.time()
+    for n, idx in enumerate(eval_indices(cfg, ds)):
+        if 0 <= max_items <= n:
+            break
+        item = ds[idx]
+        t0 = time.time()
+        frame = {k: torch.as_tensor(np.asarray(item[k], np.float32), device=dev)
+                 for k in model.frame_keys}
+        pred = model(frame)["rgb_map"].cpu().numpy()
+        seconds = time.time() - t0
+        gt = np.asarray(item["img"])
+        mab = np.asarray(item["mask_at_box"]).reshape(-1)
+        H, W = gt.shape[:2]
+        m = evaluator.evaluate(
+            pred.reshape(-1, 3)[mab], gt.reshape(-1, 3)[mab], mab, H, W,
+            frame_index=int(item["frame_index"]),
+            view_index=int(item.get("cam_ind", 0)))
+        items.append({"frame_index": int(item["frame_index"]),
+                      "view_index": int(item["cam_ind"]), "H": H, "W": W,
+                      "seconds": seconds, **(m or {})})
+    wall = time.time() - t_start
+    print(f"eval: {len(items)} items in {wall:.2f}s on {dev}")
+    return {**evaluator.summarize(), "items": items}
+
+
+def _refuse_image_space(cfg, run_type: str):
+    """The baselines render no rays, meshes or rasters: `--type
+    {visualize, animation, raster}` raise before any work. The JAX
+    package sends them to its volumetric engine and datasets (JAX
+    engine.py:946-1130), which have no path for them: on the capsule's
+    baseline copy they stop at lbs/tbw.npy, which the volumetric
+    datasets read and the baselines do not."""
+    if is_image_space(cfg):
+        raise NotImplementedError(
+            f"--type {run_type} of the image-space baseline "
+            f"{cfg.network_module!r} does not exist: it renders whole images, "
+            "not rays, meshes or rasters (use --type evaluate); the JAX "
+            "package has no path for it either (its volumetric engine and "
+            "datasets take these run types)")
+
+
 def _mesh_engine(cfg, device, run_type: str):
     """The engine with its weights and the test split's mesh dataset;
     raises before any work unless the config selects a mesh dataset
     (the mesh overlay: vis_posed_mesh or vis_tpose_mesh, and for the KNN
     families a test_dataset_module of lib.datasets.anisdf_mesh_dataset
     or lib.datasets.aninerf_pdf_mesh_dataset)."""
+    _refuse_image_space(cfg, run_type)
     if _DATASETS.get(cfg.test_dataset_module) not in _MESH_DATASETS:
         raise ValueError(
             f"--type {run_type} needs a mesh dataset (vis_posed_mesh True "
@@ -589,6 +678,7 @@ def run_visualize(cfg, device=None, max_items: int = -1):
     with the next render on a thread; the port writes in order. Returns
     one record per item: its indices, the file written, the render's
     seconds and the engine's counts."""
+    _refuse_image_space(cfg, "visualize")
     if cfg.vis_posed_mesh or cfg.vis_tpose_mesh:
         return _visualize_meshes(cfg, device, max_items)
     eng = Engine(cfg, device)
@@ -753,8 +843,14 @@ def initial_model(cfg):
     family's init under torch seed 42 (JAX initializes from
     PRNGKey(42)), then `init_sdf`'s SDF network or, in stage 2, the
     `init_aninerf` checkpoint's weights (a partial load: the novel-pose
-    field keeps its init). Touches no directory."""
+    field keeps its init). Touches no directory. The baselines take no
+    `init_sdf` or `init_aninerf` (JAX's `_run_train_baseline` reads
+    neither)."""
     family = model_class(cfg)
+    if family in (NHR, NT):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(42)
+            return make_model(cfg)
     if cfg.get("init_sdf") and family not in (SDFPDF, NeuSPDF):
         raise NotImplementedError(
             f"init_sdf loads an SDF network; {family.__name__} has none")
@@ -794,7 +890,10 @@ def run_train(cfg, device=None):
     as in JAX). `init_sdf` on a family without an SDF network raises,
     where JAX's non-strict partial load reads nothing. `fix_random`
     seeds the ray draw (RandomState(0), as JAX) and the z jitter (stage
-    2: the points). Returns (trainer, recorder)."""
+    2: the points). The baselines take `run_train_baseline`. Returns
+    (trainer, recorder)."""
+    if is_image_space(cfg):
+        return run_train_baseline(cfg, device)
     family = model_class(cfg)
     if not hasattr(family, "train_forward"):
         raise NotImplementedError(
@@ -843,6 +942,45 @@ def run_train(cfg, device=None):
                 save_checkpoint(*ckpt)
             if (epoch + 1) % cfg.save_latest_ep == 0 or epoch == n_epochs - 1:
                 save_checkpoint(*ckpt, latest=True)
+    finally:
+        recorder.close()
+    return trainer, recorder
+
+
+def run_train_baseline(cfg, device=None):
+    """Train NHR or NT (JAX engine.py:1354-1433): the train split's items
+    shuffled per epoch, `ep_iter` a epoch, one whole image a step
+    (`BaselineTrainer`); `latest.flax` every `save_latest_ep` epochs and
+    after the last. With `resume` (the default) it goes on from the
+    checkpoint in `trained_model_dir`; a fresh run starts from
+    `initial_model`'s seeded weights. As in JAX, a run without `resume`
+    leaves the directory's other files, writes no `<epoch>.flax` and has
+    no periodic evaluation. Returns (trainer, recorder)."""
+    dev = select_device(device)
+    model = initial_model(cfg)
+    model.to(dev).train()
+    trainer = BaselineTrainer(cfg, model, dev)
+    n_epochs = int(cfg.train.epoch)
+    ds = make_dataset(cfg, "train")
+    loader = Loader(ds, shuffle=True,
+                    max_iter=cfg.ep_iter if cfg.ep_iter > 0 else -1)
+    max_iter = n_epochs * max(len(loader), 1)
+    begin_epoch = 0
+    recorder = Recorder(cfg.record_dir, resume=cfg.resume)
+    if cfg.resume:
+        out = load_checkpoint(cfg.trained_model_dir, model, trainer.optimizer)
+        if out is not None:
+            epoch0, trainer.step, trainer.updates, rec = out
+            begin_epoch = epoch0 + 1
+            recorder.load_state_dict(rec)
+    try:
+        for epoch in range(begin_epoch, n_epochs):
+            trainer.train_epoch(loader, recorder, epoch, max_iter,
+                                log_interval=cfg.log_interval)
+            if (epoch + 1) % cfg.save_latest_ep == 0 or epoch == n_epochs - 1:
+                save_checkpoint(cfg.trained_model_dir, model, trainer.optimizer,
+                                epoch, trainer.step, recorder.state_dict(),
+                                latest=True)
     finally:
         recorder.close()
     return trainer, recorder

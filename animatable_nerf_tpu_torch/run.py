@@ -45,6 +45,14 @@ write data/novel_view/<exp_name>/frame_<f>/<v>.png (with vis_depth also
 <v>_depth.npy and <v>_acc.npy), data/perform/<exp_name>/frame<f>_view<v>.png
 and data/raster/<exp_name>/frame<f>_view<v>.png with _depth.npy.
 
+The image-space baselines NHR and NT (configs/baselines/, and on the
+capsule's baseline copy, written by `python -m
+animatable_nerf_tpu_torch.data.baseline_prep data/synthetic/capsule
+data/synthetic/capsule_baseline`) take `--type evaluate` only:
+
+    python -m animatable_nerf_tpu_torch.run --type evaluate \
+        --cfg_file configs/synthetic_nhr.yaml [--device cpu]
+
 Runs on `cuda` unless `--device cpu` is given; without a GPU and
 without `--device cpu` it raises.
 """

@@ -17,7 +17,10 @@ under {"inner_states": {"train": {"inner_state": ...}}}, beside
 So the JAX package's `load_checkpoint` and `run.py --type evaluate`
 read what the port writes, and the port resumes from what JAX writes.
 Every ported family is handled (`param_codec`): AniNeRF, NeRF-PDF,
-SDF-PDF, NeuS-PDF and the four aligned families. `load_params_partial`
+SDF-PDF, NeuS-PDF, the four aligned families, and the baselines NHR and
+NT, whose batch norms' `running_mean` / `running_var` are parameters
+without a gradient, written into `params` with Adam moments of 0 as
+flax keeps them. `load_params_partial`
 is the weights-only, non-strict load of `init_aninerf` (JAX :167-204).
 """
 
@@ -41,9 +44,15 @@ from ..compat.jax_params import (
     nerf_pdf_state_dict,
     neus_pdf_param_tree,
     neus_pdf_state_dict,
+    nhr_param_tree,
+    nhr_state_dict,
+    nt_param_tree,
+    nt_state_dict,
     sdf_pdf_param_tree,
     sdf_pdf_state_dict,
 )
+from ..baselines.nhr import NHR
+from ..baselines.nt import NT
 from ..models.aligned import AlignedLBW, AlignedLBWPDF, AlignedPBW, AlignedSMPL
 from ..models.aninerf import AniNeRF
 from ..models.pdf import NeRFPDF, NeuSPDF, SDFPDF
@@ -56,7 +65,9 @@ _CODECS = {AniNeRF: (aninerf_state_dict, aninerf_param_tree),
            AlignedLBW: (aligned_state_dict, aligned_lbw_param_tree),
            AlignedPBW: (aligned_state_dict, aligned_pbw_param_tree),
            AlignedSMPL: (aligned_state_dict, aligned_smpl_param_tree),
-           AlignedLBWPDF: (aligned_state_dict, aligned_lbw_pdf_param_tree)}
+           AlignedLBWPDF: (aligned_state_dict, aligned_lbw_pdf_param_tree),
+           NHR: (nhr_state_dict, nhr_param_tree),
+           NT: (nt_state_dict, nt_param_tree)}
 
 
 def param_codec(model):

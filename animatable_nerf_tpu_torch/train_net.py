@@ -18,6 +18,13 @@ stage-1 run `init_aninerf` names:
     python -m animatable_nerf_tpu_torch.train_net \
         --cfg_file configs/synthetic_novel_pose.yaml aninerf_animation True \
         exp_name synthetic_2f_anim [--device cpu]
+The image-space baselines NHR and NT train one whole image a step
+from a seeded start (configs/synthetic_nhr.yaml and synthetic_nt.yaml
+read the capsule's baseline copy, data/baseline_prep.py):
+
+    python -m animatable_nerf_tpu_torch.train_net \
+        --cfg_file configs/synthetic_nhr.yaml [--device cpu]
+
 Checkpoints go to data/trained_model/<task>/<exp_name>/ in the JAX
 package's flax format, so `python run.py --type evaluate` (JAX) and
 `python -m animatable_nerf_tpu_torch.run --type evaluate` (the port)

@@ -169,6 +169,21 @@ Phases, one JSON line each:
      device time, its survivors with and without the carve, and the
      uncarved render of the same rays within VIS_FRAME_TOL on the rays
      the carve removed nothing from;
+ 17. the image-space baselines NHR and NT (plain PyTorch, no kernel of
+     K1-K6, every count held at 0) on the capsule's baseline copy
+     written into a temporary directory (`write_baseline_copy`), from
+     the port's seeded start: `run --type evaluate` held to the JAX
+     package's PSNR (JAX_PSNR_BASELINE); an item and a train step on the
+     card against the CPU (NHR's bounds at least twice what one ulp of
+     its vertices moves the CPU's own result, under fixed ceilings); 50
+     steps of `run_train` on the card, held at matched weights at the
+     steps BASELINE_MATCHED_STEPS (the CPU from the card's weights and
+     Adam state: the loss, the gradient, and Adam's update from the
+     card's gradient), then its evaluate printed beside the JAX CPU run
+     of the same steps; then the copy at 1024x1024: one frame and 5
+     steps at full width (s per frame and step, device ms, idle share,
+     peak memory, top device ops, NHR's furthest-point sampling), NT's
+     frame held to the CPU's, NHR's checked finite and in range;
 then the kernel table line, the script's seconds, the card line and
 {"ok": true, ...} last. Each phase's line carries its wall `seconds`.
 Kernel launch counts are set to 0 just before each path and read just
@@ -3427,6 +3442,509 @@ def phase_vis_full(name, k1, knn):
     return launches
 
 
+# Phase 17: the image-space baselines NHR and NT on the capsule's baseline
+# copy (animatable_nerf_tpu_torch/data/baseline_prep.py: lbs/bigpose_bw.npy
+# and uv/ added), from the port's seeded start (engine.write_initial_start).
+# Per-view PSNR of the JAX package on the CPU, on the same copy and start
+# (<f> is nhr or nt):
+#   python -m animatable_nerf_tpu_torch.data.baseline_prep data/synthetic/capsule data/synthetic/capsule_baseline
+#   python -c "from animatable_nerf_tpu_torch.config import load_config as c; from animatable_nerf_tpu_torch.engine import write_initial_start as w; w(c('configs/synthetic_<f>.yaml', ['exp_name', 'jax_<f>']))"
+#   JAX_PLATFORMS=cpu python run.py --type evaluate --cfg_file configs/synthetic_<f>.yaml exp_name jax_<f>
+#   python -c "import numpy as np; print(np.load('data/result/deform/jax_<f>/metrics.npy', allow_pickle=True).item()['psnr'])"
+# and after 50 steps from that start (the start written as above under
+# exp_name jax50_<f>; about 7 min for NHR and 1.5 min for NT):
+#   JAX_PLATFORMS=cpu python train_net.py --cfg_file configs/synthetic_<f>.yaml exp_name jax50_<f> train.epoch 1 ep_iter 50 resume True
+#   JAX_PLATFORMS=cpu python run.py --type evaluate --cfg_file configs/synthetic_<f>.yaml exp_name jax50_<f>
+JAX_PSNR_BASELINE = {
+    "nhr": [-0.27591211662144954, 0.39966107539427187, 1.4730780960561412,
+            2.426096112877643],
+    "nt": [-2.205190022237952, -1.695512908441042, -1.2610817486250514,
+           -0.7936716580793975]}
+JAX_PSNR_TRAIN_BASELINE = {
+    "nhr": [16.993471380688607, 17.73007421174262, 18.79078593320474,
+            21.259465706498155],
+    "nt": [16.983174977928943, 17.267473319935657, 17.749946351903866,
+           18.410506562415893]}
+# After 50 steps the port's PSNR is printed beside these, not held to
+# them: the trajectories are chaotic. Adam's first steps move every
+# weight by about lr whatever its gradient's size, and where float32
+# resolves a gradient's sign differently (0.17% of NT's weights at step 1,
+# measured on the CPU) the runs part: four CPU runs of the port from the
+# same start, differing only in torch's thread count, ended -1.77 to
+# +1.83 dB (NHR) and +0.07 to +0.21 dB (NT) from the JAX run's views.
+# The card's 50 steps are held at matched weights instead: at each step
+# of BASELINE_MATCHED_STEPS the CPU takes the card's weights and Adam
+# state, and its loss (TRAIN_LOSS_RTOL), its clipped gradient as one
+# vector (TRAIN_GRAD_REL; NHR's both by `held_by_control`, below) and
+# Adam's update and moments from the card's gradient (TRAIN_GRAD_REL of their
+# L2 norms) must agree with the card's step. A CPU step of NHR takes
+# some 3-5 s (twice that with its control), so five of the 50 are
+# matched: the first two, while Adam's moments fill, then three later.
+BASELINES = ("nhr", "nt")
+BASELINE_TRAIN_STEPS = 50
+BASELINE_UPSAMPLE = 8  # the 128x128 copy at 1024x1024
+BASELINE_FULL_STEPS = 5
+# an item's rgb and mask, card against CPU (the same plain PyTorch; cuDNN's
+# and the CPU's convolutions sum in other orders); at 1024x1024 cuDNN takes
+# other algorithms (FFT, implicit GEMM) and each batch norm sums a channel
+# over 1M pixels: NT's frame differed by 1.02e-4 there on an H100
+BASELINE_ITEM_TOL = 1e-4
+BASELINE_FULL_TOL = 3e-4
+# NHR against the CPU: PointNet++'s 16 batch norms over a few points each
+# double a rounding difference a level, so NHR's item and steps are held
+# by `held_by_control`: within the larger of the base bound and twice
+# what one ulp of the canonical vertices moves the CPU's own result. That
+# control is the program's own, so each bound has a fixed ceiling, from
+# the largest controls of the port's CPU runs on the copy: the test
+# item's forward 1.73e-3 (on the H100's host); at the start, over the 12
+# train items, the loss 1e-6 to 6.6e-5 (relative) and the gradient 9.5e-3
+# to 9.0e-2 of its L2 norm; over 50 CPU steps, at most 2.1e-5 and 4.4e-2.
+# A run whose control passes a ceiling fails.
+BASELINE_NHR_FWD_CEIL = 5e-3
+BASELINE_NHR_LOSS_CEIL = 3e-4
+BASELINE_NHR_GRAD_CEIL = 0.25
+BASELINE_MATCHED_STEPS = (1, 2, 10, 30, 50)
+
+
+def baseline_cfg(copy, fam, tmp, name, image_size=None, run_type="",
+                 extra=()):
+    """configs/synthetic_<fam>.yaml on the baseline copy `copy`, its
+    model, result and record directories under tmp/<name>."""
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.data.baseline_prep import config_opts
+
+    opts = config_opts(copy, image_size) + [
+        "exp_name", f"chip_smoke_{name}",
+        "trained_model_dir", os.path.join(tmp, name, "model"),
+        "result_dir", os.path.join(tmp, name, "result"),
+        "record_dir", os.path.join(tmp, name, "record"), *extra]
+    cfg = load_config(f"configs/synthetic_{fam}.yaml", opts, run_type=run_type)
+    cfg.eval = bool(run_type)
+    return cfg
+
+
+def baseline_frame(model, item, device):
+    import torch
+
+    return {k: torch.as_tensor(np.asarray(item[k], np.float32), device=device)
+            for k in model.frame_keys}
+
+
+def phase_baseline_evaluate(fam, cfg, k1, knn):
+    """The port's `run --type evaluate` of the start on the card, each
+    view held to the JAX package's PSNR; no kernel of K1-K6 launched."""
+    from animatable_nerf_tpu_torch.engine import run_evaluate
+
+    reset_counts(k1, knn)
+    t0 = time.time()
+    res = run_evaluate(cfg, "cuda")
+    wall = time.time() - t0
+    launches = launch_counts(k1, knn)
+    items, jax_psnr = res["items"], JAX_PSNR_BASELINE[fam]
+    dpsnr = [it["psnr"] - ref for it, ref in zip(items, jax_psnr)]
+    emit({"phase": f"baseline_evaluate_{fam}", "items": items,
+          "psnr_mean": res["psnr"], "jax_psnr": jax_psnr,
+          "delta_psnr_db": dpsnr, "tol_db": PSNR_TOL_DB, "launches": launches,
+          "wall_s": wall, "s_per_frame": [it["seconds"] for it in items]})
+    check(len(items) == len(jax_psnr), f"{fam}: expected {len(jax_psnr)} items")
+    check(all(abs(d) <= PSNR_TOL_DB for d in dpsnr),
+          f"baseline_evaluate_{fam}: PSNR differs from JAX by {dpsnr} dB")
+    check(not any(launches.values()), f"{fam} launched {launches}")
+    return launches
+
+
+def nudged(item, key):
+    """`item` with its `key` array one float32 ulp up."""
+    a = np.asarray(item[key], np.float32)
+    return {**item, key: np.nextafter(a, np.float32(np.inf))}
+
+
+def grad_rel_l2(got, want):
+    return math.sqrt(
+        sum(float(((got[n] - g).double() ** 2).sum()) for n, g in want.items())
+        / sum(float((g.double() ** 2).sum()) for g in want.values()))
+
+
+def held_by_control(base, control, ceiling):
+    """NHR's bound: the larger of `base` and twice the CPU's ulp control,
+    which must stay within `ceiling` (None without a control: `base`)."""
+    if control is None:
+        return base, True
+    tol = max(base, 2 * control)
+    return tol, tol <= ceiling
+
+
+def phase_baseline_item_vs_cpu(fam, cfg, k1, knn):
+    """One test item's forward on the card against the port's CPU forward
+    of it from the start's weights, rgb and mask within BASELINE_ITEM_TOL;
+    for NHR within `held_by_control` of the CPU forward on the canonical
+    vertices one ulp up and BASELINE_NHR_FWD_CEIL."""
+    import torch
+
+    from animatable_nerf_tpu_torch.engine import initial_model, make_dataset
+
+    item = make_dataset(cfg, "test")[0]
+    reset_counts(k1, knn)
+    runs = [("cpu", item), ("cuda", item)]
+    if fam == "nhr":
+        runs.append(("cpu", nudged(item, "tpose")))
+    outs, secs = [], []
+    for device, it in runs:
+        model = initial_model(cfg).to(device).eval()
+        t0 = time.time()
+        with torch.no_grad():
+            o = model(baseline_frame(model, it, device))
+            outs.append({k: o[k].float().cpu() for k in ("rgb_map", "mask")})
+        secs.append(time.time() - t0)
+    launches = launch_counts(k1, knn)
+    cpu_out, gpu_out = outs[:2]
+    err = {k: float((gpu_out[k] - cpu_out[k]).abs().max()) for k in cpu_out}
+    control = (max(float((outs[2][k] - cpu_out[k]).abs().max())
+                   for k in cpu_out) if len(outs) > 2 else None)
+    tol, within = held_by_control(BASELINE_ITEM_TOL, control,
+                                  BASELINE_NHR_FWD_CEIL)
+    emit({"phase": f"baseline_item_vs_cpu_{fam}", "H": int(item["img"].shape[0]),
+          "W": int(item["img"].shape[1]), "max_abs_err": err,
+          "tolerance": f"rgb and mask within {tol}",
+          "ulp_control_cpu": control, "ceiling": BASELINE_NHR_FWD_CEIL,
+          "forward_s": {"cpu": secs[0], "cuda": secs[1]},
+          "launches": launches})
+    check(within, f"{fam}: the CPU's ulp control {control} passes the ceiling")
+    check(max(err.values()) <= tol,
+          f"{fam}: the card's item differs from the CPU's by {err}")
+    check(not any(launches.values()), f"{fam} launched {launches}")
+
+
+def matched_step(step, card, cpu, item, control=False):
+    """`step` (BaselineTrainer.train_step) of the card's trainer `card` on
+    `item`, held at matched weights by the CPU's trainer `cpu`: it takes
+    the card's weights and Adam state from before the step, computes the
+    loss and the clipped gradient of the same item (with `control`, also
+    on the canonical vertices one ulp up), then Adam's update from
+    the card's gradient at the card's update count. Returns the card's
+    stats, its step's seconds and the comparison."""
+    import torch
+
+    from animatable_nerf_tpu_torch.train.optim import CLIP_VALUE
+
+    named = dict(card.model.named_parameters())
+    before = {k: v.detach().to("cpu", copy=True)
+              for k, v in card.model.state_dict().items()}
+    moments = {n: {k: v.detach().to("cpu", copy=True)
+                   for k, v in card.optimizer.state[p].items()}
+               for n, p in named.items() if p in card.optimizer.state}
+    updates = card.updates
+    t0 = time.time()
+    stats = step(card, item)
+    secs = time.time() - t0
+    card_grad = {n: p.grad.detach().cpu() for n, p in named.items()
+                 if p.grad is not None}
+    card_after = {n: p.detach().cpu() for n, p in named.items()}
+    card_moments = {n: {k: v.detach().cpu() for k, v in
+                        card.optimizer.state[p].items()}
+                    for n, p in named.items() if p in card.optimizer.state}
+
+    cpu_named = dict(cpu.model.named_parameters())
+    cpu.model.load_state_dict(before, strict=True)
+
+    def loss_and_grad(it):
+        cpu.optimizer.zero_grad(set_to_none=True)
+        loss, _ = cpu.loss(cpu.frame(it))
+        loss.backward()
+        torch.nn.utils.clip_grad_value_(cpu.params, CLIP_VALUE)
+        return float(loss.detach()), {n: p.grad.detach().clone() for n, p in
+                                      cpu_named.items() if p.grad is not None}
+
+    loss_cpu, cpu_grad = loss_and_grad(item)
+    if control:
+        loss_n, grad_n = loss_and_grad(nudged(item, "tpose"))
+        control = {"loss_rel_err": abs(loss_n / loss_cpu - 1),
+                   "grad_rel_l2": grad_rel_l2(grad_n, cpu_grad)}
+    else:
+        control = None
+    # Adam from the card's gradient and moments
+    cpu.optimizer.state.clear()
+    for n, p in cpu_named.items():
+        p.grad = card_grad.get(n)
+        if n in moments:
+            cpu.optimizer.state[p] = moments[n]
+    for group in cpu.optimizer.param_groups:
+        group["lr"] = cpu.sched(updates)
+    cpu.optimizer.step()
+    trained = [n for n in cpu_named if n in card_grad]
+
+    def moved(params):
+        return {n: params[n].detach() - before[n] for n in trained}
+
+    moment_rel = {k: grad_rel_l2({n: card_moments[n][k] for n in trained},
+                                 {n: cpu.optimizer.state[cpu_named[n]][k]
+                                  for n in trained})
+                  for k in ("exp_avg", "exp_avg_sq")}
+    return stats, secs, {
+        "step": updates + 1, "loss_cuda": stats["loss"], "loss_cpu": loss_cpu,
+        "loss_rel_err": abs(stats["loss"] / loss_cpu - 1),
+        "grad_rel_l2": (grad_rel_l2(card_grad, cpu_grad)
+                        if set(card_grad) == set(cpu_grad) else math.inf),
+        "ulp_control_cpu": control,
+        "update_rel_l2": grad_rel_l2(moved(card_after), moved(cpu_named)),
+        "moments_rel_l2": moment_rel}
+
+
+def phase_baseline_train(fam, copy, tmp, k1, knn):
+    """BASELINE_TRAIN_STEPS steps of `run_train` on the card from the
+    start, each step of BASELINE_MATCHED_STEPS held at matched weights
+    (`matched_step`: the loss within TRAIN_LOSS_RTOL and the gradient
+    within TRAIN_GRAD_REL of its L2 norm, NHR's by `held_by_control`
+    under BASELINE_NHR_LOSS_CEIL and BASELINE_NHR_GRAD_CEIL; Adam's
+    update and moments within TRAIN_GRAD_REL); then the port's evaluate of its
+    checkpoint, each view's PSNR printed beside the JAX CPU run of the
+    same steps (not held: see JAX_PSNR_TRAIN_BASELINE); the card's
+    s/step, data ms, and the device ms and idle share of more steps, the
+    loss at the first and last step."""
+    import torch
+
+    from animatable_nerf_tpu_torch.engine import (
+        initial_model, make_dataset, run_evaluate, run_train,
+        write_initial_start)
+    from animatable_nerf_tpu_torch.train import baseline
+
+    steps = ["train.epoch", "1", "ep_iter", str(BASELINE_TRAIN_STEPS)]
+    cfg = baseline_cfg(copy, fam, tmp, f"{fam}_train", extra=steps)
+    write_initial_start(cfg)
+    cpu = baseline.BaselineTrainer(cfg, initial_model(cfg).train(), "cpu")
+    losses, card_s, matched = [], [], []
+    step = baseline.BaselineTrainer.train_step
+
+    def recorded(self, item):
+        if len(card_s) + 1 in BASELINE_MATCHED_STEPS:
+            stats, secs, cmp = matched_step(step, self, cpu, item,
+                                            control=fam == "nhr")
+            matched.append(cmp)
+        else:
+            t0 = time.time()
+            stats = step(self, item)
+            secs = time.time() - t0
+        card_s.append(secs)
+        losses.append(stats["loss"])
+        return stats
+
+    baseline.BaselineTrainer.train_step = recorded
+    reset_counts(k1, knn)
+    try:
+        t0 = time.time()
+        trainer, recorder = run_train(cfg, "cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        baseline.BaselineTrainer.train_step = step
+    launches = launch_counts(k1, knn)
+    steps_done = trainer.step
+    item = make_dataset(cfg, "train")[0]
+
+    # NHR's step is some 80,000 launches, which the profiler takes long to
+    # aggregate: one step of it, five of NT's
+    n_prof = 1 if fam == "nhr" else 5
+
+    def steps():
+        for _ in range(n_prof):
+            trainer.train_step(item)
+
+    prof = device_breakdown(steps, top=8, host=False)
+    res = run_evaluate(baseline_cfg(copy, fam, tmp, f"{fam}_train",
+                                    run_type="evaluate"), "cuda")
+    jax_psnr = JAX_PSNR_TRAIN_BASELINE[fam]
+    psnr = [it["psnr"] for it in res["items"]]
+    for m in matched:
+        control = m["ulp_control_cpu"] or {}
+        m["loss_tol"], loss_ok = held_by_control(
+            TRAIN_LOSS_RTOL, control.get("loss_rel_err"), BASELINE_NHR_LOSS_CEIL)
+        m["grad_tol"], grad_ok = held_by_control(
+            TRAIN_GRAD_REL, control.get("grad_rel_l2"), BASELINE_NHR_GRAD_CEIL)
+        m["control_within_ceilings"] = loss_ok and grad_ok
+    emit({"phase": f"baseline_train_{fam}", "steps": steps_done,
+          "wall_s": wall, "card_s_per_step_mean": float(np.mean(card_s)),
+          "card_s_per_step_median": float(np.median(card_s)),
+          "data_ms_per_step": recorder.data_time.global_avg * 1e3,
+          "profile": {
+              "steps": n_prof, "wall_ms_per_step": prof["wall_ms"] / n_prof,
+              "device_ms_per_step": None if prof["device_ms"] is None
+              else prof["device_ms"] / n_prof, "idle_share": prof["idle_share"],
+              "kernels": prof["kernels"]},
+          "loss_step_1": losses[0], "loss_step_last": losses[-1],
+          "matched": matched,
+          "tolerance": "at matched weights: the loss within loss_tol "
+          "(relative), the gradient within grad_tol of its L2 norm; Adam's "
+          f"update and moments from the card's gradient within {TRAIN_GRAD_REL}",
+          "eval_items": res["items"], "jax_psnr_not_held": jax_psnr,
+          "delta_psnr_db": [p - ref for p, ref in zip(psnr, jax_psnr)],
+          "gain_over_start_db": [p - ref for p, ref in
+                                 zip(psnr, JAX_PSNR_BASELINE[fam])],
+          "launches": launches})
+    check(steps_done == BASELINE_TRAIN_STEPS
+          and len(losses) == BASELINE_TRAIN_STEPS
+          and all(math.isfinite(v) for v in losses),
+          f"baseline_train_{fam}: {steps_done} steps, losses {losses[-3:]}")
+    check(not any(launches.values()), f"{fam} launched {launches}")
+    check([m["step"] for m in matched] == list(BASELINE_MATCHED_STEPS),
+          f"baseline_train_{fam}: matched steps {[m['step'] for m in matched]}")
+    for m in matched:
+        check(m["control_within_ceilings"]
+              and m["loss_rel_err"] <= m["loss_tol"]
+              and m["grad_rel_l2"] <= m["grad_tol"]
+              and m["update_rel_l2"] <= TRAIN_GRAD_REL
+              and max(m["moments_rel_l2"].values()) <= TRAIN_GRAD_REL,
+              f"baseline_train_{fam}: step {m['step']} at matched weights: {m}")
+    check(len(psnr) == len(jax_psnr) and all(map(math.isfinite, psnr)),
+          f"baseline_train_{fam}: PSNR {psnr}")
+    return launches
+
+
+def fps_chain_ms(model, frame):
+    """NHR's four furthest-point samplings of one forward (6890 -> 4096 ->
+    1024 -> 256 -> 64), alone: wall ms (CUDA events), device ms and
+    kernel launches (one profile of the device)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from animatable_nerf_tpu_torch.ops import pointnet2 as pn2
+
+    with torch.no_grad():
+        pverts, _ = model.posed_vertices(frame)
+
+        def chain():
+            xyz = pverts[None]
+            for sa in model.pointnet.SA_modules:
+                xyz = pn2.gather_points(xyz, pn2.furthest_point_sample(
+                    xyz, sa.npoint))
+            return xyz
+
+        wall = cuda_ms(chain, warmup=1, iters=1)
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            chain()
+            torch.cuda.synchronize()
+    events = [e for e in p.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum(e.count for e in events)
+    device = sum(getattr(e, "device_time_total", 0) or 0 for e in events) / 1e3
+    steps = sum(sa.npoint - 1 for sa in model.pointnet.SA_modules)
+    return {"wall_ms": wall, "device_ms": device, "kernel_launches": launches,
+            "steps": steps, "launches_per_step": launches / steps}
+
+
+def phase_baseline_full(fam, copy, tmp, k1, knn):
+    """One evaluate item and BASELINE_FULL_STEPS train steps at
+    1024x1024, full widths, from the start: s per frame and step, device
+    ms, idle share, peak memory and the top device ops; NHR's FPS. NT's
+    forward is held to the port's CPU forward (within BASELINE_FULL_TOL;
+    some 17 s on the CPU). NHR's is checked finite with its mask in
+    [0, 1] only: its CPU forward at this size takes minutes (its 128x128
+    item is held to the CPU's in phase_baseline_item_vs_cpu)."""
+    import torch
+
+    from animatable_nerf_tpu_torch.engine import initial_model, make_dataset
+    from animatable_nerf_tpu_torch.train.baseline import BaselineTrainer
+
+    size = 128 * BASELINE_UPSAMPLE
+    cfg = baseline_cfg(copy, fam, tmp, f"{fam}_full", size, "evaluate")
+    train_cfg = baseline_cfg(copy, fam, tmp, f"{fam}_full", size)
+    item = make_dataset(cfg, "test")[0]
+    train_item = make_dataset(train_cfg, "train")[0]
+    check(item["img"].shape[:2] == (size, size), f"{fam}: {item['img'].shape}")
+    reset_counts(k1, knn)
+    model = initial_model(cfg).cuda().eval()
+    frame = baseline_frame(model, item, "cuda")
+    with torch.no_grad():
+        model(frame)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        out = model(frame)
+        rgb = out["rgb_map"].cpu()
+        mask = out["mask"].cpu()
+        s_frame = time.time() - t0
+        eval_peak = torch.cuda.max_memory_allocated()
+        prof = device_breakdown(lambda: model(frame), top=8, host=False)
+    record = {"phase": f"baseline_full_{fam}", "H": size, "W": size,
+              "s_per_frame": s_frame, "eval_device_ms": prof["device_ms"],
+              "eval_idle_share": prof["idle_share"],
+              "eval_top_kernels": prof["kernels"],
+              "eval_peak_memory_gib": eval_peak / 2**30}
+    if fam == "nhr":
+        record["fps_per_forward"] = fps_chain_ms(model, frame)
+    else:
+        cpu_model = initial_model(cfg).eval()
+        t0 = time.time()
+        with torch.no_grad():
+            want = cpu_model(baseline_frame(cpu_model, item, "cpu"))
+        record["cpu_forward_s"] = time.time() - t0
+        err = max(float((rgb - want["rgb_map"]).abs().max()),
+                  float((mask - want["mask"]).abs().max()))
+        record["max_abs_err_vs_cpu"] = err
+        check(err <= BASELINE_FULL_TOL, f"{fam}: full frame differs by {err}")
+    check(bool(torch.isfinite(rgb).all()) and bool(torch.isfinite(mask).all())
+          and float(mask.min()) >= 0 and float(mask.max()) <= 1,
+          f"{fam}: the full frame is not finite or its mask leaves [0, 1]")
+
+    trainer = BaselineTrainer(train_cfg, model.train(), "cuda")
+    trainer.train_step(train_item)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    losses = [trainer.train_step(train_item)["loss"]
+              for _ in range(BASELINE_FULL_STEPS)]
+    s_step = (time.time() - t0) / BASELINE_FULL_STEPS
+    train_peak = torch.cuda.max_memory_allocated()
+    prof = device_breakdown(lambda: trainer.train_step(train_item), top=8,
+                            host=False)
+    launches = launch_counts(k1, knn)
+    record.update({
+        "s_per_step": s_step, "train_peak_memory_gib": train_peak / 2**30,
+        "train_device_ms": prof["device_ms"],
+        "train_idle_share": prof["idle_share"],
+        "train_top_kernels": prof["kernels"], "losses": losses,
+        "launches": launches})
+    emit(record)
+    check(all(math.isfinite(v) for v in losses), f"{fam}: losses {losses}")
+    check(not any(launches.values()), f"{fam} launched {launches}")
+    return launches
+
+
+def phase_baselines(k1, knn):
+    """Phase 17: the baseline copy (and its 1024x1024 form) in a temporary
+    directory, then per family the evaluate, the item and step against
+    the CPU, 50 steps and the full-size phase; the copies deleted at the
+    end. Returns the launches of each path (all 0)."""
+    import shutil
+    import tempfile
+
+    from animatable_nerf_tpu_torch.data.baseline_prep import write_baseline_copy
+    from animatable_nerf_tpu_torch.engine import write_initial_start
+
+    tmp = tempfile.mkdtemp(prefix="baseline_copy_")
+    paths = {}
+    try:
+        t0 = time.time()
+        copy = write_baseline_copy("data/synthetic/capsule",
+                                   os.path.join(tmp, "capsule"))
+        big = write_baseline_copy("data/synthetic/capsule",
+                                  os.path.join(tmp, "capsule_1024"),
+                                  upsample=BASELINE_UPSAMPLE)
+        emit({"phase": "baseline_copies", "copy_s": time.time() - t0})
+        for fam in BASELINES:
+            cfg = baseline_cfg(copy, fam, tmp, fam, run_type="evaluate")
+            write_initial_start(cfg)
+            paths[f"baseline_evaluate_{fam}"] = phase_baseline_evaluate(
+                fam, cfg, k1, knn)
+            phase_baseline_item_vs_cpu(fam, cfg, k1, knn)
+            paths[f"baseline_train_{fam}"] = phase_baseline_train(
+                fam, copy, tmp, k1, knn)
+            paths[f"baseline_full_{fam}"] = phase_baseline_full(
+                fam, big, tmp, k1, knn)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return paths
+
+
 def main():
     import torch
 
@@ -3598,6 +4116,11 @@ def main():
     for name in VIS_FULL_FAMILIES:
         phase16_paths[f"full_frame_vis_{name}"] = phase_vis_full(name, k1, knn)
 
+    # ---- phase 17: the image-space baselines NHR and NT: evaluates and
+    # 50 steps held to the JAX package's PSNR, an item and a step against
+    # the CPU, and 1024x1024 frames and steps; none of K1-K6 runs there
+    phase17_paths = phase_baselines(k1, knn)
+
     # ---- kernel table
     def k1_sum(key):
         return sum(r[key] for r in k1_rows)
@@ -3758,7 +4281,7 @@ def main():
          if path.startswith("train")})
     k1_entry["launches_full_frame"].update(
         k1_entry.pop("launches_full_frame_by_path"))
-    emit({"kernels": [
+    kernels = [
         k1_entry,
         k2_entry,
         dict(aligned_launches(aligned_launches(aligned_launches(family_paths(
@@ -3770,7 +4293,12 @@ def main():
         knn_entry(k4_row, 240, blk_launches, blk_frame_launches),
         knn_entry(k5_row, 460, blk_launches, blk_frame_launches, "k5"),
         knn_entry(k6_row, 760, blk_launches, blk_frame_launches),
-    ]})
+    ]
+    # the baselines' paths (phase 17) launch none of them
+    for entry in kernels:
+        entry["launches_baseline_paths"] = {
+            path: n[entry["name"]] for path, n in phase17_paths.items()}
+    emit({"kernels": kernels})
     emit({"script_seconds": time.time() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {

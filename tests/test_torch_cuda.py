@@ -20,7 +20,11 @@ novel-pose item, a distorted camera at ratio 0.5, the aligned
 families' items and novel-pose items: maps within 1e-4; without the
 distance grid, within 1e-5 of the grid render, whose survivors it
 keeps; a mesh's vertices within 2% of the voxel, the same faces; a
-carved novel view: the same counts, maps within 1e-4), and K1's
+carved novel view: the same counts, maps within 1e-4; the baselines'
+point ops on the capsule: the same indices; their splat at 1024x1024:
+the same winners but on at most 4 pixels; an NHR or NT item: rgb and
+mask within 1e-4, NHR's within twice what one ulp of its vertices moves
+the CPU's forward, if more, but at most 5e-3), and K1's
 gradient of a
 gradient within 1e-5 of each tensor's scale (the backward and its
 derivative are the plain version's on both sides), as for K2's gradient
@@ -1395,3 +1399,119 @@ def test_cuda_carved_novel_view_matches_cpu(cuda_device, family):
         np.testing.assert_allclose(out[k], cpu_out[k], rtol=1e-4, atol=1e-4,
                                    err_msg=k)
     assert out["acc_map"].max() > 0.1
+
+
+# the ceiling of NHR's item bound against the CPU, from the CPU's ulp
+# controls on record (1.73e-3 on the capsule's test item 0)
+NHR_FWD_CEIL = 5e-3
+
+
+def capsule_frame():
+    """Frame 0 of the capsule root: its world vertices and camera 3."""
+    root = "data/synthetic/capsule"
+    cams = np.load(f"{root}/annots.npy", allow_pickle=True).item()["cams"]
+    verts = np.load(f"{root}/vertices/0.npy").astype(np.float32)
+    K = np.asarray(cams["K"][3], np.float32)
+    R = np.asarray(cams["R"][3], np.float32)
+    T = (np.asarray(cams["T"][3]) / 1000.0).astype(np.float32)
+    return verts, K, R, T
+
+
+@pytest.mark.cuda
+def test_cuda_point_ops_match_cpu(cuda_device):
+    """NHR's point ops at its first level on the capsule's 6890 vertices
+    (FPS to 4096, both ball queries, 3-NN back): the same indices on the
+    card as on the CPU (the squared distances are fused multiply-adds
+    on both, ops/pointnet2.py), the 3-NN distances within 1e-6."""
+    from animatable_nerf_tpu_torch.ops import pointnet2 as pn2
+
+    verts = torch.from_numpy(capsule_frame()[0])[None]
+    out = {}
+    for dev in ("cpu", cuda_device):
+        xyz = verts.to(dev)
+        idx = pn2.furthest_point_sample(xyz, 4096)
+        centres = pn2.gather_points(xyz, idx)
+        balls = [pn2.ball_query(r, n, xyz, centres) for r, n in ((0.1, 16),
+                                                                 (0.5, 32))]
+        dist, nn = pn2.three_nn(xyz, centres)
+        out[str(dev)] = [t.cpu() for t in (idx, *balls, dist, nn)]
+    cpu, gpu = out["cpu"], out[str(cuda_device)]
+    for a, b in zip(cpu[:3] + cpu[4:], gpu[:3] + gpu[4:]):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(gpu[3], cpu[3], rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_splat_matches_cpu(cuda_device):
+    """The capsule's vertices splatted at 1024x1024 (K scaled by 8),
+    radius 2: the same winners but on at most 4 pixels, the features,
+    depth and their gradient equal elsewhere."""
+    from animatable_nerf_tpu_torch.ops.rasterize import rasterize_points
+
+    verts, K, R, T = capsule_frame()
+    K = K.copy()
+    K[:2] *= 8
+    feats = np.random.RandomState(0).randn(len(verts), 6).astype(np.float32)
+    w = np.random.RandomState(1).randn(1024, 1024, 6).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        f = torch.tensor(feats, device=dev, requires_grad=True)
+        ras = rasterize_points(*(torch.as_tensor(a, device=dev)
+                                 for a in (verts,)), f,
+                               *(torch.as_tensor(a, device=dev) for a in (K, R, T)),
+                               1024, 1024, splat_radius=2)
+        out[str(dev)] = ({k: v.detach().cpu() for k, v in ras.items()}, f, ras)
+    (cpu, cf, cras), (gpu, gf, gras) = out["cpu"], out[str(cuda_device)]
+    same = cpu["index"] == gpu["index"]
+    assert int((~same).sum()) <= 4 and int(cpu["mask"].sum()) > 10000
+    for k in ("feature_map", "depth"):
+        assert torch.equal(cpu[k][same], gpu[k][same]), k
+    keep = torch.from_numpy(w) * same[..., None]
+    (cras["feature_map"] * keep).sum().backward()
+    (gras["feature_map"] * keep.to(cuda_device)).sum().backward()
+    torch.testing.assert_close(gf.grad.cpu(), cf.grad, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["nhr", "nt"])
+def test_cuda_baseline_forward_matches_cpu(cuda_device, family, tmp_path):
+    """A test item of the capsule's baseline copy through NHR or NT at
+    full widths from the seeded start: rgb and mask within 1e-4 of the
+    CPU's (the same plain PyTorch; cuDNN and the CPU order their sums
+    otherwise)."""
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.data.baseline_prep import (
+        config_opts, write_baseline_copy)
+    from animatable_nerf_tpu_torch.device import select_device
+    from animatable_nerf_tpu_torch.engine import initial_model, make_dataset
+
+    select_device(cuda_device)  # TF32 off, as the entry points run
+    copy = write_baseline_copy("data/synthetic/capsule", str(tmp_path / "c"))
+    cfg = load_config(f"configs/synthetic_{family}.yaml", config_opts(copy),
+                      run_type="evaluate")
+    cfg.eval = True
+    item = make_dataset(cfg, "test")[0]
+
+    def forward(dev, it):
+        model = initial_model(cfg).to(dev).eval()
+        frame = {k: torch.as_tensor(np.asarray(it[k], np.float32), device=dev)
+                 for k in model.frame_keys}
+        with torch.no_grad():
+            o = model(frame)
+        return {k: o[k].cpu() for k in ("rgb_map", "mask")}
+
+    cpu, gpu = forward("cpu", item), forward(cuda_device, item)
+    tol = 1e-4
+    if family == "nhr":
+        # PointNet++'s batch norms over a few points double a rounding
+        # difference at each level: the bound is at least twice what one
+        # ulp of the canonical vertices moves the CPU's own forward, and
+        # at most NHR_FWD_CEIL (chip_smoke.py's BASELINE_NHR_FWD_CEIL)
+        tpose = np.asarray(item["tpose"], np.float32)
+        moved = forward("cpu", {**item, "tpose": np.nextafter(
+            tpose, np.float32(np.inf))})
+        tol = max(tol, 2 * max(float((moved[k] - cpu[k]).abs().max())
+                               for k in cpu))
+        assert tol <= NHR_FWD_CEIL, f"the CPU's ulp control gives {tol}"
+    for k, v in cpu.items():
+        torch.testing.assert_close(gpu[k], v, rtol=0, atol=tol, msg=k)
