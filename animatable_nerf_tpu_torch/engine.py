@@ -172,7 +172,10 @@ def model_class(cfg):
 
 
 def make_model(cfg):
-    """The config's model (`model_class`). The PDF families'
+    """The config's model (`model_class`), its train forward compacted to
+    the exact survivors where `train_keep_frac` > 0 (JAX
+    models/registry.py:98, :115, :129; the fraction sizes JAX's
+    capacities, so here only its sign matters). The PDF families'
     `stage2_ratio` sizes a JAX survivor capacity and has no counterpart
     in the port's exact compaction. With `aninerf_animation` or
     `test_novel_pose`, AniNeRF gets its novel-pose field
@@ -191,21 +194,24 @@ def make_model(cfg):
             raise NotImplementedError(f"the {key} eval option is not ported yet")
     if str(cfg.get("compute_dtype", "float32")) != "float32":
         raise NotImplementedError("only float32 compute is ported")
-    if cls in _PDF_MODULES.values():
-        return cls(num_latents=cfg.num_latent_code,
-                   tpose_viewdir=cfg.tpose_viewdir, xyz_res=cfg.xyz_res)
     novel_pose = bool(cfg.aninerf_animation or cfg.test_novel_pose)
-    if cls in _ALIGNED_MODULES.values():
+    if cls in _PDF_MODULES.values():
+        model = cls(num_latents=cfg.num_latent_code,
+                    tpose_viewdir=cfg.tpose_viewdir, xyz_res=cfg.xyz_res)
+    elif cls in _ALIGNED_MODULES.values():
         field = ({"num_eval_frames": cfg.num_eval_frame if novel_pose else 0}
                  if issubclass(cls, AlignedLBW) else {})
-        return cls(num_latents=cfg.num_train_frame, norm_th=cfg.norm_th,
-                   train_th=cfg.train_th, tpose_viewdir=cfg.tpose_viewdir,
-                   xyz_res=cfg.xyz_res, **field)
-    return AniNeRF(
-        num_train_frames=cfg.num_train_frame, norm_th=cfg.norm_th,
-        xyz_res=cfg.xyz_res, view_res=cfg.view_res, train_th=cfg.train_th,
-        num_eval_frames=cfg.num_eval_frame if novel_pose else 0,
-    )
+        model = cls(num_latents=cfg.num_train_frame, norm_th=cfg.norm_th,
+                    train_th=cfg.train_th, tpose_viewdir=cfg.tpose_viewdir,
+                    xyz_res=cfg.xyz_res, **field)
+    else:
+        model = AniNeRF(
+            num_train_frames=cfg.num_train_frame, norm_th=cfg.norm_th,
+            xyz_res=cfg.xyz_res, view_res=cfg.view_res, train_th=cfg.train_th,
+            num_eval_frames=cfg.num_eval_frame if novel_pose else 0,
+        )
+    model.train_keep_frac = float(cfg.get("train_keep_frac", 0.0))
+    return model
 
 
 def make_dataset(cfg, split: str = "test"):

@@ -3,8 +3,8 @@ AlignedLBWPDF, their eval and dense train paths.
 
 JAX counterpart: animatable_nerf_tpu/models/aligned.py (`PoseCondBWField`
 :53, `_AlignedBase` :71 with `_filter_th` :127, `_head` :138, `_bw_mask`
-:206, `_eval_compacted` :271 and the dense train branch of `__call__`
-:402-433; `AlignedLBW` :436, `AlignedPBW` :467, `AlignedSMPL` :491,
+:206, `_eval_compacted` :271, `_train_compacted` :324 and the dense
+train branch of `__call__` :402-433; `AlignedLBW` :436, `AlignedPBW` :467, `AlignedSMPL` :491,
 `AlignedLBWPDF` :508; reference aligned_aninerf_{lbw,pbw,smpl,lbw_pdf}
 _network.py).
 
@@ -26,10 +26,15 @@ differ in the deform and the filter's threshold:
 SMPL and LBWPDF hard-code 0.1 in their reference forwards (JAX
 `_filter_th`).
 
-The train path is JAX's dense masked one (`train_keep_frac` 0): the
-filter and the prior from one K2 launch on the step's posed points
-(`KNNFamily._dense_filter`), the deform and the head on every point,
-rgb and alpha zeroed outside the filter and the box, and for the
+The train path is JAX's dense masked one by default (`train_keep_frac`
+0): the filter and the prior from one K2 launch on the step's posed
+points (`KNNFamily._dense_filter`), the deform and the head on every
+point, rgb and alpha zeroed outside the filter and the box. With
+`train_keep_frac` > 0 it is JAX's compacted one (:324-384): the PDF
+families' compacted filter (`KNNFamily._train_filter`: pass 1 on the
+frame's distance grid, K2 on the candidates, the exact filter), then
+the deform, the head and the consistency pair on the exact survivors
+alone. For the
 families with a learned field the consistency pair: `pbw` at the posed
 points and `tbw`, the field at latent 0 (PBW: a zero pose) over the KNN
 prior of the canonical points against the canonical vertices. That prior
@@ -121,37 +126,39 @@ class _AlignedBase(NeRFHead, KNNFamily):
         return self._deform(pose_pts, pose_dirs, pbw, frame)[:2]
 
     def train_forward(self, wpts, viewdir, z_vals, frame):
-        """Dense masked train forward (JAX aligned.py:402-433): wpts (R,
-        S, 3), viewdir (R, 3), z_vals (R, S) -> raw (R, S, 4) zeroed
-        outside the filter and the box; with a learned field pbw and tbw
-        (R*S, 24) and bw_mask (R*S,); LBWPDF also resd (R*S, 3) and its
-        mask."""
-        n_rays, n_samples = z_vals.shape
-        pind, pose_pts, pose_dirs, init_pbw, vd = self._dense_filter(
+        """Train forward (JAX aligned.py:402-433 dense, :324-384
+        compacted): wpts (R, S, 3), viewdir (R, 3), z_vals (R, S) -> raw
+        (R, S, 4) zeroed outside the box and off the rows (the filter,
+        or the exact survivors: `_train_filter`); with a learned field
+        pbw and tbw (rows, 24) and bw_mask (rows,); LBWPDF also resd
+        (rows, 3) and its mask."""
+        rows, pose_pts, pose_dirs, init_pbw, vd = self._train_filter(
             wpts, viewdir, z_vals, frame)
         tpose, tdirs, extras = self._deform(pose_pts, pose_dirs, init_pbw,
                                             frame)
         rgb, alpha = self._eval_head(
             tpose, tdirs if self.tpose_viewdir else vd,
-            int(frame["latent_index"]), slice(None), z_vals)
+            int(frame["latent_index"]), rows.index, z_vals)
         raw = torch.cat([rgb, alpha[:, None]], dim=-1)
         inside = inside_bounds(tpose, frame["tbounds"], pad=TBOUNDS_PAD)
-        raw = torch.where((pind & inside)[:, None], raw, 0.0)
-        out = {"raw": raw.reshape(n_rays, n_samples, 4)}
+        raw = torch.where(inside[:, None], raw, 0.0)
+        out = {"raw": rows.dense(raw)}
         if "pbw" in extras:
             # the consistency target (:424-430): the prior at the canonical
             # points differentiated with respect to them
             init_tbw, _ = sample_blend_closest_points(
                 tpose, frame["tvertices"], frame["weights"])
-            # the final alpha above train_th, its argmax forced (:206-214)
-            a_sel = torch.where(pind, raw[:, 3].detach(), float("-inf"))
+            # the final alpha above train_th, its argmax forced over the
+            # rows (:206-214); compaction is stable, so that is the
+            # compacted stream's first maximum, as in JAX (:367-377)
+            a_sel = torch.where(rows.mask, raw[:, 3].detach(), float("-inf"))
             bw_mask = a_sel > self.train_th
             bw_mask[torch.argmax(a_sel)] = True
             out.update(pbw=extras["pbw"],
                        tbw=self._canonical_bw(tpose, init_tbw, frame),
                        bw_mask=bw_mask)
         if "resd" in extras:
-            out.update(resd=extras["resd"], resd_mask=pind)
+            out.update(resd=extras["resd"], resd_mask=rows.mask)
         return out
 
 

@@ -22,11 +22,15 @@ exactly with torch.nonzero, and the MLPs run on the exact survivors only
 composited maps are the same). The multi-view carve of the
 visualizations drops survivors the same way, after the exact filter.
 
-The train path (`train_forward`) is JAX's default dense masked one
+The train path (`train_forward`) is by default JAX's dense masked one
 (`train_keep_frac` 0): every sampled point runs both blend-weight passes
 and the canonical NeRF, masked points on a substituted safe point, and
 the filter's argmin and the consistency selection's argmax are forced
-over the whole step's points.
+over the whole step's points. With `train_keep_frac` > 0 it is JAX's
+compacted one (`_train_compacted` :678): the same filter, its argmin
+forced over the step, then the three passes on the exact survivors
+alone; raw scatters back to the (R, S) grid, the consistency pair stays
+on the survivors.
 
 Stage 2 (novel pose; JAX `novel_pose_bw` :151-155, `pose_to_canonical`
 :157-167 and `_bw_consistency_select` :189, shared with the aligned
@@ -58,6 +62,8 @@ from ..core.sampling import z_vals_to_dists
 from ..fields.fields import BlendWeightField, TPoseNeRF
 from .common import (
     FrameBlendWeights,
+    TrainRows,
+    compact_indices,
     consistency_select,
     inside_bounds,
     keep_mask_with_argmin,
@@ -92,6 +98,9 @@ class AniNeRF(FrameBlendWeights, BlendWeightField):
     frame_keys = ("A", "pbw", "pbounds", "tbounds", "R", "Th")
     train_frame_keys = frame_keys + ("tbw", "wbounds")
     knn_pass1 = False
+    # > 0: the train forward runs on the exact survivors alone; the
+    # engine sets it from the config
+    train_keep_frac = 0.0
 
     def __init__(self, num_train_frames: int, norm_th: float = 0.05,
                  xyz_res: int = 10, view_res: int = 4,
@@ -178,11 +187,13 @@ class AniNeRF(FrameBlendWeights, BlendWeightField):
         }
 
     def train_forward(self, wpts, viewdir, z_vals, frame):
-        """Dense masked train forward (JAX aninerf.py:808-861): wpts
-        (R, S, 3), viewdir (R, 3), z_vals (R, S) -> raw (R, S, 4), the
-        blend weights pbw (R*S, 24) at the posed points and tbw (R*S,
-        24) at their canonical images (the consistency pair), and
-        bw_mask (R*S,), the points the consistency loss reads."""
+        """Train forward (JAX aninerf.py:808-861 dense, :678-737
+        compacted): wpts (R, S, 3), viewdir (R, 3), z_vals (R, S) -> raw
+        (R, S, 4), and per row (every point, or with `train_keep_frac` >
+        0 the exact survivors alone) the blend weights pbw (rows, 24) at
+        the posed points and tbw (rows, 24) at their canonical images
+        (the consistency pair), and bw_mask (rows,), the points the
+        consistency loss reads."""
         n_rays, n_samples = z_vals.shape
         pose_pts = world_points_to_pose_points(
             wpts.reshape(-1, 3), frame["R"], frame["Th"])
@@ -191,14 +202,26 @@ class AniNeRF(FrameBlendWeights, BlendWeightField):
 
         # the filter on the posed volume's distance channel (:808-822);
         # the grid prior comes in under stop-gradient
-        init_pbw = pts_sample_blend_weights(
-            pose_pts, frame["pbw"], frame["pbounds"]).detach()
-        pind = keep_mask_with_argmin(init_pbw[:, 24], self.norm_th)
-        safe = (frame["pbounds"][0] + frame["pbounds"][1]) * 0.5
-        safe_bw = pts_sample_blend_weights(safe[None], frame["pbw"],
-                                           frame["pbounds"])
-        pose_pts = substitute_masked(pose_pts, pind, safe)
-        init_pbw = torch.where(pind[:, None], init_pbw, safe_bw[0])
+        if self.train_keep_frac > 0:
+            # the distance channel alone, then the three K1 passes on the
+            # survivors (:689-712)
+            pnorm = pts_sample_blend_weights(
+                pose_pts, frame["pbw"][..., 24:], frame["pbounds"])[:, 0]
+            sidx = compact_indices(keep_mask_with_argmin(pnorm, self.norm_th))
+            rows = TrainRows.compacted(sidx, n_rays, n_samples)
+            pose_pts, vd, dists = pose_pts[sidx], vd[sidx], dists[sidx]
+            init_pbw = pts_sample_blend_weights(
+                pose_pts, frame["pbw"], frame["pbounds"]).detach()
+        else:
+            init_pbw = pts_sample_blend_weights(
+                pose_pts, frame["pbw"], frame["pbounds"]).detach()
+            pind = keep_mask_with_argmin(init_pbw[:, 24], self.norm_th)
+            rows = TrainRows(pind, n_rays, n_samples)
+            safe = (frame["pbounds"][0] + frame["pbounds"][1]) * 0.5
+            safe_bw = pts_sample_blend_weights(safe[None], frame["pbw"],
+                                               frame["pbounds"])
+            pose_pts = substitute_masked(pose_pts, pind, safe)
+            init_pbw = torch.where(pind[:, None], init_pbw, safe_bw[0])
 
         latent_index = int(frame["latent_index"])
         pbw = self.pose_blend_weights(pose_pts, init_pbw[:, :24], frame)
@@ -213,14 +236,15 @@ class AniNeRF(FrameBlendWeights, BlendWeightField):
         sigma = torch.where(inside_bounds(tpose, frame["tbounds"]), sigma, 0.0)
         alpha = raw_alpha_from_sigma(sigma, dists)
         raw = torch.cat([torch.sigmoid(rgb_logits), alpha[:, None]], dim=-1)
-        raw = torch.where(pind[:, None], raw, 0.0)
 
-        # density above train_th, the argmax forced on (:852-859)
-        d_sel = torch.where(pind, sigma.detach(), float("-inf"))
+        # density above train_th, the argmax forced on over the rows
+        # (:852-859); compaction is stable, so over the survivors that is
+        # the dense path's point (:721-725)
+        d_sel = torch.where(rows.mask, sigma.detach(), float("-inf"))
         bw_mask = d_sel > self.train_th
         bw_mask[torch.argmax(d_sel)] = True
-        return {"raw": raw.reshape(n_rays, n_samples, 4), "pbw": pbw,
-                "tbw": tbw, "bw_mask": bw_mask}
+        return {"raw": rows.dense(raw), "pbw": pbw, "tbw": tbw,
+                "bw_mask": bw_mask}
 
     @torch.no_grad()
     def density(self, wpts, frame):

@@ -1,7 +1,10 @@
 """Shared helpers of the model layer.
 
 JAX counterpart: animatable_nerf_tpu/models/common.py (the subset the
-AniNeRF and displacement-field eval and train paths use).
+AniNeRF and displacement-field eval and train paths use, and the
+compacted train paths' `compact_payload` :530 and
+`scatter_compacted_raw` :566, without their capacities: the port
+compacts exactly).
 """
 
 from __future__ import annotations
@@ -11,6 +14,10 @@ import torch
 from ..core.grid import grid_corner_distance_bound, grid_corner_distance_upper
 from ..core.knn import sample_blend_closest_points
 from ..ops.knn import knn_blend_blocked
+
+# sdf of masked points (anisdf_pdf_network.py:218-219), and NeuS's fill
+# of the non-survivors in a ray's CDF (sdf_utils.py:40-61)
+SDF_FILL = 10.0
 
 
 def keep_mask_with_argmin(norm_vals, threshold):
@@ -26,6 +33,56 @@ def keep_mask_with_argmin(norm_vals, threshold):
     if mask.numel():
         mask[torch.argmin(norm_vals)] = True
     return mask
+
+
+def compact_indices(keep):
+    """The exact, stable compaction of a keep mask (N,): the indices of
+    its True entries, ascending (JAX `compact_payload` without a
+    capacity, so without dead slots or overflow)."""
+    return torch.nonzero(keep).squeeze(1)
+
+
+def scatter_compacted(rows, sidx, n_rays: int, n_samples: int,
+                      fill: float = 0.0):
+    """Survivors' rows (K, ...) at their flat sample indices sidx (K,)
+    laid out over the dense (R, S, ...) grid, `fill` at every other
+    sample: the raw (K, 4) with fill 0 (JAX `scatter_compacted_raw`),
+    the sdf (K,) with SDF_FILL (JAX pdf.py:619-621). Out of place, so it
+    stays on the graph, and its gradient, a gather, stays differentiable
+    under create_graph."""
+    out = rows.new_full((n_rays * n_samples, *rows.shape[1:]), fill)
+    return out.index_put((sidx,), rows).reshape(n_rays, n_samples,
+                                                 *rows.shape[1:])
+
+
+class TrainRows:
+    """Where a train forward's rows lie among the step's R*S sampled
+    points (flat index r * S + s). On the dense masked path
+    (`train_keep_frac` 0) a row is every point and `mask` is the filter;
+    on the compacted path a row is an exact survivor, at its ascending
+    flat index in `sidx`, and `mask` is all True. Either way the losses'
+    point terms are masked means over `mask`, so they agree. `index`
+    selects the rows from a flat per-point tensor."""
+
+    def __init__(self, mask, n_rays: int, n_samples: int, sidx=None):
+        self.mask, self.sidx = mask, sidx
+        self.index = slice(None) if sidx is None else sidx
+        self.n_rays, self.n_samples = n_rays, n_samples
+
+    @classmethod
+    def compacted(cls, sidx, n_rays: int, n_samples: int):
+        return cls(torch.ones_like(sidx, dtype=torch.bool), n_rays,
+                   n_samples, sidx)
+
+    def dense(self, x, fill: float = 0.0):
+        """Per-row x (rows, ...) -> (R, S, ...): `fill` off the mask
+        (dense) or off the survivors (compacted)."""
+        if self.sidx is not None:
+            return scatter_compacted(x, self.sidx, self.n_rays,
+                                     self.n_samples, fill)
+        m = self.mask.reshape(-1, *[1] * (x.dim() - 1))
+        return torch.where(m, x, fill).reshape(self.n_rays, self.n_samples,
+                                               *x.shape[1:])
 
 
 def consistency_select(sigma, keep, train_th: float):

@@ -1,13 +1,14 @@
 """The displacement-field (PDF) families: NeRF-PDF, SDF-PDF and
-NeuS-PDF, their eval paths and their dense train paths.
+NeuS-PDF, their eval paths and their train paths, dense or compacted.
 
 JAX counterpart: animatable_nerf_tpu/models/pdf.py (`_PDFBase._warp`
 :103, `_filter` :131, `_compact_inputs` :138 conservative branch,
 `_eval_compacted` :282; `NeRFPDF` :353 with its `_eval_head` :379 and
-the dense train branch of `__call__` :447-468; `SDFPDF` :470 with
-`_sdf_and_grad` :492, `_observed_grad` :509, `_eval_head` :542 and the
-dense train branch of `__call__` :658-700; `NeuSPDF` :701 with
-`_eval_compacted_neus` :718 and the dense train branch of `__call__`
+the train branches of `__call__` :401-468; `SDFPDF` :470 with
+`_sdf_and_grad` :492, `_observed_grad` :509, `_eval_head` :542,
+`_train_compacted` :552 and the dense train branch of `__call__`
+:658-700; `NeuSPDF` :701 with `_eval_compacted_neus` :718,
+`_train_compacted_neus` :867 and the dense train branch of `__call__`
 :953-990; the mesh sweeps' fields, `density` :370-377 with
 aligned.py:147-153, `canonical_sdf` and `canonical_resd` :519-533;
 reference aligned_aninerf_pdf_network.py, anisdf_pdf_network.py,
@@ -51,21 +52,27 @@ pdf.py:851-865; tiles hold whole rays). A survivor outside the box
 keeps its true sdf in its neighbours' CDF and loses only its own alpha
 and rgb.
 
-The train path is JAX's default dense masked one (`train_keep_frac` 0),
-shared by the three families up to the canonical points
-(`_PDFBase._dense_warp`, on `KNNFamily._dense_filter`, which the aligned
-families share too): every sampled point is filtered by one K2
+The train path is shared by the three families up to the canonical
+points (`_PDFBase._train_warp`, on `KNNFamily._train_filter`, which the
+aligned families share too). By default (`train_keep_frac` 0) it is
+JAX's dense masked one: every sampled point is filtered by one K2
 launch (argmin forced over the whole step), masked points are moved
 onto the first posed vertex, and the displacement field (K1) runs on
-all of them. Then each family's `train_forward` adds its head on every
-point: NeRF-PDF's softplus NeRF with alpha over the real (perturbed)
-sample spacing; the SDF families (`_SDFFamily.train_forward`) the SDF
-network with its normals kept on the graph, the color network, the
-family's opacity (VolSDF per point; NeuS on the step's own (R, S) grid
-of sdf, +10 on masked points) and the observed-space eikonal term,
-which differentiates sdf(x + resd(x)) with respect to x with a graph,
-so the loss reaches the displacement field through K1's gradient of a
-gradient (ops/skip_mlp.py).
+all of them. With `train_keep_frac` > 0 it is JAX's compacted one
+(pdf.py:401-445, :552-633, :867-933): pass 1 on the frame's distance
+grid (K3 once a train frame, built by the trainer), K2 on its
+candidates, the exact filter, and everything after it on the exact
+survivors alone; JAX's capacities, overflow and stage-2 re-compaction
+do not exist here. Then each family's `train_forward` adds its head on
+the rows (every point, or the survivors): NeRF-PDF's softplus NeRF with
+alpha over the real (perturbed) sample spacing; the SDF families
+(`_SDFFamily.train_forward`) the SDF network with its normals kept on
+the graph, the color network, the family's opacity (VolSDF per point;
+NeuS on the step's (R, S) grid of sdf, +10 off the rows) and the
+observed-space eikonal term, which differentiates sdf(x + resd(x))
+with respect to x with a graph, so the loss reaches the displacement
+field through K1's gradient of a gradient (ops/skip_mlp.py). The
+survivors' gather and scatters stay on that graph.
 """
 
 from __future__ import annotations
@@ -91,6 +98,9 @@ from ..fields.fields import (
 )
 from ..ops.knn import min_dist
 from .common import (
+    SDF_FILL,
+    TrainRows,
+    compact_indices,
     grid_pdist_keep,
     inside_bounds,
     keep_mask_with_argmin,
@@ -104,9 +114,6 @@ TBOUNDS_PAD = 0.05  # canonical bbox growth (JAX pdf.py:344)
 # |sdf| below which a point enters the observed-space eikonal term
 # (JAX pdf.py:692-694; reference anisdf_pdf_network.py:194-199)
 OBSERVED_GRAD_BAND = 0.02
-# sdf of masked points (anisdf_pdf_network.py:218-219), and NeuS's fill
-# of the non-survivors in a ray's CDF (sdf_utils.py:40-61)
-SDF_FILL = 10.0
 
 
 class Canonical(nn.Module):
@@ -136,10 +143,13 @@ class KNNFamily:
     # the per-frame tensors the engine moves to the device
     frame_keys = ("A", "big_A", "poses", "weights", "pvertices", "tbounds",
                   "R", "Th")
-    # training reads the same frame tensors (no distance grid: the dense
-    # path filters every point with K2)
+    # training reads the same frame tensors; the trainer adds the
+    # distance grid for the compacted path (`train_keep_frac` > 0)
     train_frame_keys = frame_keys
     norm_th = NORM_TH
+    # > 0: the train forward runs on the exact survivors alone
+    # (`_train_filter`); the engine sets it from the config
+    train_keep_frac = 0.0
     # whether the multi-view carve acts after the head (zeroing rgb and
     # alpha, the survivor kept in the head's inputs) rather than in the
     # filter: NeuS-PDF's, whose alpha reads its ray neighbours' sdf
@@ -189,6 +199,38 @@ class KNNFamily:
         pose_pts = substitute_masked(pose_pts, pind, safe)
         pbw = torch.where(pind[:, None], pbw[:-1], pbw[-1])
         return pind, pose_pts, pose_dirs, pbw, vd
+
+    def _train_filter(self, wpts, viewdir, z_vals, frame):
+        """The train forward's filter: (TrainRows, the rows' posed points,
+        their posed view directions, KNN prior pbw (rows, 24), world
+        view directions). With `train_keep_frac` 0 every point is a row
+        (`_dense_filter`). Otherwise the rows are the exact survivors
+        (JAX pdf.py:138-210, aligned.py:324-350): with the frame's
+        distance grid, pass 1 on it (`grid_pdist_keep`, its bound's
+        argmin forced), then K2 on the candidates, whose exact filter
+        forces its argmin over them; without the grid, K2 on every point
+        gives the filter, its argmin forced over the step, as on the
+        dense path. JAX's capacities, its stage-2 re-compaction
+        (`_train_stage2`) and its dead slots parked on bone 0 have no
+        counterpart: the compaction is exact."""
+        if self.train_keep_frac <= 0:
+            pind, *parts = self._dense_filter(wpts, viewdir, z_vals, frame)
+            return (TrainRows(pind, *z_vals.shape), *parts)
+        n_rays, n_samples = z_vals.shape
+        pose_pts = world_points_to_pose_points(
+            wpts.reshape(-1, 3), frame["R"], frame["Th"])
+        cand = None
+        if "pdist_packed" in frame:
+            cand = compact_indices(grid_pdist_keep(pose_pts, frame,
+                                                   self.norm_th))
+            pose_pts = pose_pts[cand]
+        pbw, pnorm = sample_blend_closest_points(
+            pose_pts, frame["pvertices"], frame["weights"])
+        sel = compact_indices(keep_mask_with_argmin(pnorm[:, 0], self.norm_th))
+        sidx = sel if cand is None else cand[sel]
+        vd = viewdir[sidx // n_samples]
+        return (TrainRows.compacted(sidx, n_rays, n_samples), pose_pts[sel],
+                world_dirs_to_pose_dirs(vd, frame["R"]), pbw[sel], vd)
 
     def _pass1_keep(self, pose_pts, frame):
         """Pass 1's mask over the tile's posed points (N, 3): from the
@@ -303,15 +345,16 @@ class _PDFBase(KNNFamily, ResidualField):
         tpose = init_bigpose + self.residual(init_bigpose, frame["poses"])
         return tpose, tpose_dirs
 
-    def _dense_warp(self, wpts, viewdir, z_vals, frame):
-        """The families' shared part of the dense masked train forward
-        (JAX pdf.py:447-454, :658-664, :953-958): wpts (R, S, 3),
-        viewdir (R, 3), z_vals (R, S) -> per point (N = R*S rows) the
-        filter mask pind, init_bigpose, the displacement resd, the
-        canonical points tpose = init_bigpose + resd, the head's view
-        directions and the canonical box mask `inside`: `_dense_filter`,
-        then the warp (:103-129), its parts kept for the loss."""
-        pind, pose_pts, pose_dirs, pbw, vd = self._dense_filter(
+    def _train_warp(self, wpts, viewdir, z_vals, frame):
+        """The families' shared part of the train forward (JAX
+        pdf.py:447-454, :658-664, :953-958 dense; :401-421, :571-594,
+        :876-900 compacted): wpts (R, S, 3), viewdir (R, 3), z_vals
+        (R, S) -> the TrainRows of `_train_filter`, and per row
+        init_bigpose, the displacement resd, the canonical points tpose
+        = init_bigpose + resd, the head's view directions and the
+        canonical box mask `inside`: the warp (:103-129), its parts kept
+        for the loss."""
+        rows, pose_pts, pose_dirs, pbw, vd = self._train_filter(
             wpts, viewdir, z_vals, frame)
         init_bigpose, tpose_dirs = self._to_bigpose(pose_pts, pose_dirs, pbw,
                                                     frame)
@@ -319,7 +362,7 @@ class _PDFBase(KNNFamily, ResidualField):
         tpose = init_bigpose + resd
         dirs = tpose_dirs if self.tpose_viewdir else vd
         inside = inside_bounds(tpose, frame["tbounds"], pad=TBOUNDS_PAD)
-        return pind, init_bigpose, resd, tpose, dirs, inside
+        return rows, init_bigpose, resd, tpose, dirs, inside
 
 
 class NeRFHead:
@@ -352,19 +395,19 @@ class NeRFPDF(NeRFHead, _PDFBase):
     reference aligned_aninerf_pdf_network.py), with `NeRFHead`."""
 
     def train_forward(self, wpts, viewdir, z_vals, frame):
-        """Dense masked train forward (JAX pdf.py:447-468): wpts (R, S,
-        3), viewdir (R, 3), z_vals (R, S) -> raw (R, S, 4), rgb and the
-        alpha over the sample spacing (`_eval_head` on every point)
-        zeroed outside the filter and the box, and per point resd and
-        its mask; the loss is then the offset and the image terms."""
-        pind, _, resd, tpose, dirs, inside = self._dense_warp(
+        """Train forward (JAX pdf.py:447-468 dense, :401-445 compacted):
+        wpts (R, S, 3), viewdir (R, 3), z_vals (R, S) -> raw (R, S, 4),
+        rgb and the alpha over the sample spacing (`_eval_head` on
+        every row) zeroed outside the box and off the rows (the filter,
+        or the survivors), and per row resd and its mask; the loss is
+        then the offset and the image terms."""
+        rows, _, resd, tpose, dirs, inside = self._train_warp(
             wpts, viewdir, z_vals, frame)
         rgb, alpha = self._eval_head(tpose, dirs, int(frame["latent_index"]),
-                                     slice(None), z_vals)
+                                     rows.index, z_vals)
         raw = torch.cat([rgb, alpha[:, None]], dim=-1)
-        raw = torch.where((pind & inside)[:, None], raw, 0.0)
-        return {"raw": raw.reshape(*z_vals.shape, 4), "resd": resd,
-                "resd_mask": pind}
+        return {"raw": rows.dense(torch.where(inside[:, None], raw, 0.0)),
+                "resd": resd, "resd_mask": rows.mask}
 
 
 class _SDFFamily(_PDFBase):
@@ -430,29 +473,29 @@ class _SDFFamily(_PDFBase):
         raise NotImplementedError
 
     def train_forward(self, wpts, viewdir, z_vals, frame):
-        """Dense masked train forward (JAX pdf.py:658-700, :953-990):
-        wpts (R, S, 3), viewdir (R, 3), z_vals (R, S) -> raw (R, S, 4)
-        zeroed outside the filter and the box, sdf (R, S) with SDF_FILL
-        on masked points, and per point (R*S rows) resd and its mask,
-        the canonical normals `gradients` and their mask, and the
-        observed-space normals `observed_gradients` with their mask
-        (filtered points whose |sdf| < OBSERVED_GRAD_BAND)."""
-        n_rays, n_samples = z_vals.shape
-        pind, init_bigpose, resd, tpose, dirs, inside = self._dense_warp(
+        """Train forward (JAX pdf.py:658-700, :953-990 dense; :552-633,
+        :867-933 compacted): wpts (R, S, 3), viewdir (R, 3), z_vals
+        (R, S) -> raw (R, S, 4) zeroed outside the box and off the rows,
+        sdf (R, S) with SDF_FILL off the rows, and per row resd and its
+        mask, the canonical normals `gradients` and their mask, and the
+        observed-space normals `observed_gradients` with their mask (rows
+        whose |sdf| < OBSERVED_GRAD_BAND). The opacity reads the (R, S)
+        sdf grid, so NeuS's CDF sees the dense path's fill at every
+        sample off the rows."""
+        rows, init_bigpose, resd, tpose, dirs, inside = self._train_warp(
             wpts, viewdir, z_vals, frame)
         sdf, feat, gradients = self._sdf_and_grad(tpose, create_graph=True)
         sdf = sdf[:, 0]
-        sdf_grid = torch.where(pind, sdf, SDF_FILL).reshape(n_rays, n_samples)
-        alpha = self._train_alpha(sdf_grid).reshape(-1)
+        sdf_grid = rows.dense(sdf, SDF_FILL)
+        alpha = self._train_alpha(sdf_grid).reshape(-1)[rows.index]
         rgb = self.tpose_human.color_network(tpose, gradients, dirs, feat,
                                              int(frame["latent_index"]))
         raw = torch.cat([rgb, alpha[:, None]], dim=-1)
-        raw = torch.where((pind & inside)[:, None], raw, 0.0)
-        og_mask = pind & (torch.abs(sdf.detach()) < OBSERVED_GRAD_BAND)
+        og_mask = rows.mask & (torch.abs(sdf.detach()) < OBSERVED_GRAD_BAND)
         return {
-            "raw": raw.reshape(n_rays, n_samples, 4), "sdf": sdf_grid,
-            "resd": resd, "resd_mask": pind,
-            "gradients": gradients, "grad_mask": pind,
+            "raw": rows.dense(torch.where(inside[:, None], raw, 0.0)),
+            "sdf": sdf_grid, "resd": resd, "resd_mask": rows.mask,
+            "gradients": gradients, "grad_mask": rows.mask,
             "observed_gradients": self._observed_grad(init_bigpose, frame),
             "observed_grad_mask": og_mask,
         }

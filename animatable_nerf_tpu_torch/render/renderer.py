@@ -110,7 +110,8 @@ def render_rays_train(model, rays: dict, frame: dict,
                       generator: torch.Generator | None = None):
     """Render one training batch (JAX render_rays, train branch
     :159-230 with :282-305): z values jittered by `generator` when
-    `settings.perturb`, the model's dense train forward, `raw2outputs`
+    `settings.perturb`, the model's train forward (dense, or compacted
+    to the exact survivors with `train_keep_frac` > 0), `raw2outputs`
     with `white_bkgd`, and the maps zeroed on pad rays (`mask`). Returns
     the model's dict (AniNeRF: raw, pbw, tbw, bw_mask; NeRF-PDF: raw,
     resd, resd_mask; SDF-PDF and NeuS-PDF: raw, sdf, resd, gradients,

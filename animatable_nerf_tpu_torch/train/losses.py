@@ -19,7 +19,8 @@ from ..core.numerics import safe_norm
 
 # what the ported render returns beside the loss inputs; any other key
 # belongs to a loss term of a family or an option not ported yet (JAX's
-# train-time compaction reports compact_overflow*)
+# train-time compaction reports compact_overflow*, which the port's exact
+# compaction has no counterpart for)
 _RENDER_KEYS = frozenset(("raw", "rgb_map", "acc_map", "depth_map",
                           "weights", "z_vals", "sdf"))
 _LOSS_KEYS = frozenset((
@@ -79,8 +80,10 @@ def compute_losses(ret: dict, batch: dict, iter_step: int = 0,
     alpha from `sdf_mask_alpha(iter_step, mask_alpha_max)`; and the
     image MSE over the rays inside the box (`mask_at_box`) and not
     padding (`mask`). `iter_step` counts the frames trained on before
-    this step. Raises on any output of a loss family or option that is
-    not ported."""
+    this step. Every point term is a masked mean, so the compacted train
+    forward's rows (the exact survivors, mask all True) give the dense
+    path's value. Raises on any output of a loss family or option that
+    is not ported."""
     unknown = set(ret) - _RENDER_KEYS - _LOSS_KEYS
     if unknown:
         raise NotImplementedError(

@@ -12,12 +12,18 @@ NeuS-PDF) or an aligned family (LBW, PBW, SMPL, LBWPDF); its
 `train_frame_keys` name the frame tensors the trainer moves to the
 device. The optimizer takes the parameters that require a
 gradient; stage 2 (train/animation.py `AnimationTrainer`) freezes all
-but the novel-pose field before it is made. JAX's fused multi-step dispatch
-(`steps_per_dispatch`), packed stats, device frame store and shard_map
-data parallelism serve its TPU and its remote relay; the port has none
-of them and raises on a config that asks for more than one step a
-dispatch, more than one frame a step, or train-time compaction
-(`train_keep_frac`).
+but the novel-pose field before it is made. With `train_keep_frac` > 0
+the model's train forward runs on each step's exact survivors alone,
+and a KNN family's frame carries its nearest-vertex distance grid at
+`knn_grid_res` (64 by default on this path, JAX engine.py:1265-1279),
+built by kernel K3 once a frame uploaded. JAX builds that grid only into
+its device frame store (`frame_store_mb` > 0), which has no counterpart
+here; the loss is the same with or without it. JAX's fused multi-step
+dispatch (`steps_per_dispatch`), packed stats, device frame store,
+compaction capacities with their overflow stats and fallback, and
+shard_map data parallelism serve its TPU and its remote relay; the port
+has none of them and raises on a config that asks for more than one
+step a dispatch or more than one frame a step.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from ..ops.knn import build_pdist_payload
 from ..render.renderer import RenderSettings, render_rays_train
 from .losses import compute_losses
 from .optim import CLIP_VALUE, make_optimizer, make_schedule
@@ -43,6 +50,8 @@ FRAME_KEYS = (
 # device copies of recent frames the trainer keeps (the dataset keeps
 # as many host copies)
 _FRAME_CACHE = 8
+# the compacted path's distance grid (JAX engine.py:1272; eval's is 96)
+TRAIN_GRID_RES = 64
 
 
 def collate_rays(item: dict, n_rays: int) -> dict:
@@ -92,9 +101,6 @@ def check_train_config(cfg):
     if int(cfg.train.get("steps_per_dispatch", 1) or 1) != 1:
         raise NotImplementedError("steps_per_dispatch > 1 is a JAX dispatch "
                                   "mechanism with no counterpart in the port")
-    if float(cfg.get("train_keep_frac", 0.0)) > 0:
-        raise NotImplementedError("train-time compaction (train_keep_frac) is "
-                                  "not ported; the port trains the dense path")
 
 
 class Trainer:
@@ -119,10 +125,19 @@ class Trainer:
         # the jitter of the z values; seeded by the caller
         self.generator = torch.Generator(device=self.device)
         self._frames = OrderedDict()
+        # the compacted path's per-frame distance grid (a KNN family's pass
+        # 1); none with knn_grid_res <= 1, where K2 filters every point
+        self.pdist_res = 0
+        if model.knn_pass1 and getattr(model, "train_keep_frac", 0.0) > 0:
+            res = int(cfg.get("knn_grid_res", TRAIN_GRID_RES))
+            self.pdist_res = res if res > 1 else 0
 
     def _frame(self, batch) -> dict:
         """The frame's tensors on the device, and its latent indices,
-        kept for the last _FRAME_CACHE frames uploaded."""
+        kept for the last _FRAME_CACHE frames uploaded; on the compacted
+        path of a KNN family also its packed distance grid, margin and
+        bounds (`build_pdist_payload`, K3 on the card), built once when
+        the frame is uploaded (JAX trainer.py:190-200)."""
         key = int(batch["frame_index"])
         frame = self._frames.get(key)
         if frame is None:
@@ -131,6 +146,11 @@ class Trainer:
                      for k in self.model.train_frame_keys}
             for k in ("latent_index", "bw_latent_index"):
                 frame[k] = int(batch[k])
+            if self.pdist_res:
+                packed, margin, bounds = build_pdist_payload(
+                    frame["pvertices"], res=self.pdist_res)
+                frame.update(pdist_packed=packed, pdist_margin=margin,
+                             pdist_bounds=bounds)
             self._frames[key] = frame
             if len(self._frames) > _FRAME_CACHE:
                 self._frames.popitem(last=False)

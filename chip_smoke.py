@@ -184,6 +184,22 @@ Phases, one JSON line each:
      steps at full width (s per frame and step, device ms, idle share,
      peak memory, top device ops, NHR's furthest-point sampling), NT's
      frame held to the CPU's, NHR's checked finite and in range;
+ 18. train-time survivor compaction (`train_keep_frac` 0.9): for each of
+     the eight families at its synthetic config (512 rays x 64 samples,
+     tracked or composed weights), the dense step and the compacted step
+     on the card from the same weights, the loss and stats within
+     TRAIN_LOSS_RTOL (LBWPDF: ALIGNED_LOSS_RTOL) and each gradient leaf
+     within TRAIN_GRAD_REL of each other; the compacted step's launches
+     (K3 once on the frame's first step, for its 64^3 distance grid, and
+     0 on the second; K1 and K2 as often as the dense step's), pass 1's
+     candidates and the exact survivors, K2's rows (the candidates) and
+     K1's (the survivors); the compacted step on the card against the
+     CPU's (64 rays, a 16^3 grid); both steps timed (the median wall of
+     10 steps each, in turns; device ms, idle share, K1, K2, K3 ms) and
+     the 64^3 grid built on 10 fresh vertex copies; then
+     50 compacted steps of SDF-PDF and of AniNeRF, K3 once a frame, each
+     evaluate held to the JAX CPU run of the same steps
+     (JAX_PSNR_TRAIN_COMPACT);
 then the kernel table line, the script's seconds, the card line and
 {"ok": true, ...} last. Each phase's line carries its wall `seconds`.
 Kernel launch counts are set to 0 just before each path and read just
@@ -3945,6 +3961,312 @@ def phase_baselines(k1, knn):
     return paths
 
 
+# Phase 18: train-time survivor compaction (`train_keep_frac` > 0). Per-view
+# PSNR (frames 0-3, view 3) of the JAX package after one epoch of 50
+# compacted steps from the tracked weights with a fresh Adam, perturb 0
+# and the ray draw seeded, computed on the CPU with (<f>, <cfg>, <src>:
+# aninerf, configs/synthetic.yaml, synthetic; then sdf,
+# configs/synthetic_sdf_pdf.yaml, synthetic_sdf_pdf):
+#   python -c "from animatable_nerf_tpu_torch.train.checkpoints import write_fresh_start as w; w('data/trained_model/deform/<src>/latest.flax', 'data/trained_model/deform/train50_<f>_kf_jax')"
+#   JAX_PLATFORMS=cpu python train_net.py --cfg_file <cfg> exp_name train50_<f>_kf_jax train.epoch 1 perturb 0 fix_random True train.num_workers 2 resume True train_keep_frac 0.9
+#   JAX_PLATFORMS=cpu python run.py --type evaluate --cfg_file <cfg> exp_name train50_<f>_kf_jax
+#   python -c "import numpy as np; print(np.load('data/result/deform/train50_<f>_kf_jax/metrics.npy', allow_pickle=True).item()['psnr'])"
+# JAX's capacities at 0.9 held every step's survivors (its
+# compact_overflow stats were 0 on all 50 steps of both runs); SDF-PDF's
+# run read the 64^3 distance grid of its frame store.
+JAX_PSNR_TRAIN_COMPACT = {
+    "aninerf": [12.317907193214774, 13.114527366629893, 13.21228437992665,
+                14.903743959903998],
+    "sdf_pdf": [21.103187352721545, 22.830978406957843, 24.091206746979264,
+                24.91536959068873],
+}
+TRAIN_KEEP_FRAC = 0.9
+COMPACT_FAMILIES = {  # family: (config, the kernels' launches a step)
+    "aninerf": ("configs/synthetic.yaml", {"skip_mlp": 3}),
+    "nerf_pdf": ("configs/synthetic_nerf_pdf.yaml",
+                 {"skip_mlp": 1, "knn_blend": 1}),
+    "sdf_pdf": (TRAIN_SDF_CFG, {"skip_mlp": 2, "knn_blend": 1}),
+    "neus_pdf": ("configs/synthetic_neus_pdf.yaml",
+                 {"skip_mlp": 2, "knn_blend": 1}),
+    **{f"aligned_{f}": (f"configs/synthetic_aligned_{f}.yaml",
+                        ALIGNED_PER_STEP[f]) for f in ALIGNED},
+}
+# the compacted step on the card against the CPU's: the item's first 64
+# rays (4,096 points) and a 16^3 grid, since the CPU's plain K3 takes
+# some 20 s for the 64^3 grid of the card's steps
+COMPACT_CPU_RAYS = 64
+COMPACT_CPU_GRID = 16
+# held there by the whole gradient (the aligned families as in phase 13).
+# NeuS-PDF's displacement field at that size: its observed-space normal
+# jumps where a unit lies at its relu kink, which K1's 3xTF32 rounding
+# can cross (tests/test_torch_train_pdf_families.py KINK_BAND); with
+# 4,096 points such a point moves `resd_linears.6.weight` by 1.5e-2 of
+# its largest entry on an H100 (NVIDIA H100 80GB HBM3, 700 W; the whole
+# gradient 3.9e-4 of its L2 norm), the dense step at the same size by
+# the same 1.5e-2. That dense step runs beside it as the control.
+COMPACT_WHOLE_GRADIENT = ("neus_pdf",)
+COMPACT_PROFILE_STEPS = 3
+COMPACT_WALL_STEPS = 10
+COMPACT_GRID_BUILDS = 10
+
+
+class recorded_rows:
+    """Within the block, the rows of the train path's compactions (pass
+    1's candidates, then the exact survivors), K2's queries (the filter,
+    and the aligned families' canonical prior) and K1's rows, call by
+    call."""
+
+    def __enter__(self):
+        from animatable_nerf_tpu_torch.fields import mlp
+        from animatable_nerf_tpu_torch.models import aligned, aninerf, pdf
+
+        self.compactions, self.k2, self.k1 = [], [], []
+        self.patched = []
+
+        def patch(module, name, record):
+            real = getattr(module, name)
+
+            def recording(x, *args, **kwargs):
+                out = real(x, *args, **kwargs)
+                record.append(int((out if name == "compact_indices"
+                                   else x).shape[0]))
+                return out
+
+            self.patched.append((module, name, real))
+            setattr(module, name, recording)
+
+        for module in (pdf, aninerf):
+            patch(module, "compact_indices", self.compactions)
+        for module in (pdf, aligned):
+            patch(module, "sample_blend_closest_points", self.k2)
+        patch(mlp, "skip_mlp", self.k1)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, real in self.patched:
+            setattr(module, name, real)
+
+
+def step_walls(trainers, batch, n=COMPACT_WALL_STEPS):
+    """The median wall (host clock around a step that ends on the host)
+    of `n` single train steps of each trainer, taken in turns after one
+    warm-up step each: ms by trainer name."""
+    import torch
+
+    walls = {name: [] for name in trainers}
+    for trainer in trainers.values():
+        trainer.train_step(batch)
+    for _ in range(n):
+        for name, trainer in trainers.items():
+            torch.cuda.synchronize()
+            t0 = time.time()
+            trainer.train_step(batch)  # floats: waits for the device
+            walls[name].append((time.time() - t0) * 1e3)
+    return {name: float(np.median(w)) for name, w in walls.items()}
+
+
+def device_steps(trainer, batch, wall_ms, n=COMPACT_PROFILE_STEPS):
+    """A device-only profile of `n` train steps: device ms a step, its
+    idle share against the step's median wall `wall_ms`, K1's, K2's and
+    K3's ms a step, the top kernels."""
+    prof = device_breakdown(lambda: [trainer.train_step(batch)
+                                     for _ in range(n)], top=5, host=False)
+    out = {"wall_ms": wall_ms, "device_ms": None, "idle_share": None}
+    if prof["kernels"] is not None:
+        own = prof["own_kernels_ms"]
+        out.update(device_ms=prof["device_ms"] / n,
+                   idle_share=max(0.0, 1.0 - prof["device_ms"] / n / wall_ms),
+                   k1_ms=own["skip_mlp_kernel"] / n,
+                   k2_ms=own["knn_blend_kernel"] / n,
+                   k3_ms=own["min_dist_kernel"] / n,
+                   top=[dict(k, ms=k["ms"] / n) for k in prof["kernels"]])
+    return out
+
+
+def grid_builds(verts, n=COMPACT_GRID_BUILDS):
+    """The train frame's 64^3 grid built on `n` fresh copies of its
+    vertices (each builds its run layout too, as a frame's first step
+    does): the whole build's ms by CUDA events (the copy included), and
+    by the profiler its device ms and K3's."""
+    from animatable_nerf_tpu_torch.ops.knn import build_pdist_payload
+    from animatable_nerf_tpu_torch.train.trainer import TRAIN_GRID_RES
+
+    fresh = [verts.clone() for _ in range(n)]
+    prof = device_breakdown(lambda: [build_pdist_payload(
+        v, res=TRAIN_GRID_RES) for v in fresh], top=3, host=False)
+    return {"res": TRAIN_GRID_RES, "builds": n,
+            "call_fresh_ms": cuda_ms(lambda: build_pdist_payload(
+                verts.clone(), res=TRAIN_GRID_RES)),
+            "device_ms": None if prof["kernels"] is None
+            else prof["device_ms"] / n,
+            "k3_ms": None if prof["kernels"] is None
+            else prof["own_kernels_ms"]["min_dist_kernel"] / n}
+
+
+def phase_compaction_step(family, k1, knn):
+    """One family's compacted step at its synthetic config (512 rays x 64
+    samples, the tracked or composed weights, item 0 seeded): on the
+    card the dense step and the compacted one from the same weights,
+    their loss, stats and gradients held to each other, the launches of
+    the compacted step's first (K3 once: the frame's 64^3 grid) and
+    second (K3 none) steps, pass 1's candidates, the survivors, and K2's
+    and K1's rows; the compacted step on the card against the CPU
+    (`phase_train_step_vs_cpu`, COMPACT_CPU_RAYS rays); and both steps
+    timed and profiled. Returns (the compacted step's first launches,
+    the row counts)."""
+    import torch
+
+    from animatable_nerf_tpu_torch.compat.compose import compose_aligned
+    from animatable_nerf_tpu_torch.compat.flax_msgpack import read_checkpoint
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.engine import make_dataset, make_model
+    from animatable_nerf_tpu_torch.train.checkpoints import param_codec
+    from animatable_nerf_tpu_torch.train.trainer import (
+        Trainer, collate_rays, stack_batch)
+
+    cfg_file, per_step = COMPACT_FAMILIES[family]
+    aligned = family.startswith("aligned_")
+    keep = ["perturb", "0", "train_keep_frac", str(TRAIN_KEEP_FRAC)]
+    cfgs = {"dense": load_config(cfg_file, keep[:2]),
+            "compacted": load_config(cfg_file, keep)}
+    params = (compose_aligned(family[len("aligned_"):]) if aligned else
+              read_checkpoint(os.path.join(
+                  "data/trained_model", cfgs["dense"].task,
+                  cfgs["dense"].exp_name, "latest.flax"))["params"])
+    state_dict = param_codec(make_model(cfgs["dense"]))[0](params)
+    ds = make_dataset(cfgs["dense"], "train")
+    ds._rng = np.random.RandomState(0)
+    item = ds[0]
+    n_rays = int(cfgs["dense"].N_rand)
+    batch = stack_batch([collate_rays(item, n_rays)])
+    knn_family = family != "aninerf"
+    first_want = dict(per_step, **({"min_dist": 1} if knn_family else {}))
+
+    steps, trainers = {}, {}
+    for path, cfg in cfgs.items():
+        model = make_model(cfg)
+        model.load_state_dict(state_dict)
+        trainer = trainers[path] = Trainer(cfg, model.to("cuda"), "cuda")
+        runs = []
+        for _ in range(2):  # the frame's first step, then its second
+            reset_counts(k1, knn)
+            with recorded_rows() as rows:
+                out = train_step_grads(trainer, batch)
+            torch.cuda.synchronize()
+            runs.append((out, launch_counts(k1, knn), rows))
+        steps[path] = runs
+    (d_loss, d_stats, d_grads), d_first, _ = steps["dense"][0]
+    (c_loss, c_stats, c_grads), c_first, c_rows = steps["compacted"][0]
+    c_second = steps["compacted"][1][1]
+    rel = {n: (c_grads[n] - g).abs().max().item()
+           / max(g.abs().max().item(), 1e-30) for n, g in d_grads.items()}
+    worst = max(rel, key=rel.get)
+    stats_rel = {k: abs(c_stats[k] / v - 1) if v else abs(c_stats[k])
+                 for k, v in d_stats.items()}
+    survivors = c_rows.compactions[-1]
+    candidates = c_rows.compactions[0] if len(c_rows.compactions) > 1 else None
+    row_counts = {"points": n_rays * int(cfgs["dense"].N_samples),
+                  "pass1_candidates": candidates, "survivors": survivors,
+                  "k2_rows": c_rows.k2, "k1_rows": c_rows.k1,
+                  "dense_k2_rows": steps["dense"][0][2].k2,
+                  "dense_k1_rows": steps["dense"][0][2].k1}
+    row_counts["survivor_share"] = survivors / row_counts["points"]
+
+    # the card's compacted step against the CPU's, at COMPACT_CPU_RAYS
+    small = ["N_rand", str(COMPACT_CPU_RAYS)]
+    cpu_batch = stack_batch([collate_rays(item, COMPACT_CPU_RAYS)])
+    whole = aligned or family in COMPACT_WHOLE_GRADIENT
+    rtol = ALIGNED_LOSS_RTOL.get(family[len("aligned_"):], TRAIN_LOSS_RTOL)
+    phase_train_step_vs_cpu(
+        f"compaction_{family}_step_vs_cpu", load_config(cfg_file, keep + small + [
+            "knn_grid_res", str(COMPACT_CPU_GRID)]), state_dict, cpu_batch,
+        k1, knn, first_want, whole_gradient=whole, loss_rtol=rtol)
+    if family in COMPACT_WHOLE_GRADIENT:
+        phase_train_step_vs_cpu(
+            f"compaction_{family}_dense_control_vs_cpu",
+            load_config(cfg_file, keep[:2] + small), state_dict, cpu_batch,
+            k1, knn, per_step, whole_gradient=True, loss_rtol=rtol)
+
+    # K3 alone: the 64^3 grid on fresh copies of the frame's vertices
+    row_counts["grid_build"] = (grid_builds(trainers["compacted"]._frame(
+        {k: v[0] for k, v in batch.items()})["pvertices"])
+        if knn_family else None)
+    walls = step_walls(trainers, batch)
+    emit({"phase": f"compaction_{family}", "config": cfg_file, "opts": keep,
+          "rays": n_rays, "samples": int(cfgs["dense"].N_samples),
+          "loss_dense": d_loss, "loss_compacted": c_loss,
+          "loss_rel_err": abs(c_loss / d_loss - 1), "stats_rel_err": stats_rel,
+          "grad_max_rel_err": rel[worst], "grad_worst_leaf": worst,
+          "launches": {"dense": d_first, "compacted_first": c_first,
+                       "compacted_second": c_second},
+          **row_counts,
+          **{path: device_steps(trainer, batch, walls[path])
+             for path, trainer in trainers.items()},
+          "tolerance": f"loss and stats rtol {rtol}, each gradient leaf "
+          f"max |d| <= {TRAIN_GRAD_REL} x its max |g| (the dense step on "
+          "the card)"})
+    dense_want = {k: per_step.get(k, 0) for k in d_first}
+    check(d_first == dense_want
+          and c_first == {k: first_want.get(k, 0) for k in c_first}
+          and c_second == dense_want,
+          f"compaction_{family}: launches dense {d_first}, compacted "
+          f"{c_first} then {c_second}")
+    check(len(c_rows.compactions) == (2 if knn_family else 1)
+          and 0 < survivors < row_counts["points"]
+          and (candidates is None or survivors <= candidates)
+          and c_rows.k2[:1] == ([candidates] if knn_family else [])
+          and len(c_rows.k1) == per_step.get("skip_mlp", 0)
+          and all(n == survivors for n in c_rows.k1),
+          f"compaction_{family}: rows {row_counts}")
+    check(all(v <= rtol for v in stats_rel.values()),
+          f"compaction_{family}: stats differ from the dense step: {stats_rel}")
+    check(rel[worst] <= TRAIN_GRAD_REL and all(
+        bool(g.isfinite().all()) for g in c_grads.values()),
+          f"compaction_{family}: gradient {worst} {rel[worst]} of its scale")
+    return c_first, row_counts
+
+
+def phase_compaction(k1, knn):
+    """Phase 18: every family's compacted step (`phase_compaction_step`),
+    then 50 compacted steps of SDF-PDF and of AniNeRF, each evaluate held
+    to the JAX CPU run of the same steps. Returns the launches of each
+    path and the row counts by family."""
+    from animatable_nerf_tpu_torch.engine import make_dataset
+    from animatable_nerf_tpu_torch.train.trainer import _FRAME_CACHE
+
+    t0 = time.time()
+    paths, rows = {}, {}
+    for family in COMPACT_FAMILIES:
+        paths[f"compaction_step_{family}"], rows[family] = (
+            phase_compaction_step(family, k1, knn))
+    for family, jax_psnr in JAX_PSNR_TRAIN_COMPACT.items():
+        cfg_file, per_step = COMPACT_FAMILIES[family]
+        exp = f"chip_smoke_train_compact_{family}"
+        opts = (["exp_name", exp] + TRAIN_OPTS[2:]
+                + ["train_keep_frac", str(TRAIN_KEEP_FRAC)])
+        run = train_and_evaluate(cfg_file, opts, exp, jax_psnr, k1, knn)
+        cfg, trainer, _, launches, _, _, _ = run
+        summary = train_summary(*run, jax_psnr)
+        ds = make_dataset(cfg, "train")
+        # K3 once for each frame the trainer uploads
+        frames = len(ds) // ds.num_cams if family != "aninerf" else 0
+        emit({"phase": f"train_compact_{family}", "config": cfg_file,
+              "opts": opts, **summary,
+              "launches_per_step": {k: v / trainer.step
+                                    for k, v in launches.items()},
+              "grid_builds": launches["min_dist"], "frames": frames})
+        want = {k: per_step.get(k, 0) * summary["steps"] for k in launches}
+        check(frames <= _FRAME_CACHE and launches == dict(want, min_dist=frames),
+              f"train_compact_{family}: launched {launches} over {frames} "
+              "frames")
+        check_train(f"train_compact_{family}", dict(summary, launches={
+            k: v for k, v in launches.items() if k != "min_dist"}), per_step)
+        paths[f"train_compact_{family}"] = launches
+    emit({"phase": "compaction", "phase_seconds": time.time() - t0,
+          "survivor_share": {f: r["survivor_share"] for f, r in rows.items()}})
+    return paths, rows
+
+
 def main():
     import torch
 
@@ -4121,6 +4443,12 @@ def main():
     # the CPU, and 1024x1024 frames and steps; none of K1-K6 runs there
     phase17_paths = phase_baselines(k1, knn)
 
+    # ---- phase 18: train-time survivor compaction (train_keep_frac > 0):
+    # every family's compacted step against its dense step and the CPU,
+    # K3 once a train frame, then 50 compacted steps of SDF-PDF and
+    # AniNeRF held to the JAX package's PSNR
+    phase18_paths, compact_rows = phase_compaction(k1, knn)
+
     # ---- kernel table
     def k1_sum(key):
         return sum(r[key] for r in k1_rows)
@@ -4275,21 +4603,34 @@ def main():
     aligned_launches(k1_entry, "skip_mlp", phase14_paths)
     aligned_launches(k1_entry, "skip_mlp", phase15_paths)
     aligned_launches(k1_entry, "skip_mlp", phase16_paths)
+    aligned_launches(k1_entry, "skip_mlp", phase18_paths)
+    # the compacted train steps' rows (phase 18): each K1 launch on the
+    # exact survivors, K2 on pass 1's candidates (and the aligned
+    # families' canonical prior on the survivors), K3 once a frame
+    compacted_rows = {f: {k: r[k] for k in (
+        "points", "pass1_candidates", "survivors", "survivor_share",
+        "k2_rows", "k1_rows")} for f, r in compact_rows.items()}
+    k1_entry["compacted_train_step_rows"] = compacted_rows
     k1_entry["launches_per_train_step"].update(
         {path: n["skip_mlp"] / 50
          for path, n in (*aligned_paths.items(), *phase14_paths.items())
          if path.startswith("train")})
     k1_entry["launches_full_frame"].update(
         k1_entry.pop("launches_full_frame_by_path"))
+    aligned_launches(k2_entry, "knn_blend", phase18_paths)
+    k2_entry["compacted_train_step_rows"] = compacted_rows
     kernels = [
         k1_entry,
         k2_entry,
-        dict(aligned_launches(aligned_launches(aligned_launches(family_paths(
-            knn_entry(k3_row, 129, sdf_launches, sdf_frame_launches),
-            "min_dist"), "min_dist"), "min_dist", phase14_paths),
-            "min_dist", phase16_paths),
+        dict(aligned_launches(aligned_launches(aligned_launches(
+            aligned_launches(family_paths(
+                knn_entry(k3_row, 129, sdf_launches, sdf_frame_launches),
+                "min_dist"), "min_dist"), "min_dist", phase14_paths),
+            "min_dist", phase16_paths), "min_dist", phase18_paths),
             # without the distance grid: once a tile on the tile's points
-            per_tile_no_grid=k3_tile),
+            per_tile_no_grid=k3_tile,
+            # the compacted train path's 64^3 grid, once a train frame
+            train_grid=compact_rows["sdf_pdf"]["grid_build"]),
         knn_entry(k4_row, 240, blk_launches, blk_frame_launches),
         knn_entry(k5_row, 460, blk_launches, blk_frame_launches, "k5"),
         knn_entry(k6_row, 760, blk_launches, blk_frame_launches),

@@ -15,7 +15,9 @@ multiplied by the positional encoding, as between the JAX and port CPU
 steps, tests/test_torch_train.py, which measured 2.3e-3); the same for
 a train step of SDF-PDF, NeRF-PDF and NeuS-PDF and a stage-2 step of
 AniNeRF (novel pose) and of the four aligned families, and a stage-2
-step of AlignedLBW and AlignedLBWPDF, for the eval items (the
+step of AlignedLBW and AlignedLBWPDF, and for a compacted train step
+(`train_keep_frac` > 0) against the dense step on the card, for the
+eval items (the
 novel-pose item, a distorted camera at ratio 0.5, the aligned
 families' items and novel-pose items: maps within 1e-4; without the
 distance grid, within 1e-5 of the grid render, whose survivors it
@@ -1515,3 +1517,54 @@ def test_cuda_baseline_forward_matches_cpu(cuda_device, family, tmp_path):
         assert tol <= NHR_FWD_CEIL, f"the CPU's ulp control gives {tol}"
     for k, v in cpu.items():
         torch.testing.assert_close(gpu[k], v, rtol=0, atol=tol, msg=k)
+
+
+# per compacted train step (`train_keep_frac` > 0, a 16^3 distance grid)
+# on the card, the frame's first: K1, K2 and K3 launches in the forward
+COMPACT_TRAIN = {"nerf_pdf": (1, 1, 1), "sdf_pdf": (2, 1, 1),
+                 "neus_pdf": (2, 1, 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(COMPACT_TRAIN))
+def test_cuda_compacted_train_step_matches_dense_and_takes_no_plain_version(
+        cuda_device, family, monkeypatch):
+    """A compacted train step on the card (64 rays of 16 samples, the
+    tracked weights): its forward launches K1, K2 and K3 (the frame's
+    grid) COMPACT_TRAIN's times and runs no KNN plain version; the loss
+    and stats within rtol 1e-4, each gradient leaf within 1e-2 of its
+    largest entry, of the dense step on the card."""
+    from animatable_nerf_tpu_torch.config import load_config
+
+    cfg, state, batch = pdf_step_inputs(family=family)
+    b = {k: v[0] for k, v in batch.items()}
+    dense = pdf_trainer(cfg, state, cuda_device)
+    loss, d_stats, _ = dense.loss(b)
+    loss.backward()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("knn_blend_plain", "min_dist_plain", "kth_distance_plain",
+                 "knn_blend_blocked_plain", "knn_blend_celled_plain",
+                 "_select_blend"):
+        monkeypatch.setattr(knn, name, refuse)
+    opts = ["N_rand", "64", "N_samples", "16", "perturb", "0",
+            "train_keep_frac", "0.5", "knn_grid_res", "16"]
+    trainer = pdf_trainer(load_config(f"configs/synthetic_{family}.yaml",
+                                      opts), state, cuda_device)
+    before = (k1.skip_mlp.launches, knn.knn_blend.launches,
+              knn.min_dist.launches)
+    loss, stats, ret = trainer.loss(b)
+    assert (k1.skip_mlp.launches - before[0], knn.knn_blend.launches
+            - before[1], knn.min_dist.launches - before[2]) == COMPACT_TRAIN[family]
+    assert 0 < ret["resd_mask"].numel() < 64 * 16
+    loss.backward()
+    for k, v in d_stats.items():
+        np.testing.assert_allclose(float(stats[k]), float(v), rtol=1e-4,
+                                   err_msg=k)
+    got = dict(trainer.model.named_parameters())
+    for name, p in dense.model.named_parameters():
+        err = (got[name].grad - p.grad).abs().max().item()
+        assert torch.isfinite(got[name].grad).all(), name
+        assert err <= 1e-2 * p.grad.abs().max().item(), (name, err)

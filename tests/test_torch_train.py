@@ -408,7 +408,6 @@ def test_schedules_match_jax(cfgs, scheduler):
 @pytest.mark.parametrize("opts", [["train.optim", "radam"], ["train.optim", "sgd"],
                                   ["train.weight_decay", "0.01"],
                                   ["train.steps_per_dispatch", "4"],
-                                  ["train_keep_frac", "0.25"],
                                   ["train.batch_size", "2"]])
 def test_unported_training_options_raise(params, opts):
     with pytest.raises(NotImplementedError):

@@ -4,7 +4,7 @@ tracked checkpoints of configs/synthetic_nerf_pdf.yaml and
 configs/synthetic_neus_pdf.yaml), at full widths (8x256 displacement
 field, 9-layer NeRF or SDF network) with 64 rays of 16 samples and
 `perturb 0`. Both families train on SDF-PDF's dense path
-(`_PDFBase._dense_warp`), whose K1 and K2 parts, train split and
+(`_PDFBase._train_warp`), whose K1 and K2 parts, train split and
 silhouette tensors tests/test_torch_train_sdf.py holds to JAX.
 
 Tolerances (those of tests/test_torch_train_sdf.py, whose reasons hold
@@ -263,7 +263,7 @@ def near_relu_kink(model, batch, ret):
     z = ret["z_vals"]
     wpts = rays_o[:, None] + z[..., None] * rays_d[:, None]
     with torch.no_grad():
-        _, init_bigpose, _, _, _, _ = model._dense_warp(wpts, rays_d, z, frame)
+        _, init_bigpose, _, _, _, _ = model._train_warp(wpts, rays_d, z, frame)
         pe = positional_encoding(init_bigpose, model.xyz_res)
         h = feat = torch.cat([pe, frame["poses"].expand(len(pe), 72)], dim=-1)
         near = torch.zeros(len(pe), dtype=torch.bool)
@@ -511,12 +511,6 @@ def test_three_steps_match_jax(side):
                                    err_msg=k)
     assert all(np.isfinite(v).all()
                for v in side.port_params(trainer.model).values())
-
-
-def test_train_keep_frac_raises(side):
-    with pytest.raises(NotImplementedError, match="train_keep_frac"):
-        side.port_trainer(load_config(cfg_file(side.family),
-                                      OPTS + ["train_keep_frac", "0.25"]))
 
 
 # --------------------------------------------------- checkpoints, init

@@ -513,12 +513,6 @@ def test_sdf_losses_refuse_compaction_stats(key):
         compute_losses(t_ret, {k: torch.tensor(v) for k, v in batch.items()})
 
 
-def test_train_keep_frac_raises_for_sdf_pdf(params):
-    with pytest.raises(NotImplementedError, match="train_keep_frac"):
-        port_trainer(load_config(CFG, OPTS + ["train_keep_frac", "0.25"]),
-                     params)
-
-
 # ------------------------------------------------------------- steps
 def test_train_step_matches_jax(cfgs, params, datasets, jax_side):
     """One step from the tracked weights and a fresh Adam: loss, stats,
