@@ -1,9 +1,11 @@
-// Host-side marching tetrahedra of the port's mesh extraction, and the
-// z-buffered rasterizer of its mesh previews (--type raster).
+// Host-side marching tetrahedra of the port's mesh extraction, the
+// z-buffered rasterizer of its mesh previews (--type raster) and the
+// occupancy voxelizer of --type light_stage.
 //
-// A copy of `marching_tets`, `mesh_native_free` and `rasterize_mesh` of
-// the JAX package's animatable_nerf_tpu/csrc/mesh_native.cpp:135-278
-// (the port imports nothing of that package). marching_tets: the
+// A copy of `marching_tets`, `mesh_native_free`, `rasterize_mesh` and
+// `voxelize_occupancy` of the JAX package's
+// animatable_nerf_tpu/csrc/mesh_native.cpp:135-297 (the port imports
+// nothing of that package). marching_tets: the
 // isosurface {vol == level} of a
 // (D, H, W) float32 grid, each cube split into 6 tetrahedra around its
 // 0-7 diagonal, edge crossings interpolated in double and deduplicated
@@ -12,7 +14,9 @@
 // sdf_mesh_renderer.py:76). rasterize_mesh: triangles projected by a
 // pinhole camera, each pixel's nearest covering triangle by a z-buffer
 // and its per-vertex attributes interpolated perspective-correctly.
-// Neither is a TPU kernel: they run on the host in both packages, on
+// voxelize_occupancy: each point's cell of a D x H x W grid over a box,
+// its index truncated toward zero (so a point less than a cell below the
+// box lands in cell 0, as in JAX's native path). None is a TPU kernel: they run on the host in both packages, on
 // what the device's sweeps produced.
 //
 // Plain C ABI, bound with ctypes by animatable_nerf_tpu_torch/native.py,
@@ -276,6 +280,26 @@ void rasterize_mesh(const float* verts, int64_t n_verts,
         }
       }
     }
+  }
+}
+
+// Bin a point cloud into an occupancy grid: grid cell is 1 if any point
+// falls inside. bounds = [xmin ymin zmin xmax ymax zmax].
+void voxelize_occupancy(const float* pts, int64_t n, const float* bounds,
+                        int D, int H, int W, uint8_t* grid) {
+  memset(grid, 0, (size_t)D * H * W);
+  const float* mn = bounds;
+  const float* mx = bounds + 3;
+  float sx = D / (mx[0] - mn[0]);
+  float sy = H / (mx[1] - mn[1]);
+  float sz = W / (mx[2] - mn[2]);
+  for (int64_t i = 0; i < n; i++) {
+    float x = (pts[i * 3 + 0] - mn[0]) * sx;
+    float y = (pts[i * 3 + 1] - mn[1]) * sy;
+    float z = (pts[i * 3 + 2] - mn[2]) * sz;
+    int xi = (int)x, yi = (int)y, zi = (int)z;
+    if (xi < 0 || yi < 0 || zi < 0 || xi >= D || yi >= H || zi >= W) continue;
+    grid[(int64_t)xi * H * W + (int64_t)yi * W + zi] = 1;
   }
 }
 

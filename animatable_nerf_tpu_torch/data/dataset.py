@@ -15,11 +15,19 @@ Differences forced by the machines the port runs on, which lack OpenCV:
   * cv2.Rodrigues is core/skeleton.py `rodrigues_np`.
 Per-frame volumes are edge-padded to the dataset-wide max shape, as in
 JAX, so every frame samples identically.
+
+An item is built in two parts (`read`, then `draw`): the loader runs
+`read` on its worker threads in any order and `draw`, the train split's
+ray draw from the dataset's one random state, in item order on one
+thread. So the items are the same at any number of threads, and equal
+to JAX's at one (JAX's workers draw in whatever order they reach the
+random state). The caches that `read` fills are guarded by a lock.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 
 import numpy as np
 
@@ -30,8 +38,9 @@ from .utils import (
     crop_mask_edge,
     erode_mask_edge,
     get_bounds,
+    draw_rays_image,
     pad_volume_to,
-    sample_rays_image,
+    prepare_rays_image,
 )
 
 
@@ -86,9 +95,22 @@ class _BaseDataset:
         self.parents = np.load(os.path.join(self.lbs_root, "parents.npy"))
         self.big_A = big_pose_A(self.joints, self.parents).astype(np.float32)
         self._rng = np.random.RandomState()
+        # guards the per-frame caches that `read` fills from worker threads
+        self._cache_lock = threading.Lock()
 
     def __len__(self):
         return len(self.ims)
+
+    def read(self, index):
+        """The part of item `index` that draws no random numbers; any
+        thread may call it, in any order. By default the whole item."""
+        return self[index]
+
+    def draw(self, index, part):
+        """Item `index` from `read(index)`'s part: the rest of it, which
+        draws from `self._rng`. The loader calls it on one thread, in
+        item order. By default `part` is the item."""
+        return part
 
     # ---------------------------------------------------------- images
     def _imread_rgb(self, path):
@@ -175,37 +197,45 @@ class _BaseDataset:
         """The index of the item's frame files (vertices/params)."""
         return self.frame_index_of(self.ims[index])[1]
 
-    def _image_rays(self, index, wbounds):
-        """The fields every item carries: its pixels, its rays (on the
-        test split all of its camera's rays that hit the frame's world
-        bounds, on the train split N_rand drawn by
-        `sample_rays_image`), its indices."""
+    def _read_image(self, index, wbounds):
+        """The image part of item `index` without its ray draw: the image
+        and masks loaded, the rays prepared (`prepare_rays_image`), the
+        occupancy mask eroded, the indices."""
         img, msk, orig_msk, K, R, T, cam_ind, img_path = self.load_image(index)
         frame_index, _ = self.frame_index_of(img_path)
-        rgb, ray_o, ray_d, near, far, coord, mask_at_box = sample_rays_image(
-            img, msk, K, R, T, wbounds, self.split,
-            mask_bkgd=self.cfg.mask_bkgd, nrays=self.cfg.N_rand,
-            body_sample_ratio=self.cfg.body_sample_ratio,
-            face_sample_ratio=self.cfg.face_sample_ratio, rng=self._rng,
-        )
+        rays = prepare_rays_image(img, msk, K, R, T, wbounds, self.split,
+                                  mask_bkgd=self.cfg.mask_bkgd)
         if self.cfg.erode_edge:
             orig_msk = crop_mask_edge(orig_msk)
         latent_index, bw_latent_index = self.latent_indices(index)
+        return {"rays": rays, "orig_msk": orig_msk, "H": img.shape[0],
+                "W": img.shape[1], "latent_index": latent_index,
+                "bw_latent_index": bw_latent_index,
+                "frame_index": frame_index, "cam_ind": cam_ind}
+
+    def _draw_image(self, part):
+        """The fields every item carries, from `_read_image`'s part: its
+        pixels, its rays (on the test split all of its camera's rays that
+        hit the frame's world bounds, on the train split N_rand drawn
+        from `self._rng`), its indices."""
+        rgb, ray_o, ray_d, near, far, coord, mask_at_box = draw_rays_image(
+            part["rays"], nrays=self.cfg.N_rand,
+            body_sample_ratio=self.cfg.body_sample_ratio,
+            face_sample_ratio=self.cfg.face_sample_ratio, rng=self._rng,
+        )
         return {
             "rgb": rgb,
-            "occupancy": orig_msk[coord[:, 0], coord[:, 1]],
+            "occupancy": part["orig_msk"][coord[:, 0], coord[:, 1]],
             "ray_o": ray_o,
             "ray_d": ray_d,
             "near": near,
             "far": far,
             "mask_at_box": mask_at_box,
-            "H": img.shape[0],
-            "W": img.shape[1],
+            "H": part["H"],
+            "W": part["W"],
             "coord": coord,
-            "latent_index": latent_index,
-            "bw_latent_index": bw_latent_index,
-            "frame_index": frame_index,
-            "cam_ind": cam_ind,
+            **{k: part[k] for k in ("latent_index", "bw_latent_index",
+                                    "frame_index", "cam_ind")},
         }
 
     def _pose_inputs(self, i):
@@ -230,7 +260,21 @@ class _BaseDataset:
         return wxyz, pxyz, A, poses, Rh, Th, R
 
 
-class TPoseDataset(_BaseDataset):
+class _RayItems:
+    """An item in the two parts of the ray datasets: `read` gives the
+    image part (`_read_image`) and the frame's arrays, `draw` adds the
+    rays (`_draw_image`) to them."""
+
+    def draw(self, index, part):
+        item = self._draw_image(part["image"])
+        item.update(part["frame"])
+        return item
+
+    def __getitem__(self, index):
+        return self.draw(index, self.read(index))
+
+
+class TPoseDataset(_RayItems, _BaseDataset):
     """Items of the grid blend-weight dataset (tpose_dataset.py; JAX
     dataset.py:283-325 `__getitem__`)."""
 
@@ -266,24 +310,27 @@ class TPoseDataset(_BaseDataset):
 
     def _frame_inputs(self, i):
         """Per-frame pose data + padded bw grid, cached (all views of a
-        frame share them)."""
-        hit = self._frame_cache.get(i)
+        frame share them). Loader threads may build one frame at once;
+        both build the same arrays, and the cache is changed under the
+        lock."""
+        with self._cache_lock:
+            hit = self._frame_cache.get(i)
         if hit is None:
             wpts, ppts, A, pbw, Rh, Th, Rw = self.prepare_input(i)
             pbounds = get_bounds(ppts, self.cfg.box_padding)
             wbounds = get_bounds(wpts, self.cfg.box_padding)
             pbw, pbounds = pad_volume_to(pbw, pbounds, self.max_pbw_shape)
             hit = (wpts, A, pbw, pbounds, wbounds, Rh, Th, Rw)
-            if len(self._frame_cache) >= 8:
-                self._frame_cache.pop(next(iter(self._frame_cache)))
-            self._frame_cache[i] = hit
+            with self._cache_lock:
+                if i not in self._frame_cache and len(self._frame_cache) >= 8:
+                    self._frame_cache.pop(next(iter(self._frame_cache)))
+                self._frame_cache[i] = hit
         return hit
 
-    def __getitem__(self, index):
+    def read(self, index):
         wpts, A, pbw, pbounds, wbounds, Rh, Th, Rw = self._frame_inputs(
             self.frame_file_index(index))
-        item = self._image_rays(index, wbounds)
-        item.update({
+        return {"image": self._read_image(index, wbounds), "frame": {
             "A": A,
             "big_A": self.big_A,
             "pbw": pbw,
@@ -293,11 +340,10 @@ class TPoseDataset(_BaseDataset):
             "tbounds": self.tbounds,
             "R": Rw,
             "Th": Th,
-        })
-        return item
+        }}
 
 
-class TPosePDFDataset(_BaseDataset):
+class TPosePDFDataset(_RayItems, _BaseDataset):
     """Items of the KNN/displacement dataset (JAX dataset.py:324-456;
     tpose_pdf_dataset.py): raw SMPL blend weights, the frame's posed
     vertices and the canonical bounds from the big-pose vertices
@@ -343,16 +389,16 @@ class TPosePDFDataset(_BaseDataset):
                                           return_joints=True)
         return np.asarray(joints) @ R.T + Th
 
-    def __getitem__(self, index):
+    def read(self, index):
         # JAX dataset.py:357 prepare_input
         wpts, ppts, A, poses, Rh, Th, Rw = self._pose_inputs(
             self.frame_file_index(index))
         wbounds = get_bounds(wpts, self.cfg.box_padding)
-        item = self._image_rays(index, wbounds)
+        image = self._read_image(index, wbounds)
         if self.cfg.test_novel_pose and self.training_joints is not None:
-            item["latent_index"] = self.nearest_training_frame(
+            image["latent_index"] = self.nearest_training_frame(
                 self._posed_joints(poses, Th, Rw))
-        item.update({
+        return {"image": image, "frame": {
             "A": A,
             "big_A": self.big_A,
             "poses": poses.reshape(-1),
@@ -364,5 +410,4 @@ class TPosePDFDataset(_BaseDataset):
             "tbounds": self.tbounds,
             "R": Rw,
             "Th": Th,
-        })
-        return item
+        }}

@@ -30,7 +30,7 @@ def grid_points(bounds, voxel_size):
 
 
 def _make_mesh_dataset(base_cls, canonical: bool):
-    class _Mesh(base_cls, _VisMixin):
+    class _Mesh(_VisMixin, base_cls):
         def __init__(self, cfg, split="test"):
             super().__init__(cfg, split)
             # one item a frame: its file id (the params and vertices

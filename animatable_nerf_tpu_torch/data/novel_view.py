@@ -43,6 +43,13 @@ class _VisMixin:
     the frame's file id is the number in its file names (they differ
     for CoreView_313/315, whose file ids are 1-based)."""
 
+    def read(self, index):
+        """The whole item: these items draw no random numbers."""
+        return self[index]
+
+    def draw(self, index, part):
+        return part
+
     def _file_id_at(self, annot_pos: int) -> int:
         """The file id of the frame at position annot_pos of annots.npy."""
         return self.frame_index_of(self.annots_ims[annot_pos]["ims"][0])[1]
@@ -75,12 +82,10 @@ class _VisMixin:
         INTER_NEAREST (JAX novel_view.py:57-98). Only the training views:
         the reference packages the masks of cfg.training_view. The last
         four frames' masks are kept."""
-        cache = getattr(self, "_vis_mask_cache", None)
-        if cache is None:
-            cache = self._vis_mask_cache = {}
-        key = (annot_pos, H, W)
-        if key in cache:
-            return cache[key]
+        with self._cache_lock:
+            cache = self.__dict__.setdefault("_vis_mask_cache", {})
+            if (annot_pos, H, W) in cache:
+                return cache[(annot_pos, H, W)]
         views = list(self.cfg.training_view)
         ims = np.array(self.annots_ims[annot_pos]["ims"])[views]
         msks = []
@@ -103,9 +108,10 @@ class _VisMixin:
             msk = camera.dilate(msk)
             msks.append(camera.resize_nearest(msk, H, W))
         out = np.array(msks)
-        if len(cache) >= 4:
-            cache.pop(next(iter(cache)))
-        cache[key] = out
+        with self._cache_lock:
+            if len(cache) >= 4 and (annot_pos, H, W) not in cache:
+                cache.pop(next(iter(cache)))
+            cache[(annot_pos, H, W)] = out
         return out
 
     def _vis_cams(self, H, W):
@@ -178,7 +184,7 @@ class _PDFFrameMixin(TPosePDFDataset):
 
 
 def _make_novel_view(base_cls):
-    class _NovelView(base_cls, _VisMixin):
+    class _NovelView(_VisMixin, base_cls):
         """One frame (`begin_ith_frame`) seen from `render_views` cameras
         on the spiral of camera_path.gen_path around the split's cameras,
         all with the first camera's K (float64, scaled by `ratio`); R
@@ -212,7 +218,7 @@ def _make_novel_view(base_cls):
 
 
 def _make_pose_sequence(base_cls):
-    class _PoseSequence(base_cls, _VisMixin):
+    class _PoseSequence(_VisMixin, base_cls):
         """The frames of the training window (or with `test_novel_pose`
         or `aninerf_animation` the novel-pose window) seen from the
         split's first camera (JAX novel_view.py:166-217); the latent is

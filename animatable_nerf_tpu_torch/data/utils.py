@@ -42,21 +42,16 @@ def get_bounds(xyz: np.ndarray, box_padding: float = 0.05) -> np.ndarray:
     return np.stack([mn, mx]).astype(np.float32)
 
 
-def sample_rays_image(img, msk, K, R, T, bounds, split: str,
-                      mask_bkgd: bool = True, nrays: int = 0,
-                      body_sample_ratio: float = 0.5,
-                      face_sample_ratio: float = 0.0,
-                      rng: np.random.RandomState | None = None):
-    """Rays of one image. Returns (rgb, ray_o, ray_d, near, far, coord,
-    mask_at_box).
-
-    Test: every pixel in the projected box whose ray hits the 3-D
-    bounds. Train: `nrays` rays drawn from `rng` by the body/bbox loop
-    (JAX utils.py:46-118): each round draws body_sample_ratio of the
-    rays still wanted from the body mask, face_sample_ratio from the
-    face label (13), the rest from the projected box, and keeps those
-    that hit the bounds, until `nrays` are kept. The last round can
-    overshoot; as in JAX and the reference, nothing is trimmed."""
+def prepare_rays_image(img, msk, K, R, T, bounds, split: str,
+                       mask_bkgd: bool = True) -> dict:
+    """The rays of one image without the train split's random draw (JAX
+    utils.py:46-118 up to its draw loop; the loader runs this on its
+    worker threads): the image's rays and projected box, the background
+    masked (`img` is changed in place, as in JAX). On the test split the
+    finished rays, `rays`: (rgb, ray_o, ray_d, near, far, coord,
+    mask_at_box) of every pixel in the projected box whose ray hits the
+    3-D bounds; on the train split the pixels `draw_rays_image` picks
+    from."""
     H, W = img.shape[:2]
     ray_o, ray_d = get_rays_np(H, W, K, R, T)
     pose = np.concatenate([R, T.reshape(3, 1)], axis=1)
@@ -67,16 +62,17 @@ def sample_rays_image(img, msk, K, R, T, bounds, split: str,
     bound_mask[msk == 100] = 0
 
     if split == "train":
-        return _sample_train_rays(img, msk, bound_mask, ray_o, ray_d, bounds,
-                                  nrays, body_sample_ratio,
-                                  face_sample_ratio, rng or np.random)
+        return {"img": img, "ray_o": ray_o, "ray_d": ray_d,
+                "bounds": bounds, "body": np.argwhere(msk == 1),
+                "bound": np.argwhere(bound_mask == 1),
+                "face": np.argwhere(msk == 13)}
 
     rgb = img.reshape(-1, 3).astype(np.float32)
     ro = ray_o.reshape(-1, 3)
     rd = ray_d.reshape(-1, 3)
     near, far, mab = get_near_far_np(bounds, ro, rd)
     coord = np.argwhere(mab.reshape(H, W))
-    return (
+    return {"rays": (
         rgb[mab],
         ro[mab].astype(np.float32),
         rd[mab].astype(np.float32),
@@ -84,18 +80,39 @@ def sample_rays_image(img, msk, K, R, T, bounds, split: str,
         far.astype(np.float32),
         coord,
         mab,
-    )
+    )}
 
 
-def _sample_train_rays(img, msk, bound_mask, ray_o, ray_d, bounds, nrays,
-                       body_sample_ratio, face_sample_ratio, rng):
-    """The training draw of `sample_rays_image` (the same draws from
-    `rng`, in the same order, as JAX utils.py:71-105)."""
+def draw_rays_image(prepared: dict, nrays: int = 0,
+                    body_sample_ratio: float = 0.5,
+                    face_sample_ratio: float = 0.0,
+                    rng: np.random.RandomState | None = None):
+    """The rays of `prepare_rays_image`'s image, (rgb, ray_o, ray_d,
+    near, far, coord, mask_at_box): the test split's as they are; on the
+    train split `nrays` drawn from `rng` by the body/bbox loop (JAX
+    utils.py:71-105): each round draws body_sample_ratio of the rays
+    still wanted from the body mask, face_sample_ratio from the face
+    label (13), the rest from the projected box, and keeps those that
+    hit the bounds, until `nrays` are kept. The last round can overshoot;
+    as in JAX and the reference, nothing is trimmed. The loader calls
+    this in item order."""
+    if "rays" in prepared:
+        return prepared["rays"]
+    p = prepared
+    return _sample_train_rays(p["img"], p["body"], p["bound"], p["face"],
+                              p["ray_o"], p["ray_d"], p["bounds"], nrays,
+                              body_sample_ratio, face_sample_ratio,
+                              rng or np.random)
+
+
+def _sample_train_rays(img, coord_body_all, coord_bound_all, coord_face_all,
+                       ray_o, ray_d, bounds, nrays, body_sample_ratio,
+                       face_sample_ratio, rng):
+    """The training draw of `draw_rays_image` (the same draws from `rng`,
+    in the same order, as JAX utils.py:71-105) over the pixels of the
+    body, of the projected box and of the face label."""
     n_sampled = 0
     outs = ([], [], [], [], [], [], [])
-    coord_body_all = np.argwhere(msk == 1)
-    coord_bound_all = np.argwhere(bound_mask == 1)
-    coord_face_all = np.argwhere(msk == 13)
     while n_sampled < nrays:
         n_body = int((nrays - n_sampled) * body_sample_ratio)
         n_face = int((nrays - n_sampled) * face_sample_ratio)

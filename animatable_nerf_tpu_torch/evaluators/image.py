@@ -15,6 +15,7 @@ first).
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 from scipy.ndimage import uniform_filter
@@ -70,6 +71,11 @@ def ssim_metric(img_pred, img_gt, data_range=2.0):
     )
 
 
+def _add(timing, key, seconds):
+    if timing is not None:
+        timing[key] = timing.get(key, 0.0) + seconds
+
+
 class ImageEvaluator:
     """Accumulating evaluator; `summarize` writes metrics.npy to
     `result_dir` as the JAX evaluator does."""
@@ -81,12 +87,14 @@ class ImageEvaluator:
         self.ssim = []
 
     def evaluate(self, rgb_pred, rgb_gt, mask_at_box, H, W, frame_index=0,
-                 view_index=0):
+                 view_index=0, save_images=True, timing=None):
         """rgb_pred/rgb_gt: (n_rays, 3) for the True entries of
-        mask_at_box (flattened H*W bools). Writes
+        mask_at_box (flattened H*W bools). With `save_images`, writes
         comparison/frame<f:04d>_view<v:04d>.png and its _gt.png. Returns
         the item's metrics, or None for an all-black ground truth
-        (skipped, as in JAX, before any write)."""
+        (skipped, as in JAX, before any write). `timing`, a dict, gains
+        the seconds of the PNG writes (`png_s`) and of the SSIM
+        (`ssim_s`), as JAX's (evaluators/image.py:91-140)."""
         if rgb_gt.sum() == 0:
             return None
         mse = float(np.mean((rgb_pred - rgb_gt) ** 2))
@@ -98,17 +106,23 @@ class ImageEvaluator:
         img_gt = np.zeros((H, W, 3))
         img_gt[mab] = rgb_gt
 
-        comp = os.path.join(self.result_dir, "comparison")
-        os.makedirs(comp, exist_ok=True)
-        base = f"{comp}/frame{frame_index:04d}_view{view_index:04d}"
-        for path, img in ((f"{base}.png", img_pred), (f"{base}_gt.png", img_gt)):
-            write_png(path, np.clip(img * 255, 0, 255).astype(np.uint8))
+        if save_images:
+            t0 = time.time()
+            comp = os.path.join(self.result_dir, "comparison")
+            os.makedirs(comp, exist_ok=True)
+            base = f"{comp}/frame{frame_index:04d}_view{view_index:04d}"
+            for path, img in ((f"{base}.png", img_pred),
+                              (f"{base}_gt.png", img_gt)):
+                write_png(path, np.clip(img * 255, 0, 255).astype(np.uint8))
+            _add(timing, "png_s", time.time() - t0)
 
         # bbox crop before SSIM (if_nerf.py:51-56)
+        t0 = time.time()
         ys, xs = np.where(mab)
         y0, y1 = ys.min(), ys.max() + 1
         x0, x1 = xs.min(), xs.max() + 1
         ssim = float(ssim_metric(img_pred[y0:y1, x0:x1], img_gt[y0:y1, x0:x1]))
+        _add(timing, "ssim_s", time.time() - t0)
 
         self.mse.append(mse)
         self.psnr.append(psnr)

@@ -1,9 +1,10 @@
 """ctypes shim of the port's host C++ (csrc/mesh_native.cpp): marching
-tetrahedra for mesh extraction and the z-buffered rasterizer of the mesh
-previews.
+tetrahedra for mesh extraction, the z-buffered rasterizer of the mesh
+previews and the occupancy voxelizer of `--type light_stage`.
 
 JAX counterpart: animatable_nerf_tpu/native.py (`mesh_native` :42,
-`marching_cubes_native` :90, `rasterize_mesh_native` :135-162). The library is built with g++ at first
+`marching_cubes_native` :90, `rasterize_mesh_native` :135-162,
+`voxelize_occupancy_native` :167). The library is built with g++ at first
 use into `build/libmesh_native.so` at the checkout root, beside the CUDA
 libraries of ops/build.py, with the JAX loader's flags. Unlike the JAX
 loader, which returns None when the build fails and lets its callers
@@ -75,6 +76,12 @@ def mesh_native():
                 ctypes.c_int, ctypes.c_int,  # H W
                 fp, fp, ctypes.POINTER(ctypes.c_uint8),  # attr depth mask
             ]
+            lib.voxelize_occupancy.restype = None
+            lib.voxelize_occupancy.argtypes = [
+                fp, ctypes.c_int64, fp,  # points, n, bounds
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,  # D H W
+                ctypes.POINTER(ctypes.c_uint8),  # grid
+            ]
             _lib = lib
         return _lib
 
@@ -141,3 +148,19 @@ def rasterize_mesh(verts, faces, attrs, K, R, T, H: int, W: int):
         out_mask.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
     )
     return {"attr": out_attr, "depth": out_depth, "mask": out_mask}
+
+
+def voxelize_occupancy(points, bounds, shape):
+    """Point cloud (N, 3) -> (D, H, W) uint8 occupancy: 1 in each cell of
+    the grid over `bounds` ((2, 3): min, max) that a point falls in,
+    its cell index truncated toward zero; points outside are dropped."""
+    lib = mesh_native()
+    pts = np.ascontiguousarray(points, dtype=np.float32)
+    b = np.ascontiguousarray(np.asarray(bounds, np.float32).reshape(6))
+    D, H, W = (int(n) for n in shape)
+    grid = np.zeros((D, H, W), np.uint8)
+    fp = ctypes.POINTER(ctypes.c_float)
+    lib.voxelize_occupancy(pts.ctypes.data_as(fp), len(pts),
+                           b.ctypes.data_as(fp), D, H, W,
+                           grid.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    return grid

@@ -48,13 +48,46 @@ and data/raster/<exp_name>/frame<f>_view<v>.png with _depth.npy.
 The image-space baselines NHR and NT (configs/baselines/, and on the
 capsule's baseline copy, written by `python -m
 animatable_nerf_tpu_torch.data.baseline_prep data/synthetic/capsule
-data/synthetic/capsule_baseline`) take `--type evaluate` only:
+data/synthetic/capsule_baseline`) render through `--type evaluate`
+only (`visualize`, `animation`, `raster`, `network` and `evaluate_nv`
+raise for them before any work):
 
     python -m animatable_nerf_tpu_torch.run --type evaluate \
         --cfg_file configs/synthetic_nhr.yaml [--device cpu]
 
-Runs on `cuda` unless `--device cpu` is given; without a GPU and
-without `--device cpu` it raises.
+`eval_timing True` makes `--type evaluate` print its stage
+decomposition per frame (one `eval_timing_per_frame` JSON line: data
+wait, frame upload, pad, render, fetch, SSIM and PNG seconds, and the
+render's device ms on the card).
+
+The host pipeline's own tools, and the rest of the JAX CLI:
+
+    python -m animatable_nerf_tpu_torch.run --type dataset \
+        --cfg_file configs/synthetic.yaml
+    python -m animatable_nerf_tpu_torch.run --type network \
+        --cfg_file configs/synthetic.yaml [profile_dir <dir>] [--device cpu]
+    python -m animatable_nerf_tpu_torch.run --type evaluate_nv \
+        --cfg_file configs/synthetic.yaml
+    python -m animatable_nerf_tpu_torch.run --type lpips \
+        --cfg_file configs/synthetic.yaml lpips_weights <weights.npz> \
+        [--device cpu]
+    python -m animatable_nerf_tpu_torch.run --type light_stage \
+        --cfg_file configs/synthetic.yaml train_dataset.data_root <root>
+
+`dataset` times 20 train items through the loader; `network` the
+forward of 10 test items (with `profile_dir`, a torch.profiler trace of
+those after the first); `evaluate_nv` scores the PNGs of
+<result_dir>/comparison (an evaluate's, or anyone's
+frame<f>_view<v>.png) against the test split; `lpips` scores the
+evaluate's comparison pairs with weights converted by `python -m
+animatable_nerf_tpu_torch.evaluators.lpips convert`; `light_stage`
+voxelizes <root>/point_cloud/<human>/<i>.ply into
+<root>/voxel/<human>/<i>.npz.
+
+The types with device work (evaluate, visualize, animation, raster,
+network, lpips) run on `cuda` unless `--device cpu` is given; without a
+GPU and without `--device cpu` they raise. `dataset`, `evaluate_nv` and
+`light_stage` run on the host alone.
 """
 
 from __future__ import annotations
@@ -63,21 +96,19 @@ from . import engine
 from .config import parse_cli
 
 
-# the run types, each engine.run_<type>
-RUN_TYPES = ("evaluate", "visualize", "animation", "raster")
-# the JAX CLI's other run types (run.py), not ported
-UNPORTED_TYPES = ("dataset", "network", "light_stage", "evaluate_nv", "lpips")
+# the run types of JAX's run.py, each engine.run_<type>
+RUN_TYPES = ("dataset", "network", "evaluate", "visualize", "animation",
+             "raster", "light_stage", "evaluate_nv", "lpips")
 
 
 def main(argv=None):
     args, cfg = parse_cli(argv)
-    if args.type in UNPORTED_TYPES:
-        raise NotImplementedError(
-            f"--type {args.type} is not ported; ported: " + ", ".join(RUN_TYPES))
     if args.type not in RUN_TYPES:
-        raise SystemExit(f"unknown --type {args.type!r}; ported: "
+        raise SystemExit(f"unknown --type {args.type!r}; available: "
                          + ", ".join(RUN_TYPES))
-    return getattr(engine, f"run_{args.type}")(cfg, args.device)
+    run = getattr(engine, "run_evaluate_external" if args.type == "evaluate_nv"
+                  else f"run_{args.type}")
+    return run(cfg, args.device)
 
 
 if __name__ == "__main__":

@@ -100,8 +100,9 @@ class BaselineTrainer:
     def train_epoch(self, loader, recorder, epoch: int, max_iter: int,
                     log_interval: int = 20):
         """One epoch over `loader` (JAX engine.py:1392-1415): per step the
-        recorder's step, batch and data times and the stats; a console
-        line every `log_interval` steps."""
+        recorder's step, batch and data times (the data time: the wait
+        for the loader's next item, which it reads ahead) and the stats;
+        a console line every `log_interval` steps."""
         loader.set_epoch(epoch)
         recorder.epoch = epoch
         end = time.time()

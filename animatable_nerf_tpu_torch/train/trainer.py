@@ -197,7 +197,10 @@ class Trainer:
         """One epoch over `loader` (JAX trainer.py:556-710 at one step a
         dispatch): per step, the recorder's step, batch and data times,
         the stats and rays/s; a console line every `log_interval` steps
-        and a JSONL record every `record_interval`."""
+        and a JSONL record every `record_interval`. The data time is the
+        wait for the loader's next item and its collation: the loader
+        reads ahead, so it is the part of the read the step does not
+        hide."""
         loader.set_epoch(epoch)
         recorder.epoch = epoch
         n_rays = int(self.cfg.N_rand)

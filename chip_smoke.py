@@ -199,7 +199,23 @@ Phases, one JSON line each:
      the 64^3 grid built on 10 fresh vertex copies; then
      50 compacted steps of SDF-PDF and of AniNeRF, K3 once a frame, each
      evaluate held to the JAX CPU run of the same steps
-     (JAX_PSNR_TRAIN_COMPACT);
+     (JAX_PSNR_TRAIN_COMPACT); the 64^3 grid's build also gives K3's
+     bound there (`run_pairs`, as phase 3's at 96^3);
+ 19. the host pipeline and the rest of the CLI: `run_train` of phase
+     12's real-camera copy at 1024x1024 for 20 steps at one and at four
+     reader threads (`train.num_workers` 2 and 8), from one start: s/step,
+     data s/step, the device's idle share, every batch's digest and every
+     loss equal between the two; phase 4's evaluate through the
+     pipelined evaluate with `eval_timing True` (its
+     `eval_timing_per_frame` line, held to the JAX PSNR); `--type
+     dataset` (items a second); `--type network` with `profile_dir` (the
+     trace written, K1's launches those of `render_item` on the same
+     frames); `--type evaluate_nv` on the evaluate's comparison PNGs
+     (each view within the PSNR bound of 8-bit truncation); `--type
+     lpips` on those pairs with seeded alex weights (the card's scores
+     within 1e-5 of the CPU's; one 1000x1002 pair timed); `--type
+     light_stage` on a seeded binary PLY of 100,000 points (the
+     occupancy equal to a numpy floor reference);
 then the kernel table line, the script's seconds, the card line and
 {"ok": true, ...} last. Each phase's line carries its wall `seconds`.
 Kernel launch counts are set to 0 just before each path and read just
@@ -4087,20 +4103,33 @@ def grid_builds(verts, n=COMPACT_GRID_BUILDS):
     """The train frame's 64^3 grid built on `n` fresh copies of its
     vertices (each builds its run layout too, as a frame's first step
     does): the whole build's ms by CUDA events (the copy included), and
-    by the profiler its device ms and K3's."""
+    by the profiler its device ms and K3's; and K3's bound at this grid,
+    counted as at the 96^3 one (phase 3): the vertices of the runs each
+    node's walk must reach (`run_pairs`), 9 operations a pair, against
+    each node and vertex read and each distance written once."""
+    from animatable_nerf_tpu_torch.ops import knn
     from animatable_nerf_tpu_torch.ops.knn import build_pdist_payload
     from animatable_nerf_tpu_torch.train.trainer import TRAIN_GRID_RES
 
     fresh = [verts.clone() for _ in range(n)]
     prof = device_breakdown(lambda: [build_pdist_payload(
         v, res=TRAIN_GRID_RES) for v in fresh], top=3, host=False)
+    nodes, _, _ = knn.pdist_grid_nodes(verts, TRAIN_GRID_RES)
+    n3, m = nodes.shape[0], verts.shape[0]
+    _, runs = knn.grid_layout(verts)
+    needed = int(run_pairs(nodes, runs, m, kth_sq_dist(nodes, verts, 1)).sum())
+    b, by = bound(OPS_PER_PAIR * needed, 4 * (n3 * 3 + m * 3 + n3))
+    k3_ms = (None if prof["kernels"] is None
+             else prof["own_kernels_ms"]["min_dist_kernel"] / n)
     return {"res": TRAIN_GRID_RES, "builds": n,
             "call_fresh_ms": cuda_ms(lambda: build_pdist_payload(
                 verts.clone(), res=TRAIN_GRID_RES)),
             "device_ms": None if prof["kernels"] is None
             else prof["device_ms"] / n,
-            "k3_ms": None if prof["kernels"] is None
-            else prof["own_kernels_ms"]["min_dist_kernel"] / n}
+            "k3_ms": k3_ms, "queries": n3, "vertices": m,
+            "pairs_needed": needed, "pairs_needed_per_query": needed / n3,
+            "bound_ms": b, "bound_by": by,
+            "share_of_bound": None if k3_ms is None else b / k3_ms}
 
 
 def phase_compaction_step(family, k1, knn):
@@ -4265,6 +4294,303 @@ def phase_compaction(k1, knn):
     emit({"phase": "compaction", "phase_seconds": time.time() - t0,
           "survivor_share": {f: r["survivor_share"] for f, r in rows.items()}})
     return paths, rows
+
+
+# Phase 19: the host pipeline and the rest of the CLI. The read-ahead
+# train runs use phase 12's real-camera copy at 1024x1024 (AniNeRF's
+# novel-pose config, the synthetic_2f weights, fix_random): 20 steps at
+# `train.num_workers` 2 (one reader thread) and 8 (four).
+HOST_TRAIN_STEPS = 20
+HOST_THREADS = {1: "2", 4: "8"}  # reader threads: train.num_workers
+LIGHT_STAGE_POINTS = 100_000
+LPIPS_FULL = (FULL_H, FULL_W)  # the pair timed at full size
+
+
+class recorded_steps:
+    """Within the block, each `Trainer.train_step`'s batch digest (SHA-1
+    over its arrays, keys in order) and loss, step by step."""
+
+    def __enter__(self):
+        import hashlib
+
+        from animatable_nerf_tpu_torch.train.trainer import Trainer
+
+        self.digests, self.losses = [], []
+        self.real = real = Trainer.train_step
+
+        def recording(trainer, batch):
+            h = hashlib.sha1()
+            for k in sorted(batch):
+                h.update(k.encode())
+                h.update(np.ascontiguousarray(batch[k]).tobytes())
+            self.digests.append(h.hexdigest())
+            stats = real(trainer, batch)
+            self.losses.append(stats["loss"])
+            return stats
+
+        Trainer.train_step = recording
+        return self
+
+    def __exit__(self, *exc):
+        from animatable_nerf_tpu_torch.train.trainer import Trainer
+
+        Trainer.train_step = self.real
+
+
+def host_train_runs(k1, knn, big):
+    """`run_train` on the copy at 1024x1024 from one fresh start, at one
+    and at four reader threads: per run s/step, data s/step (the wait
+    for the next item), the device's idle share over the run (a
+    device-only profile), K1's launches, each step's batch digest and
+    loss. Returns (records by thread count, launches by path)."""
+    import torch
+
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.data.distorted_copy import config_opts
+    from animatable_nerf_tpu_torch.engine import run_train
+    from animatable_nerf_tpu_torch.train.checkpoints import write_fresh_start
+
+    ckpt = "data/trained_model/deform/synthetic_2f/latest.flax"
+    runs, paths = {}, {}
+    for threads, workers in HOST_THREADS.items():
+        cfg = load_config(NOVEL_POSE_CFG, config_opts(big) + [
+            "exp_name", f"chip_smoke_host_{threads}", "train.epoch", "1",
+            "ep_iter", str(HOST_TRAIN_STEPS), "train.num_workers", workers]
+            + TRAIN_OPTS[4:])
+        write_fresh_start(ckpt, cfg.trained_model_dir)
+        out = {}
+
+        def train():
+            out["trainer"], out["recorder"] = run_train(cfg, "cuda")
+
+        reset_counts(k1, knn)
+        with recorded_steps() as steps:
+            prof = device_breakdown(train, top=3, host=False)
+        torch.cuda.synchronize()
+        paths[f"train_read_ahead_{threads}"] = launches = launch_counts(k1, knn)
+        rec = out["recorder"]
+        runs[threads] = {
+            "threads": threads, "train.num_workers": int(workers),
+            "steps": out["trainer"].step, "wall_s": prof["wall_ms"] / 1e3,
+            "s_per_step_mean": rec.batch_time.global_avg,
+            "s_per_step_median": rec.batch_time.median,
+            "data_s_per_step_mean": rec.data_time.global_avg,
+            "data_s_per_step_median": rec.data_time.median,
+            "device_ms": prof["device_ms"], "idle_share": prof["idle_share"],
+            "launches": launches, "losses": steps.losses,
+            "digests": steps.digests}
+    return runs, paths
+
+
+def phase_host_pipeline(k1, knn):
+    """Phase 19: the read-ahead loader on the train path (one and four
+    reader threads: the same batches, bit for bit, and the same losses),
+    the pipelined evaluate with `eval_timing`, and `--type dataset`,
+    `network` (with a trace), `evaluate_nv`, `lpips` and `light_stage`.
+    Returns the launches of each path that runs a kernel."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from animatable_nerf_tpu_torch import run
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.data.distorted_copy import write_distorted_copy
+    from animatable_nerf_tpu_torch.data.occupancy import (
+        BB_MAX, BB_MIN, RES, get_scaled_model)
+    from animatable_nerf_tpu_torch.engine import (
+        Engine, make_dataset, run_evaluate_external)
+    from animatable_nerf_tpu_torch.evaluators import lpips
+    from animatable_nerf_tpu_torch.data.loader import make_test_loader
+
+    t_phase = time.time()
+    tmp = tempfile.mkdtemp(prefix="host_pipeline_")
+    try:
+        # ---- training, read ahead
+        t0 = time.time()
+        big = write_distorted_copy("data/synthetic/human",
+                                   os.path.join(tmp, "human_1024"),
+                                   upsample=CAMERA_UPSAMPLE)
+        copy_s = time.time() - t0
+        runs, paths = host_train_runs(k1, knn, big)
+        one, four = runs[1], runs[4]
+        same_batches = one["digests"] == four["digests"]
+        same_losses = one["losses"] == four["losses"]
+        emit({"phase": "host_train_read_ahead", "copy_s": copy_s,
+              "source_frame": [128 * CAMERA_UPSAMPLE] * 2,
+              "runs": [{k: v for k, v in r.items() if k != "digests"}
+                       for r in runs.values()],
+              "batches_equal": same_batches, "losses_equal": same_losses,
+              "data_s_per_step_4_over_1": four["data_s_per_step_mean"]
+              / one["data_s_per_step_mean"]})
+        for r in runs.values():
+            check(r["steps"] == HOST_TRAIN_STEPS
+                  and r["launches"]["skip_mlp"] == 3 * HOST_TRAIN_STEPS
+                  and all(math.isfinite(x) for x in r["losses"]),
+                  f"host_train_read_ahead: {r['threads']} threads ran "
+                  f"{r['steps']} steps, launches {r['launches']}")
+        check(same_batches and len(one["digests"]) == HOST_TRAIN_STEPS,
+              "host_train_read_ahead: the batches differ between 1 and 4 "
+              "reader threads")
+        check(same_losses, "host_train_read_ahead: the losses differ between "
+              f"1 and 4 reader threads: {one['losses']} {four['losses']}")
+
+        # ---- the pipelined evaluate with eval_timing (phase 4's)
+        cfg = load_config("configs/synthetic.yaml", [
+            "eval_timing", "True", "result_dir", os.path.join(tmp, "result")],
+            run_type="evaluate")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            launches, _ = phase_evaluate("evaluate_pipelined", cfg, JAX_PSNR,
+                                         k1, knn)
+        lines = printed.getvalue().splitlines()
+        timing = [json.loads(l)["eval_timing_per_frame"] for l in lines
+                  if l.startswith('{"eval_timing_per_frame"')]
+        pipeline = [l for l in lines if l.startswith("eval pipeline:")]
+        for line in lines:  # phase_evaluate's own line, and the engine's
+            print(line, flush=True)
+        paths["evaluate_pipelined"] = launches
+        items = EVAL_ITEMS["evaluate_pipelined"]
+        emit({"phase": "eval_timing", "eval_timing_per_frame": timing,
+              "pipeline": pipeline})
+        check(len(timing) == 1 and len(pipeline) == 1
+              and timing[0]["n_items"] == len(JAX_PSNR)
+              and timing[0]["device_ms"] > 0
+              and "relay_floor_s" not in timing[0]
+              and launches["skip_mlp"] > 0,
+              f"eval_timing: {timing} {pipeline} {launches}")
+
+        # ---- --type dataset
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            n = run.main(["--type", "dataset", "--cfg_file",
+                          "configs/synthetic.yaml"])
+        dataset_s = time.time() - t0
+
+        # ---- --type network with a trace: K1's launches against the
+        # same frames rendered by render_item
+        trace_dir = os.path.join(tmp, "trace")
+        reset_counts(k1, knn)
+        t0 = time.time()
+        mean = run.main(["--type", "network", "--cfg_file",
+                         "configs/synthetic.yaml", "profile_dir", trace_dir])
+        network_s = time.time() - t0
+        paths["network"] = net = launch_counts(k1, knn)
+        ecfg = load_config("configs/synthetic.yaml", [])
+        eng = Engine(ecfg, "cuda")
+        eng.load_params()
+        ds = make_dataset(ecfg, "test")
+        frames = list(make_test_loader(ecfg, ds))[:10]
+        reset_counts(k1, knn)
+        for item in frames:
+            eng.render_item(item)
+        torch.cuda.synchronize()
+        direct = launch_counts(k1, knn)
+        del eng
+        traces = os.listdir(trace_dir)
+        trace_mb = sum(os.path.getsize(os.path.join(trace_dir, f))
+                       for f in traces) / 1e6
+
+        # ---- --type evaluate_nv on the evaluate's comparison PNGs
+        nv = run_evaluate_external(load_config(
+            "configs/synthetic.yaml", ["result_dir", os.path.join(tmp, "result")],
+            run_type="evaluate"))
+        nv_items = np.load(os.path.join(cfg.result_dir, "metrics.npy"),
+                           allow_pickle=True).item()
+        # |d PSNR| from an error below 1/255 a channel (the PNG's
+        # truncation): at most 20 log10(1 + (1/255) / rmse)
+        nv_rows = []
+        for it, psnr in zip(items, nv_items["psnr"]):
+            rmse = min(10 ** (-it["psnr"] / 20), 10 ** (-psnr / 20))
+            nv_rows.append({"psnr_evaluate": it["psnr"], "psnr_nv": psnr,
+                            "delta_db": psnr - it["psnr"],
+                            "bound_db": 20 * math.log10(1 + (1 / 255) / rmse)})
+
+        # ---- --type lpips: seeded alex weights, on the card and the CPU
+        params = lpips.random_params("alex", seed=0)
+        weights = os.path.join(tmp, "lpips_alex.npz")
+        np.savez(weights, arch="alex", **{k: v.numpy() for k, v in
+                                          params.items() if k != "arch"})
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            card = run.main(["--type", "lpips", "--cfg_file",
+                             "configs/synthetic.yaml", "result_dir",
+                             os.path.join(tmp, "result"),
+                             "lpips_weights", weights])
+            lpips_s = time.time() - t0
+            cpu = lpips.score_comparison_dir(cfg.result_dir, weights,
+                                             device="cpu")
+        lpips_err = max(abs(a - b) for a, b in zip(card["lpips"], cpu["lpips"]))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        pair = [torch.rand(1, *LPIPS_FULL, 3, device="cuda", generator=gen)
+                for _ in range(2)]
+        cuda_params = {k: (v.cuda() if torch.is_tensor(v) else v)
+                       for k, v in params.items()}
+        with torch.no_grad():
+            pair_ms = cuda_ms(lambda: lpips.lpips_distance(cuda_params, *pair),
+                              warmup=1, iters=5)
+
+        # ---- --type light_stage on a seeded binary PLY
+        root = os.path.join(tmp, "light_stage")
+        os.makedirs(os.path.join(root, "point_cloud", "s"))
+        rng = np.random.RandomState(0)
+        pts = (rng.randn(LIGHT_STAGE_POINTS, 3) * [0.25, 0.8, 0.15]
+               + [0.1, 1.0, -0.3]).astype(np.float32)
+        with open(os.path.join(root, "point_cloud", "s", "0.ply"), "wb") as f:
+            f.write(("ply\nformat binary_little_endian 1.0\nelement vertex "
+                     f"{len(pts)}\nproperty float x\nproperty float y\n"
+                     "property float z\nend_header\n").encode())
+            f.write(pts.tobytes())
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            (written,) = run.main(["--type", "light_stage", "--cfg_file",
+                                   "configs/synthetic.yaml",
+                                   "train_dataset.data_root", root])
+        light_s = time.time() - t0
+        with np.load(written) as z:
+            grid = np.unpackbits(z["compressed_occupancies"]).reshape((RES,) * 3)
+        # the numpy floor reference: cells half a step below each node
+        model, _ = get_scaled_model(pts)
+        step = (BB_MAX - BB_MIN) / (RES - 1)
+        lo = np.float32(BB_MIN - step / 2)
+        scale = np.float32(RES) / (np.float32(BB_MAX + step / 2) - lo)
+        idx = np.floor((model - lo) * scale).astype(np.int64)
+        idx = idx[((idx >= 0) & (idx < RES)).all(1)]
+        ref = np.zeros((RES,) * 3, np.uint8)
+        ref[idx[:, 0], idx[:, 1], idx[:, 2]] = 1
+
+        emit({"phase": "run_types",
+              "dataset": {"items": n, "s": dataset_s, "it_per_s": n / dataset_s},
+              "network": {"mean_forward_s": mean, "wall_s": network_s,
+                          "frames": len(frames), "launches": net,
+                          "launches_render_item": direct,
+                          "trace_files": len(traces), "trace_mb": trace_mb},
+              "evaluate_nv": {"psnr_mean": nv["psnr"], "views": nv_rows},
+              "lpips": {"pairs": len(card["names"]), "mean": card["mean"],
+                        "max_abs_err_vs_cpu": lpips_err, "wall_s": lpips_s,
+                        "pair_ms_full": pair_ms, "full_size": list(LPIPS_FULL)},
+              "light_stage": {"points": len(pts), "occupied": int(grid.sum()),
+                              "occupied_ref": int(ref.sum()),
+                              "cells_differing": int((grid != ref).sum()),
+                              "wall_s": light_s}})
+        check(n == 20, f"dataset iterated {n} items")
+        check(mean > 0 and net == direct and net["skip_mlp"] > 0
+              and len(traces) == 1 and trace_mb > 0,
+              f"network: launches {net} against render_item's {direct}, "
+              f"traces {traces}")
+        check(len(nv_rows) == len(items) and all(
+            abs(r["delta_db"]) <= r["bound_db"] for r in nv_rows),
+              f"evaluate_nv: {nv_rows}")
+        check(lpips_err <= 1e-5 and len(card["names"]) == len(JAX_PSNR),
+              f"lpips: card against CPU {lpips_err}")
+        check(int((grid != ref).sum()) == 0 and grid.sum() > 1000,
+              "light_stage: the occupancy differs from the numpy reference")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "host_pipeline", "phase_seconds": time.time() - t_phase})
+    return paths
 
 
 def main():
@@ -4449,6 +4775,12 @@ def main():
     # AniNeRF held to the JAX package's PSNR
     phase18_paths, compact_rows = phase_compaction(k1, knn)
 
+    # ---- phase 19: the host pipeline and the rest of the CLI: 20 train
+    # steps on the 1024x1024 copy at one and four reader threads (the
+    # same batches and losses), the pipelined evaluate with eval_timing,
+    # and --type dataset, network, evaluate_nv, lpips and light_stage
+    phase19_paths = phase_host_pipeline(k1, knn)
+
     # ---- kernel table
     def k1_sum(key):
         return sum(r[key] for r in k1_rows)
@@ -4604,6 +4936,7 @@ def main():
     aligned_launches(k1_entry, "skip_mlp", phase15_paths)
     aligned_launches(k1_entry, "skip_mlp", phase16_paths)
     aligned_launches(k1_entry, "skip_mlp", phase18_paths)
+    aligned_launches(k1_entry, "skip_mlp", phase19_paths)
     # the compacted train steps' rows (phase 18): each K1 launch on the
     # exact survivors, K2 on pass 1's candidates (and the aligned
     # families' canonical prior on the survivors), K3 once a frame

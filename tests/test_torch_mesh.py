@@ -506,27 +506,6 @@ def test_run_animation_density_family_extracts_every_frame(workdir):
         "0000.npy", "0000.ply", "0002.npy", "0002.ply"]
 
 
-@pytest.mark.parametrize("args, match", [
-    (["--type", "evaluate_nv"], "evaluate_nv"),
-    (["--type", "lpips"], "lpips"),
-    (["--type", "light_stage"], "light_stage"),
-    (["--type", "network"], "network"),
-])
-def test_unported_visualizations_raise_before_any_work(args, match, workdir,
-                                                       monkeypatch):
-    """The JAX CLI's run types that the port lacks (novel views, pose
-    sequences and mesh rasters are ported now) raise, naming the type,
-    before an engine or a dataset is made."""
-    def no_work(*_a, **_k):
-        raise AssertionError("work started")
-
-    monkeypatch.setattr(t_engine, "Engine", no_work)
-    monkeypatch.setattr(t_engine, "make_dataset", no_work)
-    with pytest.raises(NotImplementedError, match=match) as err:
-        cli(*args[:2], "--cfg_file", "configs/synthetic.yaml", *args[2:])
-    assert "is not ported" in str(err.value)
-
-
 def test_animation_without_a_mesh_dataset_raises(workdir, monkeypatch):
     """`--type animation` without the mesh overlay has no grid to sweep:
     it raises before an engine is made."""
