@@ -181,6 +181,21 @@ def model_class(cfg):
     return cls
 
 
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    """The config's `compute_dtype`, the fields' compute dtype (JAX
+    models/registry.py:53-69): float32 or bfloat16; any other value
+    raises. Parameters, geometry, the KNN, the filters and the
+    compositing stay float32."""
+    name = str(cfg.get("compute_dtype", "float32"))
+    if name not in _COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of "
+                         f"{sorted(_COMPUTE_DTYPES)}, got {name!r}")
+    return _COMPUTE_DTYPES[name]
+
+
 def make_model(cfg):
     """The config's model (`model_class`), its train forward compacted to
     the exact survivors where `train_keep_frac` > 0 (JAX
@@ -192,33 +207,40 @@ def make_model(cfg):
     (`num_eval_frame` latents), and so do AlignedLBW and AlignedLBWPDF.
     The aligned families take num_train_frame color latents (JAX
     models/registry.py:115-125). NHR renders at the config's H and W
-    times `ratio`; NT has 1024-texel textures (:74-83)."""
+    times `ratio`; NT has 1024-texel textures (:74-83); neither reads
+    `compute_dtype`. The volumetric families compute in it. AniNeRF
+    takes the slab pre-filter (`slab_filter`, `slab_supercell`,
+    `slab_box_capacity`, gated by `eval_keep_frac` > 0; :97-110); no
+    other family reads `slab_filter`, and none reads `seg_filter`, as
+    JAX's `make_model` passes it to none."""
     cls = model_class(cfg)
     if cls is NHR:
         return NHR(H=int(cfg.H * cfg.ratio), W=int(cfg.W * cfg.ratio),
                    feature_dim=18)
     if cls is NT:
         return NT(size=1024, feature_dim=16)
-    for key in ("slab_filter", "seg_filter"):
-        if int(cfg.get(key, 0)):
-            raise NotImplementedError(f"the {key} eval option is not ported yet")
-    if str(cfg.get("compute_dtype", "float32")) != "float32":
-        raise NotImplementedError("only float32 compute is ported")
+    dtype = compute_dtype(cfg)
     novel_pose = bool(cfg.aninerf_animation or cfg.test_novel_pose)
     if cls in _PDF_MODULES.values():
         model = cls(num_latents=cfg.num_latent_code,
-                    tpose_viewdir=cfg.tpose_viewdir, xyz_res=cfg.xyz_res)
+                    tpose_viewdir=cfg.tpose_viewdir, xyz_res=cfg.xyz_res,
+                    dtype=dtype)
     elif cls in _ALIGNED_MODULES.values():
         field = ({"num_eval_frames": cfg.num_eval_frame if novel_pose else 0}
                  if issubclass(cls, AlignedLBW) else {})
         model = cls(num_latents=cfg.num_train_frame, norm_th=cfg.norm_th,
                     train_th=cfg.train_th, tpose_viewdir=cfg.tpose_viewdir,
-                    xyz_res=cfg.xyz_res, **field)
+                    xyz_res=cfg.xyz_res, dtype=dtype, **field)
     else:
         model = AniNeRF(
             num_train_frames=cfg.num_train_frame, norm_th=cfg.norm_th,
             xyz_res=cfg.xyz_res, view_res=cfg.view_res, train_th=cfg.train_th,
             num_eval_frames=cfg.num_eval_frame if novel_pose else 0,
+            dtype=dtype,
+            eval_keep_frac=float(cfg.get("eval_keep_frac", 0.25)),
+            slab_filter=int(cfg.get("slab_filter", 0)),
+            slab_supercell=int(cfg.get("slab_supercell", 4)),
+            slab_box_capacity=int(cfg.get("slab_box_capacity", 1024)),
         )
     model.train_keep_frac = float(cfg.get("train_keep_frac", 0.0))
     return model
@@ -233,11 +255,13 @@ def make_dataset(cfg, split: str = "test"):
 
 
 def render_settings(cfg) -> RenderSettings:
-    if cfg.get("use_importance", False):
-        raise NotImplementedError("hierarchical importance sampling is not ported yet")
+    """The eval renderer's settings (JAX engine.py:112-123): with
+    `use_importance`, N_importance fine samples a ray from the coarse
+    pass's weights (hierarchical importance sampling)."""
+    n_imp = int(cfg.N_importance) if cfg.get("use_importance", False) else 0
     return RenderSettings(
         n_samples=int(cfg.N_samples), white_bkgd=bool(cfg.white_bkgd),
-        eval_tile=int(cfg.get("eval_tile", 8192)),
+        eval_tile=int(cfg.get("eval_tile", 8192)), n_importance=n_imp,
     )
 
 
@@ -313,7 +337,8 @@ class Engine:
         # `test_novel_pose`: warp through the novel-pose field
         self.novel_pose = bool(cfg.test_novel_pose)
         self._frame_cache = {}
-        # candidate/survivor/carved/tile counts of the last render_item
+        # candidate/survivor/carved/tile counts of the last render_item,
+        # and the slab pre-filter's kept samples where it ran
         self.stats = {}
         # grid size, host times and mesh size of the last extract_mesh
         self.mesh_stats = {}
@@ -442,7 +467,8 @@ class Engine:
         self._tadd("render_dispatches", 1)
         t0 = time.time()
         self.stats = {k: int(out.pop(k))
-                      for k in ("n_candidates", "n_survivors", "n_carved")}
+                      for k in ("n_candidates", "n_survivors", "n_carved",
+                                "n_slab_points") if k in out}
         self.stats["tiles"] = len(rays["ray_o"]) // tile
         out = {k: v.cpu().numpy() for k, v in out.items()}
         if self.timing is not None:

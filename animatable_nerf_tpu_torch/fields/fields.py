@@ -10,6 +10,14 @@ The 8x256 trunks (the blend-weight fields, NeRF trunk, displacement
 field) run through kernel K1 (ops/skip_mlp.py); the heads, the
 weight-normalized SDF/NeRF/color networks and the opacity scalars are
 plain PyTorch, as the JAX package leaves them to XLA.
+
+Every field computes in its `dtype`, the config's `compute_dtype`
+(float32, or bfloat16: JAX fields/fields.py:20-252 with `dtype`), set
+on a whole model by `set_compute_dtype`. It is compute-only: the
+parameters stay float32. In bf16 the positional encodings are formed in
+float32 and cast, the weight norms are formed in float32 before the
+cast, the trunks take K1's bf16 form, the heads multiply in bf16 and
+the outputs are cast back to float32 where JAX casts them.
 """
 
 from __future__ import annotations
@@ -25,11 +33,22 @@ from .mlp import (
     WNLinear,
     dense_init_,
     geometric_init_,
+    linear,
     run_skip_mlp,
     skip_linears,
 )
 
 _SKIPS = (4,)
+
+
+def set_compute_dtype(model: nn.Module, dtype: torch.dtype):
+    """Set the compute dtype (float32 or bfloat16) of every field in
+    `model`: each module that has a class attribute `dtype`."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"no {dtype} compute")
+    for m in model.modules():
+        if hasattr(type(m), "dtype"):
+            m.dtype = dtype
 
 
 def _prior_softmax(owner, linears, pts, smpl_bw, cond, xyz_res: int):
@@ -39,7 +58,7 @@ def _prior_softmax(owner, linears, pts, smpl_bw, cond, xyz_res: int):
     smpl_bw (N, 24), cond (C,) -> (N, 24)."""
     pe = positional_encoding(pts, xyz_res)
     feat = torch.cat([pe, cond.expand(pe.shape[0], cond.shape[-1])], dim=-1)
-    logits = run_skip_mlp(owner, feat, linears, _SKIPS)
+    logits = run_skip_mlp(owner, feat, linears, _SKIPS, dtype=owner.dtype)
     return torch.softmax(torch.log(smpl_bw + 1e-9) + logits, dim=-1)
 
 
@@ -51,6 +70,8 @@ class BlendWeightField(nn.Module):
     added to log(smpl_bw + 1e-9) and softmaxed. The parameters carry
     the reference's names: `bw_latent`, `bw_linears.{i}`, `bw_fc`.
     """
+
+    dtype = torch.float32
 
     def __init__(self, num_latents: int, xyz_res: int = 10,
                  latent_dim: int = 128):
@@ -92,6 +113,8 @@ class PoseCondBWField(nn.Module):
     never reads; it is kept as zeros (`_Unread`), as the JAX exporter
     synthesizes it (compat/torch_export.py:250-262)."""
 
+    dtype = torch.float32
+
     def __init__(self, num_latents: int, xyz_res: int = 10,
                  pose_dim: int = 72, latent_dim: int = 128):
         super().__init__()
@@ -117,7 +140,11 @@ class TPoseNeRF(nn.Module):
     PE(xyz) -> 8x256 skip-4 trunk, all 8 layers activated -> alpha_fc;
     feature_fc(trunk) concat the 128-d frame latent -> latent_fc (no
     activation); concat PE(viewdir) -> view_fc -> relu -> rgb_fc.
+    In bf16 the trunk's output and every head stay bf16 up to sigma and
+    the rgb logits, cast to float32 (JAX fields.py:104-151).
     """
+
+    dtype = torch.float32
 
     def __init__(self, num_latents: int, xyz_res: int = 10,
                  view_res: int = 4):
@@ -134,28 +161,32 @@ class TPoseNeRF(nn.Module):
         self.rgb_fc = nn.Linear(128, 3)
 
     def trunk(self, pts):
+        """(N, 3) -> (N, 256) in the compute dtype (K1's bf16 form
+        rounds the activated last layer to bf16, so the cast is exact)."""
         pe = positional_encoding(pts, self.xyz_res)
-        return run_skip_mlp(self, pe, self.pts_linears, _SKIPS,
-                            act_last=True)
+        h = run_skip_mlp(self, pe, self.pts_linears, _SKIPS, act_last=True,
+                         dtype=self.dtype)
+        return h.to(self.dtype)
 
     def density(self, pts):
         """The density alone, trunk plus `alpha_fc` (JAX fields.py:131-134;
         reference tpose_nerf_network.py:241-250 `calculate_alpha`): pts
         (N, 3) -> sigma (N,)."""
-        return self.alpha_fc(self.trunk(pts))[..., 0]
+        return linear(self.alpha_fc, self.trunk(pts), self.dtype)[..., 0].float()
 
     def forward(self, pts, viewdir, latent_index: int):
         """pts (N, 3), viewdir (N, 3) -> (sigma (N,), rgb_logits (N, 3))."""
+        dt = self.dtype
         h = self.trunk(pts)
-        sigma = self.alpha_fc(h)[..., 0]
-        feat = self.feature_fc(h)
-        latent = self.nf_latent.weight[int(latent_index)]
-        feat = self.latent_fc(
-            torch.cat([feat, latent.expand(feat.shape[0], 128)], dim=-1)
-        )
-        vdir = positional_encoding(viewdir, self.view_res)
-        h2 = torch.relu(self.view_fc(torch.cat([feat, vdir], dim=-1)))
-        return sigma, self.rgb_fc(h2)
+        sigma = linear(self.alpha_fc, h, dt)[..., 0].float()
+        feat = linear(self.feature_fc, h, dt)
+        latent = self.nf_latent.weight[int(latent_index)].to(dt)
+        feat = linear(self.latent_fc, torch.cat(
+            [feat, latent.expand(feat.shape[0], 128)], dim=-1), dt)
+        vdir = positional_encoding(viewdir, self.view_res).to(dt)
+        h2 = torch.relu(linear(self.view_fc, torch.cat([feat, vdir], dim=-1),
+                               dt))
+        return sigma, linear(self.rgb_fc, h2, dt).float()
 
 
 def displacement_layers(xyz_res: int = 10, pose_dim: int = 72):
@@ -170,15 +201,17 @@ def displacement_layers(xyz_res: int = 10, pose_dim: int = 72):
     return linears, fc
 
 
-def displacement(owner, linears, pts, pose_vec, xyz_res: int):
+def displacement(owner, linears, pts, pose_vec, xyz_res: int,
+                 dtype: torch.dtype = torch.float32):
     """The displacement 0.05 * tanh(MLP([PE(pts), pose])) of the layers
-    `linears` (K1, its packed weights kept on `owner`): pts (N, 3),
-    pose_vec (72,) -> (N, 3)."""
+    `linears` (K1 in `dtype`, its packed weights kept on `owner`; the
+    tanh in float32): pts (N, 3), pose_vec (72,) -> (N, 3)."""
     pe = positional_encoding(pts, xyz_res)
     feat = torch.cat(
         [pe, pose_vec.expand(pe.shape[0], pose_vec.shape[-1])], dim=-1
     )
-    return 0.05 * torch.tanh(run_skip_mlp(owner, feat, linears, _SKIPS))
+    return 0.05 * torch.tanh(run_skip_mlp(owner, feat, linears, _SKIPS,
+                                          dtype=dtype))
 
 
 class ResidualField(nn.Module):
@@ -187,6 +220,8 @@ class ResidualField(nn.Module):
     -> 8x256 skip-4 MLP -> 3, scaled by 0.05 * tanh. The parameters
     carry the reference's names `resd_linears.{i}`, `resd_fc`. Initial
     weights as JAX's SkipMLP (`displacement_layers`)."""
+
+    dtype = torch.float32
 
     def __init__(self, xyz_res: int = 10, pose_dim: int = 72):
         super().__init__()
@@ -197,7 +232,7 @@ class ResidualField(nn.Module):
     def residual(self, pts, pose_vec):
         """pts (N, 3); pose_vec (72,) -> resd (N, 3)."""
         return displacement(self, [*self.resd_linears, self.resd_fc], pts,
-                            pose_vec, self.xyz_res)
+                            pose_vec, self.xyz_res, self.dtype)
 
 
 def _softplus(x):
@@ -214,8 +249,12 @@ class GeometricFieldNetwork(nn.Module):
     256 - 39 = 217. Output (N, 257): channel 0 the sdf (or the
     pre-activation density), 1: the feature.
     Initial weights: the IDR geometric init (`geometric_init_`), an sdf
-    near |x| - 0.5.
+    near |x| - 0.5. In bf16 (JAX fields.py:189-207) the encoding is cast
+    to bf16, the skip divides by sqrt(2) rounded to bf16, every layer
+    and softplus computes in bf16, and the output is cast to float32.
     """
+
+    dtype = torch.float32
 
     def __init__(self, multires: int = 6, d_hidden: int = 256,
                  n_layers: int = 8, d_out: int = 257, skip_in=(4,)):
@@ -232,15 +271,18 @@ class GeometricFieldNetwork(nn.Module):
                         d_pe, self.skip_in)
 
     def forward(self, pts):
-        inputs = positional_encoding(pts, self.multires)
+        dt = self.dtype
+        inputs = positional_encoding(pts, self.multires).to(dt)
+        # np.sqrt(2).astype(dtype), as JAX divides
+        sqrt2 = torch.tensor(math.sqrt(2), dtype=dt).item()
         x = inputs
         for l in range(self.n_linear):
             if l in self.skip_in:
-                x = torch.cat([x, inputs], dim=-1) / math.sqrt(2)
-            x = getattr(self, f"lin{l}")(x)
+                x = torch.cat([x, inputs], dim=-1) / sqrt2
+            x = getattr(self, f"lin{l}")(x, dt)
             if l < self.n_linear - 1:
                 x = _softplus(100.0 * x) / 100.0
-        return x
+        return x.float()
 
 
 class ColorNetwork(nn.Module):
@@ -249,7 +291,12 @@ class ColorNetwork(nn.Module):
     aligned_aninerf_pdf_network.py:296-379 without): [points (3),
     PE(viewdir) (27), normals (3) with `use_normals`, feature (256)] ->
     lin0..lin2 (256, relu) -> concat the 128-d frame latent -> lin3
-    (relu) -> lin4 -> sigmoid. All layers weight-normalized."""
+    (relu) -> lin4 -> sigmoid. All layers weight-normalized. In bf16 the
+    inputs are cast to bf16, the layers compute in bf16 and lin4's
+    output is cast to float32 before the sigmoid (JAX fields.py:232-252).
+    """
+
+    dtype = torch.float32
 
     def __init__(self, num_latents: int, view_res: int = 4,
                  d_feature: int = 256, use_normals: bool = True):
@@ -267,17 +314,18 @@ class ColorNetwork(nn.Module):
 
     def forward(self, points, normals, viewdirs, features, latent_index: int):
         """normals is read only with `use_normals` (None otherwise)."""
+        dt = self.dtype
         parts = [points, positional_encoding(viewdirs, self.view_res)]
         if self.use_normals:
             parts.append(normals)
-        x = torch.cat([*parts, features], dim=-1)
-        h = torch.relu(self.lin0(x))
-        h = torch.relu(self.lin1(h))
-        h = torch.relu(self.lin2(h))
-        latent = self.color_latent.weight[int(latent_index)]
+        x = torch.cat([p.to(dt) for p in (*parts, features)], dim=-1)
+        h = torch.relu(self.lin0(x, dt))
+        h = torch.relu(self.lin1(h, dt))
+        h = torch.relu(self.lin2(h, dt))
+        latent = self.color_latent.weight[int(latent_index)].to(dt)
         h = torch.relu(self.lin3(
-            torch.cat([h, latent.expand(h.shape[0], 128)], dim=-1)))
-        return torch.sigmoid(self.lin4(h))
+            torch.cat([h, latent.expand(h.shape[0], 128)], dim=-1), dt))
+        return torch.sigmoid(self.lin4(h, dt).float())
 
 
 class BetaNetwork(nn.Module):

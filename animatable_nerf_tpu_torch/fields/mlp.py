@@ -63,40 +63,56 @@ def kernel_layers(linears) -> list:
     return [(lin.weight.t(), lin.bias) for lin in linears]
 
 
-def packed_layers(owner: nn.Module, linears, skips, din: int):
-    """K1's packed weights of `linears`, made once per weight version
-    and kept on `owner`, the module that holds them. The key is each
-    parameter itself (held, so its identity cannot be reused), its
-    `_version`, which every in-place update bumps (optimizer steps,
-    `load_state_dict`), and its device; never a data pointer, which a
-    freed tensor hands on to fresh weights."""
+def packed_layers(owner: nn.Module, linears, skips, din: int,
+                  dtype: torch.dtype = torch.float32):
+    """K1's packed weights of `linears` for the form `dtype` (float32 or
+    bf16), made once per weight version and kept on `owner`, the module
+    that holds them, one pack per form. The key is each parameter itself
+    (held, so its identity cannot be reused), its `_version`, which
+    every in-place update bumps (optimizer steps, `load_state_dict`),
+    and its device; never a data pointer, which a freed tensor hands on
+    to fresh weights."""
     params = [p for lin in linears for p in (lin.weight, lin.bias)]
     key = [(p, p._version, p.device) for p in params]
-    cached = owner.__dict__.get("_k1_packed")
+    slot = "_k1_packed" if dtype == torch.float32 else "_k1_packed_bf16"
+    cached = owner.__dict__.get(slot)
     if cached is not None and len(cached[0]) == len(key) and all(
             a is p and va == vp and da == dp
             for (a, va, da), (p, vp, dp) in zip(cached[0], key)):
         return cached[1]
     with torch.no_grad():
-        packed = pack_layers(kernel_layers(linears), skips, din)
-    owner.__dict__["_k1_packed"] = (key, packed)
+        packed = pack_layers(kernel_layers(linears), skips, din, dtype)
+    owner.__dict__[slot] = (key, packed)
     return packed
 
 
-def run_skip_mlp(owner: nn.Module, x, linears, skips, act_last: bool = False):
+def run_skip_mlp(owner: nn.Module, x, linears, skips, act_last: bool = False,
+                 dtype: torch.dtype = torch.float32):
     """Apply a stack of nn.Linear layers held by `owner` as one K1 call
-    (ReLU). On the card the weights go in packed once per weight version
-    (`packed_layers`; in training every optimizer step makes a new
-    version, so K1 repacks once a step); the CPU runs the plain version
-    on them as they are. With grad mode on, the call goes through
-    ops/skip_mlp.py `SkipMLPFunction`, whose backward differentiates the
-    plain version."""
-    x = x.contiguous()
+    (ReLU) in the compute dtype: float32, or bf16 (x cast to bf16 first,
+    K1's bf16 form; JAX `SkipMLP` with dtype bfloat16). The result is
+    float32. On the card the weights go in packed once per weight
+    version and form (`packed_layers`; in training every optimizer step
+    makes a new version, so K1 repacks once a step); the CPU runs the
+    plain version on them as they are. With grad mode on, the call goes
+    through ops/skip_mlp.py `SkipMLPFunction`, whose backward
+    differentiates the plain version."""
+    x = x.to(dtype).contiguous()
     skips = tuple(skips)
-    packed = (packed_layers(owner, linears, skips, x.shape[-1])
+    packed = (packed_layers(owner, linears, skips, x.shape[-1], dtype)
               if x.device.type == "cuda" else None)
     return skip_mlp(x, kernel_layers(linears), skips=skips, act="relu",
                     act_last=act_last, packed=packed)
+
+
+def linear(lin: nn.Linear, x, dtype: torch.dtype = torch.float32):
+    """An nn.Linear head in the compute dtype: float32 as it is; bf16 as
+    flax's `Dense` with dtype bfloat16 (JAX fields/fields.py:98-102): x,
+    the weight and the bias cast to bf16, the product rounded to bf16,
+    then the bias added in bf16."""
+    if dtype == torch.float32:
+        return lin(x)
+    return x.to(dtype) @ lin.weight.t().to(dtype) + lin.bias.to(dtype)
 
 
 def wn_weight(weight_v, weight_g):
@@ -128,8 +144,15 @@ class WNLinear(nn.Module):
         self.weight_g.copy_(torch.linalg.norm(self.weight_v, dim=1,
                                               keepdim=True))
 
-    def forward(self, x):
-        return F.linear(x, wn_weight(self.weight_v, self.weight_g), self.bias)
+    def forward(self, x, dtype: torch.dtype = torch.float32):
+        """In float32, or in bf16 as JAX `wn_apply` with a dtype
+        (fields/mlp.py:105-120): the normalized weight is formed in
+        float32, then it, x and the bias are cast to bf16 and
+        x @ w + b is computed in bf16."""
+        w = wn_weight(self.weight_v, self.weight_g)
+        if dtype == torch.float32:
+            return F.linear(x, w, self.bias)
+        return x.to(dtype) @ w.t().to(dtype) + self.bias.to(dtype)
 
 
 @torch.no_grad()

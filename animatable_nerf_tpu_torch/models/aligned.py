@@ -81,6 +81,7 @@ from ..fields.fields import (
     PoseCondBWField,
     displacement,
     displacement_layers,
+    set_compute_dtype,
 )
 from .common import FrameBlendWeights, consistency_select, inside_bounds
 from .pdf import NORM_TH, TBOUNDS_PAD, KNNFamily, NeRFHead
@@ -94,7 +95,9 @@ class _AlignedBase(NeRFHead, KNNFamily):
     state dict has the reference's names.
 
     num_latents: num_train_frame, the color latent table's rows (the
-    frame-latent field has one more, row 0 the canonical one)."""
+    frame-latent field has one more, row 0 the canonical one).
+    dtype: the fields' compute dtype, float32 or bfloat16 (JAX
+    aligned.py:58-100, :443-526)."""
 
     # the canonical vertices serve the consistency target's KNN prior,
     # and stage 2 draws its posed points in the world box
@@ -104,8 +107,10 @@ class _AlignedBase(NeRFHead, KNNFamily):
     reads_norm_th = True
 
     def _aligned_init(self, num_latents: int, norm_th: float,
-                      train_th: float, tpose_viewdir: bool):
+                      train_th: float, tpose_viewdir: bool,
+                      dtype: torch.dtype):
         self.tpose_human = self._canonical(num_latents)
+        set_compute_dtype(self, dtype)
         self.tpose_viewdir = bool(tpose_viewdir)
         self.norm_th = float(norm_th) if self.reads_norm_th else NORM_TH
         # stage 2's selection reads the configured value (JAX :186, :202)
@@ -169,11 +174,13 @@ class AlignedLBW(FrameBlendWeights, _AlignedBase, BlendWeightField):
 
     def __init__(self, num_latents: int, norm_th: float = 0.05,
                  train_th: float = 0.0, tpose_viewdir: bool = True,
-                 xyz_res: int = 10, num_eval_frames: int = 0):
+                 xyz_res: int = 10, num_eval_frames: int = 0,
+                 dtype: torch.dtype = torch.float32):
         BlendWeightField.__init__(self, num_latents + 1, xyz_res)
         if num_eval_frames > 0:
             self.novel_pose_bw = BlendWeightField(num_eval_frames, xyz_res)
-        self._aligned_init(num_latents, norm_th, train_th, tpose_viewdir)
+        self._aligned_init(num_latents, norm_th, train_th, tpose_viewdir,
+                           dtype)
 
     def _learned_warp(self, pose_pts, pose_dirs, init_pbw, frame):
         pbw = self.pose_blend_weights(pose_pts, init_pbw, frame)
@@ -246,9 +253,10 @@ class AlignedPBW(_AlignedBase, PoseCondBWField):
 
     def __init__(self, num_latents: int, norm_th: float = 0.05,
                  train_th: float = 0.0, tpose_viewdir: bool = True,
-                 xyz_res: int = 10):
+                 xyz_res: int = 10, dtype: torch.dtype = torch.float32):
         PoseCondBWField.__init__(self, num_latents + 1, xyz_res)
-        self._aligned_init(num_latents, norm_th, train_th, tpose_viewdir)
+        self._aligned_init(num_latents, norm_th, train_th, tpose_viewdir,
+                           dtype)
 
     def _deform(self, pose_pts, pose_dirs, init_pbw, frame):
         pbw = self.blend_weights(pose_pts, init_pbw, frame["poses"])
@@ -269,10 +277,11 @@ class AlignedSMPL(_AlignedBase, nn.Module):
 
     def __init__(self, num_latents: int, norm_th: float = 0.05,
                  train_th: float = 0.0, tpose_viewdir: bool = True,
-                 xyz_res: int = 10):
+                 xyz_res: int = 10, dtype: torch.dtype = torch.float32):
         nn.Module.__init__(self)
         self.xyz_res = xyz_res
-        self._aligned_init(num_latents, norm_th, train_th, tpose_viewdir)
+        self._aligned_init(num_latents, norm_th, train_th, tpose_viewdir,
+                           dtype)
 
     def _deform(self, pose_pts, pose_dirs, init_pbw, frame):
         tpose, dirs = self._to_bigpose(pose_pts, pose_dirs, init_pbw, frame)
@@ -290,9 +299,10 @@ class AlignedLBWPDF(AlignedLBW):
 
     def __init__(self, num_latents: int, norm_th: float = 0.05,
                  train_th: float = 0.0, tpose_viewdir: bool = True,
-                 xyz_res: int = 10, num_eval_frames: int = 0):
+                 xyz_res: int = 10, num_eval_frames: int = 0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(num_latents, norm_th, train_th, tpose_viewdir,
-                         xyz_res, num_eval_frames)
+                         xyz_res, num_eval_frames, dtype)
         self.resd_linears, self.resd_fc = displacement_layers(xyz_res)
 
     def residual(self, pts, pose_vec):
@@ -301,7 +311,7 @@ class AlignedLBWPDF(AlignedLBW):
         which are kept on the model."""
         return displacement(self.resd_linears,
                             [*self.resd_linears, self.resd_fc], pts,
-                            pose_vec, self.xyz_res)
+                            pose_vec, self.xyz_res, self.dtype)
 
     def _deform(self, pose_pts, pose_dirs, init_pbw, frame):
         bigpose, dirs, pbw = self._learned_warp(pose_pts, pose_dirs,

@@ -14,6 +14,19 @@ The point filter keeps the JAX semantics exactly:
   * pass 2 re-applies the exact f32 filter (norm_th) on the 25-channel
     interpolation of the pass-1 candidates and forces the argmin over
     those candidates.
+With `slab_filter` > 1 (JAX `_eval_slab` :419-594, its dispatch
+:760-767), a pass 0 comes first: the occupied supercell boxes of the
+distance volume, each ray's slab union span over them and the segments
+of `slab_filter` samples whose z range meets it (models/common.py
+`occupied_supercell_boxes`, `slab_span`, `slab_segment_keep`); pass 1
+then runs on the kept segments' samples alone, its argmin forced over
+that stream, as JAX forces it over its candidate stream. A box list
+over `slab_box_capacity` keeps every segment. JAX rebuilds the
+candidates' z and points from packed ray rows and one-hot matmuls (TPU
+gathers); the port gathers the tile's own points. The path runs only on
+the plain stratified grid (`analytic_z`: no importance sampling), with
+`eval_keep_frac` > 0 and `slab_filter` dividing N_samples, as in JAX;
+otherwise the flat filter above runs.
 Forcing happens once per call, i.e. once per eval tile. The JAX package
 compacts into fixed capacities and escalates a capacity ladder until
 nothing overflows; PyTorch has dynamic shapes, so both passes compact
@@ -56,10 +69,11 @@ from ..core.grid import pts_sample_blend_weights
 from ..core.lbs import (
     pose_points_to_tpose_points,
     tpose_points_to_pose_points,
+    world_dirs_to_pose_dirs,
     world_points_to_pose_points,
 )
 from ..core.sampling import z_vals_to_dists
-from ..fields.fields import BlendWeightField, TPoseNeRF
+from ..fields.fields import BlendWeightField, TPoseNeRF, set_compute_dtype
 from .common import (
     FrameBlendWeights,
     TrainRows,
@@ -67,7 +81,11 @@ from .common import (
     consistency_select,
     inside_bounds,
     keep_mask_with_argmin,
+    occupied_supercell_boxes,
     raw_alpha_from_sigma,
+    scatter_compacted,
+    slab_segment_keep,
+    slab_span,
     substitute_masked,
     volume_lipschitz_bound,
 )
@@ -90,6 +108,10 @@ class AniNeRF(FrameBlendWeights, BlendWeightField):
     num_eval_frames: rows of the novel-pose field's latent table; 0 (no
     `novel_pose_bw`) unless the run trains or evaluates novel poses
     (JAX models/registry.py:87).
+    dtype: the fields' compute dtype (float32 or bfloat16).
+    eval_keep_frac, slab_filter, slab_supercell, slab_box_capacity: the
+    slab pre-filter's gate and settings (JAX aninerf.py:119-145); the
+    fraction sizes a JAX capacity, so here only its sign matters.
     """
 
     # the per-frame tensors the engine moves to the device (training
@@ -104,13 +126,21 @@ class AniNeRF(FrameBlendWeights, BlendWeightField):
 
     def __init__(self, num_train_frames: int, norm_th: float = 0.05,
                  xyz_res: int = 10, view_res: int = 4,
-                 train_th: float = 0.0, num_eval_frames: int = 0):
+                 train_th: float = 0.0, num_eval_frames: int = 0,
+                 dtype: torch.dtype = torch.float32,
+                 eval_keep_frac: float = 0.25, slab_filter: int = 0,
+                 slab_supercell: int = 4, slab_box_capacity: int = 1024):
         super().__init__(num_latents=num_train_frames + 1, xyz_res=xyz_res)
         self.tpose_human = TPoseNeRF(num_train_frames, xyz_res, view_res)
         if num_eval_frames > 0:
             self.novel_pose_bw = BlendWeightField(num_eval_frames, xyz_res)
         self.norm_th = float(norm_th)
         self.train_th = float(train_th)
+        self.eval_keep_frac = float(eval_keep_frac)
+        self.slab_filter = int(slab_filter)
+        self.slab_supercell = int(slab_supercell)
+        self.slab_box_capacity = int(slab_box_capacity)
+        set_compute_dtype(self, dtype)
 
     def _conservative_dist_rows(self, frame):
         """bf16-rounded distance volume (D, H, W, 1) and the widened
@@ -134,6 +164,29 @@ class AniNeRF(FrameBlendWeights, BlendWeightField):
                                          frame["pbounds"])[..., 0]
         keep = keep_mask_with_argmin(pnorm, th)
         return torch.nonzero(keep).squeeze(1)
+
+    def _slab_points(self, wpts, viewdir, z_vals, frame):
+        """Pass 0 of the slab pre-filter (JAX aninerf.py:466-496): the
+        flat indices (ascending) of the samples of every segment whose z
+        range meets its ray's slab span over the occupied supercell
+        boxes; every segment where the box list overflows. The ray
+        origins come from the first samples, as in JAX."""
+        seg = self.slab_filter
+        ray_o = wpts[:, 0, :] - viewdir * z_vals[:, 0:1]
+        lo, hi, overflow = occupied_supercell_boxes(
+            frame["pbw"][..., 24], frame["pbounds"], self.norm_th,
+            self.slab_supercell, self.slab_box_capacity)
+        if overflow:
+            keep = torch.ones(z_vals.numel() // seg, dtype=torch.bool,
+                              device=z_vals.device)
+        else:
+            span_lo, span_hi = slab_span(
+                world_points_to_pose_points(ray_o, frame["R"], frame["Th"]),
+                world_dirs_to_pose_dirs(viewdir, frame["R"]), lo, hi)
+            keep = slab_segment_keep(span_lo, span_hi, z_vals, seg)
+        segs = compact_indices(keep)
+        offs = torch.arange(seg, device=segs.device)
+        return (segs[:, None] * seg + offs).reshape(-1)
 
     def _eval_finish(self, cand, pose_pts, viewdir, dists, frame,
                      n_samples: int, wpts=None, carve=None):
@@ -163,28 +216,44 @@ class AniNeRF(FrameBlendWeights, BlendWeightField):
         return sidx, torch.sigmoid(rgb_logits), alpha, n_exact
 
     @torch.no_grad()
-    def forward(self, wpts, viewdir, z_vals, frame, carve=None):
+    def forward(self, wpts, viewdir, z_vals, frame, carve=None,
+                analytic_z: bool = False, alpha_grid: bool = False):
         """Eval render of one tile: wpts (R, S, 3), viewdir (R, 3),
         z_vals (R, S) -> rgb_map (R, 3), acc_map (R,), depth_map (R,)
         plus the tile's candidate and survivor counts and the survivors
         the optional `carve` (world points -> seen by every training
-        view) removed."""
+        view) removed. `analytic_z` says that z_vals is the plain
+        stratified grid, which the slab pre-filter needs; with it the
+        output also counts the kept segments' samples (n_slab_points).
+        With `alpha_grid` (the coarse pass of importance sampling) the
+        output holds `alpha` (R, S), the survivors' alpha and 0
+        elsewhere, in place of the maps."""
         n_rays, n_samples = z_vals.shape
-        wpts = wpts.reshape(-1, 3)
-        pose_pts = world_points_to_pose_points(wpts, frame["R"], frame["Th"])
-        cand = self._compact_inputs(pose_pts, frame)
+        slab = (analytic_z and self.eval_keep_frac > 0
+                and self.slab_filter > 1 and n_samples % self.slab_filter == 0)
+        flat = wpts.reshape(-1, 3)
+        pose_pts = world_points_to_pose_points(flat, frame["R"], frame["Th"])
+        counts = {}
+        if slab:
+            pts = self._slab_points(wpts, viewdir, z_vals, frame)
+            cand = pts[self._compact_inputs(pose_pts[pts], frame)]
+            counts["n_slab_points"] = pts.numel()
+        else:
+            cand = self._compact_inputs(pose_pts, frame)
         sidx, rgb, alpha, n_exact = self._eval_finish(
             cand, pose_pts, viewdir, z_vals_to_dists(z_vals).reshape(-1),
-            frame, n_samples, wpts, carve,
+            frame, n_samples, flat, carve,
         )
+        counts.update(n_candidates=cand.numel(), n_survivors=n_exact,
+                      n_carved=n_exact - sidx.numel())
+        if alpha_grid:
+            return {"alpha": scatter_compacted(alpha, sidx, n_rays,
+                                               n_samples), **counts}
         rgb_map, acc_map, depth_map = composite_compacted(
             sidx, rgb, alpha, z_vals, n_rays, n_samples
         )
-        return {
-            "rgb_map": rgb_map, "acc_map": acc_map, "depth_map": depth_map,
-            "n_candidates": cand.numel(), "n_survivors": n_exact,
-            "n_carved": n_exact - sidx.numel(),
-        }
+        return {"rgb_map": rgb_map, "acc_map": acc_map,
+                "depth_map": depth_map, **counts}
 
     def train_forward(self, wpts, viewdir, z_vals, frame):
         """Train forward (JAX aninerf.py:808-861 dense, :678-737

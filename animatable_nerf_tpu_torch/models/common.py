@@ -1,10 +1,12 @@
 """Shared helpers of the model layer.
 
 JAX counterpart: animatable_nerf_tpu/models/common.py (the subset the
-AniNeRF and displacement-field eval and train paths use, and the
-compacted train paths' `compact_payload` :530 and
-`scatter_compacted_raw` :566, without their capacities: the port
-compacts exactly).
+AniNeRF and displacement-field eval and train paths use, the compacted
+train paths' `compact_payload` :530 and `scatter_compacted_raw` :566,
+and the slab pre-filter's `compact_segments` :263,
+`occupied_supercell_boxes` :288, `slab_span` :348 and
+`slab_segment_keep` :398, all without their capacities' dead slots: the
+port compacts exactly).
 """
 
 from __future__ import annotations
@@ -18,6 +20,11 @@ from ..ops.knn import knn_blend_blocked
 # sdf of masked points (anisdf_pdf_network.py:218-219), and NeuS's fill
 # of the non-survivors in a ray's CDF (sdf_utils.py:40-61)
 SDF_FILL = 10.0
+# the slab boxes' "infinity" (far beyond any scene coordinate or ray
+# parameter, small enough that the slab arithmetic stays finite) and
+# their inflation against float32 rounding (JAX common.py:276-281)
+SLAB_BIG = 1e8
+SLAB_EPS = 1e-4
 
 
 def keep_mask_with_argmin(norm_vals, threshold):
@@ -215,3 +222,84 @@ def volume_lipschitz_bound(vol, bounds):
     ly = torch.max(torch.abs(torch.diff(vol, dim=1))) / cell[1]
     lz = torch.max(torch.abs(torch.diff(vol, dim=2))) / cell[2]
     return torch.sqrt(lx * lx + ly * ly + lz * lz)
+
+
+def occupied_supercell_boxes(dist_vol, bounds, threshold: float,
+                             supercell: int, capacity: int):
+    """World boxes of the occupied supercells of a trilinear distance
+    volume dist_vol (D, H, W) over bounds (2, 3) (JAX common.py:288):
+    a cell can hold a point whose interpolated distance is under
+    `threshold` only if one of its corners is (the interpolant is
+    multilinear), so the occupied cells are exact and conservative;
+    they are grouped in supercell^3 blocks, and each occupied block
+    gives a box grown by SLAB_EPS, its faces on the volume's border
+    pushed to +-SLAB_BIG (border padding reads the border cell).
+    Returns (lo (B, 3), hi (B, 3), overflow): the first `capacity`
+    occupied blocks in index order, as JAX's stable compaction keeps
+    them (JAX's dead slots are left out), and whether there were more,
+    when the boxes are not conservative."""
+    D, H, W = dist_vol.shape
+    cmin = torch.minimum(dist_vol[:-1], dist_vol[1:])
+    cmin = torch.minimum(cmin[:, :-1], cmin[:, 1:])
+    cmin = torch.minimum(cmin[:, :, :-1], cmin[:, :, 1:])
+    cells = (D - 1, H - 1, W - 1)
+    s = supercell
+    nd, nh, nw = (-(-c // s) for c in cells)
+    occ = torch.zeros(nd * s, nh * s, nw * s, dtype=torch.bool,
+                      device=dist_vol.device)
+    occ[:cells[0], :cells[1], :cells[2]] = cmin < threshold
+    sup = occ.reshape(nd, s, nh, s, nw, s).any(dim=5).any(dim=3).any(dim=1)
+    idx = compact_indices(sup.reshape(-1))
+    overflow = idx.numel() > capacity
+    idx = idx[:capacity]
+    lo_c = torch.stack([idx // (nh * nw), (idx // nw) % nh, idx % nw],
+                       dim=-1) * s
+    top = torch.tensor(cells, device=idx.device)
+    hi_c = torch.minimum(lo_c + s, top)
+    cell = (bounds[1] - bounds[0]) / (
+        torch.tensor((D, H, W), dtype=dist_vol.dtype, device=idx.device) - 1.0)
+    lo = bounds[0] + lo_c.to(dist_vol.dtype) * cell - SLAB_EPS
+    hi = bounds[0] + hi_c.to(dist_vol.dtype) * cell + SLAB_EPS
+    lo = torch.where(lo_c == 0, -SLAB_BIG, lo)
+    hi = torch.where(hi_c == top, SLAB_BIG, hi)
+    return lo, hi, bool(overflow)
+
+
+def slab_span(ray_o, ray_d, lo, hi, chunk: int = 512):
+    """Each ray's union span over the boxes it hits (JAX common.py:348):
+    ray_o, ray_d (R, 3), boxes lo, hi (B, 3) -> (span_lo, span_hi) (R,),
+    the least entry and the largest exit parameter t (point = ray_o + t
+    ray_d), (+inf, -inf) where the ray hits none. Entry and exit are
+    picked by the direction's sign; the boxes go in chunks, so the
+    (R, chunk, 3) temporaries stay bounded."""
+    inv = 1.0 / torch.where(torch.abs(ray_d) < 1e-12,
+                            torch.full_like(ray_d, 1e-12), ray_d)
+    pos = (inv >= 0)[:, None, :]
+    n = ray_o.shape[0]
+    span_lo = torch.full((n,), float("inf"), device=ray_o.device)
+    span_hi = torch.full((n,), float("-inf"), device=ray_o.device)
+    for c in range(0, lo.shape[0], chunk):
+        t0 = (lo[None, c:c + chunk] - ray_o[:, None]) * inv[:, None]
+        t1 = (hi[None, c:c + chunk] - ray_o[:, None]) * inv[:, None]
+        enter = torch.where(pos, t0, t1).amax(dim=-1)
+        exit_ = torch.where(pos, t1, t0).amin(dim=-1)
+        hit = exit_ >= enter
+        span_lo = torch.minimum(span_lo, torch.where(
+            hit, enter, float("inf")).amin(dim=-1))
+        span_hi = torch.maximum(span_hi, torch.where(
+            hit, exit_, float("-inf")).amax(dim=-1))
+    return span_lo, span_hi
+
+
+def slab_segment_keep(span_lo, span_hi, z_vals, seg: int):
+    """The segments of `seg` consecutive samples whose [z_first, z_last]
+    meets their ray's span (JAX common.py:398): (R * S / seg,) bool, row
+    major. A sample can pass the exact filter only inside an occupied
+    box, hence inside its ray's span. Where no segment is kept, the
+    first is, as JAX forces its argmax on."""
+    n_rays, n_samples = z_vals.shape
+    zs = z_vals.reshape(n_rays, n_samples // seg, seg)
+    keep = ((span_lo[:, None] <= zs[..., -1])
+            & (span_hi[:, None] >= zs[..., 0])).reshape(-1)
+    keep[torch.argmax(keep.to(torch.uint8))] = True
+    return keep

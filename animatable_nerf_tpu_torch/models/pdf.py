@@ -95,6 +95,7 @@ from ..fields.fields import (
     GeometricFieldNetwork,
     ResidualField,
     SingleVarianceNetwork,
+    set_compute_dtype,
 )
 from ..ops.knn import min_dist
 from .common import (
@@ -106,6 +107,7 @@ from .common import (
     keep_mask_with_argmin,
     knn_blend_for_frame,
     raw_alpha_from_sigma,
+    scatter_compacted,
     substitute_masked,
 )
 
@@ -266,7 +268,8 @@ class KNNFamily:
         return sigma
 
     @torch.no_grad()
-    def forward(self, wpts, viewdir, z_vals, frame, carve=None):
+    def forward(self, wpts, viewdir, z_vals, frame, carve=None,
+                analytic_z: bool = False, alpha_grid: bool = False):
         """Eval render of one tile: wpts (R, S, 3), viewdir (R, 3),
         z_vals (R, S) -> rgb_map (R, 3), acc_map (R,), depth_map (R,)
         plus the tile's candidate and survivor counts. `carve`, where
@@ -275,7 +278,11 @@ class KNNFamily:
         survivors' own world points (JAX pdf.py:296-301,
         aligned.py:295-302), except where the head keeps the carved
         survivors (`carve_in_head`). `n_carved` counts the survivors it
-        removed."""
+        removed. `analytic_z` goes unread (no KNN family has a slab
+        pre-filter, as in JAX). With `alpha_grid` (the coarse pass of
+        importance sampling) the output holds `alpha` (R, S), the
+        survivors' final alpha and 0 elsewhere, in place of the maps
+        (NeuS-PDF's from its own (R, S) grid)."""
         n_rays, n_samples = z_vals.shape
         wpts = wpts.reshape(-1, 3)
         pose_pts = world_points_to_pose_points(wpts, frame["R"], frame["Th"])
@@ -306,16 +313,18 @@ class KNNFamily:
             keep = keep & seen
         rgb = torch.where(keep[:, None], rgb, 0.0)
         alpha = torch.where(keep, alpha, 0.0)
+        n_carved = (n_exact - sidx.numel() if seen is None
+                    else int((~seen).sum()))
+        counts = {"n_candidates": cand.numel(), "n_survivors": n_exact,
+                  "n_carved": n_carved}
+        if alpha_grid:
+            return {"alpha": scatter_compacted(alpha, sidx, n_rays,
+                                               n_samples), **counts}
         rgb_map, acc_map, depth_map = composite_compacted(
             sidx, rgb, alpha, z_vals, n_rays, n_samples
         )
-        n_carved = (n_exact - sidx.numel() if seen is None
-                    else int((~seen).sum()))
-        return {
-            "rgb_map": rgb_map, "acc_map": acc_map, "depth_map": depth_map,
-            "n_candidates": cand.numel(), "n_survivors": n_exact,
-            "n_carved": n_carved,
-        }
+        return {"rgb_map": rgb_map, "acc_map": acc_map,
+                "depth_map": depth_map, **counts}
 
 
 class _PDFBase(KNNFamily, ResidualField):
@@ -325,13 +334,18 @@ class _PDFBase(KNNFamily, ResidualField):
     family's `_canonical` networks, so its state dict has the
     reference's names. Their filter threshold is NORM_TH.
 
-    num_latents: rows of the color latent table (num_latent_code)."""
+    num_latents: rows of the color latent table (num_latent_code).
+    dtype: the fields' compute dtype, float32 or bfloat16 (JAX
+    pdf.py:94): the displacement field, the SDF or NeRF network and the
+    color network compute in it, the normals come through it by
+    autograd; the KNN, the warp and the opacity stay float32."""
 
     def __init__(self, num_latents: int, tpose_viewdir: bool = True,
-                 xyz_res: int = 10):
+                 xyz_res: int = 10, dtype: torch.dtype = torch.float32):
         super().__init__(xyz_res=xyz_res)
         self.tpose_human = self._canonical(num_latents)
         self.tpose_viewdir = bool(tpose_viewdir)
+        set_compute_dtype(self, dtype)
 
     @staticmethod
     def _canonical(num_latents: int) -> Canonical:

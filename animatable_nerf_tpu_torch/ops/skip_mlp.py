@@ -20,6 +20,13 @@ makes: padded, K-major and cut into chunks of PACK_K input features.
 Callers that own the weights pack them once per weight version
 (fields/mlp.py); a call with bare `layers` packs them on every call.
 
+Under `compute_dtype bfloat16` the trunks come in as bf16 and take
+K1's bf16 form (the second kernel of csrc/skip_mlp.cu): bf16 operands
+into wgmma with a float32 accumulator, rounded where `skip_mlp_plain`
+rounds in bf16 (see there). The wrapper picks the form by x's dtype and
+counts its launches apart (`skip_mlp.launches_bf16`); it never takes the
+float32 kernel or the plain version for a bf16 input on the card.
+
 The library is built with nvcc into `build/` at the checkout root at
 first use (ops/build.py; plain C interface, bound with ctypes).
 """
@@ -50,7 +57,12 @@ def skip_mlp_plain(x, layers, skips=(), act: str = "relu",
     x (N, din); layers: sequence of (W (in, out), b (out,)) incl. the
     output head. The activation runs after every layer but the last
     (also the last with `act_last`); after each layer index in `skips`
-    the ORIGINAL input is re-concatenated in front: [x, h]."""
+    the ORIGINAL input is re-concatenated in front: [x, h].
+
+    A bf16 x takes the bf16 form (`_plain_bf16`); the result is float32
+    either way."""
+    if x.dtype == torch.bfloat16:
+        return _plain_bf16(x, layers, skips, act, act_last)
     fn = _ACT_FNS[act]
     h = x
     n = len(layers)
@@ -63,6 +75,32 @@ def skip_mlp_plain(x, layers, skips=(), act: str = "relu",
     return h
 
 
+def _plain_bf16(x, layers, skips, act, act_last):
+    """The bf16 form, as the JAX package's bf16 SkipMLP computes on XLA
+    (fields/mlp.py:84-90 with dtype bfloat16; XLA multiplies bf16
+    operands in float32): each weight and bias is cast to bf16; each
+    layer's product of bf16 values is summed in float32 and rounded to
+    bf16, the bias added and the sum rounded to bf16 again, then the
+    activation (rounded to bf16); the skip concat re-uses x, the bf16
+    input. The last layer without `act_last` keeps the sum of its
+    rounded product and its bias in float32 (XLA's excess precision
+    drops that rounding before the cast to float32). Returns float32."""
+    fn = _ACT_FNS[act]
+    bf16 = torch.bfloat16
+    h = x
+    n = len(layers)
+    for i, (w, b) in enumerate(layers):
+        p = ((h.float() @ w.to(bf16).float()).to(bf16).float()
+             + b.to(bf16).float())
+        if i < n - 1 or act_last:
+            h = fn(p.to(bf16).float()).to(bf16)
+            if i in skips and i < n - 1:
+                h = torch.cat([x, h], dim=-1)
+        else:
+            h = p
+    return h.float()
+
+
 def _round_up(v: int, m: int) -> int:
     return (v + m - 1) // m * m
 
@@ -70,24 +108,32 @@ def _round_up(v: int, m: int) -> int:
 class PackedMLP(NamedTuple):
     """A stack's weights in the kernel's layout (see `pack_layers`)."""
 
-    weights: tuple  # per layer, (K_p * N_p,) float32
-    biases: tuple  # per layer, (N_p,) float32, zero-padded
+    weights: tuple  # per layer, (K_p * N_p,) float32 or bf16
+    biases: tuple  # per layer, (N_p,) float32 (bf16 values), zero-padded
     douts: tuple  # per layer, the true output width
     din: int
     skips: tuple
+    dtype: torch.dtype = torch.float32  # the form: float32 or bfloat16
 
 
-def pack_layers(layers, skips=(), din: int | None = None) -> PackedMLP:
-    """(W (in, out), b) pairs -> K1's weight layout.
+def pack_layers(layers, skips=(), din: int | None = None,
+                dtype: torch.dtype = torch.float32) -> PackedMLP:
+    """(W (in, out), b) pairs -> K1's weight layout, for the float32
+    form or (`dtype` bfloat16) the bf16 one.
 
     Every width is zero-padded to a multiple of PACK_K: a layer's input
     segments (x of width din, then h of the previous layer's width) each
     start at a padded offset, as JAX's `_pad_layers` does at 128, so the
     padding is exact. Each padded W^T (N_p, K_p) is stored chunk by
     chunk of PACK_K input features, every chunk contiguous (one bulk
-    copy) and in the tensor cores' K-major core-matrix order: element
-    (n, k) of chunk k // 16 sits at ((n // 8) * 4 + (k % 16) // 4) * 32
-    + (n % 8) * 4 + k % 4."""
+    copy) and in the tensor cores' K-major core-matrix order of 8 rows
+    by 16 bytes: in float32, element (n, k) of chunk k // 16 sits at
+    ((n // 8) * 4 + (k % 16) // 4) * 32 + (n % 8) * 4 + k % 4; in bf16
+    (weights cast to bf16, biases rounded to bf16 and kept in float32)
+    at ((n // 8) * 2 + (k % 16) // 8) * 64 + (n % 8) * 8 + k % 8."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"skip_mlp: no {dtype} form")
+    inner = 16 // torch.empty((), dtype=dtype).element_size()
     skips = tuple(skips)
     n_layers = len(layers)
     if n_layers < 1:
@@ -107,23 +153,24 @@ def pack_layers(layers, skips=(), din: int | None = None) -> PackedMLP:
         dout = w.shape[1]
         n_p = _round_up(dout, PACK_K)
         k_p = sum(p for _, p in segs)
-        wp = w.new_zeros(n_p, k_p, dtype=torch.float32)
+        wp = w.new_zeros(n_p, k_p, dtype=dtype)
         row = row_p = 0
         for t, p in segs:
             wp[:dout, row_p:row_p + t] = w[row:row + t].t()
             row, row_p = row + t, row_p + p
-        # (n/8, n%8, k/16, (k%16)/4, k%4) -> (k/16, n/8, (k%16)/4, n%8, k%4)
-        tiled = wp.view(n_p // 8, 8, k_p // PACK_K, PACK_K // 4, 4)
+        # (n/8, n%8, k/16, (k%16)/inner, k%inner)
+        #   -> (k/16, n/8, (k%16)/inner, n%8, k%inner)
+        tiled = wp.view(n_p // 8, 8, k_p // PACK_K, PACK_K // inner, inner)
         weights.append(tiled.permute(2, 0, 3, 1, 4).contiguous().view(-1))
         bp = b.new_zeros(n_p, dtype=torch.float32)
-        bp[:dout] = b
+        bp[:dout] = b.to(dtype)
         biases.append(bp)
         douts.append(dout)
         segs = [(dout, n_p)]
         if i in skips and i < n_layers - 1:
             segs = [(din, din_p), (dout, n_p)]
     return PackedMLP(tuple(weights), tuple(biases), tuple(douts), din,
-                     tuple(s for s in skips if 0 <= s < n_layers - 1))
+                     tuple(s for s in skips if 0 <= s < n_layers - 1), dtype)
 
 
 def unpack_layer(packed: PackedMLP, i: int):
@@ -132,7 +179,9 @@ def unpack_layer(packed: PackedMLP, i: int):
     bp = packed.biases[i]
     n_p = bp.shape[0]
     k_p = packed.weights[i].numel() // n_p
-    tiled = packed.weights[i].view(k_p // PACK_K, n_p // 8, PACK_K // 4, 8, 4)
+    inner = 16 // packed.weights[i].element_size()
+    tiled = packed.weights[i].view(k_p // PACK_K, n_p // 8, PACK_K // inner,
+                                   8, inner)
     return tiled.permute(1, 3, 0, 2, 4).reshape(n_p, k_p).t(), bp
 
 
@@ -146,6 +195,8 @@ def _library():
         ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.skip_mlp_forward.restype = ctypes.c_int
+    lib.skip_mlp_bf16_forward.argtypes = lib.skip_mlp_forward.argtypes
+    lib.skip_mlp_bf16_forward.restype = ctypes.c_int
     for name in ("skip_mlp_max_layers", "skip_mlp_max_width",
                  "skip_mlp_chunk_k"):
         getattr(lib, name).argtypes = []
@@ -156,8 +207,9 @@ def _library():
 
 
 def _check(x, packed: PackedMLP):
-    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
-        raise ValueError("skip_mlp: x must be a contiguous (N, din) float32 tensor")
+    if x.dtype != packed.dtype or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"skip_mlp: x must be a contiguous (N, din) "
+                         f"{packed.dtype} tensor, as the packed weights")
     if x.shape[1] != packed.din:
         raise ValueError(f"skip_mlp: x has {x.shape[1]} features, the "
                          f"weights take {packed.din}")
@@ -166,22 +218,24 @@ def _check(x, packed: PackedMLP):
         raise ValueError(f"skip_mlp: {len(packed.weights)} layers is out of range")
     if max(packed.din, *packed.douts) > lib.skip_mlp_max_width():
         raise ValueError("skip_mlp: a width is more than the kernel takes")
-    for t in (*packed.weights, *packed.biases):
-        if (t.device != x.device or t.dtype != torch.float32
+    for t, dtype in [*((w, packed.dtype) for w in packed.weights),
+                     *((b, torch.float32) for b in packed.biases)]:
+        if (t.device != x.device or t.dtype != dtype
                 or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(
-                "skip_mlp: weights must be contiguous, 16-byte aligned "
-                "float32 tensors on x's device"
+                "skip_mlp: packed weights must be contiguous, 16-byte "
+                "aligned tensors of the form's type on x's device"
             )
 
 
 def _forward(x, layers, skips, act, act_last, packed):
     """The K1 contract on `x`'s device, without a gradient: CPU tensors
-    take the plain version, CUDA tensors launch the kernel (or raise)."""
+    take the plain version, CUDA tensors launch the kernel of x's type
+    (or raise)."""
     if x.device.type == "cpu":
         return skip_mlp_plain(x, layers, skips, act, act_last)
     if packed is None:
-        packed = pack_layers(layers, skips, x.shape[-1])
+        packed = pack_layers(layers, skips, x.shape[-1], x.dtype)
     _check(x, packed)
     lib = _library()
     n = x.shape[0]
@@ -192,16 +246,21 @@ def _forward(x, layers, skips, act, act_last, packed):
     b_ptrs = (ctypes.c_void_p * n_layers)(*[b.data_ptr() for b in packed.biases])
     douts = (ctypes.c_int * n_layers)(*packed.douts)
     skip_mask = sum(1 << i for i in packed.skips)
+    bf16 = packed.dtype == torch.bfloat16
+    launch = lib.skip_mlp_bf16_forward if bf16 else lib.skip_mlp_forward
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.skip_mlp_forward(
+        rc = launch(
             x.data_ptr(), out.data_ptr(), n, packed.din, n_layers, w_ptrs,
             b_ptrs, douts, skip_mask, _ACT_CODES[act], int(act_last), stream,
         )
     if rc != 0:
         raise RuntimeError(f"skip_mlp: kernel launch failed (CUDA error {rc})")
     if n > 0:
-        skip_mlp.launches += 1
+        if bf16:
+            skip_mlp.launches_bf16 += 1
+        else:
+            skip_mlp.launches += 1
     return out
 
 
@@ -256,12 +315,15 @@ def skip_mlp(x, layers, skips=(), act: str = "relu", act_last: bool = False,
     """The K1 contract on `x`'s device: CPU tensors take the plain
     version, CUDA tensors launch the kernel (or raise). Arguments as in
     `skip_mlp_plain`; weights are (in, out) like the JAX wrapper's.
-    `packed`, where given, is `pack_layers(layers, skips)`, made once by
-    the weights' owner; otherwise the call packs them. When grad mode is
+    `packed`, where given, is `pack_layers(layers, skips, dtype=x.dtype)`,
+    made once by the weights' owner; otherwise the call packs them. A
+    bf16 x takes the bf16 form; the output is float32 either way. When grad mode is
     on and x or a weight requires grad, the call goes through
     `SkipMLPFunction`, so the output carries a gradient on both devices."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"skip_mlp: unsupported device {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"skip_mlp: no {x.dtype} form")
     skips = tuple(skips)
     flat = [t for wb in layers for t in wb]
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *flat)):
@@ -269,5 +331,7 @@ def skip_mlp(x, layers, skips=(), act: str = "relu", act_last: bool = False,
     return _forward(x, layers, skips, act, act_last, packed)
 
 
-# launches of the CUDA kernel in this process (the CPU path never counts)
+# launches of the CUDA kernels in this process (the CPU path never
+# counts): the float32 form's, and the bf16 form's apart
 skip_mlp.launches = 0
+skip_mlp.launches_bf16 = 0

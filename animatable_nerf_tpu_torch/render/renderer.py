@@ -6,7 +6,8 @@ model's dense train path, with the SDF models' silhouette tensors.
 
 JAX counterpart: animatable_nerf_tpu/render/renderer.py (`pad_rays`
 :63-88, `render_rays` :159-320 with the silhouette tensors :305-319,
-`render_image` :329-384; the carve `inside_fn` :213-228). The JAX
+`render_image` :329-384; the carve `inside_fn` :213-228; the
+hierarchical importance sampling :187-214). The JAX
 `apply_model` row chunking (`dense_chunk_rows`) guards a TPU compiler
 fault and has no counterpart here; on the train path it also forces the
 argmin and argmax per chunk, so the port refuses a train batch above
@@ -20,11 +21,19 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.composite import get_intersection_mask, raw2outputs
+from ..core.composite import (
+    alpha_weights,
+    get_intersection_mask,
+    raw2outputs,
+    sample_pdf,
+)
 from ..core.sampling import stratified_z_vals, z_vals_to_pts
 
 _IMAGE_OUTPUTS = ("rgb_map", "acc_map", "depth_map")
 _COUNTS = ("n_candidates", "n_survivors", "n_carved")
+# counts a model returns on some paths only (AniNeRF's slab pre-filter:
+# the samples of its kept segments)
+_OPTIONAL_COUNTS = ("n_slab_points",)
 
 
 class RenderSettings(NamedTuple):
@@ -33,6 +42,9 @@ class RenderSettings(NamedTuple):
     eval_tile: int = 8192
     # training's stratified jitter (cfg.perturb > 0)
     perturb: bool = False
+    # > 0: hierarchical importance sampling at eval (`use_importance`),
+    # this many fine samples a ray
+    n_importance: int = 0
 
 
 # JAX RenderSettings.dense_chunk_rows: a larger dense train call is run
@@ -69,10 +81,29 @@ def render_rays(model, rays: dict, frame: dict, settings: RenderSettings,
     `prepare_inside_mask`); the model applies it to its survivors' own
     world points (JAX renderer.py:213-228: on the survivors, not on
     every sample). Returns rgb_map/acc_map/depth_map and the model's
-    candidate, survivor and carved counts."""
+    candidate, survivor and carved counts.
+
+    With `settings.n_importance` > 0 (JAX renderer.py:187-214) a coarse
+    pass runs the model on the stratified grid and returns its alpha on
+    the (R, S) grid (`alpha_grid`: the survivors' alpha, 0 elsewhere);
+    `sample_pdf` draws n_importance fine z from the midpoints and the
+    weights `raw2outputs` gives that alpha, bar the first and last, and
+    the fine pass renders the sorted union of both sets. Only the fine
+    pass is carved; a frame's novel pose reaches both. The counts are
+    the fine pass's. Without it the model learns that z_vals is the
+    plain stratified grid (`analytic_z`, the gate of AniNeRF's slab
+    pre-filter)."""
     z_vals = stratified_z_vals(rays["near"], rays["far"], settings.n_samples)
+    if settings.n_importance > 0:
+        coarse = model(z_vals_to_pts(rays["ray_o"], rays["ray_d"], z_vals),
+                       rays["ray_d"], z_vals, frame, alpha_grid=True)
+        weights = alpha_weights(coarse["alpha"])
+        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        z_fine = sample_pdf(z_mid, weights[..., 1:-1], settings.n_importance)
+        z_vals, _ = torch.sort(torch.cat([z_vals, z_fine], dim=-1), dim=-1)
     wpts = z_vals_to_pts(rays["ray_o"], rays["ray_d"], z_vals)
-    ret = model(wpts, rays["ray_d"], z_vals, frame, carve=carve)
+    ret = model(wpts, rays["ray_d"], z_vals, frame, carve=carve,
+                analytic_z=settings.n_importance == 0)
     rgb_map, acc_map, depth_map = (ret[k] for k in _IMAGE_OUTPUTS)
     if settings.white_bkgd:
         rgb_map = rgb_map + (1.0 - acc_map[..., None])
@@ -82,7 +113,7 @@ def render_rays(model, rays: dict, frame: dict, settings: RenderSettings,
         acc_map = torch.where(m, acc_map, 0.0)
         depth_map = torch.where(m, depth_map, 0.0)
     return {"rgb_map": rgb_map, "acc_map": acc_map, "depth_map": depth_map,
-            **{k: ret[k] for k in _COUNTS}}
+            **{k: ret[k] for k in (*_COUNTS, *_OPTIONAL_COUNTS) if k in ret}}
 
 
 def render_image(model, rays: dict, frame: dict, settings: RenderSettings,
@@ -100,8 +131,9 @@ def render_image(model, rays: dict, frame: dict, settings: RenderSettings,
         chunk = {k: v[s:s + tile] for k, v in rays.items()}
         outs.append(render_rays(model, chunk, frame, settings, carve))
     result = {k: torch.cat([o[k] for o in outs]) for k in _IMAGE_OUTPUTS}
-    for k in _COUNTS:
-        result[k] = sum(o[k] for o in outs)
+    for k in (*_COUNTS, *_OPTIONAL_COUNTS):
+        if k in outs[0]:
+            result[k] = sum(o[k] for o in outs)
     return result
 
 

@@ -95,6 +95,10 @@ def stack_batch(items):
 
 def check_train_config(cfg):
     """Raise on what the port's trainer does not do."""
+    if str(cfg.get("compute_dtype", "float32")) != "float32":
+        raise NotImplementedError(
+            "training with compute_dtype bfloat16 is not ported yet (K1's "
+            "bf16 form has no backward); it evaluates in bf16")
     if int(cfg.train.get("batch_size", 1)) != 1:
         raise NotImplementedError("only one frame a step (train.batch_size 1) "
                                   "is ported")

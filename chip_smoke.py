@@ -216,6 +216,19 @@ Phases, one JSON line each:
      within 1e-5 of the CPU's; one 1000x1002 pair timed); `--type
      light_stage` on a seeded binary PLY of 100,000 points (the
      occupancy equal to a numpy floor reference);
+ 20. the evaluation options: K1's bf16 form (compute_dtype bfloat16)
+     against its plain bf16 version at the three wirings and K1_ROWS
+     rows, timed against its bf16 bound and the bf16 addmm chain, with
+     its ptxas spills and SASS HGMMA count; the bf16 evaluates of
+     AniNeRF and SDF-PDF held to the JAX bf16 PSNR, each view within
+     JAX's max rgb delta of 0.02 of the port's float32 view, and one
+     1000x1002 AniNeRF frame in bf16 beside float32 (wall, device ms,
+     K1's share); the `use_importance` evaluates of AniNeRF, SDF-PDF and
+     NeuS-PDF held to the JAX PSNR, K1 and K2 launched a tile on both
+     passes; AniNeRF's `slab_filter 8` evaluate held to the JAX PSNR
+     and, view by view, to the flat render, and its 1000x1002 frame
+     beside the flat one (wall, device ms, candidates); `seg_filter 4`
+     on SDF-PDF, which renders as without it;
 then the kernel table line, the script's seconds, the card line and
 {"ok": true, ...} last. Each phase's line carries its wall `seconds`.
 Kernel launch counts are set to 0 just before each path and read just
@@ -418,8 +431,9 @@ def cuda_ms(fn, warmup=2, iters=10):
 
 
 # the port's own kernels, by the names the profiler gives them
-OWN_KERNELS = ("skip_mlp_kernel", "knn_blend_kernel", "min_dist_kernel",
-               "kth_dist_kernel", "knn_blocked_kernel", "knn_celled_kernel")
+OWN_KERNELS = ("skip_mlp_kernel", "skip_mlp_bf16_kernel", "knn_blend_kernel",
+               "min_dist_kernel", "kth_dist_kernel", "knn_blocked_kernel",
+               "knn_celled_kernel")
 
 
 def device_breakdown(fn, top=8, host=True):
@@ -539,9 +553,9 @@ def k1_wirings():
 
 
 def sass_counts(lib_path):
-    """Tensor-core instructions in a built library's SASS (cuobjdump next
-    to nvcc): HGMMA for wgmma, HMMA for mma.sync; None without
-    cuobjdump."""
+    """Tensor-core instructions of each kernel in a built library's SASS
+    (cuobjdump next to nvcc): HGMMA for wgmma, HMMA for mma.sync; None
+    without cuobjdump."""
     from animatable_nerf_tpu_torch.ops import build
 
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -549,7 +563,13 @@ def sass_counts(lib_path):
         return None
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True).stdout
-    return {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HGMMA", "HMMA")}
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        head = part.split("\n")[0]
+        name = next((k for k in OWN_KERNELS if k + "E" in head), head)
+        out[name] = {op: len(re.findall(rf"\b{op}\.", part))
+                     for op in ("HGMMA", "HMMA")}
+    return out
 
 
 def phase_k1(skip_mlp, skip_mlp_plain, pack_layers, n_rows=K1_ROWS,
@@ -1016,11 +1036,13 @@ KNN_WRAPPERS = ("knn_blend", "min_dist", "kth_distance", "knn_blend_blocked",
 
 def launch_counts(k1, knn):
     return {"skip_mlp": k1.skip_mlp.launches,
+            "skip_mlp_bf16": k1.skip_mlp.launches_bf16,
             **{name: getattr(knn, name).launches for name in KNN_WRAPPERS}}
 
 
 def reset_counts(k1, knn):
     k1.skip_mlp.launches = 0
+    k1.skip_mlp.launches_bf16 = 0
     for name in KNN_WRAPPERS:
         getattr(knn, name).launches = 0
 
@@ -1053,6 +1075,10 @@ def phase_evaluate(name, cfg, jax_psnr, k1, knn):
     check(all(abs(d) <= PSNR_TOL_DB for d in dpsnr),
           f"{name}: PSNR differs from JAX by {dpsnr} dB")
     return launches, [(it["n_candidates"], it["n_survivors"]) for it in items]
+
+
+# each full frame's device profile, by phase name
+FRAME_PROFILES = {}
 
 
 def full_frame_item(ds, item):
@@ -1099,8 +1125,9 @@ def phase_full_frame(name, eng, item, k1, knn, size=(FULL_H, FULL_W)):
           "acc_mean": float(out["acc_map"].mean())})
     check(finite and acc_max > 0, f"{name}: frame is not finite or empty")
     eng.clear_frame_cache()
-    emit({"phase": f"{name}_profile",
-          **device_breakdown(lambda: eng.render_item(item), host=False)})
+    FRAME_PROFILES[name] = device_breakdown(lambda: eng.render_item(item),
+                                            host=False)
+    emit({"phase": f"{name}_profile", **FRAME_PROFILES[name]})
     return launches, out
 
 
@@ -4593,6 +4620,299 @@ def phase_host_pipeline(k1, knn):
     return paths
 
 
+# ---- phase 20: the evaluation options
+# Per-view PSNR (frames 0-3, view 3) of the JAX package's evaluates with
+# each option, computed on the CPU as JAX_PSNR's (the metrics.npy of
+# each run), with the option added:
+#   JAX_PLATFORMS=cpu python run.py --type evaluate --cfg_file configs/synthetic.yaml compute_dtype bfloat16
+#   JAX_PLATFORMS=cpu python run.py --type evaluate --cfg_file configs/synthetic_sdf_pdf.yaml compute_dtype bfloat16
+#   JAX_PLATFORMS=cpu python run.py --type evaluate --cfg_file configs/synthetic.yaml use_importance True
+#   JAX_PLATFORMS=cpu python run.py --type evaluate --cfg_file configs/synthetic_sdf_pdf.yaml use_importance True
+#   JAX_PLATFORMS=cpu python run.py --type evaluate --cfg_file configs/synthetic_neus_pdf.yaml use_importance True
+#   JAX_PLATFORMS=cpu python run.py --type evaluate --cfg_file configs/synthetic.yaml slab_filter 8 slab_box_capacity 2048
+# (about 2, 5, 6, 27, 26 and 2 min on the CPU, two at a time).
+JAX_PSNR_BF16 = [7.659306805589303, 7.57391872921992, 8.058705345492855,
+                 9.422306090147135]
+JAX_PSNR_BF16_SDF = [19.846270759943337, 22.100835056894965,
+                     23.787624394011576, 24.988880770616596]
+JAX_PSNR_IMPORTANCE = {
+    "aninerf": [7.654412079611278, 7.563348142283794, 8.041916327702605,
+                9.40486019002475],
+    "sdf_pdf": [8.960980030508079, 10.263170974793292, 11.553656491291152,
+                13.247235821442432],
+    "neus_pdf": [20.721092236570733, 22.90968500427176, 24.100641664713176,
+                 24.847191334410635],
+}
+JAX_PSNR_SLAB = [7.655750694805134, 7.5696494082365495, 8.05470772363299,
+                 9.417616795213712]
+# K1's bf16 form against its plain bf16 version: two bf16 steps of the
+# output's largest value (both round every layer to bf16; a float32 sum
+# in another order moves a product across a rounding boundary, and the
+# next layers carry it)
+K1_BF16_REL_TOL = 2e-2
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
+# JAX's guard of its bf16 render against float32 (bench.py:272-292)
+BF16_RGB_GUARD = 0.02
+# the synthetic subject's distance volume at norm_th 0.25 has 1,412
+# occupied supercells: the default list of 1,024 overflows and keeps
+# every segment, so the slab phase takes a list that holds them
+SLAB_OPTS = ["slab_filter", "8", "slab_box_capacity", "2048"]
+SLAB_RTOL, SLAB_ATOL = 1e-4, 1e-5  # JAX tests/test_render.py:364-366
+# family: (config, the kernels' launches a tile of one pass)
+IMPORTANCE = {
+    "aninerf": ("configs/synthetic.yaml", {"skip_mlp": 2}),
+    "sdf_pdf": ("configs/synthetic_sdf_pdf.yaml",
+                {"skip_mlp": 1, "knn_blend": 1}),
+    "neus_pdf": ("configs/synthetic_neus_pdf.yaml",
+                 {"skip_mlp": 1, "knn_blend": 1}),
+}
+
+
+def ptxas_of(log, kernel):
+    """ptxas's lines about `kernel` in a build log."""
+    lines, on = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            on = kernel + "E" in line
+        if on and ("registers" in line or "spill" in line
+                   or "Performance Loss" in line):
+            lines.append(line.strip())
+    return lines
+
+
+def phase_k1_bf16(k1, n_rows=K1_ROWS):
+    """K1's bf16 form against its plain bf16 version at `n_rows` rows of
+    each wiring, timed with its bound and the bf16 addmm chain; returns
+    one row per wiring."""
+    import torch
+    from animatable_nerf_tpu_torch.ops import build
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for name, din, dims, skips, act_last in k1_wirings():
+        x = (torch.rand(n_rows, din, device="cuda", generator=gen) * 2
+             - 1).to(torch.bfloat16)
+        layers = [
+            (torch.randn(i, o, device="cuda", generator=gen) / math.sqrt(i),
+             torch.randn(o, device="cuda", generator=gen) * 0.1)
+            for i, o in dims
+        ]
+        wb = [(w.to(torch.bfloat16), b.to(torch.bfloat16)) for w, b in layers]
+        kwargs = dict(skips=skips, act="relu", act_last=act_last)
+
+        def library():
+            h = x
+            for j, (w, b) in enumerate(wb):
+                h = torch.addmm(b, h, w)
+                if j < len(wb) - 1 or act_last:
+                    h = torch.relu_(h)
+                    if j in skips and j < len(wb) - 1:
+                        h = torch.cat([x, h], dim=-1)
+            return h
+
+        before = k1.skip_mlp.launches_bf16
+        got = k1.skip_mlp(x, layers, **kwargs)  # packs the weights itself
+        torch.cuda.synchronize()
+        check(k1.skip_mlp.launches_bf16 == before + 1,
+              f"K1 bf16 {name}: the bf16 kernel was not launched")
+        ref = k1.skip_mlp_plain(x, layers, **kwargs)
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        check(math.isfinite(err) and err <= K1_BF16_REL_TOL * max(scale, 1.0),
+              f"K1 bf16 {name}: max abs err {err} vs output scale {scale}")
+        packed = k1.pack_layers(layers, skips, dtype=torch.bfloat16)
+        times = timed_pair(lambda: k1.skip_mlp(x, layers, packed=packed, **kwargs),
+                           lambda: k1.skip_mlp_plain(x, layers, **kwargs),
+                           library, plain_iters=10)
+        flops = 2 * n_rows * sum(i * o for i, o in dims)
+        nbytes = (2 * n_rows * din + 4 * n_rows * dims[-1][1]
+                  + sum(2 * i * o + 4 * o for i, o in dims))
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        rows.append({
+            "wiring": name, "rows": n_rows, "din": din,
+            "dout": dims[-1][1], "layers": len(dims),
+            "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30),
+            "tol_abs": K1_BF16_REL_TOL * max(scale, 1.0), **times,
+            "flops": flops, "bytes": nbytes,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / times["kernel_ms"],
+            "kernel_tflops": flops / (times["kernel_ms"] * 1e-3) / 1e12,
+        })
+    emit({"phase": "k1_bf16_vs_plain", "tolerance": (
+        f"max abs err <= {K1_BF16_REL_TOL} x max(1, max |plain|): bf16 "
+        "products summed in float32 in another order, each layer rounded "
+        "to bf16"),
+          "bound": "max(FLOP / 989 TFLOP/s (bf16), bytes / 3.35 TB/s)",
+          "library": "torch.addmm + relu + cat in bf16",
+          "ptxas": ptxas_of(build.build_log("skip_mlp"), "skip_mlp_bf16_kernel"),
+          "sass": sass_counts(build.library_path("skip_mlp")),
+          "wirings": rows})
+    return rows
+
+
+def eval_views(cfg_file, opts_by_name):
+    """Each eval view of `cfg_file` rendered by an engine on the card per
+    entry of `opts_by_name` (name: extra opts), in turns: {name: [(maps,
+    stats), ...]}."""
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.data.loader import eval_indices
+    from animatable_nerf_tpu_torch.engine import Engine, make_dataset
+
+    engines = {}
+    for name, opts in opts_by_name.items():
+        cfg = load_config(cfg_file, list(opts), run_type="evaluate")
+        cfg.eval = True
+        engines[name] = Engine(cfg, "cuda")
+        engines[name].load_params()
+    ds = make_dataset(cfg, "test")
+    out = {name: [] for name in engines}
+    for i in eval_indices(cfg, ds):
+        item = ds[i]
+        for name, eng in engines.items():
+            maps, _ = eng.render_item(item)
+            out[name].append((maps, dict(eng.stats)))
+    return out
+
+
+def phase_bf16(k1, knn):
+    """compute_dtype bfloat16: the AniNeRF and SDF-PDF evaluates held to
+    the JAX bf16 PSNR, each view against the port's float32 view, and
+    one 1000x1002 AniNeRF frame in bf16 beside float32. Returns the
+    paths' launches."""
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.engine import Engine, make_dataset
+
+    bf16 = ["compute_dtype", "bfloat16"]
+    paths = {}
+    for name, cfg_file, jax_psnr in (
+            ("evaluate_bf16", "configs/synthetic.yaml", JAX_PSNR_BF16),
+            ("evaluate_bf16_sdf_pdf", "configs/synthetic_sdf_pdf.yaml",
+             JAX_PSNR_BF16_SDF)):
+        cfg = load_config(cfg_file, bf16, run_type="evaluate")
+        launches, _ = phase_evaluate(name, cfg, jax_psnr, k1, knn)
+        check(launches["skip_mlp_bf16"] > 0 and launches["skip_mlp"] == 0,
+              f"{name} launched {launches}")
+        paths[name] = launches
+        views = eval_views(cfg_file, {"f32": [], "bf16": bf16})
+        deltas = [float(np.abs(a[0]["rgb_map"] - b[0]["rgb_map"]).max())
+                  for a, b in zip(views["f32"], views["bf16"])]
+        same = [a[1]["n_survivors"] == b[1]["n_survivors"]
+                for a, b in zip(views["f32"], views["bf16"])]
+        emit({"phase": f"{name}_vs_f32", "max_rgb_delta": deltas,
+              "guard": BF16_RGB_GUARD, "same_survivors": same})
+        check(all(0 < d <= BF16_RGB_GUARD for d in deltas) and all(same),
+              f"{name}: rgb deltas {deltas} against float32, survivors {same}")
+    cfg = load_config("configs/synthetic.yaml", [], run_type="evaluate")
+    ds = make_dataset(cfg, "test")
+    item = full_frame_item(ds, ds[0])
+    share = {}
+    for name, opts in (("full_frame_f32", []), ("full_frame_bf16", bf16),
+                       ("full_frame_f32_again", [])):
+        c = load_config("configs/synthetic.yaml", opts, run_type="evaluate")
+        c.eval = True
+        eng = Engine(c, "cuda")
+        eng.load_params()
+        launches, _ = phase_full_frame(name, eng, item, k1, knn)
+        prof = FRAME_PROFILES[name]
+        kernel = "skip_mlp_bf16_kernel" if opts else "skip_mlp_kernel"
+        if prof["kernels"] is not None:
+            share[name] = {"device_ms": prof["device_ms"],
+                           "k1_ms": prof["own_kernels_ms"][kernel],
+                           "k1_share": prof["own_kernels_ms"][kernel]
+                           / prof["device_ms"]}
+        want = "skip_mlp_bf16" if opts else "skip_mlp"
+        check(launches[want] == 2 * eng.stats["tiles"]
+              and launches["skip_mlp" if opts else "skip_mlp_bf16"] == 0,
+              f"{name} launched {launches} over {eng.stats['tiles']} tiles")
+        if name != "full_frame_f32_again":
+            paths[name] = launches
+        del eng
+    emit({"phase": "full_frame_bf16_vs_f32", "k1_share": share})
+    return paths
+
+
+def phase_importance(k1, knn):
+    """use_importance: the AniNeRF, SDF-PDF and NeuS-PDF evaluates held to
+    the JAX PSNR, with K1 and K2 launched a tile on both passes. Returns
+    the paths' launches."""
+    from animatable_nerf_tpu_torch.config import load_config
+
+    paths = {}
+    for family, (cfg_file, per_tile) in IMPORTANCE.items():
+        name = f"evaluate_importance_{family}"
+        cfg = load_config(cfg_file, ["use_importance", "True"],
+                          run_type="evaluate")
+        launches, _ = phase_evaluate(name, cfg, JAX_PSNR_IMPORTANCE[family],
+                                     k1, knn)
+        tiles = sum(it["tiles"] for it in EVAL_ITEMS[name])
+        emit({"phase": f"{name}_launches", "tiles": tiles,
+              "per_tile_both_passes": {k: launches[k] / tiles
+                                       for k in per_tile}})
+        check(all(launches[k] == 2 * n * tiles for k, n in per_tile.items()),
+              f"{name} launched {launches} over {tiles} tiles")
+        paths[name] = launches
+    return paths
+
+
+def phase_slab(k1, knn):
+    """AniNeRF's slab pre-filter: the evaluate held to the JAX PSNR and,
+    view by view, to the flat render; one 1000x1002 frame beside the
+    flat one; and SDF-PDF with seg_filter 4, which renders as without
+    it. Returns the paths' launches."""
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.engine import Engine, make_dataset
+
+    cfg = load_config("configs/synthetic.yaml", SLAB_OPTS, run_type="evaluate")
+    launches, _ = phase_evaluate("evaluate_slab", cfg, JAX_PSNR_SLAB, k1, knn)
+    paths = {"evaluate_slab": launches}
+    views = eval_views("configs/synthetic.yaml",
+                       {"flat": [], "slab": SLAB_OPTS})
+    diffs, counts = [], []
+    for (flat, fs), (slab, ss) in zip(views["flat"], views["slab"]):
+        for k in ("rgb_map", "acc_map", "depth_map"):
+            np.testing.assert_allclose(slab[k], flat[k], rtol=SLAB_RTOL,
+                                       atol=SLAB_ATOL)
+        diffs.append(max(float(np.abs(slab[k] - flat[k]).max())
+                         for k in ("rgb_map", "acc_map", "depth_map")))
+        counts.append({"flat_candidates": fs["n_candidates"],
+                       "slab_points": ss["n_slab_points"],
+                       "slab_candidates": ss["n_candidates"],
+                       "survivors": [fs["n_survivors"], ss["n_survivors"]]})
+        check(fs["n_survivors"] == ss["n_survivors"],
+              f"evaluate_slab: survivors {fs} against the flat {ss}")
+    emit({"phase": "evaluate_slab_vs_flat", "max_abs_diff": diffs,
+          "rtol": SLAB_RTOL, "atol": SLAB_ATOL, "counts": counts})
+    ds = make_dataset(cfg, "test")
+    item = full_frame_item(ds, ds[0])
+    frames = {}
+    for name, opts in (("full_frame_flat", []), ("full_frame_slab", SLAB_OPTS),
+                       ("full_frame_flat_again", [])):
+        c = load_config("configs/synthetic.yaml", opts, run_type="evaluate")
+        c.eval = True
+        eng = Engine(c, "cuda")
+        eng.load_params()
+        frame_launches, out = phase_full_frame(name, eng, item, k1, knn)
+        frames[name] = (out, dict(eng.stats), FRAME_PROFILES[name]["device_ms"])
+        if name == "full_frame_slab":
+            paths[name] = frame_launches
+        del eng
+    (flat, fstats, fdev), (slab, sstats, sdev) = (frames["full_frame_flat"],
+                                                  frames["full_frame_slab"])
+    for k in ("rgb_map", "acc_map", "depth_map"):
+        np.testing.assert_allclose(slab[k], flat[k], rtol=SLAB_RTOL,
+                                   atol=SLAB_ATOL)
+    emit({"phase": "full_frame_slab_vs_flat", "flat": fstats, "slab": sstats,
+          "device_ms": {"flat": fdev, "slab": sdev,
+                        "flat_again": frames["full_frame_flat_again"][2]}})
+    views = eval_views("configs/synthetic_sdf_pdf.yaml",
+                       {"plain": [], "seg_filter": ["seg_filter", "4"]})
+    equal = [all(np.array_equal(a[0][k], b[0][k]) for k in a[0])
+             for a, b in zip(views["plain"], views["seg_filter"])]
+    emit({"phase": "seg_filter_sdf_pdf", "views_equal": equal})
+    check(all(equal), f"seg_filter 4 changed the SDF-PDF render: {equal}")
+    return paths
+
+
 def main():
     import torch
 
@@ -4781,6 +5101,13 @@ def main():
     # and --type dataset, network, evaluate_nv, lpips and light_stage
     phase19_paths = phase_host_pipeline(k1, knn)
 
+    # ---- phase 20: the evaluation options: K1's bf16 form, the bf16
+    # evaluates and frame, importance sampling, AniNeRF's slab
+    # pre-filter and its frame, seg_filter ignored
+    k1_bf16_rows = phase_k1_bf16(k1)
+    phase20_paths = {**phase_bf16(k1, knn), **phase_importance(k1, knn),
+                     **phase_slab(k1, knn)}
+
     # ---- kernel table
     def k1_sum(key):
         return sum(r[key] for r in k1_rows)
@@ -4937,6 +5264,7 @@ def main():
     aligned_launches(k1_entry, "skip_mlp", phase16_paths)
     aligned_launches(k1_entry, "skip_mlp", phase18_paths)
     aligned_launches(k1_entry, "skip_mlp", phase19_paths)
+    aligned_launches(k1_entry, "skip_mlp", phase20_paths)
     # the compacted train steps' rows (phase 18): each K1 launch on the
     # exact survivors, K2 on pass 1's candidates (and the aligned
     # families' canonical prior on the survivors), K3 once a frame
@@ -4951,6 +5279,7 @@ def main():
     k1_entry["launches_full_frame"].update(
         k1_entry.pop("launches_full_frame_by_path"))
     aligned_launches(k2_entry, "knn_blend", phase18_paths)
+    aligned_launches(k2_entry, "knn_blend", phase20_paths)
     k2_entry["compacted_train_step_rows"] = compacted_rows
     kernels = [
         k1_entry,
@@ -4968,6 +5297,34 @@ def main():
         knn_entry(k5_row, 460, blk_launches, blk_frame_launches, "k5"),
         knn_entry(k6_row, 760, blk_launches, blk_frame_launches),
     ]
+    # K3 on the phase-20 paths (the SDF-PDF and NeuS-PDF evaluates' grids)
+    aligned_launches(kernels[2], "min_dist", phase20_paths)
+    # K1's bf16 form: one call of each wiring at K1_ROWS rows, its
+    # launches on the bf16 paths (phase 20)
+    def bf16_sum(key):
+        return sum(r[key] for r in k1_bf16_rows)
+
+    k1_bf16_entry = aligned_launches({
+        "name": "skip_mlp_bf16",
+        "route": "cuda",
+        "source": "animatable_nerf_tpu_torch/csrc/skip_mlp.cu",
+        "replaces": "animatable_nerf_tpu/ops/mlp_pallas.py:108",
+        "launches": 0,
+        "max_abs_err": max(r["max_abs_err"] for r in k1_bf16_rows),
+        "ms": bf16_sum("kernel_ms"),
+        "kernel_ms": bf16_sum("kernel_ms"),
+        "plain_ms": bf16_sum("plain_ms"),
+        # FLOP over the bf16 tensor-core rate
+        "bound_ms": bf16_sum("bound_ms"),
+        "bound_by": "operations" if all(
+            r["bound_by"] == "operations" for r in k1_bf16_rows) else "bytes",
+        "share_of_bound": bf16_sum("bound_ms") / bf16_sum("kernel_ms"),
+        "library_ms": bf16_sum("library_ms"),
+        "library": "torch.addmm + relu + cat in bf16",
+    }, "skip_mlp_bf16", phase20_paths)
+    k1_bf16_entry["launches_full_frame"] = k1_bf16_entry.pop(
+        "launches_full_frame_by_path")
+    kernels.insert(1, k1_bf16_entry)
     # the baselines' paths (phase 17) launch none of them
     for entry in kernels:
         entry["launches_baseline_paths"] = {

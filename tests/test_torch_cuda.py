@@ -6,7 +6,8 @@ without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: K1 rtol = atol = 1e-5, float32 against float32 summed in
-another order (tests/test_ops.py's tolerance for the same kernel); the
+another order (tests/test_ops.py's tolerance for the same kernel); its
+bf16 form within BF16_REL_TOL = 2e-2 of the output's largest value; the
 same for K1's gradient (ops/skip_mlp.py `SkipMLPFunction`) against
 autograd through the plain version, and for a train step on the card
 against the same step on the CPU (loss rtol 1e-4, each gradient leaf
@@ -107,6 +108,61 @@ def test_cuda_kernel_matches_plain(cuda_device, name, rows):
     assert k1.skip_mlp.launches == before + (1 if rows else 0)
     plain = k1.skip_mlp_plain(xt, tl, skips, act, act_last)
     np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(), **TOL)
+
+
+# K1's bf16 form against its plain bf16 version: two bf16 steps of the
+# output's largest value (chip_smoke.py K1_BF16_REL_TOL; products summed
+# in float32 in another order move a value across a bf16 rounding)
+BF16_REL_TOL = 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [0, 1, 65, 129, 4097])
+@pytest.mark.parametrize("name", sorted({**SMALL, **PRODUCTION}))
+def test_cuda_bf16_kernel_matches_plain(cuda_device, name, rows):
+    """A bf16 input launches the bf16 form, counted apart, and never the
+    float32 one."""
+    spec = {**SMALL, **PRODUCTION}[name]
+    x, layers, skips, act, act_last = make_case(spec, rows, 3)
+    tl = torch_layers(layers, cuda_device)
+    xt = torch.tensor(x, device=cuda_device).to(torch.bfloat16)
+    before = (k1.skip_mlp.launches, k1.skip_mlp.launches_bf16)
+    got = k1.skip_mlp(xt, tl, skips, act, act_last)
+    torch.cuda.synchronize()
+    assert (k1.skip_mlp.launches, k1.skip_mlp.launches_bf16) == (
+        before[0], before[1] + (1 if rows else 0))
+    plain = k1.skip_mlp_plain(xt, tl, skips, act, act_last)
+    assert got.dtype == plain.dtype == torch.float32
+    if rows:
+        err = (got - plain).abs().max().item()
+        assert err <= BF16_REL_TOL * max(1.0, plain.abs().max().item()), err
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_field_keeps_its_own_pack(cuda_device):
+    """A field in bf16 packs its weights for the bf16 form beside the
+    float32 pack, and matches its CPU plain version."""
+    from animatable_nerf_tpu_torch.fields.fields import (
+        ResidualField,
+        set_compute_dtype,
+    )
+
+    torch.manual_seed(0)
+    field = ResidualField().to(cuda_device)
+    rng = np.random.RandomState(13)
+    pts = torch.tensor(rng.uniform(-1, 1, (300, 3)).astype(np.float32),
+                       device=cuda_device)
+    pose = torch.tensor(rng.normal(0, 0.3, 72).astype(np.float32),
+                        device=cuda_device)
+    with torch.no_grad():
+        field.residual(pts, pose)
+        set_compute_dtype(field, torch.bfloat16)
+        got = field.residual(pts, pose)
+        assert field._k1_packed_bf16[1].dtype == torch.bfloat16
+        assert field._k1_packed[1].dtype == torch.float32
+        plain = field.cpu().residual(pts.cpu(), pose.cpu())
+    err = (got.cpu() - plain).abs().max().item()
+    assert err <= BF16_REL_TOL * max(1.0, plain.abs().max().item()), err
 
 
 @pytest.mark.cuda

@@ -132,18 +132,64 @@ def test_cli_evaluates_sdf_pdf_on_cpu(tmp_path, monkeypatch):
 @pytest.mark.parametrize("run_type,opts", [
     ("train", ["network_module", "nerf_pdf", "aninerf_animation", "True"]),
     ("train", ["network_module", "neus_pdf", "aninerf_animation", "True"]),
-    ("evaluate", ["use_importance", "True"]),
-    ("evaluate", ["seg_filter", "True"])])
+    ("train", ["compute_dtype", "bfloat16"])])
 def test_options_not_ported_yet_raise(run_type, opts, tmp_path):
-    """Evaluation options the port lacks, and the stage-2 (novel-pose)
-    training of the NeRF-PDF and NeuS-PDF families (their stage 1 is
-    ported), raise before any work."""
+    """Options the port lacks raise before any work: the stage-2
+    (novel-pose) training of the NeRF-PDF and NeuS-PDF families (their
+    stage 1 is ported), and training with compute_dtype bfloat16 (the
+    port evaluates in bf16)."""
     cfg = load_config(CFG, opts + ["trained_model_dir", str(tmp_path / "m"),
                                    "record_dir", str(tmp_path / "r")],
                       run_type=run_type)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        if run_type == "train":
-            t_engine.run_train(cfg, "cpu")
-        else:
-            t_engine.Engine(cfg, "cpu")
+        t_engine.run_train(cfg, "cpu")
     assert not (tmp_path / "m").exists() and not (tmp_path / "r").exists()
+
+
+def render_tile(rendered, opts=()):
+    """256 of the item's rays (every 16th, across the body), one tile of
+    `eval_tile 256`, through an engine on the config with `opts`:
+    (maps, stats)."""
+    cfg = load_config(CFG, OPTS + ["eval_tile", "256"] + list(opts),
+                      run_type="evaluate")
+    cfg.eval = True
+    eng = t_engine.Engine(cfg, "cpu")
+    eng.load_params()
+    item = dict(rendered["item"])
+    for k in ("ray_o", "ray_d", "near", "far"):
+        item[k] = np.asarray(item[k])[::16][:int(cfg.eval_tile)]
+    out, _ = eng.render_item(item)
+    return out, eng.stats
+
+
+@pytest.fixture(scope="module")
+def plain_tile(rendered):
+    return render_tile(rendered)
+
+
+@pytest.mark.parametrize("opts", [["seg_filter", "True"], ["slab_filter", "8"]])
+def test_filter_keys_render_the_item_as_without_them(plain_tile, rendered,
+                                                     opts):
+    """JAX's make_model passes seg_filter to no model and slab_filter to
+    AniNeRF alone, so the SDF-PDF item (one tile of it, to keep the CPU
+    run short) renders exactly as without them."""
+    out, stats = render_tile(rendered, opts)
+    assert stats == plain_tile[1]
+    for k in ("rgb_map", "acc_map", "depth_map"):
+        assert np.array_equal(out[k], plain_tile[0][k]), k
+
+
+def test_importance_sampling_renders_the_item(plain_tile, rendered):
+    """`use_importance` (here N_importance 16) on one tile of the item:
+    the coarse pass, the fine samples from its weights, the fine pass on
+    the union, with more survivors than the stratified render and
+    finite maps that differ from it (SDF-PDF's alpha takes a fixed
+    step, so denser samples add opacity). The tiles are held to JAX's
+    render_rays in tests/test_torch_eval_options.py."""
+    out, stats = render_tile(rendered, ["use_importance", "True",
+                                        "N_importance", "16"])
+    assert stats["n_survivors"] > plain_tile[1]["n_survivors"] > 0
+    for k in ("rgb_map", "acc_map", "depth_map"):
+        assert np.isfinite(out[k]).all(), k
+    assert not np.array_equal(out["rgb_map"], plain_tile[0]["rgb_map"])
+    assert out["acc_map"].max() > 0.5
