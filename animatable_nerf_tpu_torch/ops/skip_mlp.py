@@ -22,10 +22,13 @@ Callers that own the weights pack them once per weight version
 
 Under `compute_dtype bfloat16` the trunks come in as bf16 and take
 K1's bf16 form (the second kernel of csrc/skip_mlp.cu): bf16 operands
-into wgmma with a float32 accumulator, rounded where `skip_mlp_plain`
-rounds in bf16 (see there). The wrapper picks the form by x's dtype and
-counts its launches apart (`skip_mlp.launches_bf16`); it never takes the
-float32 kernel or the plain version for a bf16 input on the card.
+read by wgmma from shared memory, a float32 accumulator, rounded where
+`skip_mlp_plain` rounds in bf16 (see there). Its weights come in the
+bf16 layout of `pack_layers`: inputs padded to PACK_K_BF16, chunks of
+BF16_CHUNK_K input features swizzled as the tensor cores read them. The wrapper picks the form by
+x's dtype and counts its launches apart (`skip_mlp.launches_bf16`); it
+never takes the float32 kernel or the plain version for a bf16 input on
+the card.
 
 The library is built with nvcc into `build/` at the checkout root at
 first use (ops/build.py; plain C interface, bound with ctypes).
@@ -48,6 +51,12 @@ _ACT_FNS = {"relu": torch.relu, "softplus": F.softplus, "none": lambda h: h}
 # Input features per weight chunk, and the step every width is padded
 # to (csrc/skip_mlp.cu kChunkK; the library reports it)
 PACK_K = 16
+# the bf16 form: input widths padded to PACK_K_BF16 (a 128-byte row of
+# its h and x blocks, kBlockKB), output widths to PACK_K; weight chunks
+# of BF16_CHUNK_K input features (64-byte rows, kChunkKB; the library
+# reports both)
+PACK_K_BF16 = 64
+BF16_CHUNK_K = 32
 
 
 def skip_mlp_plain(x, layers, skips=(), act: str = "relu",
@@ -121,25 +130,33 @@ def pack_layers(layers, skips=(), din: int | None = None,
     """(W (in, out), b) pairs -> K1's weight layout, for the float32
     form or (`dtype` bfloat16) the bf16 one.
 
-    Every width is zero-padded to a multiple of PACK_K: a layer's input
-    segments (x of width din, then h of the previous layer's width) each
-    start at a padded offset, as JAX's `_pad_layers` does at 128, so the
-    padding is exact. Each padded W^T (N_p, K_p) is stored chunk by
-    chunk of PACK_K input features, every chunk contiguous (one bulk
-    copy) and in the tensor cores' K-major core-matrix order of 8 rows
-    by 16 bytes: in float32, element (n, k) of chunk k // 16 sits at
-    ((n // 8) * 4 + (k % 16) // 4) * 32 + (n % 8) * 4 + k % 4; in bf16
-    (weights cast to bf16, biases rounded to bf16 and kept in float32)
-    at ((n // 8) * 2 + (k % 16) // 8) * 64 + (n % 8) * 8 + k % 8."""
+    Every width is zero-padded, so the padding is exact: a layer's
+    input segments (x of width din, then h of the previous layer's
+    width) each start at a padded offset, as JAX's `_pad_layers` does at
+    128, and each output width is padded to PACK_K. Each padded W^T
+    (N_p, K_p) is stored chunk by chunk of input features, every chunk
+    contiguous (one bulk copy).
+
+    float32: inputs padded to PACK_K, chunks of PACK_K features in the
+    tensor cores' K-major core-matrix order of 8 rows by 16 bytes:
+    element (n, k) of chunk k // 16 at ((n // 8) * 4 + (k % 16) // 4) *
+    32 + (n % 8) * 4 + k % 4.
+
+    bf16 (weights cast to bf16, biases rounded to bf16 and kept in
+    float32): inputs padded to PACK_K_BF16, chunks of BF16_CHUNK_K = 32
+    features, each N_p rows of 64 bytes with the 64-byte swizzle that
+    wgmma reads (16-byte unit u of row n at u XOR (n // 2) % 4): element
+    (n, k) of chunk k // 32 at n * 32 + ((k % 32) // 8 ^ (n // 2) % 4) *
+    8 + k % 8."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"skip_mlp: no {dtype} form")
-    inner = 16 // torch.empty((), dtype=dtype).element_size()
+    k_pad = PACK_K if dtype == torch.float32 else PACK_K_BF16
     skips = tuple(skips)
     n_layers = len(layers)
     if n_layers < 1:
         raise ValueError("skip_mlp: no layers")
     din = layers[0][0].shape[0] if din is None else din
-    din_p = _round_up(din, PACK_K)
+    din_p = _round_up(din, k_pad)
     segs = [(din, din_p)]  # (true, padded) width of each input segment
     weights, biases, douts = [], [], []
     for i, (w, b) in enumerate(layers):
@@ -158,19 +175,33 @@ def pack_layers(layers, skips=(), din: int | None = None,
         for t, p in segs:
             wp[:dout, row_p:row_p + t] = w[row:row + t].t()
             row, row_p = row + t, row_p + p
-        # (n/8, n%8, k/16, (k%16)/inner, k%inner)
-        #   -> (k/16, n/8, (k%16)/inner, n%8, k%inner)
-        tiled = wp.view(n_p // 8, 8, k_p // PACK_K, PACK_K // inner, inner)
-        weights.append(tiled.permute(2, 0, 3, 1, 4).contiguous().view(-1))
+        if dtype == torch.float32:
+            # (n/8, n%8, k/16, (k%16)/4, k%4)
+            #   -> (k/16, n/8, (k%16)/4, n%8, k%4)
+            tiled = wp.view(n_p // 8, 8, k_p // PACK_K, PACK_K // 4, 4)
+            weights.append(tiled.permute(2, 0, 3, 1, 4).contiguous().view(-1))
+        else:
+            # (n, k/32, unit, k%8) -> (k/32, n, unit ^ (n/2)%4, k%8)
+            tiled = wp.view(n_p, k_p // BF16_CHUNK_K, 4, 8).permute(1, 0, 2, 3)
+            weights.append(_swizzle_units(tiled).contiguous().view(-1))
         bp = b.new_zeros(n_p, dtype=torch.float32)
         bp[:dout] = b.to(dtype)
         biases.append(bp)
         douts.append(dout)
-        segs = [(dout, n_p)]
+        segs = [(dout, _round_up(dout, k_pad))]
         if i in skips and i < n_layers - 1:
-            segs = [(din, din_p), (dout, n_p)]
+            segs = [(din, din_p), (dout, _round_up(dout, k_pad))]
     return PackedMLP(tuple(weights), tuple(biases), tuple(douts), din,
                      tuple(s for s in skips if 0 <= s < n_layers - 1), dtype)
+
+
+def _swizzle_units(tiled):
+    """(chunks, N, 4, 8) with 16-byte unit u of row n moved to u ^ (n //
+    2) % 4, the 64-byte swizzle (the map is its own inverse, so it also
+    undoes itself)."""
+    n = torch.arange(tiled.shape[1], device=tiled.device)[:, None]
+    units = torch.arange(4, device=tiled.device)[None, :] ^ ((n // 2) % 4)
+    return tiled[:, n, units, :]
 
 
 def unpack_layer(packed: PackedMLP, i: int):
@@ -179,10 +210,13 @@ def unpack_layer(packed: PackedMLP, i: int):
     bp = packed.biases[i]
     n_p = bp.shape[0]
     k_p = packed.weights[i].numel() // n_p
-    inner = 16 // packed.weights[i].element_size()
-    tiled = packed.weights[i].view(k_p // PACK_K, n_p // 8, PACK_K // inner,
-                                   8, inner)
-    return tiled.permute(1, 3, 0, 2, 4).reshape(n_p, k_p).t(), bp
+    if packed.dtype == torch.float32:
+        tiled = packed.weights[i].view(k_p // PACK_K, n_p // 8, PACK_K // 4,
+                                       8, 4)
+        return tiled.permute(1, 3, 0, 2, 4).reshape(n_p, k_p).t(), bp
+    tiled = _swizzle_units(packed.weights[i].view(k_p // BF16_CHUNK_K, n_p,
+                                                  4, 8))
+    return tiled.permute(1, 0, 2, 3).reshape(n_p, k_p).t(), bp
 
 
 @functools.lru_cache(maxsize=None)
@@ -197,12 +231,22 @@ def _library():
     lib.skip_mlp_forward.restype = ctypes.c_int
     lib.skip_mlp_bf16_forward.argtypes = lib.skip_mlp_forward.argtypes
     lib.skip_mlp_bf16_forward.restype = ctypes.c_int
+    lib.skip_mlp_bf16_feed.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_int), ctypes.c_uint,
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
+    ]
+    lib.skip_mlp_bf16_feed.restype = ctypes.c_int
     for name in ("skip_mlp_max_layers", "skip_mlp_max_width",
-                 "skip_mlp_chunk_k"):
+                 "skip_mlp_chunk_k", "skip_mlp_bf16_chunk_k",
+                 "skip_mlp_bf16_block_k"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
-    if lib.skip_mlp_chunk_k() != PACK_K:
-        raise RuntimeError("skip_mlp: the library's chunk is not PACK_K")
+    if (lib.skip_mlp_chunk_k(), lib.skip_mlp_bf16_chunk_k(),
+            lib.skip_mlp_bf16_block_k()) != (PACK_K, BF16_CHUNK_K, PACK_K_BF16):
+        raise RuntimeError("skip_mlp: the library's chunks are not "
+                           "PACK_K, BF16_CHUNK_K and PACK_K_BF16")
     return lib
 
 
@@ -226,6 +270,20 @@ def _check(x, packed: PackedMLP):
                 "skip_mlp: packed weights must be contiguous, 16-byte "
                 "aligned tensors of the form's type on x's device"
             )
+    if [w.numel() for w in packed.weights] != _packed_sizes(packed):
+        raise ValueError("skip_mlp: the packed weights are not in the "
+                         "layout of the form's kernel")
+
+
+def _packed_sizes(packed: PackedMLP):
+    """Each layer's element count in `pack_layers`' layout of the form."""
+    k_pad = PACK_K if packed.dtype == torch.float32 else PACK_K_BF16
+    sizes, k_p = [], _round_up(packed.din, k_pad)
+    for i, dout in enumerate(packed.douts):
+        sizes.append(k_p * _round_up(dout, PACK_K))
+        k_p = (_round_up(packed.din, k_pad) if i in packed.skips else 0) \
+            + _round_up(dout, k_pad)
+    return sizes
 
 
 def _forward(x, layers, skips, act, act_last, packed):
@@ -236,6 +294,8 @@ def _forward(x, layers, skips, act, act_last, packed):
         return skip_mlp_plain(x, layers, skips, act, act_last)
     if packed is None:
         packed = pack_layers(layers, skips, x.shape[-1], x.dtype)
+    if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+        x = x.clone()  # the bf16 kernel reads x 16 bytes at a time
     _check(x, packed)
     lib = _library()
     n = x.shape[0]
@@ -262,6 +322,30 @@ def _forward(x, layers, skips, act, act_last, packed):
         else:
             skip_mlp.launches += 1
     return out
+
+
+def weight_stream_bf16(n: int, packed: PackedMLP, device) -> int:
+    """Launch the bf16 form's weight stream alone on `device`'s current
+    stream (csrc/skip_mlp.cu `skip_mlp_bf16_feed_kernel`: the kernel's
+    producer and ring on its grid for `n` rows, no products), for
+    measuring how fast L2 fills the ring. Returns the bytes it copies
+    from L2 into shared memory. Not a K1 launch: counts nothing."""
+    if packed.dtype != torch.bfloat16:
+        raise ValueError("skip_mlp: the weight stream is the bf16 form's")
+    lib = _library()
+    n_layers = len(packed.weights)
+    w_ptrs = (ctypes.c_void_p * n_layers)(*[w.data_ptr() for w in packed.weights])
+    b_ptrs = (ctypes.c_void_p * n_layers)(*[b.data_ptr() for b in packed.biases])
+    douts = (ctypes.c_int * n_layers)(*packed.douts)
+    nbytes = ctypes.c_longlong(0)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.skip_mlp_bf16_feed(
+            n, packed.din, n_layers, w_ptrs, b_ptrs, douts,
+            sum(1 << i for i in packed.skips), ctypes.byref(nbytes), stream)
+    if rc != 0:
+        raise RuntimeError(f"skip_mlp: weight stream failed (CUDA error {rc})")
+    return nbytes.value
 
 
 class SkipMLPFunction(torch.autograd.Function):

@@ -218,8 +218,11 @@ Phases, one JSON line each:
      occupancy equal to a numpy floor reference);
  20. the evaluation options: K1's bf16 form (compute_dtype bfloat16)
      against its plain bf16 version at the three wirings and K1_ROWS
-     rows, timed against its bf16 bound and the bf16 addmm chain, with
-     its ptxas spills and SASS HGMMA count; the bf16 evaluates of
+     rows, timed against its bf16 bound, the bf16 addmm chain and the
+     float32 form, with the bytes its weight stream reads from L2 a
+     call, the rate that implies and the rate of the stream alone, and
+     its ptxas spills (none allowed, nor serialized wgmmas) and SASS
+     HGMMA count; the bf16 evaluates of
      AniNeRF and SDF-PDF held to the JAX bf16 PSNR, each view within
      JAX's max rgb delta of 0.02 of the port's float32 view, and one
      1000x1002 AniNeRF frame in bf16 beside float32 (wall, device ms,
@@ -4680,10 +4683,20 @@ def ptxas_of(log, kernel):
     return lines
 
 
+def spill_bytes(ptxas_lines):
+    """Spill stores plus spill loads, in bytes, from ptxas's lines."""
+    return sum(int(m) for line in ptxas_lines
+               for m in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
+
+
 def phase_k1_bf16(k1, n_rows=K1_ROWS):
     """K1's bf16 form against its plain bf16 version at `n_rows` rows of
-    each wiring, timed with its bound and the bf16 addmm chain; returns
-    one row per wiring."""
+    each wiring, timed with its bound, the bf16 addmm chain and the
+    float32 form; with the bytes its weight stream reads from L2 a call
+    (every 128-row tile streams the packed stack once: no tile shares a
+    chunk), the rate that implies, and the rate of the stream alone
+    (`weight_stream_bf16`: the kernel's ring on its grid, no products).
+    Returns one row per wiring."""
     import torch
     from animatable_nerf_tpu_torch.ops import build
 
@@ -4724,6 +4737,12 @@ def phase_k1_bf16(k1, n_rows=K1_ROWS):
         times = timed_pair(lambda: k1.skip_mlp(x, layers, packed=packed, **kwargs),
                            lambda: k1.skip_mlp_plain(x, layers, **kwargs),
                            library, plain_iters=10)
+        x32 = x.float()
+        packed32 = k1.pack_layers(layers, skips)
+        f32_ms = cuda_ms(lambda: k1.skip_mlp(x32, layers, packed=packed32,
+                                             **kwargs))
+        l2_bytes = k1.weight_stream_bf16(n_rows, packed, "cuda")
+        stream_ms = cuda_ms(lambda: k1.weight_stream_bf16(n_rows, packed, "cuda"))
         flops = 2 * n_rows * sum(i * o for i, o in dims)
         nbytes = (2 * n_rows * din + 4 * n_rows * dims[-1][1]
                   + sum(2 * i * o + 4 * o for i, o in dims))
@@ -4737,16 +4756,31 @@ def phase_k1_bf16(k1, n_rows=K1_ROWS):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "share_of_bound": bound_ms / times["kernel_ms"],
             "kernel_tflops": flops / (times["kernel_ms"] * 1e-3) / 1e12,
+            "f32_kernel_ms": f32_ms,
+            "l2_bytes": l2_bytes,
+            "l2_tbps_implied": l2_bytes / (times["kernel_ms"] * 1e-3) / 1e12,
+            "l2_stream_ms": stream_ms,
+            "l2_stream_tbps": l2_bytes / (stream_ms * 1e-3) / 1e12,
         })
+    ptxas = ptxas_of(build.build_log("skip_mlp"), "skip_mlp_bf16_kernel")
+    sass = sass_counts(build.library_path("skip_mlp"))
     emit({"phase": "k1_bf16_vs_plain", "tolerance": (
         f"max abs err <= {K1_BF16_REL_TOL} x max(1, max |plain|): bf16 "
         "products summed in float32 in another order, each layer rounded "
         "to bf16"),
           "bound": "max(FLOP / 989 TFLOP/s (bf16), bytes / 3.35 TB/s)",
           "library": "torch.addmm + relu + cat in bf16",
-          "ptxas": ptxas_of(build.build_log("skip_mlp"), "skip_mlp_bf16_kernel"),
-          "sass": sass_counts(build.library_path("skip_mlp")),
-          "wirings": rows})
+          "ptxas": ptxas, "spill_bytes": spill_bytes(ptxas),
+          "serialized": any("Performance Loss" in line for line in ptxas),
+          "hgmma": (sass or {}).get("skip_mlp_bf16_kernel", {}).get("HGMMA"),
+          "sass": sass, "wirings": rows,
+          "total_ms": sum(r["kernel_ms"] for r in rows),
+          "total_bound_ms": sum(r["bound_ms"] for r in rows),
+          "total_f32_ms": sum(r["f32_kernel_ms"] for r in rows),
+          "total_library_ms": sum(r["library_ms"] for r in rows)})
+    check(spill_bytes(ptxas) == 0 and not any(
+        "Performance Loss" in line for line in ptxas),
+          f"K1 bf16: ptxas spills or serializes: {ptxas}")
     return rows
 
 

@@ -54,6 +54,11 @@ SMALL = {
     "act_last": (21, [32, 32, 32], (0,), "relu", True),
     # widths that are no multiple of 4: the kernel's scalar copy paths
     "odd_widths": (13, [30, 30, 7], (0,), "relu", False),
+    # the bf16 form's widest inputs: a 250-wide row spans 33 aligned
+    # 16-byte runs of x; 256 is the most x takes (its fewest stages);
+    # 80-wide layers take the 256-wide n-tile with zeros past 80
+    "wide_x": (250, [48, 48, 5], (0,), "softplus", False),
+    "full_x": (256, [80, 80, 10], (1,), "relu", True),
 }
 PRODUCTION = {
     "bw_field": (191, [256] * 8 + [24], (4,), "relu", False),
@@ -117,7 +122,11 @@ BF16_REL_TOL = 2e-2
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [0, 1, 65, 129, 4097])
+# rows: around the 128-row tile and the 64-row warpgroups, an odd number
+# of tiles (257, 4097), and more tiles than the card has SMs, so that a
+# block walks several (33,797 rows: 265 tiles)
+@pytest.mark.parametrize("rows", [0, 1, 65, 127, 128, 129, 255, 256, 257,
+                                  4097, 33797])
 @pytest.mark.parametrize("name", sorted({**SMALL, **PRODUCTION}))
 def test_cuda_bf16_kernel_matches_plain(cuda_device, name, rows):
     """A bf16 input launches the bf16 form, counted apart, and never the
@@ -136,6 +145,20 @@ def test_cuda_bf16_kernel_matches_plain(cuda_device, name, rows):
     if rows:
         err = (got - plain).abs().max().item()
         assert err <= BF16_REL_TOL * max(1.0, plain.abs().max().item()), err
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_kernel_takes_an_unaligned_input(cuda_device):
+    """x one row into a larger tensor (at width 191 not 16-byte aligned,
+    which the kernel's bulk copies need) gives what a fresh copy gives."""
+    x, layers, skips, act, act_last = make_case(PRODUCTION["bw_field"], 300, 4)
+    tl = torch_layers(layers, cuda_device)
+    view = torch.tensor(x, device=cuda_device).to(torch.bfloat16)[1:]
+    assert view.data_ptr() % 16
+    got = k1.skip_mlp(view, tl, skips, act, act_last)
+    want = k1.skip_mlp(view.clone(), tl, skips, act, act_last)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -1,12 +1,14 @@
 """Kernel K1 (fused skip-MLP): the port's plain version against the JAX
 twin `_ref_forward` and the Pallas kernel in interpret mode, the CPU
-dispatch, the packed weight layout, and a CPU rehearsal of the kernel's
-3xTF32 arithmetic. The CUDA kernel's own tests are in
-test_torch_cuda.py.
+dispatch, the packed weight layouts, and CPU rehearsals of the kernel's
+3xTF32 arithmetic and of its bf16 form's chunks and roundings. The CUDA
+kernel's own tests are in test_torch_cuda.py.
 
 Tolerance: rtol = atol = 1e-5, float32 against float32 summed in
 another order (tests/test_ops.py's tolerance for the same kernel); the
-3xTF32 split is held to the same bar.
+3xTF32 split is held to the same bar; the bf16 rehearsal within
+BF16_REL_TOL of the output's largest value, as the bf16 kernel on the
+card (test_torch_cuda.py).
 """
 
 import numpy as np
@@ -21,7 +23,25 @@ from animatable_nerf_tpu_torch.fields.fields import ResidualField
 from animatable_nerf_tpu_torch.fields.mlp import kernel_layers, packed_layers
 from animatable_nerf_tpu_torch.ops import skip_mlp as k1
 
-from test_torch_cuda import PRODUCTION, SMALL, TOL, make_case, torch_layers
+from test_torch_cuda import (
+    BF16_REL_TOL,
+    PRODUCTION,
+    SMALL,
+    TOL,
+    make_case,
+    torch_layers,
+)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Beside the suite's other workers, torch's intra-op threads would
+    oversubscribe the cores, and the emulations' many small products
+    crawl (tests/test_torch_train_compaction.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("name", sorted(SMALL))
@@ -155,6 +175,99 @@ def test_pack_layers_places_every_segment(name):
         assert torch.equal(bp[:dout], b) and not bp[dout:].any()
         prev = dout
     assert packed.douts == tuple(w.shape[1] for w, _ in tl)
+
+
+def padded_bf16_layers(layers, skips, din):
+    """Each layer's W^T (N_p, K_p) as the bf16 form pads it, built
+    directly from the segments: inputs at offsets padded to 64 (x first
+    after a skip), outputs padded to 16; float32 holding bf16 values."""
+    out, segs = [], [(din, -(-din // 64) * 64)]
+    for i, (w, _) in enumerate(layers):
+        dout = w.shape[1]
+        n_p = -(-dout // 16) * 16
+        wt = np.zeros((n_p, sum(p for _, p in segs)), np.float32)
+        row = col = 0
+        for t, p in segs:
+            wt[:dout, col:col + t] = w[row:row + t].T
+            row, col = row + t, col + p
+        out.append(torch.tensor(wt).to(torch.bfloat16).float().numpy())
+        segs = [(dout, -(-dout // 64) * 64)]
+        if i in skips and i < len(layers) - 1:
+            segs = [(din, -(-din // 64) * 64)] + segs
+    return out
+
+
+@pytest.mark.parametrize("name", sorted({**SMALL, **PRODUCTION}))
+def test_pack_layers_bf16_swizzled_layout(name):
+    """The bf16 pack puts W^T's element (n, k) at chunk k // 32, row n of
+    64 bytes, 16-byte unit (k % 32) // 8 XOR (n // 2) % 4, position k %
+    8 (the layout wgmma reads with the 64-byte swizzle), and
+    unpack_layer gives the padded W back."""
+    x, layers, skips, act, act_last = make_case({**SMALL, **PRODUCTION}[name],
+                                                4, 6)
+    tl = torch_layers(layers)
+    packed = k1.pack_layers(tl, skips, dtype=torch.bfloat16)
+    assert packed.dtype == torch.bfloat16
+    for i, wt in enumerate(padded_bf16_layers(layers, skips, x.shape[1])):
+        n_p, k_p = wt.shape
+        n, k = np.meshgrid(np.arange(n_p), np.arange(k_p), indexing="ij")
+        index = (k // 32) * n_p * 32 + n * 32 \
+            + (((k % 32) // 8) ^ ((n // 2) % 4)) * 8 + k % 8
+        flat = packed.weights[i].float().numpy()
+        assert flat.shape == (n_p * k_p,)
+        np.testing.assert_array_equal(flat[index], wt)
+        wp, bp = k1.unpack_layer(packed, i)
+        np.testing.assert_array_equal(wp.float().numpy(), wt.T)
+        b = tl[i][1].to(torch.bfloat16).float()
+        assert torch.equal(bp[:b.shape[0]], b) and not bp[b.shape[0]:].any()
+
+
+def emulate_bf16(x, packed, act, act_last):
+    """The bf16 kernel's arithmetic on the CPU, from the packed weights:
+    x and h zero-padded to 64 columns a segment, each layer's product
+    summed chunk by chunk of 32 input features in float32 from zero,
+    then the kernel's epilogue: the product rounded to bf16, the bias
+    added, rounded and activated into bf16 h (zeros in its padded
+    columns), or for the last layer without act_last the float32 sum."""
+    fn = {"relu": torch.relu, "softplus": torch.nn.functional.softplus,
+          "none": lambda h: h}[act]
+    bf16 = torch.bfloat16
+    pad = k1.PACK_K_BF16
+    xp = torch.nn.functional.pad(x.float(), (0, k1._round_up(packed.din, pad)
+                                             - packed.din))
+    a = xp
+    n_layers = len(packed.weights)
+    for i in range(n_layers):
+        w, b = k1.unpack_layer(packed, i)
+        w = w.float()
+        acc = torch.zeros(a.shape[0], w.shape[1])
+        step = k1.BF16_CHUNK_K
+        for k in range(0, a.shape[1], step):
+            acc = acc + a[:, k:k + step] @ w[k:k + step]
+        v = acc.to(bf16).float() + b
+        if i < n_layers - 1 or act_last:
+            v = fn(v.to(bf16).float()).to(bf16).float()
+        if i == n_layers - 1:
+            return v[:, :packed.douts[-1]]
+        h = torch.nn.functional.pad(v[:, :packed.douts[i]], (
+            0, k1._round_up(packed.douts[i], pad) - packed.douts[i]))
+        a = torch.cat([xp, h], dim=-1) if i in packed.skips else h
+
+
+@pytest.mark.parametrize("name", sorted({**SMALL, **PRODUCTION}))
+def test_bf16_emulation_matches_plain(name):
+    """The bf16 form's chunks and roundings, run from the pack, agree
+    with the plain bf16 version (the JAX bf16 trunk's rounding)."""
+    x, layers, skips, act, act_last = make_case({**SMALL, **PRODUCTION}[name],
+                                                96, 7)
+    tl = torch_layers(layers)
+    xb = torch.tensor(x).to(torch.bfloat16)
+    got = emulate_bf16(xb, k1.pack_layers(tl, skips, dtype=torch.bfloat16),
+                       act, act_last)
+    plain = k1.skip_mlp_plain(xb, tl, skips, act, act_last)
+    assert got.shape == plain.shape
+    err = (got - plain).abs().max().item()
+    assert err <= BF16_REL_TOL * max(1.0, plain.abs().max().item()), err
 
 
 def test_packed_layers_follow_in_place_updates():
