@@ -81,9 +81,11 @@ from .train.checkpoints import (
     load_checkpoint,
     load_params_partial,
     param_codec,
+    save_best_checkpoint,
     save_checkpoint,
     write_start,
 )
+from .train.optim import optimizer_kind
 from .train.recorder import Recorder
 from .train.trainer import Trainer
 from .utils.profiling import profile_trace
@@ -1137,12 +1139,40 @@ def initial_model(cfg):
 
 
 def write_initial_start(cfg):
-    """`write_start` of `initial_model(cfg)` into cfg.trained_model_dir:
-    a start that either package's trainer, with `resume True`, trains
-    from (the common start of a stage-2 run held to the JAX package)."""
+    """`write_start` of `initial_model(cfg)` into cfg.trained_model_dir,
+    in the state of the config's optimizer: a start that either
+    package's trainer, with `resume True`, trains from (the common start
+    of a stage-2 run held to the JAX package)."""
     model = initial_model(cfg)
     write_start(cfg.trained_model_dir,
-                param_codec(model)[1](dict(model.named_parameters())))
+                param_codec(model)[1](dict(model.named_parameters())),
+                optimizer_kind(cfg))
+
+
+def periodic_eval(cfg, model, device, ctx: dict) -> dict:
+    """The in-training validation (JAX engine.py:1133-1155
+    `_periodic_eval`): an Engine of the config in eval mode and its test
+    split, made once and kept in `ctx`, render the first min(2, len)
+    test items with `model`'s current weights; an ImageEvaluator
+    summarizes them (mse, psnr, ssim) without saving images."""
+    if "eng" not in ctx:
+        ecfg = cfg.clone()
+        ecfg.eval = True
+        ctx.update(eng=Engine(ecfg, device), ds=make_dataset(ecfg, "test"),
+                   cfg=ecfg)
+    eng, ds = ctx["eng"], ctx["ds"]
+    eng.model.load_state_dict(model.state_dict(), strict=True)
+    evaluator = ImageEvaluator(ctx["cfg"].result_dir)
+    for i in range(min(2, len(ds))):
+        item = ds[i]
+        out, _ = eng.render_item(item)
+        evaluator.evaluate(out["rgb_map"], np.asarray(item["rgb"]),
+                           np.asarray(item["mask_at_box"]), int(item["H"]),
+                           int(item["W"]),
+                           frame_index=int(item["frame_index"]),
+                           view_index=int(item.get("cam_ind", 0)),
+                           save_images=False)
+    return evaluator.summarize()
 
 
 def run_train(cfg, device=None):
@@ -1156,7 +1186,11 @@ def run_train(cfg, device=None):
     every `save_latest_ep` epochs and after the last, `<epoch>.flax`
     every `save_ep`; with `resume` (the default) it goes on from the
     checkpoint in `trained_model_dir`, otherwise it wipes that
-    directory. A fresh SDF-PDF or NeuS-PDF run with `init_sdf` takes its
+    directory. Every `eval_ep` epochs (unless `skip_eval`) it
+    evaluates the first two test items (`periodic_eval`), records a
+    "val" line of `val_<metric>` scalars and keeps `best.flax` and
+    `best.json` where the PSNR is finite and beats the retained best
+    (JAX :1327-1349). A fresh SDF-PDF or NeuS-PDF run with `init_sdf` takes its
     SDF network from that checkpoint first (a resume then overrides it,
     as in JAX). `init_sdf` on a family without an SDF network raises,
     where JAX's non-strict partial load reads nothing. The loader reads
@@ -1201,23 +1235,27 @@ def run_train(cfg, device=None):
             recorder.load_state_dict(rec)
     elif os.path.isdir(cfg.trained_model_dir):
         shutil.rmtree(cfg.trained_model_dir, ignore_errors=True)
-    if not cfg.skip_eval and any((e + 1) % cfg.eval_ep == 0
-                                 for e in range(begin_epoch, n_epochs)):
-        raise NotImplementedError(
-            "the periodic evaluation during training (eval_ep) is not "
-            "ported yet; raise eval_ep or set skip_eval True")
-
+    eval_ctx = {}
     try:
         for epoch in range(begin_epoch, n_epochs):
             trainer.train_epoch(loader, recorder, epoch, max_iter,
                                 log_interval=cfg.log_interval,
                                 record_interval=cfg.record_interval)
             ckpt = (cfg.trained_model_dir, model, trainer.optimizer, epoch,
-                    trainer.step, recorder.state_dict())
+                    trainer.step)
             if (epoch + 1) % cfg.save_ep == 0:
-                save_checkpoint(*ckpt)
+                save_checkpoint(*ckpt, recorder.state_dict())
             if (epoch + 1) % cfg.save_latest_ep == 0 or epoch == n_epochs - 1:
-                save_checkpoint(*ckpt, latest=True)
+                save_checkpoint(*ckpt, recorder.state_dict(), latest=True)
+            if (epoch + 1) % cfg.eval_ep == 0 and not cfg.skip_eval:
+                m = periodic_eval(cfg, model, dev, eval_ctx)
+                recorder.record("val",
+                                extra={f"val_{k}": v for k, v in m.items()})
+                if (np.isfinite(m.get("psnr", float("nan")))
+                        and save_best_checkpoint(*ckpt, m["psnr"],
+                                                 recorder.state_dict())):
+                    print(f"[train] new best val psnr {m['psnr']:.3f} dB "
+                          f"at epoch {epoch} -> best.flax", flush=True)
     finally:
         recorder.close()
     return trainer, recorder

@@ -7,11 +7,12 @@ model's dense train path, with the SDF models' silhouette tensors.
 JAX counterpart: animatable_nerf_tpu/render/renderer.py (`pad_rays`
 :63-88, `render_rays` :159-320 with the silhouette tensors :305-319,
 `render_image` :329-384; the carve `inside_fn` :213-228; the
-hierarchical importance sampling :187-214). The JAX
-`apply_model` row chunking (`dense_chunk_rows`) guards a TPU compiler
-fault and has no counterpart here; on the train path it also forces the
-argmin and argmax per chunk, so the port refuses a train batch above
-that size (`render_rays_train`).
+hierarchical importance sampling :187-214). A dense train call above
+`dense_chunk_rows` points runs in ray chunks, as JAX's `apply_model`
+(:92-156) runs it: each chunk forces its own filter argmin and density
+argmax, so the chunking changes the step (`render_rays_train`). JAX
+also chunks dense eval calls (`eval_keep_frac` 0), a path the port's
+eval tiles do not take.
 """
 
 from __future__ import annotations
@@ -45,11 +46,10 @@ class RenderSettings(NamedTuple):
     # > 0: hierarchical importance sampling at eval (`use_importance`),
     # this many fine samples a ray
     n_importance: int = 0
-
-
-# JAX RenderSettings.dense_chunk_rows: a larger dense train call is run
-# in ray chunks there, each forcing its own argmin/argmax
-_DENSE_CHUNK_ROWS = 131072
+    # a dense train call above this many points runs in ray chunks (0:
+    # never); the trainers keep the default, as JAX's Trainer does
+    # (train/trainer.py:263-268)
+    dense_chunk_rows: int = 131072
 
 
 def pad_rays(rays: dict, multiple: int):
@@ -137,6 +137,43 @@ def render_image(model, rays: dict, frame: dict, settings: RenderSettings,
     return result
 
 
+def train_forward_chunked(model, wpts, viewdir, z_vals, frame, bound: int):
+    """`model.train_forward`, in ray chunks of bound // n_samples rays
+    where the call is dense (`train_keep_frac` 0) and has more than
+    `bound` points (JAX renderer.py:99-156 `apply_model`): the last
+    chunk padded with rays whose points sit at 1e4 (outside every
+    filter), each chunk its own call, so each forces its own filter
+    argmin and density argmax; the outputs, each led by the ray axis
+    or by the point axis, joined and cut back to the real rays."""
+    n_rays, n_samples = z_vals.shape
+    if (not bound or n_rays * n_samples <= bound
+            or getattr(model, "train_keep_frac", 0.0) > 0):
+        return model.train_forward(wpts, viewdir, z_vals, frame)
+    chunk = max(1, bound // n_samples)
+    n_chunks = -(-n_rays // chunk)
+    pad = n_chunks * chunk - n_rays
+
+    def padded(a, cval):
+        return torch.cat([a, a.new_full((pad, *a.shape[1:]), cval)]) \
+            if pad else a
+
+    wp, rd, zp = padded(wpts, 1e4), padded(viewdir, 0.0), padded(z_vals, 0.0)
+    outs = [model.train_forward(wp[s:s + chunk], rd[s:s + chunk],
+                                zp[s:s + chunk], frame)
+            for s in range(0, n_chunks * chunk, chunk)]
+
+    def unchunk(key):
+        parts = [o[key] for o in outs]
+        lead = parts[0].shape[0] if parts[0].dim() else None
+        if lead not in (chunk, chunk * n_samples):
+            raise ValueError(f"train_forward output {key!r} of shape "
+                             f"{tuple(parts[0].shape)}: neither {chunk} "
+                             f"rays nor {chunk * n_samples} points lead it")
+        return torch.cat(parts)[:n_rays * (lead // chunk)]
+
+    return {k: unchunk(k) for k in outs[0]}
+
+
 def render_rays_train(model, rays: dict, frame: dict,
                       settings: RenderSettings,
                       generator: torch.Generator | None = None):
@@ -145,7 +182,8 @@ def render_rays_train(model, rays: dict, frame: dict,
     `settings.perturb`, the model's train forward (dense, or compacted
     to the exact survivors with `train_keep_frac` > 0), `raw2outputs`
     with `white_bkgd`, and the maps zeroed on pad rays (`mask`). Returns
-    the model's dict (AniNeRF: raw, pbw, tbw, bw_mask; NeRF-PDF: raw,
+    the model's dict (`train_forward_chunked`; AniNeRF: raw, pbw, tbw,
+    bw_mask; NeRF-PDF: raw,
     resd, resd_mask; SDF-PDF and NeuS-PDF: raw, sdf, resd, gradients,
     observed_gradients and their masks) plus
     rgb_map, acc_map, depth_map, weights and z_vals; for a model that
@@ -154,16 +192,11 @@ def render_rays_train(model, rays: dict, frame: dict,
     outside the mask; msk_in, the real rays inside it whose samples
     never change sign (JAX :305-319, reference tpose_renderer.py:
     134-152)."""
-    n_rays = rays["ray_o"].shape[0]
-    if n_rays * settings.n_samples > _DENSE_CHUNK_ROWS:
-        raise NotImplementedError(
-            f"{n_rays} x {settings.n_samples} samples: JAX trains batches "
-            f"above {_DENSE_CHUNK_ROWS} points in ray chunks, forcing the "
-            "filter's argmin per chunk; that chunking is not ported")
     z_vals = stratified_z_vals(rays["near"], rays["far"], settings.n_samples,
                                perturb=settings.perturb, generator=generator)
     wpts = z_vals_to_pts(rays["ray_o"], rays["ray_d"], z_vals)
-    ret = model.train_forward(wpts, rays["ray_d"], z_vals, frame)
+    ret = train_forward_chunked(model, wpts, rays["ray_d"], z_vals, frame,
+                                settings.dense_chunk_rows)
     rgb_map, _, acc_map, weights, depth_map = raw2outputs(
         ret["raw"], z_vals, settings.white_bkgd)
     if "mask" in rays:

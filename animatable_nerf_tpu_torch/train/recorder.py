@@ -64,11 +64,15 @@ class Recorder:
         for k, v in stats.items():
             self.scalars[k].update(float(v))
 
-    def record(self, prefix: str = "train"):
+    def record(self, prefix: str = "train", extra: dict | None = None):
+        """One JSONL line {prefix: {step, epoch, the scalars' medians,
+        `extra`}} (JAX recorder.py:78; the periodic evaluation's "val"
+        line carries its `val_<metric>` in `extra`)."""
         payload = {
             "step": self.step,
             "epoch": self.epoch,
             **{k: v.median for k, v in self.scalars.items()},
+            **(extra or {}),
         }
         self._jsonl.write(json.dumps({prefix: payload}) + "\n")
         self._jsonl.flush()

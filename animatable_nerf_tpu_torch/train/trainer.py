@@ -4,9 +4,10 @@ JAX counterpart: animatable_nerf_tpu/train/trainer.py (`collate_rays`
 :92, `stack_batch` :134, `Trainer._loss_one` :365, `_train_step` :382,
 `train_epoch` :556; reference lib/train/trainers/trainer.py:50-102 and
 tpose_trainer.py). One step: the render of one frame's rays, the loss,
-its gradient, the value clip at 40 and an Adam update at the schedule's
-rate for the update count. The step counter counts the frames trained
-on, as in JAX; the loss reads it (the SDF silhouette alpha's schedule).
+its gradient, the value clip at 40 and the config's optimizer's update
+(train/optim.py) at the schedule's rate for the update count. The step
+counter counts the frames trained on, as in JAX; the loss reads it (the
+SDF silhouette alpha's schedule).
 The model is AniNeRF, a displacement-field family (NeRF-PDF, SDF-PDF,
 NeuS-PDF) or an aligned family (LBW, PBW, SMPL, LBWPDF); its
 `train_frame_keys` name the frame tensors the trainer moves to the
@@ -23,7 +24,12 @@ dispatch (`steps_per_dispatch`), packed stats, device frame store,
 compaction capacities with their overflow stats and fallback, and
 shard_map data parallelism serve its TPU and its remote relay; the port
 has none of them and raises on a config that asks for more than one
-step a dispatch or more than one frame a step.
+step a dispatch. Without a mesh JAX trains one frame a step whatever
+`train.batch_size` says (trainer.py:574 `batch_frames`), and so does
+the port. With `compute_dtype bfloat16` the fields' trunks and heads
+compute in bf16 (K1's bf16 form on the card) while the parameters,
+their gradients, the optimizer, the geometry, the compositing and the
+loss stay float32, as in JAX.
 """
 
 from __future__ import annotations
@@ -94,14 +100,8 @@ def stack_batch(items):
 
 
 def check_train_config(cfg):
-    """Raise on what the port's trainer does not do."""
-    if str(cfg.get("compute_dtype", "float32")) != "float32":
-        raise NotImplementedError(
-            "training with compute_dtype bfloat16 is not ported yet (K1's "
-            "bf16 form has no backward); it evaluates in bf16")
-    if int(cfg.train.get("batch_size", 1)) != 1:
-        raise NotImplementedError("only one frame a step (train.batch_size 1) "
-                                  "is ported")
+    """Raise on what the port's trainer does not do: more than one step
+    a dispatch."""
     if int(cfg.train.get("steps_per_dispatch", 1) or 1) != 1:
         raise NotImplementedError("steps_per_dispatch > 1 is a JAX dispatch "
                                   "mechanism with no counterpart in the port")
@@ -176,8 +176,8 @@ class Trainer:
 
     def apply_gradients(self):
         """The update from the parameters' .grad: the value clip at 40,
-        then Adam at the schedule's rate for the update count (JAX
-        optax.chain(clip(40), adam(sched)))."""
+        then the config's optimizer at the schedule's rate for the
+        update count (JAX optax.chain(clip(40), <optimizer>(sched)))."""
         torch.nn.utils.clip_grad_value_(self.params, CLIP_VALUE)
         for group in self.optimizer.param_groups:
             group["lr"] = self.sched(self.updates)
@@ -185,10 +185,9 @@ class Trainer:
         self.updates += 1
 
     def train_step(self, batch) -> dict:
-        """One update from a stacked batch of one frame (JAX
-        `_train_step` at B = 1); returns the stats as floats."""
-        if batch["ray_o"].shape[0] != 1:
-            raise NotImplementedError("one frame a step is ported")
+        """One update from the first frame of a stacked batch (JAX
+        `_train_step` at B = 1; the loader stacks one); returns the
+        stats as floats."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, stats, _ = self.loss({k: v[0] for k, v in batch.items()})
         loss.backward()

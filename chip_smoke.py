@@ -175,12 +175,12 @@ Phases, one JSON line each:
      the port's seeded start: `run --type evaluate` held to the JAX
      package's PSNR (JAX_PSNR_BASELINE); an item and a train step on the
      card against the CPU (NHR's bounds at least twice what one ulp of
-     its vertices moves the CPU's own result, under fixed ceilings); 50
+     its vertices moves the CPU's own result, under fixed ceilings); 20
      steps of `run_train` on the card, held at matched weights at the
      steps BASELINE_MATCHED_STEPS (the CPU from the card's weights and
      Adam state: the loss, the gradient, and Adam's update from the
      card's gradient), then its evaluate printed beside the JAX CPU run
-     of the same steps; then the copy at 1024x1024: one frame and 5
+     of 50 steps; then the copy at 1024x1024: one frame and 5
      steps at full width (s per frame and step, device ms, idle share,
      peak memory, top device ops, NHR's furthest-point sampling), NT's
      frame held to the CPU's, NHR's checked finite and in range;
@@ -232,6 +232,22 @@ Phases, one JSON line each:
      and, view by view, to the flat render, and its 1000x1002 frame
      beside the flat one (wall, device ms, candidates); `seg_filter 4`
      on SDF-PDF, which renders as without it;
+ 21. the training options: K1's bf16 form against its plain version at a
+     train step's rows (32,768 dense, 24,323 and 16,673 compacted,
+     65,536 of stage 2) beside its bound, the bf16 chain, the float32
+     form and its backward, and the bf16 repack a step; a bf16 step of
+     each of the eight families, of AniNeRF's compacted step and of its
+     stage 2 on the card against the CPU, K1's bf16 form launched as
+     often as the float32 step launches the float32 form and that form
+     never; 50 bf16 steps of AniNeRF and SDF-PDF held to the JAX
+     package's bf16 runs, and bf16 steps beside float32 ones in turns;
+     five AniNeRF steps under Adam, RAdam, SGD and AdamW held at matched
+     weights, each update timed (torch.optim.Adam's beside Adam's), their
+     checkpoints read back; SDF-PDF with `eval_ep 1`
+     (two "val" lines, `best.flax`, the evaluations' K1 and K3); a
+     NeRF-PDF step in four chunks (its trainer's `dense_chunk_rows` at
+     8192) against the CPU and a 4096-ray step in two chunks at the
+     default bound, timed;
 then the kernel table line, the script's seconds, the card line and
 {"ok": true, ...} last. Each phase's line carries its wall `seconds`.
 Kernel launch counts are set to 0 just before each path and read just
@@ -1359,20 +1375,25 @@ def train_step_grads(trainer, batch):
              trainer.model.named_parameters() if p.grad is not None})
 
 
+# the card's launches of each phase_train_step_vs_cpu step, by phase name
+STEP_LAUNCHES = {}
+
+
 def phase_train_step_vs_cpu(name, cfg, state_dict, batch, k1, knn, expect,
                             trainer_cls=None, whole_gradient=False,
-                            loss_rtol=TRAIN_LOSS_RTOL, return_cpu=False):
+                            loss_rtol=TRAIN_LOSS_RTOL, return_cpu=False,
+                            grad_rel=TRAIN_GRAD_REL):
     """One train step's loss and gradients on the card against the same
     step with the port on this machine's CPU (the plain versions), from
     the same weights and batch, with each stat's difference reported;
     `expect` the kernels' launches on the card (none on the CPU).
     `trainer_cls` defaults to the stage-1 Trainer. The gradient is held
-    leaf by leaf (each within TRAIN_GRAD_REL of its largest entry), or
-    with `whole_gradient` as one vector (its relative L2 error within
-    TRAIN_GRAD_REL; the leaf errors reported); the loss within
-    `loss_rtol`. Returns the names of the parameters that received a
-    gradient (the same on both), and with `return_cpu` also the CPU
-    step's (loss, stats, gradients)."""
+    leaf by leaf (each within `grad_rel` of its largest entry), or with
+    `whole_gradient` as one vector (its relative L2 error within
+    `grad_rel`; the leaf errors reported); the loss within `loss_rtol`.
+    The card's launches go to STEP_LAUNCHES[name]. Returns the names of
+    the parameters that received a gradient (the same on both), and with
+    `return_cpu` also the CPU step's (loss, stats, gradients)."""
     from animatable_nerf_tpu_torch.engine import make_model
     from animatable_nerf_tpu_torch.train.trainer import Trainer
 
@@ -1410,10 +1431,11 @@ def phase_train_step_vs_cpu(name, cfg, state_dict, batch, k1, knn, expect,
           "launches": {"cuda": gpu_n, "cpu": cpu_n},
           "first_step_s": {"cuda": gpu_t, "cpu": cpu_t},
           "tolerance": f"loss rtol {loss_rtol} (the stats reported); "
-          + (f"the whole gradient's |d| <= {TRAIN_GRAD_REL} x |g| (L2, CPU)"
+          + (f"the whole gradient's |d| <= {grad_rel} x |g| (L2, CPU)"
              if whole_gradient else
-             f"each gradient leaf max |d| <= {TRAIN_GRAD_REL} x its max |g| "
+             f"each gradient leaf max |d| <= {grad_rel} x its max |g| "
              "(CPU)")})
+    STEP_LAUNCHES[name] = gpu_n
     want = {k: expect.get(k, 0) for k in gpu_n}
     check(all(v == 0 for v in cpu_n.values()) and gpu_n == want,
           f"{name}: launches {cpu_n} on the CPU, {gpu_n} on the card "
@@ -1423,23 +1445,26 @@ def phase_train_step_vs_cpu(name, cfg, state_dict, batch, k1, knn, expect,
     check(all(bool(g.isfinite().all()) for g in gpu_g.values()),
           f"{name}: the gradient is not finite")
     if whole_gradient:
-        check(rel_l2 <= TRAIN_GRAD_REL,
+        check(rel_l2 <= grad_rel,
               f"{name}: the gradient differs by {rel_l2} of its L2 norm")
     else:
-        check(rel[worst] <= TRAIN_GRAD_REL,
+        check(rel[worst] <= grad_rel,
               f"{name}: gradient {worst}: {rel[worst]} of its scale")
     if return_cpu:
         return set(cpu_g), (cpu_loss, cpu_s, cpu_g)
     return set(cpu_g)
 
 
-def repack_ms(model, iters=10):
-    """K1's per-step weight repack: after both trunks' parameters get a
-    new version (an in-place add of 0, as an optimizer step makes one),
-    the time of packing them anew (fields/mlp.py packed_layers), by CUDA
-    events around the packing alone; mean ms per step."""
+def repack_ms(model, dtype=None, iters=10):
+    """K1's per-step weight repack of AniNeRF's two trunks in the form
+    `dtype` (float32 by default, or bf16: the cast, the padding and the
+    swizzle): after their parameters get a new version (an in-place add
+    of 0, as an optimizer step makes one), the time of packing them anew
+    (fields/mlp.py packed_layers), by CUDA events around the packing
+    alone; mean ms per step."""
     import torch
 
+    dtype = dtype or torch.float32
     from animatable_nerf_tpu_torch.fields.mlp import packed_layers
 
     trunks = [(model, [*model.bw_linears, model.bw_fc], 191),
@@ -1454,7 +1479,7 @@ def repack_ms(model, iters=10):
                     lin.bias.add_(0.0)
         start.record()
         for owner, linears, din in trunks:
-            packed_layers(owner, linears, (4,), din)
+            packed_layers(owner, linears, (4,), din, dtype)
         end.record()
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in ev) / iters
@@ -2575,7 +2600,7 @@ NO_GRID_VS_GRID_DB = 1e-3
 NO_GRID_FRAME_TOL = 1e-5
 # evenly spaced tiles of the no-grid full frame on which K3 is timed and
 # bounded (each a whole tile's 524,288 ray-ordered points)
-K3_TILE_SAMPLES = 4
+K3_TILE_SAMPLES = 2
 
 
 class no_plain_knn:
@@ -2856,8 +2881,7 @@ def phase_no_grid(k1, knn, full_item, grid_frame, grid_frame_stats):
     eng_grid.load_params()
     eng_grid.render_item(full_item)
     times = {}
-    for key, e in (("no_grid", eng), ("grid", eng_grid), ("no_grid_again", eng),
-                   ("grid_again", eng_grid)):
+    for key, e in (("no_grid", eng), ("grid", eng_grid)):
         e.clear_frame_cache()
         times[key] = device_breakdown(lambda: e.render_item(full_item),
                                       host=False)
@@ -3527,23 +3551,24 @@ JAX_PSNR_TRAIN_BASELINE = {
             21.259465706498155],
     "nt": [16.983174977928943, 17.267473319935657, 17.749946351903866,
            18.410506562415893]}
-# After 50 steps the port's PSNR is printed beside these, not held to
-# them: the trajectories are chaotic. Adam's first steps move every
+# The port's PSNR after BASELINE_TRAIN_STEPS steps (20; these are the
+# JAX run's after 50) is printed beside these, not held to them: the
+# trajectories are chaotic. Adam's first steps move every
 # weight by about lr whatever its gradient's size, and where float32
 # resolves a gradient's sign differently (0.17% of NT's weights at step 1,
 # measured on the CPU) the runs part: four CPU runs of the port from the
 # same start, differing only in torch's thread count, ended -1.77 to
 # +1.83 dB (NHR) and +0.07 to +0.21 dB (NT) from the JAX run's views.
-# The card's 50 steps are held at matched weights instead: at each step
+# The card's steps are held at matched weights instead: at each step
 # of BASELINE_MATCHED_STEPS the CPU takes the card's weights and Adam
 # state, and its loss (TRAIN_LOSS_RTOL), its clipped gradient as one
 # vector (TRAIN_GRAD_REL; NHR's both by `held_by_control`, below) and
 # Adam's update and moments from the card's gradient (TRAIN_GRAD_REL of their
 # L2 norms) must agree with the card's step. A CPU step of NHR takes
-# some 3-5 s (twice that with its control), so five of the 50 are
-# matched: the first two, while Adam's moments fill, then three later.
+# some 3-5 s (twice that with its control), so four of the 20 are
+# matched: the first two, while Adam's moments fill, then two later.
 BASELINES = ("nhr", "nt")
-BASELINE_TRAIN_STEPS = 50
+BASELINE_TRAIN_STEPS = 20
 BASELINE_UPSAMPLE = 8  # the 128x128 copy at 1024x1024
 BASELINE_FULL_STEPS = 5
 # an item's rgb and mask, card against CPU (the same plain PyTorch; cuDNN's
@@ -3565,7 +3590,7 @@ BASELINE_FULL_TOL = 3e-4
 BASELINE_NHR_FWD_CEIL = 5e-3
 BASELINE_NHR_LOSS_CEIL = 3e-4
 BASELINE_NHR_GRAD_CEIL = 0.25
-BASELINE_MATCHED_STEPS = (1, 2, 10, 30, 50)
+BASELINE_MATCHED_STEPS = (1, 2, 10, 20)
 
 
 def baseline_cfg(copy, fam, tmp, name, image_size=None, run_type="",
@@ -3692,8 +3717,8 @@ def matched_step(step, card, cpu, item, control=False):
     named = dict(card.model.named_parameters())
     before = {k: v.detach().to("cpu", copy=True)
               for k, v in card.model.state_dict().items()}
-    moments = {n: {k: v.detach().to("cpu", copy=True)
-                   for k, v in card.optimizer.state[p].items()}
+    moments = {n: {k: v.detach().to("cpu", copy=True) if torch.is_tensor(v)
+                   else v for k, v in card.optimizer.state[p].items()}
                for n, p in named.items() if p in card.optimizer.state}
     updates = card.updates
     t0 = time.time()
@@ -3702,8 +3727,8 @@ def matched_step(step, card, cpu, item, control=False):
     card_grad = {n: p.grad.detach().cpu() for n, p in named.items()
                  if p.grad is not None}
     card_after = {n: p.detach().cpu() for n, p in named.items()}
-    card_moments = {n: {k: v.detach().cpu() for k, v in
-                        card.optimizer.state[p].items()}
+    card_moments = {n: {k: v.detach().cpu() if torch.is_tensor(v) else v
+                        for k, v in card.optimizer.state[p].items()}
                     for n, p in named.items() if p in card.optimizer.state}
 
     cpu_named = dict(cpu.model.named_parameters())
@@ -4123,6 +4148,7 @@ def device_steps(trainer, batch, wall_ms, n=COMPACT_PROFILE_STEPS):
         out.update(device_ms=prof["device_ms"] / n,
                    idle_share=max(0.0, 1.0 - prof["device_ms"] / n / wall_ms),
                    k1_ms=own["skip_mlp_kernel"] / n,
+                   k1_bf16_ms=own["skip_mlp_bf16_kernel"] / n,
                    k2_ms=own["knn_blend_kernel"] / n,
                    k3_ms=own["min_dist_kernel"] / n,
                    top=[dict(k, ms=k["ms"] / n) for k in prof["kernels"]])
@@ -4689,79 +4715,91 @@ def spill_bytes(ptxas_lines):
                for m in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
 
 
+def k1_bf16_case(k1, wiring, n_rows, gen, tag=""):
+    """One wiring of K1's bf16 form at `n_rows` rows (inputs drawn from
+    `gen`) against its plain bf16 version, timed with its bound, the
+    bf16 addmm chain and the float32 form. Returns (the row, and x, the
+    layers, the bf16 pack and the call's keywords for more timings)."""
+    import torch
+
+    name, din, dims, skips, act_last = wiring
+    x = (torch.rand(n_rows, din, device="cuda", generator=gen) * 2
+         - 1).to(torch.bfloat16)
+    layers = [
+        (torch.randn(i, o, device="cuda", generator=gen) / math.sqrt(i),
+         torch.randn(o, device="cuda", generator=gen) * 0.1)
+        for i, o in dims
+    ]
+    wb = [(w.to(torch.bfloat16), b.to(torch.bfloat16)) for w, b in layers]
+    kwargs = dict(skips=skips, act="relu", act_last=act_last)
+
+    def library():
+        h = x
+        for j, (w, b) in enumerate(wb):
+            h = torch.addmm(b, h, w)
+            if j < len(wb) - 1 or act_last:
+                h = torch.relu_(h)
+                if j in skips and j < len(wb) - 1:
+                    h = torch.cat([x, h], dim=-1)
+        return h
+
+    before = k1.skip_mlp.launches_bf16
+    got = k1.skip_mlp(x, layers, **kwargs)  # packs the weights itself
+    torch.cuda.synchronize()
+    check(k1.skip_mlp.launches_bf16 == before + 1,
+          f"K1 bf16 {tag}{name}: the bf16 kernel was not launched")
+    ref = k1.skip_mlp_plain(x, layers, **kwargs)
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    check(math.isfinite(err) and err <= K1_BF16_REL_TOL * max(scale, 1.0),
+          f"K1 bf16 {tag}{name}: max abs err {err} vs output scale {scale}")
+    packed = k1.pack_layers(layers, skips, dtype=torch.bfloat16)
+    times = timed_pair(lambda: k1.skip_mlp(x, layers, packed=packed, **kwargs),
+                       lambda: k1.skip_mlp_plain(x, layers, **kwargs),
+                       library, plain_iters=10)
+    x32 = x.float()
+    packed32 = k1.pack_layers(layers, skips)
+    f32_ms = cuda_ms(lambda: k1.skip_mlp(x32, layers, packed=packed32,
+                                         **kwargs))
+    flops = 2 * n_rows * sum(i * o for i, o in dims)
+    nbytes = (2 * n_rows * din + 4 * n_rows * dims[-1][1]
+              + sum(2 * i * o + 4 * o for i, o in dims))
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    row = {
+        "wiring": name, "rows": n_rows, "din": din,
+        "dout": dims[-1][1], "layers": len(dims),
+        "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30),
+        "tol_abs": K1_BF16_REL_TOL * max(scale, 1.0), **times,
+        "flops": flops, "bytes": nbytes,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "share_of_bound": bound_ms / times["kernel_ms"],
+        "kernel_tflops": flops / (times["kernel_ms"] * 1e-3) / 1e12,
+        "f32_kernel_ms": f32_ms,
+    }
+    return row, (x, layers, packed, kwargs)
+
+
 def phase_k1_bf16(k1, n_rows=K1_ROWS):
     """K1's bf16 form against its plain bf16 version at `n_rows` rows of
-    each wiring, timed with its bound, the bf16 addmm chain and the
-    float32 form; with the bytes its weight stream reads from L2 a call
-    (every 128-row tile streams the packed stack once: no tile shares a
-    chunk), the rate that implies, and the rate of the stream alone
-    (`weight_stream_bf16`: the kernel's ring on its grid, no products).
-    Returns one row per wiring."""
+    each wiring (`k1_bf16_case`), with the bytes its weight stream reads
+    from L2 a call (every 128-row tile streams the packed stack once: no
+    tile shares a chunk), the rate that implies, and the rate of the
+    stream alone (`weight_stream_bf16`: the kernel's ring on its grid,
+    no products). Returns one row per wiring."""
     import torch
     from animatable_nerf_tpu_torch.ops import build
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for name, din, dims, skips, act_last in k1_wirings():
-        x = (torch.rand(n_rows, din, device="cuda", generator=gen) * 2
-             - 1).to(torch.bfloat16)
-        layers = [
-            (torch.randn(i, o, device="cuda", generator=gen) / math.sqrt(i),
-             torch.randn(o, device="cuda", generator=gen) * 0.1)
-            for i, o in dims
-        ]
-        wb = [(w.to(torch.bfloat16), b.to(torch.bfloat16)) for w, b in layers]
-        kwargs = dict(skips=skips, act="relu", act_last=act_last)
-
-        def library():
-            h = x
-            for j, (w, b) in enumerate(wb):
-                h = torch.addmm(b, h, w)
-                if j < len(wb) - 1 or act_last:
-                    h = torch.relu_(h)
-                    if j in skips and j < len(wb) - 1:
-                        h = torch.cat([x, h], dim=-1)
-            return h
-
-        before = k1.skip_mlp.launches_bf16
-        got = k1.skip_mlp(x, layers, **kwargs)  # packs the weights itself
-        torch.cuda.synchronize()
-        check(k1.skip_mlp.launches_bf16 == before + 1,
-              f"K1 bf16 {name}: the bf16 kernel was not launched")
-        ref = k1.skip_mlp_plain(x, layers, **kwargs)
-        err = (got - ref).abs().max().item()
-        scale = ref.abs().max().item()
-        check(math.isfinite(err) and err <= K1_BF16_REL_TOL * max(scale, 1.0),
-              f"K1 bf16 {name}: max abs err {err} vs output scale {scale}")
-        packed = k1.pack_layers(layers, skips, dtype=torch.bfloat16)
-        times = timed_pair(lambda: k1.skip_mlp(x, layers, packed=packed, **kwargs),
-                           lambda: k1.skip_mlp_plain(x, layers, **kwargs),
-                           library, plain_iters=10)
-        x32 = x.float()
-        packed32 = k1.pack_layers(layers, skips)
-        f32_ms = cuda_ms(lambda: k1.skip_mlp(x32, layers, packed=packed32,
-                                             **kwargs))
+    for wiring in k1_wirings():
+        row, (_, _, packed, _) = k1_bf16_case(k1, wiring, n_rows, gen)
         l2_bytes = k1.weight_stream_bf16(n_rows, packed, "cuda")
         stream_ms = cuda_ms(lambda: k1.weight_stream_bf16(n_rows, packed, "cuda"))
-        flops = 2 * n_rows * sum(i * o for i, o in dims)
-        nbytes = (2 * n_rows * din + 4 * n_rows * dims[-1][1]
-                  + sum(2 * i * o + 4 * o for i, o in dims))
-        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-        rows.append({
-            "wiring": name, "rows": n_rows, "din": din,
-            "dout": dims[-1][1], "layers": len(dims),
-            "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30),
-            "tol_abs": K1_BF16_REL_TOL * max(scale, 1.0), **times,
-            "flops": flops, "bytes": nbytes,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "share_of_bound": bound_ms / times["kernel_ms"],
-            "kernel_tflops": flops / (times["kernel_ms"] * 1e-3) / 1e12,
-            "f32_kernel_ms": f32_ms,
-            "l2_bytes": l2_bytes,
-            "l2_tbps_implied": l2_bytes / (times["kernel_ms"] * 1e-3) / 1e12,
-            "l2_stream_ms": stream_ms,
-            "l2_stream_tbps": l2_bytes / (stream_ms * 1e-3) / 1e12,
-        })
+        row.update(l2_bytes=l2_bytes,
+                   l2_tbps_implied=l2_bytes / (row["kernel_ms"] * 1e-3) / 1e12,
+                   l2_stream_ms=stream_ms,
+                   l2_stream_tbps=l2_bytes / (stream_ms * 1e-3) / 1e12)
+        rows.append(row)
     ptxas = ptxas_of(build.build_log("skip_mlp"), "skip_mlp_bf16_kernel")
     sass = sass_counts(build.library_path("skip_mlp"))
     emit({"phase": "k1_bf16_vs_plain", "tolerance": (
@@ -4945,6 +4983,454 @@ def phase_slab(k1, knn):
     emit({"phase": "seg_filter_sdf_pdf", "views_equal": equal})
     check(all(equal), f"seg_filter 4 changed the SDF-PDF render: {equal}")
     return paths
+
+
+# Phase 21: the training options. Per-view PSNR (frames 0-3, view 3) of
+# the JAX package after one epoch of 50 steps in compute_dtype bfloat16
+# from the tracked weights with a fresh Adam at step 0, perturb 0 and the
+# ray draw seeded, the checkpoint evaluated in float32, computed on the
+# CPU with (<c> configs/synthetic.yaml, <s> synthetic, <e>
+# train50_bf16_jax; then configs/synthetic_sdf_pdf.yaml,
+# synthetic_sdf_pdf, train50_sdf_bf16_jax):
+#   python -c "from animatable_nerf_tpu_torch.train.checkpoints import write_fresh_start as w; w('data/trained_model/deform/<s>/latest.flax', 'data/trained_model/deform/<e>')"
+#   JAX_PLATFORMS=cpu python train_net.py --cfg_file <c> exp_name <e> train.epoch 1 perturb 0 fix_random True train.num_workers 2 resume True compute_dtype bfloat16
+#   JAX_PLATFORMS=cpu python run.py --type evaluate --cfg_file <c> exp_name <e>
+#   python -c "import numpy as np; print(np.load('data/result/deform/<e>/metrics.npy', allow_pickle=True).item()['psnr'])"
+JAX_PSNR_TRAIN_BF16 = [12.341704060349091, 13.116076382974267,
+                       13.217863323819355, 14.878381509405584]
+JAX_PSNR_TRAIN_BF16_SDF = [21.18200163566368, 22.81313407001105,
+                           24.03067748370863, 24.837970131231188]
+BF16 = ["compute_dtype", "bfloat16"]
+# K1's bf16 form at a train step's rows: (case, rows, wirings)
+BF16_TRAIN_ROWS = (
+    ("dense", TRAIN_ROWS, ("bw_field", "tpose_trunk", "resd_field")),
+    ("compacted_aninerf", 24323, ("bw_field", "tpose_trunk")),
+    ("compacted_knn", 16673, ("resd_field",)),
+    ("stage2", ANIM_ROWS, ("bw_field", "tpose_trunk")),
+)
+# a bf16 step on the card against the port's plain bf16 step on the CPU
+# (the item's first BF16_STEP_RAYS rays): the loss within
+# BF16_STEP_LOSS_RTOL, the whole
+# gradient within BF16_STEP_GRAD_REL of its L2 norm. K1's bf16 form sums
+# its float32 products in another order than the plain form and rounds
+# each layer to bf16 (up to 7.4e-3 of a wiring's output scale, phase
+# 20), so a value a rounding apart moves the step by a bf16 step (2^-8)
+# where the CPU tests see 4e-3 between XLA's and the plain form's
+# roundings (tests/test_torch_train_bf16.py).
+BF16_STEP_RAYS = 128
+BF16_STEP_LOSS_RTOL = 1e-2
+BF16_STEP_GRAD_REL = 5e-2
+# the stage-2 bf16 step against the CPU at fewer points a branch than a
+# real step's 65,536 (k1_bf16_train_rows times the form at those)
+BF16_ANIM_ROWS = 16384
+OPTIM_KINDS = {"adam": ["train.optim", "adam"],
+               "radam": ["train.optim", "radam"],
+               "sgd": ["train.optim", "sgd"],
+               "adamw": ["train.optim", "adam", "train.weight_decay", "0.01"]}
+OPTIM_STEPS = 5
+# the card's optimizer against the CPU's on the card's gradient and
+# state: float32 elementwise arithmetic on both (rtol, atol)
+OPTIM_RTOL, OPTIM_ATOL = 1e-5, 1e-7
+EVAL_EP_OPTS = ["train.epoch", "2", "ep_iter", "10", "eval_ep", "1",
+                "perturb", "0", "fix_random", "True", "resume", "True"]
+CHUNK_ROWS = 8192  # NeRF-PDF's 512 x 64 points in 4 chunks
+CHUNK_BIG_RAYS = 4096  # 262,144 points: 2 chunks at the default bound
+
+
+def k1_bf16_train_rows(k1):
+    """K1's bf16 form at the rows of a train step (BF16_TRAIN_ROWS,
+    `k1_bf16_case`), with its backward (the plain vjp, which recomputes
+    the plain forward)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    wirings = {w[0]: w for w in k1_wirings()}
+    rows = []
+    for case, n_rows, names in BF16_TRAIN_ROWS:
+        for name in names:
+            row, (x, layers, packed, kwargs) = k1_bf16_case(
+                k1, wirings[name], n_rows, gen, f"{case} ")
+            leaves = [t.requires_grad_() for wb in layers for t in wb]
+            out = k1.skip_mlp(x, layers, packed=packed, **kwargs)
+            g = torch.randn_like(out)
+            row.update(case=case, backward_ms=cuda_ms(
+                lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)))
+            rows.append(row)
+    return rows
+
+
+def phase_train_bf16_rows(k1):
+    """K1's bf16 form at the train rows (`k1_bf16_train_rows`) and the
+    bf16 repack a step of AniNeRF's two trunks beside the float32 one.
+    Returns the rows."""
+    import torch
+
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.engine import make_model
+
+    rows = k1_bf16_train_rows(k1)
+    model = make_model(load_config("configs/synthetic.yaml", BF16)).to("cuda")
+    repack = {"f32": repack_ms(model), "bf16": repack_ms(model, torch.bfloat16)}
+    emit({"phase": "k1_bf16_train_rows", "tolerance": (
+        f"max abs err <= {K1_BF16_REL_TOL} x max(1, max |plain|)"),
+          "bound": "max(FLOP / 989 TFLOP/s (bf16), bytes / 3.35 TB/s)",
+          "library": "torch.addmm + relu + cat in bf16", "rows": rows,
+          "repack_ms_per_step": repack})
+    return rows
+
+
+def start_state_dict(cfg, aligned=None):
+    """The state dict a config's steps start from: its tracked
+    checkpoint, or the `aligned` family's composed tree."""
+    from animatable_nerf_tpu_torch.compat.compose import compose_aligned
+    from animatable_nerf_tpu_torch.compat.flax_msgpack import read_checkpoint
+    from animatable_nerf_tpu_torch.engine import make_model
+    from animatable_nerf_tpu_torch.train.checkpoints import param_codec
+
+    params = (compose_aligned(aligned) if aligned else read_checkpoint(
+        os.path.join("data/trained_model", cfg.task, cfg.exp_name,
+                     "latest.flax"))["params"])
+    return param_codec(make_model(cfg))[0](params)
+
+
+def seeded_batch(cfg, n_rays=None, index=0):
+    from animatable_nerf_tpu_torch.engine import make_dataset
+    from animatable_nerf_tpu_torch.train.trainer import collate_rays, stack_batch
+
+    ds = make_dataset(cfg, "train")
+    ds._rng = np.random.RandomState(0)
+    return stack_batch([collate_rays(ds[index], n_rays or int(cfg.N_rand))])
+
+
+def phase_train_bf16_steps(k1, knn):
+    """One bf16 step of each family, of AniNeRF's compacted step and of
+    its stage 2 on the card against the port's plain bf16 step on the
+    CPU: K1's bf16 form as often as the float32 step launches the
+    float32 form, the float32 form never. Returns the card's launches by
+    path."""
+    from animatable_nerf_tpu_torch.compat.flax_msgpack import read_checkpoint
+    from animatable_nerf_tpu_torch.compat.jax_params import aninerf_state_dict
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.engine import write_initial_start
+    from animatable_nerf_tpu_torch.train.animation import AnimationTrainer
+
+    paths = {}
+    for family, (cfg_file, per_step) in COMPACT_FAMILIES.items():
+        cfg = load_config(cfg_file, ["perturb", "0", *BF16])
+        expect = {("skip_mlp_bf16" if k == "skip_mlp" else k): n
+                  for k, n in per_step.items()}
+        name = f"train_bf16_{family}_step_vs_cpu"
+        aligned = family[len("aligned_"):] if family.startswith(
+            "aligned_") else None
+        phase_train_step_vs_cpu(name, cfg, start_state_dict(cfg, aligned),
+                                seeded_batch(cfg, BF16_STEP_RAYS), k1, knn,
+                                expect, whole_gradient=True,
+                                loss_rtol=BF16_STEP_LOSS_RTOL,
+                                grad_rel=BF16_STEP_GRAD_REL)
+        paths[name] = STEP_LAUNCHES[name]
+    # AniNeRF's compacted step: the trunks on the exact survivors
+    cfg = load_config("configs/synthetic.yaml", [
+        "perturb", "0", "train_keep_frac", str(TRAIN_KEEP_FRAC), *BF16])
+    name = "train_bf16_compact_aninerf_step_vs_cpu"
+    phase_train_step_vs_cpu(name, cfg, start_state_dict(cfg),
+                            seeded_batch(cfg, BF16_STEP_RAYS), k1, knn,
+                            {"skip_mlp_bf16": 3}, whole_gradient=True,
+                            loss_rtol=BF16_STEP_LOSS_RTOL,
+                            grad_rel=BF16_STEP_GRAD_REL)
+    paths[name] = STEP_LAUNCHES[name]
+    cfg = load_config(NOVEL_POSE_CFG, ANIM_OPTS + BF16 + [
+        "exp_name", "chip_smoke_train_anim_bf16",
+        "n_anim_samples", str(BF16_ANIM_ROWS)])
+    write_initial_start(cfg)
+    start = read_checkpoint(os.path.join(cfg.trained_model_dir,
+                                         "latest.flax"))["params"]
+    name = "train_anim_bf16_step_vs_cpu"
+    with fixed_box_points(BF16_ANIM_ROWS):
+        phase_train_step_vs_cpu(name, cfg, aninerf_state_dict(start),
+                                seeded_batch(cfg), k1, knn,
+                                {"skip_mlp_bf16": 6},
+                                trainer_cls=AnimationTrainer,
+                                whole_gradient=True,
+                                loss_rtol=BF16_STEP_LOSS_RTOL,
+                                grad_rel=BF16_STEP_GRAD_REL)
+    paths[name] = STEP_LAUNCHES[name]
+    return paths
+
+
+def phase_train_bf16_runs(k1, knn):
+    """50 bf16 steps of AniNeRF and of SDF-PDF through `run_train`, each
+    checkpoint's evaluate held to the JAX CPU run of the same steps in
+    bf16; then bf16 steps against float32 ones in turns (the median wall
+    of 10, the device ms and idle share of 3 by the profiler). Returns
+    the runs' launches."""
+    import torch
+
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.engine import make_model
+    from animatable_nerf_tpu_torch.train.trainer import Trainer
+
+    paths, turns = {}, {}
+    for name, cfg_file, jax_psnr, per_step in (
+            ("train_bf16", "configs/synthetic.yaml", JAX_PSNR_TRAIN_BF16,
+             {"skip_mlp_bf16": 3}),
+            ("train_bf16_sdf_pdf", TRAIN_SDF_CFG, JAX_PSNR_TRAIN_BF16_SDF,
+             {"skip_mlp_bf16": 2, "knn_blend": 1})):
+        exp = f"chip_smoke_{name}"
+        opts = ["exp_name", exp] + TRAIN_OPTS[2:] + BF16
+        run = train_and_evaluate(cfg_file, opts, exp, jax_psnr, k1, knn)
+        cfg, trainer, _, launches, _, _, _ = run
+        summary = train_summary(*run, jax_psnr)
+        emit({"phase": name, "config": cfg_file, "opts": opts, **summary,
+              "launches_per_step": {k: v / trainer.step
+                                    for k, v in launches.items()}})
+        check_train(name, summary, per_step)
+        paths[name] = launches
+        # bf16 against float32, in turns, from the tracked weights
+        f32 = load_config(cfg_file, TRAIN_OPTS[2:])
+        state_dict = start_state_dict(f32)
+        batch = seeded_batch(f32)
+        trainers = {}
+        for dtype, c in (("f32", f32), ("bf16", cfg)):
+            model = make_model(c)
+            model.load_state_dict(state_dict)
+            trainers[dtype] = Trainer(c, model.to("cuda"), "cuda")
+        walls = step_walls(trainers, batch)
+        turns[name] = {dtype: device_steps(t, batch, walls[dtype])
+                       for dtype, t in trainers.items()}
+        torch.cuda.synchronize()
+    emit({"phase": "train_bf16_vs_f32", "steps": turns,
+          "note": f"wall: the median of {COMPACT_WALL_STEPS} steps in "
+          "turns; device ms and idle share: the profiler over "
+          f"{COMPACT_PROFILE_STEPS} steps"})
+    return paths
+
+
+def phase_train_optim(k1, knn):
+    """Five AniNeRF steps on the card under Adam, RAdam, SGD and AdamW,
+    each held at matched weights: the CPU port's optimizer, holding the
+    card's weights and state before the step, takes the card's gradient
+    and must land on the card's weights; each update (the clip and the
+    optimizer) timed, and under Adam torch.optim.Adam's foreach update
+    timed beside it on the same weights and gradient; then a checkpoint
+    written and read back through the port's loader (count, weights,
+    moments). Returns the launches by path."""
+    import tempfile
+
+    import torch
+
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.engine import make_model
+    from animatable_nerf_tpu_torch.train.checkpoints import (
+        load_checkpoint, optimizer_slots, save_checkpoint)
+    from animatable_nerf_tpu_torch.train.optim import CLIP_VALUE, make_optimizer
+    from animatable_nerf_tpu_torch.train.trainer import Trainer
+
+    paths = {}
+    for kind, opts in OPTIM_KINDS.items():
+        cfg = load_config("configs/synthetic.yaml", ["perturb", "0", *opts])
+        state_dict = start_state_dict(cfg)
+        batch = seeded_batch(cfg)
+        trainers = {}
+        for device in ("cuda", "cpu"):
+            model = make_model(cfg)
+            model.load_state_dict(state_dict)
+            trainers[device] = Trainer(cfg, model.to(device), device)
+        card, cpu = trainers["cuda"], trainers["cpu"]
+        card_named = dict(card.model.named_parameters())
+        cpu_named = dict(cpu.model.named_parameters())
+        errs, losses = [], []
+        reset_counts(k1, knn)
+        for _ in range(OPTIM_STEPS):
+            card.optimizer.zero_grad(set_to_none=True)
+            loss, _, _ = card.loss({k: v[0] for k, v in batch.items()})
+            loss.backward()
+            for n, p in cpu_named.items():
+                g = card_named[n].grad
+                p.grad = None if g is None else g.detach().cpu()
+            card.apply_gradients()
+            cpu.apply_gradients()
+            losses.append(float(loss.detach()))
+            errs.append(max(
+                (p.detach().cpu() - cpu_named[n].detach()).abs().max().item()
+                / (OPTIM_ATOL + OPTIM_RTOL * cpu_named[n].detach().abs().max().item())
+                for n, p in card_named.items()))
+        torch.cuda.synchronize()
+        launches = launch_counts(k1, knn)
+        # the update (the clip and the optimizer) timed on copies of the
+        # weights with the last step's gradient; under Adam the
+        # library's (torch.optim.Adam, foreach) beside it
+        copies = [p.detach().clone().requires_grad_() for p in card.params]
+        for c, p in zip(copies, card.params):
+            c.grad = p.grad.detach().clone()
+
+        def update(opt):
+            torch.nn.utils.clip_grad_value_(copies, CLIP_VALUE)
+            opt.step()
+
+        port_opt = make_optimizer(cfg, copies)
+        update_ms = cuda_ms(lambda: update(port_opt))
+        library_ms = None
+        if kind == "adam":
+            library = torch.optim.Adam(copies, lr=float(cfg.train.lr),
+                                       eps=1e-8, foreach=True)
+            library_ms = cuda_ms(lambda: update(library))
+        with tempfile.TemporaryDirectory(dir="build") as tmp:
+            save_checkpoint(tmp, card.model, card.optimizer, 0, card.step,
+                            {"step": card.step}, latest=True)
+            model = make_model(cfg)
+            back = Trainer(cfg, model.to("cuda"), "cuda")
+            out = load_checkpoint(tmp, back.model, back.optimizer)
+        count, slots = optimizer_slots(card.model, card.optimizer)
+        count_back, slots_back = optimizer_slots(back.model, back.optimizer)
+        same = (all(torch.equal(p, dict(back.model.named_parameters())[n])
+                    for n, p in card_named.items())
+                and all(torch.equal(v, slots_back[s][n])
+                        for s in slots for n, v in slots[s].items()))
+        emit({"phase": f"train_optim_{kind}", "opts": opts,
+              "steps": OPTIM_STEPS, "losses": losses,
+              "worst_over_tolerance": errs, "launches": launches,
+              "update_ms": update_ms, "library_update_ms": library_ms,
+              "params": len(copies),
+              "checkpoint": {"count": count, "count_read": count_back,
+                             "loaded": list(out[:3]), "equal": same,
+                             "slots": sorted(slots)},
+              "tolerance": f"each weight after each step within {OPTIM_ATOL} "
+              f"+ {OPTIM_RTOL} x its leaf's largest of the CPU optimizer's "
+              "(the card's gradient and state, float32 on both)"})
+        check(all(e <= 1.0 for e in errs) and all(map(math.isfinite, losses)),
+              f"train_optim_{kind}: {errs}, losses {losses}")
+        check(count == count_back == OPTIM_STEPS and out[2] == OPTIM_STEPS
+              and same, f"train_optim_{kind}: the checkpoint read back "
+              f"{count_back} of {count}, equal {same}")
+        check(launches["skip_mlp"] == 3 * OPTIM_STEPS,
+              f"train_optim_{kind}: launched {launches}")
+        paths[f"train_optim_{kind}"] = launches
+    return paths
+
+
+def phase_train_eval_ep(k1, knn):
+    """`run_train` of SDF-PDF for 2 epochs of 10 steps with `eval_ep 1`:
+    two "val" lines, `best.flax` and `best.json` with the last improving
+    val PSNR, and the kernels the two evaluations launch (K1, K2, K3).
+    Returns the run's launches."""
+    import torch
+
+    from animatable_nerf_tpu_torch import engine
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.train.checkpoints import (
+        best_metric, write_fresh_start)
+
+    exp = "chip_smoke_train_eval_ep"
+    cfg = load_config(TRAIN_SDF_CFG, ["exp_name", exp] + EVAL_EP_OPTS)
+    write_fresh_start("data/trained_model/deform/synthetic_sdf_pdf/latest.flax",
+                      cfg.trained_model_dir)
+    evals, real = [], engine.periodic_eval
+
+    def counted(*args):
+        before = launch_counts(k1, knn)
+        t0 = time.time()
+        m = real(*args)
+        torch.cuda.synchronize()
+        after = launch_counts(k1, knn)
+        evals.append({"metrics": m, "seconds": time.time() - t0,
+                      "launches": {k: after[k] - before[k] for k in after}})
+        return m
+
+    engine.periodic_eval = counted
+    reset_counts(k1, knn)
+    try:
+        t0 = time.time()
+        trainer, _ = engine.run_train(cfg, "cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        engine.periodic_eval = real
+    launches = launch_counts(k1, knn)
+    lines = [json.loads(l) for l in open(os.path.join(cfg.record_dir,
+                                                      "scalars.jsonl"))]
+    val = [l["val"] for l in lines if "val" in l]
+    best = best_metric(cfg.trained_model_dir)
+    improving, top = [], -math.inf
+    for v in val:
+        if math.isfinite(v["val_psnr"]) and v["val_psnr"] > top:
+            top = v["val_psnr"]
+            improving.append(v["val_psnr"])
+    emit({"phase": "train_eval_ep", "config": TRAIN_SDF_CFG,
+          "opts": EVAL_EP_OPTS, "steps": trainer.step, "wall_s": wall,
+          "val": val, "best": best, "evals": evals, "launches": launches})
+    check(len(val) == 2 and len(evals) == 2 and best is not None
+          and improving and best["metric"] == improving[-1]
+          and os.path.exists(os.path.join(cfg.trained_model_dir, "best.flax")),
+          f"train_eval_ep: val {val}, best {best}")
+    check(all(e["launches"]["skip_mlp"] > 0 and e["launches"]["min_dist"] > 0
+              for e in evals), f"train_eval_ep: evaluations launched "
+          f"{[e['launches'] for e in evals]}")
+    return launches
+
+
+def phase_train_chunked(k1, knn):
+    """Dense train steps above `dense_chunk_rows`: a NeRF-PDF step at 512
+    rays with its trainer's dense_chunk_rows at 8192 (4 chunks, K1 and
+    K2 once a chunk) on the card against the CPU's same step; a
+    NeRF-PDF step at 4096 rays (262,144 points, 2 chunks at the default
+    bound), timed and profiled. Returns the launches by path."""
+    import torch
+
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.engine import make_model
+    from animatable_nerf_tpu_torch.train.trainer import Trainer
+
+    def chunked_trainer(cfg, model, device):
+        # the trainers chunk at the default bound, as JAX's: this step's
+        # bound goes on its settings
+        trainer = Trainer(cfg, model, device)
+        trainer.settings = trainer.settings._replace(
+            dense_chunk_rows=CHUNK_ROWS)
+        return trainer
+
+    cfg_file = "configs/synthetic_nerf_pdf.yaml"
+    cfg = load_config(cfg_file, ["perturb", "0"])
+    state_dict = start_state_dict(cfg)
+    n_chunks = int(cfg.N_rand) * int(cfg.N_samples) // CHUNK_ROWS
+    name = "train_chunked_step_vs_cpu"
+    phase_train_step_vs_cpu(name, cfg, state_dict, seeded_batch(cfg), k1, knn,
+                            {"skip_mlp": n_chunks, "knn_blend": n_chunks},
+                            trainer_cls=chunked_trainer)
+    paths = {name: STEP_LAUNCHES[name]}
+    big = load_config(cfg_file, ["perturb", "0", "N_rand", str(CHUNK_BIG_RAYS)])
+    model = make_model(big)
+    model.load_state_dict(state_dict)
+    trainer = Trainer(big, model.to("cuda"), "cuda")
+    batch = seeded_batch(big)
+    walls = step_walls({"big": trainer}, batch, n=5)
+    reset_counts(k1, knn)
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    launches = launch_counts(k1, knn)
+    points = CHUNK_BIG_RAYS * int(big.N_samples)
+    chunks = -(-points // trainer.settings.dense_chunk_rows)
+    emit({"phase": "train_chunked_big", "config": cfg_file,
+          "rays": CHUNK_BIG_RAYS, "points": points, "chunks": chunks,
+          "launches_per_step": launches,
+          "step": device_steps(trainer, batch, walls["big"])})
+    check(launches == {k: {"skip_mlp": chunks, "knn_blend": chunks}.get(k, 0)
+                       for k in launches},
+          f"train_chunked_big: a step launched {launches}")
+    paths["train_chunked_big"] = launches
+    return paths
+
+
+def phase_train_options(k1, knn):
+    """Phase 21: the training options. Returns (K1's bf16 rows at the
+    train rows, the launches by path)."""
+    t0 = time.time()
+    rows = phase_train_bf16_rows(k1)
+    paths = {**phase_train_bf16_steps(k1, knn),
+             **phase_train_bf16_runs(k1, knn), **phase_train_optim(k1, knn),
+             "train_eval_ep": phase_train_eval_ep(k1, knn),
+             **phase_train_chunked(k1, knn)}
+    emit({"phase": "train_options", "phase_seconds": time.time() - t0})
+    return rows, paths
 
 
 def main():
@@ -5142,6 +5628,13 @@ def main():
     phase20_paths = {**phase_bf16(k1, knn), **phase_importance(k1, knn),
                      **phase_slab(k1, knn)}
 
+    # ---- phase 21: the training options: K1's bf16 form at the train
+    # rows, a bf16 step of every family and of stage 2 against the CPU,
+    # 50 bf16 steps of AniNeRF and SDF-PDF held to JAX's bf16 runs and
+    # timed beside float32, RAdam, SGD and AdamW, eval_ep with
+    # best.flax, and dense steps in ray chunks
+    k1_bf16_train, phase21_paths = phase_train_options(k1, knn)
+
     # ---- kernel table
     def k1_sum(key):
         return sum(r[key] for r in k1_rows)
@@ -5299,6 +5792,7 @@ def main():
     aligned_launches(k1_entry, "skip_mlp", phase18_paths)
     aligned_launches(k1_entry, "skip_mlp", phase19_paths)
     aligned_launches(k1_entry, "skip_mlp", phase20_paths)
+    aligned_launches(k1_entry, "skip_mlp", phase21_paths)
     # the compacted train steps' rows (phase 18): each K1 launch on the
     # exact survivors, K2 on pass 1's candidates (and the aligned
     # families' canonical prior on the survivors), K3 once a frame
@@ -5314,6 +5808,7 @@ def main():
         k1_entry.pop("launches_full_frame_by_path"))
     aligned_launches(k2_entry, "knn_blend", phase18_paths)
     aligned_launches(k2_entry, "knn_blend", phase20_paths)
+    aligned_launches(k2_entry, "knn_blend", phase21_paths)
     k2_entry["compacted_train_step_rows"] = compacted_rows
     kernels = [
         k1_entry,
@@ -5333,6 +5828,7 @@ def main():
     ]
     # K3 on the phase-20 paths (the SDF-PDF and NeuS-PDF evaluates' grids)
     aligned_launches(kernels[2], "min_dist", phase20_paths)
+    aligned_launches(kernels[2], "min_dist", phase21_paths)
     # K1's bf16 form: one call of each wiring at K1_ROWS rows, its
     # launches on the bf16 paths (phase 20)
     def bf16_sum(key):
@@ -5356,8 +5852,20 @@ def main():
         "library_ms": bf16_sum("library_ms"),
         "library": "torch.addmm + relu + cat in bf16",
     }, "skip_mlp_bf16", phase20_paths)
+    aligned_launches(k1_bf16_entry, "skip_mlp_bf16", phase21_paths)
     k1_bf16_entry["launches_full_frame"] = k1_bf16_entry.pop(
         "launches_full_frame_by_path")
+    # phase 21: a bf16 train step's launches (the 50-step runs, the single
+    # steps), and the form at the train steps' rows
+    k1_bf16_entry["launches_per_train_step"] = {
+        path: n["skip_mlp_bf16"] / (50 if path.startswith("train_bf16") and
+                                    not path.endswith("_vs_cpu") else 1)
+        for path, n in phase21_paths.items() if "bf16" in path}
+    k1_bf16_entry["train_step_rows"] = [
+        {k: r[k] for k in ("case", "wiring", "rows", "max_abs_err",
+                           "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                           "share_of_bound", "f32_kernel_ms", "backward_ms")}
+        for r in k1_bf16_train]
     kernels.insert(1, k1_bf16_entry)
     # the baselines' paths (phase 17) launch none of them
     for entry in kernels:

@@ -131,13 +131,11 @@ def test_cli_evaluates_sdf_pdf_on_cpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("run_type,opts", [
     ("train", ["network_module", "nerf_pdf", "aninerf_animation", "True"]),
-    ("train", ["network_module", "neus_pdf", "aninerf_animation", "True"]),
-    ("train", ["compute_dtype", "bfloat16"])])
+    ("train", ["network_module", "neus_pdf", "aninerf_animation", "True"])])
 def test_options_not_ported_yet_raise(run_type, opts, tmp_path):
     """Options the port lacks raise before any work: the stage-2
     (novel-pose) training of the NeRF-PDF and NeuS-PDF families (their
-    stage 1 is ported), and training with compute_dtype bfloat16 (the
-    port evaluates in bf16)."""
+    stage 1 is ported)."""
     cfg = load_config(CFG, opts + ["trained_model_dir", str(tmp_path / "m"),
                                    "record_dir", str(tmp_path / "r")],
                       run_type=run_type)
