@@ -24,7 +24,11 @@ animatable_nerf_tpu/compat/torch_export.py writes:
   * the baselines (JAX compat/torch_import.py :348-449, the names the
     reference's NHR and NT checkpoints carry): NHR's `pointnet.*`,
     `render.unet.*` and `pcpr_parameters.default_features`, NT's
-    `texture.layer{i}` and `unet.*`.
+    `texture.layer{i}` and `unet.*`;
+  * the losses (JAX train/perceptual.py): a VGG head's HWIO `conv{i}_w`
+    become OIHW (`vgg_state_dict`), and `NLayerDiscriminator`'s flax
+    `conv{i}` {kernel, bias} the Conv2d's `conv{i}.weight`, `.bias`
+    (`discriminator_state_dict`).
 Dense kernels (in, out) become nn.Linear weights (out, in); a
 weight-normalized {v (in, out), g (out,), b} becomes `weight_v` (out,
 in), `weight_g` (out, 1), `bias`. Load the result with
@@ -565,3 +569,32 @@ def nt_param_tree(named: dict) -> dict:
     if len(unet_arrays(tree["params"]["unet"], "unet.")) + 4 != len(named):
         raise KeyError("nt_param_tree: names that nt does not have")
     return tree
+
+
+# ---------------------------------------------------------------- losses
+# (animatable_nerf_tpu/train/perceptual.py): the VGG heads' HWIO kernels,
+# as the converted .npz holds them, and NLayerDiscriminator's flax convs
+
+
+def vgg_state_dict(params: dict, device=None) -> dict:
+    """A JAX VGG head's params (`conv{i}_w` HWIO, `conv{i}_b`; JAX
+    `random_vgg19_head`, `load_vgg_npz`) -> OIHW float32 tensors under
+    the same names, on `device`."""
+    out = {}
+    for k, v in params.items():
+        v = np.asarray(v, np.float32)
+        if k.endswith("_w"):
+            v = np.transpose(v, (3, 2, 0, 1))
+        out[k] = torch.as_tensor(np.ascontiguousarray(v), device=device)
+    return out
+
+
+def discriminator_state_dict(params: dict) -> dict:
+    """JAX NLayerDiscriminator params ({"params": {...}} or the inner
+    dict: `conv{i}` {kernel (4, 4, in, out), bias}) -> {`conv{i}.weight`
+    (out, in, 4, 4), `conv{i}.bias`: torch.Tensor}."""
+    p = params["params"] if "params" in params else params
+    out = {}
+    for name in p:
+        _conv_arrays(p[name], name, out)
+    return to_tensors(out)

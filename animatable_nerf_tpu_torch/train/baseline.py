@@ -7,11 +7,15 @@ lib/train/trainers/nhr.py, nt.py). The loss is JAX's objective without
 VGG weights: the image MSE, plus 0.1 x the L1 of the images over a
 3-level pyramid of 2x2 average pools, plus 0.1 x the MSE of the
 predicted mask against the image's mask; the stats add the PSNR over
-the masked pixels. The update is the config's optimizer, as the
+the masked pixels. With `train.vgg_weights` (a converted VGG19 head,
+tools/convert_vgg_weights.py) the loss is the reference's objective
+instead (JAX :100-115; nhr.py:25-31): rgb and image masked by `msk >
+0`, each stacked with a mask channel (the predicted mask against the
+image's), the VGG19 feature L1 plus the image L1 of
+train/perceptual.py `perceptual_loss`; the stats name the two
+`vgg_loss` and `l1_loss`. The update is the config's optimizer, as the
 volumetric families' (train/optim.py): the value clip at 40, then Adam
-at the schedule's rate for the update count. The reference's VGG19
-perceptual objective (`train.vgg_weights`, JAX train/perceptual.py) is
-not ported and is refused before any work.
+at the schedule's rate for the update count.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 from torch.nn import functional as F
 
 from .optim import CLIP_VALUE, make_optimizer, make_schedule
+from .perceptual import load_vgg_npz, perceptual_loss
 
 
 PYRAMID_LEVELS = 3
@@ -40,20 +45,10 @@ def image_pyramid_l1(pred, gt):
     return loss / PYRAMID_LEVELS
 
 
-def check_baseline_config(cfg):
-    """Raise on what the port's baseline trainer does not do: the VGG19
-    objective."""
-    if cfg.train.get("vgg_weights", ""):
-        raise NotImplementedError(
-            "the VGG19 perceptual objective (train.vgg_weights) is not ported; "
-            "the baselines train with the image, pyramid and mask losses")
-
-
 class BaselineTrainer:
     """Train steps of an NHR or NT `model` on `device`."""
 
     def __init__(self, cfg, model, device):
-        check_baseline_config(cfg)
         self.cfg = cfg
         self.model = model
         self.device = torch.device(device)
@@ -62,6 +57,10 @@ class BaselineTrainer:
         self.sched = make_schedule(cfg)
         self.step = 0  # images trained on
         self.updates = 0  # optimizer updates (the schedule's count)
+        # the VGG19 head of `train.vgg_weights`, loaded once; None: the
+        # stand-in objective
+        path = cfg.train.get("vgg_weights", "")
+        self.vgg = load_vgg_npz(path, self.device) if path else None
 
     def frame(self, item) -> dict:
         """The item's model inputs, image and mask on the device."""
@@ -75,14 +74,24 @@ class BaselineTrainer:
         pred, gt = out["rgb_map"], frame["img"]
         m = frame["msk"][..., None]
         img_loss = torch.mean((pred - gt) ** 2)
-        pyr = image_pyramid_l1(pred, gt)
-        mask_loss = torch.mean((out["mask"] - (frame["msk"] > 0).float()) ** 2)
-        loss = img_loss + 0.1 * pyr + 0.1 * mask_loss
+        mskf = (frame["msk"] > 0).float()
+        if self.vgg is not None:
+            x = torch.cat([pred * mskf[..., None], out["mask"][..., None]], -1)
+            target = torch.cat([gt * mskf[..., None], mskf[..., None]], -1)
+            feat_loss, l1_loss = perceptual_loss(
+                self.vgg, x.permute(2, 0, 1)[None], target.permute(2, 0, 1)[None])
+            loss = feat_loss + l1_loss
+            extra = {"vgg_loss": feat_loss, "l1_loss": l1_loss}
+        else:
+            pyr = image_pyramid_l1(pred, gt)
+            mask_loss = torch.mean((out["mask"] - mskf) ** 2)
+            loss = img_loss + 0.1 * pyr + 0.1 * mask_loss
+            extra = {"pyr_loss": pyr, "mask_loss": mask_loss}
         mse = torch.sum(((pred - gt) * m) ** 2) / torch.clamp(torch.sum(m) * 3.0,
                                                              min=1.0)
         psnr = -10.0 * torch.log(torch.clamp(mse, min=1e-10)) / math.log(10.0)
-        return loss, {"loss": loss, "img_loss": img_loss, "pyr_loss": pyr,
-                      "mask_loss": mask_loss, "psnr": psnr}
+        return loss, {"loss": loss, "img_loss": img_loss, **extra,
+                      "psnr": psnr}
 
     def train_step(self, item) -> dict:
         """One update from one item; returns the stats as floats."""

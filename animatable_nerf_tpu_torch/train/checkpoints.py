@@ -175,13 +175,18 @@ def _optimizer_node(opt_state: dict) -> dict:
 
 def _checkpoint_tree(model, optimizer, epoch: int, step: int,
                      recorder_state: dict | None) -> dict:
+    """The file's tree; without an optimizer (an imported checkpoint)
+    `opt_state` is {}, as JAX's import writes it."""
     to_tree = param_codec(model)[1]
-    count, slots = optimizer_slots(model, optimizer)
+    opt_state = {}
+    if optimizer is not None:
+        count, slots = optimizer_slots(model, optimizer)
+        opt_state = opt_state_tree(
+            count, {k: to_tree(v) for k, v in slots.items()},
+            hasattr(model, TRAINED_IN_STAGE2), optimizer.kind)
     return {
         "params": to_tree(dict(model.named_parameters())),
-        "opt_state": opt_state_tree(
-            count, {k: to_tree(v) for k, v in slots.items()},
-            hasattr(model, TRAINED_IN_STAGE2), optimizer.kind),
+        "opt_state": opt_state,
         "epoch": np.asarray(epoch, np.int64),
         "step": np.asarray(step, np.int64),
         "recorder": recorder_state or {},
@@ -192,7 +197,8 @@ def save_checkpoint(model_dir: str, model, optimizer, epoch: int, step: int,
                     recorder_state: dict | None = None, latest: bool = False,
                     keep: int = 20):
     """Write `latest.flax` or `<epoch>.flax` (then keep the `keep`
-    newest snapshots). `step` counts the frames trained on."""
+    newest snapshots). `step` counts the frames trained on; `optimizer`
+    None writes no optimizer state."""
     os.makedirs(model_dir, exist_ok=True)
     name = "latest.flax" if latest else f"{epoch}.flax"
     write_checkpoint(os.path.join(model_dir, name),

@@ -248,6 +248,24 @@ Phases, one JSON line each:
      NeRF-PDF step in four chunks (its trainer's `dense_chunk_rows` at
      8192) against the CPU and a 4096-ray step in two chunks at the
      default bound, timed;
+ 22. the host tools and the baselines' VGG19 objective (none of K1-K6
+     but on the imported evaluates): JAX's seeded VGG19 head written as
+     a torchvision .pth and converted by tools/convert_vgg_weights.py;
+     one `train.vgg_weights` step of NHR and NT on phase 17's copy on
+     the card against the CPU at matched weights, NT's vgg_loss and
+     l1_loss held to the JAX package's (JAX_VGG_NT), then 5 steps of
+     each at 1024x1024 beside the stand-in objective's, and the VGG
+     head's forward and backward alone; the tracked AniNeRF and SDF-PDF
+     checkpoints exported to reference .pth files
+     (compat/torch_export.py), imported by `python -m
+     animatable_nerf_tpu_torch.tools.import_torch_checkpoint` and
+     evaluated: each view equal to phases 4 and 6 to 1e-6 dB, K1-K3
+     launched as there; `prepare_lbs_meta` and `prepare_blend_weights`
+     on the capsule's 4 frames with an SMPL-sized body (13,776 faces):
+     six closest-point grids on the card, timed, 4096 points of one
+     held to the CPU (the face but at ties, dist, bary); and the
+     skeleton render of one frame and camera, its drawn pixels equal to
+     JAX's cv2 drawing's;
 then the kernel table line, the script's seconds, the card line and
 {"ok": true, ...} last. Each phase's line carries its wall `seconds`.
 Kernel launch counts are set to 0 just before each path and read just
@@ -255,12 +273,15 @@ after it. Any failed phase raises and exits non-zero. Imports nothing of
 JAX.
 """
 
+import atexit
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -3996,40 +4017,34 @@ def phase_baseline_full(fam, copy, tmp, k1, knn):
     return launches
 
 
-def phase_baselines(k1, knn):
-    """Phase 17: the baseline copy (and its 1024x1024 form) in a temporary
-    directory, then per family the evaluate, the item and step against
-    the CPU, 50 steps and the full-size phase; the copies deleted at the
-    end. Returns the launches of each path (all 0)."""
-    import shutil
-    import tempfile
-
+def phase_baselines(k1, knn, tmp):
+    """Phase 17: the baseline copy (and its 1024x1024 form) in the
+    temporary directory `tmp` (phase 22 trains on them too; main deletes
+    them), then per family the evaluate, the item and step against the
+    CPU, the train run and the full-size phase. Returns the launches of
+    each path (all 0) and the two copies."""
     from animatable_nerf_tpu_torch.data.baseline_prep import write_baseline_copy
     from animatable_nerf_tpu_torch.engine import write_initial_start
 
-    tmp = tempfile.mkdtemp(prefix="baseline_copy_")
     paths = {}
-    try:
-        t0 = time.time()
-        copy = write_baseline_copy("data/synthetic/capsule",
-                                   os.path.join(tmp, "capsule"))
-        big = write_baseline_copy("data/synthetic/capsule",
-                                  os.path.join(tmp, "capsule_1024"),
-                                  upsample=BASELINE_UPSAMPLE)
-        emit({"phase": "baseline_copies", "copy_s": time.time() - t0})
-        for fam in BASELINES:
-            cfg = baseline_cfg(copy, fam, tmp, fam, run_type="evaluate")
-            write_initial_start(cfg)
-            paths[f"baseline_evaluate_{fam}"] = phase_baseline_evaluate(
-                fam, cfg, k1, knn)
-            phase_baseline_item_vs_cpu(fam, cfg, k1, knn)
-            paths[f"baseline_train_{fam}"] = phase_baseline_train(
-                fam, copy, tmp, k1, knn)
-            paths[f"baseline_full_{fam}"] = phase_baseline_full(
-                fam, big, tmp, k1, knn)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    return paths
+    t0 = time.time()
+    copy = write_baseline_copy("data/synthetic/capsule",
+                               os.path.join(tmp, "capsule"))
+    big = write_baseline_copy("data/synthetic/capsule",
+                              os.path.join(tmp, "capsule_1024"),
+                              upsample=BASELINE_UPSAMPLE)
+    emit({"phase": "baseline_copies", "copy_s": time.time() - t0})
+    for fam in BASELINES:
+        cfg = baseline_cfg(copy, fam, tmp, fam, run_type="evaluate")
+        write_initial_start(cfg)
+        paths[f"baseline_evaluate_{fam}"] = phase_baseline_evaluate(
+            fam, cfg, k1, knn)
+        phase_baseline_item_vs_cpu(fam, cfg, k1, knn)
+        paths[f"baseline_train_{fam}"] = phase_baseline_train(
+            fam, copy, tmp, k1, knn)
+        paths[f"baseline_full_{fam}"] = phase_baseline_full(
+            fam, big, tmp, k1, knn)
+    return paths, (copy, big)
 
 
 # Phase 18: train-time survivor compaction (`train_keep_frac` > 0). Per-view
@@ -5433,6 +5448,390 @@ def phase_train_options(k1, knn):
     return rows, paths
 
 
+# Phase 22: the host tools and the baselines' VGG19 objective. NT's first
+# step under `train.vgg_weights` (JAX's random_vgg19_head(0) through the
+# port's converter, `vgg_weights_npz`) at phase 17's start (torch seed 42)
+# on train item 0 of the capsule's baseline copy: the JAX package's
+# vgg_loss and l1_loss, computed on the CPU with
+#   JAX_PLATFORMS=cpu python tests/chip_constants.py
+# which builds the same copy, weights and file (with the helpers below)
+# and runs JAX's `BaselineTrainer._loss`; it also counts the drawn pixels
+# of JAX's tools/render_skeleton.py (cv2) on `skeleton_root`.
+JAX_VGG_NT = {"vgg_loss": 0.40503981709480286, "l1_loss": 0.23508207499980927}
+JAX_SKELETON_PIXELS = 1147
+VGG_LOSS_RTOL = 1e-4
+VGG_FULL_STEPS = 5
+IMPORT_PSNR_DB = 1e-6  # the imported checkpoint's views against the original's
+SMPL_FACES = 13776  # SMPL's triangle count
+SMPL_HOLD_POINTS = 4096  # grid points of one frame held to the CPU
+SMPL_TIE_TOL = 1e-6  # a differing face must be a tie: the same distance
+SMPL_DIST_TOL = 1e-6
+SMPL_BARY_TOL = 1e-5
+IMPORTED = {"aninerf": ("configs/synthetic.yaml", "evaluate"),
+            "sdf_pdf": ("configs/synthetic_sdf_pdf.yaml", "evaluate_sdf_pdf")}
+
+
+def vgg_weights_npz(tmp):
+    """JAX's `random_vgg19_head(0)` written as a torchvision vgg19 state
+    dict (`features.{0,2,5,7}`), converted by the port's
+    tools/convert_vgg_weights.py; returns the .npz path."""
+    import torch
+
+    from animatable_nerf_tpu_torch.tools import convert_vgg_weights
+    from animatable_nerf_tpu_torch.train.perceptual import random_vgg19_head_arrays
+
+    arrays = random_vgg19_head_arrays(0)
+    sd = {}
+    for ci, mi in enumerate(convert_vgg_weights.VGG19_HEAD_IDX):
+        sd[f"features.{mi}.weight"] = torch.from_numpy(np.ascontiguousarray(
+            arrays[f"conv{ci}_w"].transpose(3, 2, 0, 1)))
+        sd[f"features.{mi}.bias"] = torch.from_numpy(arrays[f"conv{ci}_b"])
+    pth, npz = os.path.join(tmp, "vgg19.pth"), os.path.join(tmp, "vgg19_head.npz")
+    torch.save(sd, pth)
+    convert_vgg_weights.main(["--arch", "vgg19_head", "--pth", pth, "--out", npz])
+    return npz
+
+
+def skeleton_root(tmp):
+    """A root of the capsule's params and lbs/ (links) with its first
+    camera alone; returns (data_dir, human)."""
+    src = os.path.abspath("data/synthetic/capsule")
+    root = os.path.join(tmp, "skeleton", "capsule")
+    os.makedirs(root)
+    for name in ("params", "lbs"):
+        os.symlink(os.path.join(src, name), os.path.join(root, name))
+    annots = np.load(os.path.join(src, "annots.npy"), allow_pickle=True).item()
+    annots["cams"] = {k: np.asarray(v)[:1] for k, v in annots["cams"].items()}
+    np.save(os.path.join(root, "annots.npy"), annots)
+    return os.path.dirname(root), "capsule"
+
+
+def vgg_head_ms(vgg, size):
+    """The VGG head's forward and backward device ms (CUDA events) on
+    (1, 4, size, size) prediction and target, as one step computes them."""
+    import torch
+
+    from animatable_nerf_tpu_torch.train.perceptual import perceptual_loss
+
+    x = torch.rand(1, 4, size, size, device="cuda", requires_grad=True)
+    t = torch.rand(1, 4, size, size, device="cuda")
+
+    def fwd():
+        with torch.no_grad():
+            perceptual_loss(vgg, x, t)
+
+    def fwd_bwd():
+        sum(perceptual_loss(vgg, x, t)).backward()
+
+    f = cuda_ms(fwd, warmup=1, iters=3)
+    return {"forward_ms": f, "backward_ms": cuda_ms(fwd_bwd, warmup=1, iters=3) - f}
+
+
+def steps_timed(trainer, item, n):
+    """n steps after a warm-up: s/step (wall), device ms a step (CUDA
+    events around them), peak memory."""
+    import torch
+
+    trainer.train_step(item)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+    t0 = time.time()
+    ev[0].record()
+    losses = [trainer.train_step(item)["loss"] for _ in range(n)]
+    ev[1].record()
+    torch.cuda.synchronize()
+    return {"s_per_step": (time.time() - t0) / n,
+            "events_ms_per_step": ev[0].elapsed_time(ev[1]) / n,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "losses": losses}
+
+
+def phase_perceptual(k1, knn, copies, tmp):
+    """Phase 22a: `train.vgg_weights` on the baseline copies of phase 17.
+    One step of NHR and NT on the card against the CPU at matched weights
+    (`matched_step`; NHR by `held_by_control`), NT's vgg_loss and l1_loss
+    at the start held to JAX's (VGG_LOSS_RTOL); then at 1024x1024
+    VGG_FULL_STEPS steps of each under the VGG objective beside the
+    stand-in's, and the VGG head's forward and backward alone. None of
+    K1-K6 launches."""
+    import torch
+
+    from animatable_nerf_tpu_torch.engine import initial_model, make_dataset
+    from animatable_nerf_tpu_torch.train import baseline
+    from animatable_nerf_tpu_torch.train.perceptual import load_vgg_npz
+
+    copy, big = copies
+    npz = vgg_weights_npz(tmp)
+    vgg = ("train.vgg_weights", npz)
+    size = 128 * BASELINE_UPSAMPLE
+    reset_counts(k1, knn)
+    for fam in BASELINES:
+        cfg = baseline_cfg(copy, fam, tmp, f"{fam}_vgg", extra=vgg)
+        item = make_dataset(cfg, "train")[0]
+        card = baseline.BaselineTrainer(cfg, initial_model(cfg).cuda().train(),
+                                        "cuda")
+        cpu = baseline.BaselineTrainer(cfg, initial_model(cfg).train(), "cpu")
+        stats, secs, m = matched_step(baseline.BaselineTrainer.train_step, card,
+                                      cpu, item, control=fam == "nhr")
+        control = m["ulp_control_cpu"] or {}
+        m["loss_tol"], loss_ok = held_by_control(
+            TRAIN_LOSS_RTOL, control.get("loss_rel_err"), BASELINE_NHR_LOSS_CEIL)
+        m["grad_tol"], grad_ok = held_by_control(
+            TRAIN_GRAD_REL, control.get("grad_rel_l2"), BASELINE_NHR_GRAD_CEIL)
+        rec = {"phase": f"perceptual_step_{fam}", "stats": stats, "step_s": secs,
+               "matched": m}
+        if fam == "nt":
+            rec["vs_jax"] = {k: stats[k] / JAX_VGG_NT[k] - 1 for k in JAX_VGG_NT}
+        full = {}
+        for name, extra in (("vgg", vgg), ("stand_in", ())):
+            fcfg = baseline_cfg(big, fam, tmp, f"{fam}_vgg_full", size, extra=extra)
+            trainer = baseline.BaselineTrainer(
+                fcfg, initial_model(fcfg).cuda().train(), "cuda")
+            full[name] = steps_timed(trainer, make_dataset(fcfg, "train")[0],
+                                     VGG_FULL_STEPS)
+            del trainer
+        rec["full_1024"] = full
+        emit(rec)
+        check({"vgg_loss", "l1_loss"} <= set(stats) and "pyr_loss" not in stats,
+              f"{fam}: stats {sorted(stats)}")
+        check(loss_ok and grad_ok and m["loss_rel_err"] <= m["loss_tol"]
+              and m["grad_rel_l2"] <= m["grad_tol"]
+              and m["update_rel_l2"] <= TRAIN_GRAD_REL,
+              f"perceptual_step_{fam}: the card's step against the CPU's: {m}")
+        if fam == "nt":
+            check(all(abs(v) <= VGG_LOSS_RTOL for v in rec["vs_jax"].values()),
+                  f"perceptual_step_nt: against JAX {rec['vs_jax']}")
+        check(all(math.isfinite(v) for r in full.values() for v in r["losses"]),
+              f"{fam}: losses at 1024x1024 {full}")
+    head = vgg_head_ms(load_vgg_npz(npz, "cuda"), size)
+    launches = launch_counts(k1, knn)
+    emit({"phase": "perceptual_vgg_head", "H": size, "W": size, **head,
+          "launches": launches})
+    check(not any(launches.values()), f"perceptual launched {launches}")
+    return launches
+
+
+def phase_import_export(k1, knn, tmp):
+    """Phase 22b: the tracked AniNeRF and SDF-PDF checkpoints exported by
+    the port's exporter to reference .pth files, each imported by `python
+    -m animatable_nerf_tpu_torch.tools.import_torch_checkpoint` (both at
+    once) into a model dir of its own, then evaluated on the card: each
+    view's PSNR equal to phase 4's and 6's evaluate of the original
+    (IMPORT_PSNR_DB) and within PSNR_TOL_DB of the JAX package's, the
+    kernels launched as there. Returns each evaluate's launches."""
+    from animatable_nerf_tpu_torch.compat.torch_export import (
+        family_of, save_reference_checkpoint)
+    from animatable_nerf_tpu_torch.config import load_config
+    from animatable_nerf_tpu_torch.engine import make_model
+    from animatable_nerf_tpu_torch.train.checkpoints import load_checkpoint
+
+    t0 = time.time()
+    procs, dirs = {}, {}
+    for name, (cfg_file, _) in IMPORTED.items():
+        cfg = load_config(cfg_file, [])
+        model = make_model(cfg)
+        epoch = load_checkpoint(cfg.trained_model_dir, model)[0]
+        pth = os.path.join(tmp, f"{name}.pth")
+        save_reference_checkpoint(pth, family_of(model), model.state_dict(),
+                                  epoch=epoch)
+        dirs[name] = ["trained_model_dir", os.path.join(tmp, f"imported_{name}"),
+                      "result_dir", os.path.join(tmp, f"result_{name}")]
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m",
+             "animatable_nerf_tpu_torch.tools.import_torch_checkpoint",
+             "--cfg_file", cfg_file, "--pth", pth, *dirs[name][:2]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for name, p in procs.items():
+        out = p.communicate(timeout=300)[0]
+        check(p.returncode == 0, f"import of {name} failed: {out[-2000:]}")
+    import_s = time.time() - t0
+    paths = {}
+    for name, (cfg_file, ref) in IMPORTED.items():
+        cfg = load_config(cfg_file, dirs[name], run_type="evaluate")
+        jax_psnr = JAX_PSNR if name == "aninerf" else JAX_PSNR_SDF
+        launches, _ = phase_evaluate(f"import_evaluate_{name}", cfg, jax_psnr,
+                                     k1, knn)
+        got = [it["psnr"] for it in EVAL_ITEMS[f"import_evaluate_{name}"]]
+        want = [it["psnr"] for it in EVAL_ITEMS[ref]]
+        emit({"phase": f"import_export_{name}", "import_s": import_s,
+              "delta_vs_original_db": [g - w for g, w in zip(got, want)],
+              "tol_db": IMPORT_PSNR_DB, "launches": launches})
+        check(len(got) == len(want) and all(
+            abs(g - w) <= IMPORT_PSNR_DB for g, w in zip(got, want)),
+              f"import_evaluate_{name}: {got} against the original's {want}")
+        paths[f"import_evaluate_{name}"] = launches
+    return paths
+
+
+def smpl_sized_body(seed=0):
+    """An SMPL-sized body from the capsule: its 6890 T-pose vertices and
+    skinning weights, SMPL_FACES distinct triangles of nearby corners
+    (each vertex with two of its nearest three), a J_regressor of three
+    vertices a joint and 10 shape directions, drawn from `seed`."""
+    import torch
+
+    lbs = "data/synthetic/capsule/lbs"
+    tv = np.load(os.path.join(lbs, "tvertices.npy")).astype(np.float64)
+    t = torch.as_tensor(tv)
+    near = torch.cdist(t, t).topk(4, largest=False).indices[:, 1:].numpy()
+    idx = np.arange(len(tv))
+    faces = np.concatenate([np.stack([idx, near[:, a], near[:, b]], 1)
+                            for a, b in ((0, 1), (1, 2), (0, 2))])
+    _, first = np.unique(np.sort(faces, 1), axis=0, return_index=True)
+    faces = faces[np.sort(first)[:SMPL_FACES]].astype(np.int64)
+    assert len(faces) == SMPL_FACES
+    r = np.random.RandomState(seed)
+    J = np.zeros((24, len(tv)))
+    for j in range(24):
+        J[j, r.randint(0, len(tv), 3)] = 1.0 / 3.0
+    kt = np.zeros((2, 24), np.int64)
+    kt[0] = np.load(os.path.join(lbs, "parents.npy"))
+    return {"v_template": tv, "shapedirs": r.randn(len(tv), 3, 10) * 0.01,
+            "J_regressor": J, "weights": np.load(os.path.join(lbs, "weights.npy")),
+            "kintree_table": kt, "f": faces}
+
+
+def phase_smpl_prep(k1, knn, tmp):
+    """Phase 22c: `prepare_lbs_meta` and `prepare_blend_weights` on a copy
+    of the capsule's 4 frames (params with zero `shapes`, vertices) with
+    the SMPL-sized body: the blend-weight grids' closest-point queries on
+    the card (s and device ms per grid, peak memory), SMPL_HOLD_POINTS
+    grid points of frame 0 held to the port's CPU query (the face equal
+    but at ties, dist and bary within their tolerances). None of K1-K6
+    launches."""
+    import pickle
+
+    import torch
+
+    from animatable_nerf_tpu_torch.smpl import SMPLModel, closest_point_on_mesh
+    from animatable_nerf_tpu_torch.tools import prepare_blend_weights, prepare_lbs_meta
+
+    src = "data/synthetic/capsule"
+    base = os.path.join(tmp, "smpl")
+    root = os.path.join(base, "capsule")
+    for d in ("params", "vertices"):
+        os.makedirs(os.path.join(root, d))
+    for i in range(4):
+        p = np.load(os.path.join(src, "params", f"{i}.npy"), allow_pickle=True).item()
+        p["shapes"] = np.zeros((1, 10))
+        np.save(os.path.join(root, "params", f"{i}.npy"), p)
+        os.symlink(os.path.abspath(os.path.join(src, "vertices", f"{i}.npy")),
+                   os.path.join(root, "vertices", f"{i}.npy"))
+    smpl = smpl_sized_body()
+    smpl_path = os.path.join(tmp, "smpl.pkl")
+    with open(smpl_path, "wb") as f:
+        pickle.dump(smpl, f)
+    reset_counts(k1, knn)
+    t0 = time.time()
+    prepare_lbs_meta.prepare_human(base, "capsule", smpl_path)
+    lbs_s = time.time() - t0
+
+    grids = []
+    query = prepare_blend_weights.closest_point_on_mesh
+
+    def timed(pts, verts, faces, device=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+        t1 = time.time()
+        ev[0].record()
+        res = query(pts, verts, faces, device=device)
+        ev[1].record()
+        torch.cuda.synchronize()
+        grids.append({"points": len(pts), "faces": len(faces),
+                      "s": time.time() - t1,
+                      "events_ms": ev[0].elapsed_time(ev[1]),
+                      "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+        return res
+
+    prepare_blend_weights.closest_point_on_mesh = timed
+    try:
+        t0 = time.time()
+        prepare_blend_weights.prepare_human(base, "capsule", smpl_path, device="cuda")
+        bw_s = time.time() - t0
+    finally:
+        prepare_blend_weights.closest_point_on_mesh = query
+    launches = launch_counts(k1, knn)
+
+    # frame 0's grid points, SMPL_HOLD_POINTS of them, card against CPU
+    model = SMPLModel(smpl)
+    params = np.load(os.path.join(root, "params", "0.npy"), allow_pickle=True).item()
+    _, R, Th, _, _, _ = model.transform_params(params)
+    verts = np.load(os.path.join(root, "vertices", "0.npy"))
+    pxyz = np.dot(verts - Th, R).astype(np.float32)
+    pts = prepare_blend_weights.grid_points(pxyz).reshape(-1, 3).astype(np.float32)
+    pts = pts[np.linspace(0, len(pts) - 1, SMPL_HOLD_POINTS).astype(np.int64)]
+    faces = smpl["f"]
+    card = closest_point_on_mesh(pts, pxyz, faces)
+    t0 = time.time()
+    cpu = closest_point_on_mesh(pts, pxyz, faces, chunk=512, device="cpu")
+    cpu_s = time.time() - t0
+    differ = card["face"] != cpu["face"]
+    tie_gap = max([abs(float(closest_point_on_mesh(
+        p[None], pxyz, faces[[f]], device="cpu")["dist"][0]) - float(d))
+        for p, f, d in zip(pts[differ], card["face"][differ],
+                           cpu["dist"][differ])] or [0.0])
+    same = ~differ
+    dist_err = float(np.abs(card["dist"] - cpu["dist"]).max())
+    bary_err = float(np.abs(card["bary"][same] - cpu["bary"][same]).max())
+    bw = np.load(os.path.join(root, "lbs", "bweights", "0.npy"))
+    emit({"phase": "smpl_prep", "faces": len(faces), "vertices": len(pxyz),
+          "lbs_meta_s": lbs_s, "blend_weights_s": bw_s, "grids": grids,
+          "pairs": sum(g["points"] * g["faces"] for g in grids),
+          "hold": {"points": SMPL_HOLD_POINTS, "faces_differing_at_ties":
+                   int(differ.sum()), "tie_gap": tie_gap,
+                   "dist_max_abs_err": dist_err, "bary_max_abs_err": bary_err,
+                   "cpu_s": cpu_s},
+          "bweights_0_shape": list(bw.shape), "launches": launches})
+    check(len(grids) == 6 and bw.shape[-1] == 25 and np.isfinite(bw).all(),
+          f"smpl_prep: {len(grids)} grids, {bw.shape}")
+    check(tie_gap <= SMPL_TIE_TOL and dist_err <= SMPL_DIST_TOL
+          and bary_err <= SMPL_BARY_TOL,
+          f"smpl_prep: card against CPU: ties {tie_gap}, dist {dist_err}, "
+          f"bary {bary_err}")
+    check(not any(launches.values()), f"smpl_prep launched {launches}")
+    return launches
+
+
+def phase_render_skeleton(tmp):
+    """Phase 22d: tools/render_skeleton.py's CLI for one frame and one
+    camera; its PNG's drawn pixels equal to JAX's cv2 drawing's count."""
+    import importlib.util
+
+    from animatable_nerf_tpu_torch.tools import render_skeleton
+    from animatable_nerf_tpu_torch.visualizers.image import read_png
+
+    data_dir, human = skeleton_root(tmp)
+    t0 = time.time()
+    render_skeleton.main(["--data_dir", data_dir, "--humans", human,
+                          "--max_frames", "1"])
+    img = read_png(os.path.join(data_dir, human, "skeleton", "0_0.png"))
+    pixels = int((img.sum(-1) > 0).sum())
+    emit({"phase": "render_skeleton", "s": time.time() - t0, "pixels": pixels,
+          "jax_pixels": JAX_SKELETON_PIXELS, "shape": list(img.shape),
+          "cv2_present": importlib.util.find_spec("cv2") is not None})
+    check(pixels == JAX_SKELETON_PIXELS,
+          f"render_skeleton: {pixels} drawn pixels, JAX's {JAX_SKELETON_PIXELS}")
+
+
+def phase_host_tools(k1, knn, copies):
+    """Phase 22: the VGG objective, reference .pth import and export, the
+    SMPL prep tools and the skeleton render, in a temporary directory.
+    Returns the launches of each path."""
+    tmp = tempfile.mkdtemp(prefix="host_tools_")
+    t0 = time.time()
+    try:
+        paths = {"perceptual": phase_perceptual(k1, knn, copies, tmp)}
+        paths.update(phase_import_export(k1, knn, tmp))
+        paths["smpl_prep"] = phase_smpl_prep(k1, knn, tmp)
+        phase_render_skeleton(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "host_tools", "phase_s": time.time() - t0})
+    return paths
+
+
 def main():
     import torch
 
@@ -5607,7 +6006,9 @@ def main():
     # ---- phase 17: the image-space baselines NHR and NT: evaluates and
     # 50 steps held to the JAX package's PSNR, an item and a step against
     # the CPU, and 1024x1024 frames and steps; none of K1-K6 runs there
-    phase17_paths = phase_baselines(k1, knn)
+    baseline_tmp = tempfile.mkdtemp(prefix="baseline_copy_")
+    atexit.register(shutil.rmtree, baseline_tmp, True)
+    phase17_paths, baseline_copies = phase_baselines(k1, knn, baseline_tmp)
 
     # ---- phase 18: train-time survivor compaction (train_keep_frac > 0):
     # every family's compacted step against its dense step and the CPU,
@@ -5634,6 +6035,14 @@ def main():
     # timed beside float32, RAdam, SGD and AdamW, eval_ep with
     # best.flax, and dense steps in ray chunks
     k1_bf16_train, phase21_paths = phase_train_options(k1, knn)
+
+    # ---- phase 22: the host tools and the baselines' VGG19 objective: a
+    # VGG step of NHR and NT against the CPU and JAX, their 1024x1024 steps
+    # beside the stand-in's; the tracked AniNeRF and SDF-PDF checkpoints
+    # exported to .pth, imported by the CLI and evaluated (K1-K3); the
+    # SMPL prep tools' closest-point grids on the card; the skeleton render
+    phase22_paths = phase_host_tools(k1, knn, baseline_copies)
+    shutil.rmtree(baseline_tmp, ignore_errors=True)
 
     # ---- kernel table
     def k1_sum(key):
@@ -5867,10 +6276,19 @@ def main():
                            "share_of_bound", "f32_kernel_ms", "backward_ms")}
         for r in k1_bf16_train]
     kernels.insert(1, k1_bf16_entry)
-    # the baselines' paths (phase 17) launch none of them
+    # the imported checkpoints' evaluates (phase 22): K1, and K2 and K3 on
+    # SDF-PDF's
+    imported = {p: n for p, n in phase22_paths.items() if p.startswith("import")}
+    for entry in kernels:
+        if entry["name"] in ("skip_mlp", "knn_blend", "min_dist"):
+            aligned_launches(entry, entry["name"], imported)
+    # the baselines' paths (phase 17) and the tools' (phase 22) launch none
     for entry in kernels:
         entry["launches_baseline_paths"] = {
             path: n[entry["name"]] for path, n in phase17_paths.items()}
+        entry["launches_tool_paths"] = {
+            path: n[entry["name"]] for path, n in phase22_paths.items()
+            if not path.startswith("import")}
     emit({"kernels": kernels})
     emit({"script_seconds": time.time() - t_start})
     print(card, flush=True)
